@@ -1,0 +1,175 @@
+"""Fused decode step through every layer: kernel B and its plain version.
+
+The counterpart of ``musicgeneration_tpu/ops/pallas_decode.py::
+fused_decode_step`` (non-ragged, no int8). ``fused_decode_step`` launches
+the hand-written CUDA kernel ``csrc/fused_decode.cu`` for CUDA tensors
+and runs ``fused_decode_step_plain`` for CPU tensors; there is no other
+path. Per layer both compute the qkv projections, attention over the
+live cache prefix [0, t] with the relative bias ``q . E[max_seq-1-t+s]``,
+the output projection, residual, post-LN, FFN (ReLU), residual, post-LN,
+rounding to the model dtype where ``_layer_step`` does
+(pallas_decode.py:131-134, :343-356) and casting P to the cache dtype
+before PV (:249).
+
+Both write the step's K/V rows into the caches IN PLACE at row t and
+return the same cache tensors; the JAX kernel returned the rows and its
+caller wrote them with ``dynamic_update_slice``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import cuda_build
+
+# keys of the stacked weights dict, in kernel argument order; matrices
+# are [L, in, out] (the flax kernel layout), vectors [L, n]
+WEIGHT_KEYS = ("wq", "bq", "wk", "bk", "wv", "bv", "wfc", "bfc",
+               "ln1_scale", "ln1_bias", "ffn1_w", "ffn1_b",
+               "ffn2_w", "ffn2_b", "ln2_scale", "ln2_bias")
+_DTYPES = (torch.float32, torch.bfloat16)
+MAX_D = 1024     # kernel B's shared-memory budget for d_model
+MAX_FFN = 4096   # and for the FFN width
+
+
+def _layer_norm(y, scale, bias, eps):
+    mu = y.mean(-1, keepdim=True)
+    var = ((y - mu) ** 2).mean(-1, keepdim=True)
+    return (y - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+def fused_decode_step_plain(x, t: int, e_all, weights, k_cache, v_cache,
+                            num_heads: int, eps: float = 1e-6):
+    """Plain PyTorch version of kernel B (any device)."""
+    b, d = x.shape
+    dh = d // num_heads
+    max_seq = e_all.shape[1]
+    io, cd = x.dtype, k_cache.dtype
+    scale = 1.0 / math.sqrt(dh)
+
+    def rnd(y, dtype=io):
+        return y.to(dtype).float()
+
+    h = x.float()
+    for li in range(k_cache.shape[0]):
+        w = {key: weights[key][li].float() for key in WEIGHT_KEYS}
+        q = rnd(h @ w["wq"] + w["bq"])
+        k_new = rnd(h @ w["wk"] + w["bk"])
+        v_new = rnd(h @ w["wv"] + w["bv"])
+        k_cache[li, :, t] = k_new.to(cd)
+        v_cache[li, :, t] = v_new.to(cd)
+        keys = k_cache[li, :, :t + 1].float().view(b, t + 1, num_heads, dh)
+        vals = v_cache[li, :, :t + 1].float().view(b, t + 1, num_heads, dh)
+        qh = q.view(b, num_heads, dh)
+        e_rows = e_all[li, max_seq - 1 - t:max_seq].float()  # s = 0..t
+        logits = (torch.einsum("bhd,bshd->bhs", qh, keys)
+                  + torch.einsum("bhd,sd->bhs", qh, e_rows)) * scale
+        m = logits.amax(-1, keepdim=True)
+        p = torch.exp(logits - m)
+        lsum = p.sum(-1, keepdim=True).clamp_min(1e-30)
+        attn = torch.einsum("bhs,bshd->bhd", rnd(p, cd), vals) / lsum
+        attn = rnd(attn.reshape(b, d))
+        attn = rnd(attn @ w["wfc"] + w["bfc"])
+        out1 = rnd(_layer_norm(attn + h, w["ln1_scale"], w["ln1_bias"], eps))
+        hid = torch.relu(rnd(out1 @ w["ffn1_w"] + w["ffn1_b"]))
+        ffn = rnd(hid @ w["ffn2_w"] + w["ffn2_b"])
+        h = rnd(_layer_norm(out1 + ffn, w["ln2_scale"], w["ln2_bias"], eps))
+    return h.to(io), k_cache, v_cache
+
+
+def _check(x, t, e_all, weights, k_cache, v_cache, num_heads):
+    if x.dim() != 2:
+        raise ValueError(f"x must be [B, d]; got {tuple(x.shape)}")
+    b, d = x.shape
+    if d % num_heads:
+        raise ValueError(f"d_model {d} not divisible by {num_heads} heads")
+    dh = d // num_heads
+    if k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError("caches must share one [L, B, S, d] shape")
+    nl, cb, s, cd = k_cache.shape
+    if (cb, cd) != (b, d):
+        raise ValueError(f"cache {tuple(k_cache.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in _DTYPES or k_cache.dtype != x.dtype \
+            or v_cache.dtype != x.dtype:
+        raise TypeError(f"x and the caches must share one dtype of "
+                        f"{_DTYPES}")
+    if e_all.dim() != 3 or e_all.shape[0] != nl or e_all.shape[2] != dh \
+            or e_all.dtype != torch.float32:
+        raise ValueError(f"e_all must be [{nl}, max_seq, {dh}] float32; "
+                         f"got {tuple(e_all.shape)} {e_all.dtype}")
+    if not 0 <= t < min(s, e_all.shape[1]):
+        raise ValueError(f"position t={t} outside the cache ({s}) or the "
+                         f"relative table ({e_all.shape[1]})")
+    f = weights["ffn1_w"].shape[-1]
+    shapes = {"wq": (d, d), "bq": (d,), "wk": (d, d), "bk": (d,),
+              "wv": (d, d), "bv": (d,), "wfc": (d, d), "bfc": (d,),
+              "ln1_scale": (d,), "ln1_bias": (d,), "ffn1_w": (d, f),
+              "ffn1_b": (f,), "ffn2_w": (f, d), "ffn2_b": (d,),
+              "ln2_scale": (d,), "ln2_bias": (d,)}
+    for key in WEIGHT_KEYS:
+        w = weights[key]
+        if tuple(w.shape) != (nl,) + shapes[key]:
+            raise ValueError(f"weights[{key!r}] must be "
+                             f"{(nl,) + shapes[key]}; got {tuple(w.shape)}")
+        if w.dtype != x.dtype or w.device != x.device:
+            raise TypeError(f"weights[{key!r}] must be {x.dtype} on "
+                            f"{x.device}")
+    if any(y.device != x.device for y in (e_all, k_cache, v_cache)):
+        raise ValueError("x, e_all and the caches must be on one device")
+    return nl, b, s, d, dh, f
+
+
+def fused_decode_step(x: torch.Tensor, t: int, e_all: torch.Tensor,
+                      weights, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      num_heads: int):
+    """All-layers decode step. x: [B, d] (embedded + positioned) in the
+    model dtype; t: int position; e_all: [L, max_seq, dh] float32;
+    weights: dict of stacked [L, ...] arrays (``WEIGHT_KEYS``, model
+    dtype); k_cache/v_cache: [L, B, S, d] in the model dtype. Returns
+    (out [B, d], k_cache, v_cache), the caches updated in place at row t.
+
+    CPU tensors run the plain version. CUDA tensors launch kernel B
+    (dh = 64, d <= 1024, FFN <= 4096, contiguous inputs) or raise.
+    ``launches`` counts its CUDA launches: three per layer."""
+    nl, b, s, d, dh, f = _check(x, t, e_all, weights, k_cache, v_cache,
+                                num_heads)
+    if x.device.type == "cpu":
+        return fused_decode_step_plain(x, t, e_all, weights, k_cache,
+                                       v_cache, num_heads)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if dh != 64 or d > MAX_D or f > MAX_FFN:
+        raise ValueError(f"kernel B takes dh = 64, d <= {MAX_D} and FFN <= "
+                         f"{MAX_FFN}; got dh={dh}, d={d}, FFN={f}")
+    tensors = [x, e_all, k_cache, v_cache] + [weights[k] for k in WEIGHT_KEYS]
+    if not all(y.is_contiguous() for y in tensors):
+        raise ValueError("kernel B takes contiguous tensors")
+    lib = cuda_build.load("fused_decode")
+    fn = lib.mg_decode_step
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.POINTER(ctypes.c_void_p)]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
+    xbuf = x.to(torch.float32, copy=True)  # the kernel overwrites it
+    qbuf = torch.empty(b, d, dtype=torch.float32, device=x.device)
+    nsplit = (t + 1 + 127) // 128
+    part = torch.empty(b * num_heads, nsplit, dh + 2, dtype=torch.float32,
+                       device=x.device)
+    wptrs = (ctypes.c_void_p * 16)(*[weights[k].data_ptr()
+                                     for k in WEIGHT_KEYS])
+    rc = fn(int(x.dtype == torch.bfloat16), nl, xbuf.data_ptr(),
+            qbuf.data_ptr(), part.data_ptr(), wptrs, k_cache.data_ptr(),
+            v_cache.data_ptr(), e_all.data_ptr(), b, s, d, num_heads, f, t,
+            e_all.shape[1], torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"decode step kernel failed: CUDA error {rc}")
+    fused_decode_step.launches += 3 * nl
+    return xbuf.to(x.dtype), k_cache, v_cache
+
+
+fused_decode_step.launches = 0
