@@ -1,13 +1,14 @@
-"""Generate MIDI from an exported MusicTransformer checkpoint on the GPU.
+"""Generate MIDI from a MusicTransformer checkpoint on the GPU.
 
     python -m musicgeneration_tpu_torch.cli.generate model.pth out.mid \\
         --prime prompt.mid --steps 512 --temperature 1.0 --topk 0
 
-``model.pth`` is what ``python -m musicgeneration_tpu.cli.export_checkpoint
-runs/mt model.pth`` writes. The prime is tokenized with the MIDI-like
-codec, padded to a power-of-two bucket (>= 16) as the JAX CLI does, and
-the continuation is written through the same codec (ids >= the codec's
-dim, e.g. the pad id, are dropped). Runs on ``--device cuda`` by
+The checkpoint is what ``python -m musicgeneration_tpu.cli.export_checkpoint
+runs/mt model.pth`` writes, or the port's own ``cli.train`` checkpoint
+directory (its newest ``step-<N>.pt``) or one file of it. The prime is
+tokenized with the MIDI-like codec, padded to a power-of-two bucket
+(>= 16) as the JAX CLI does, and the continuation is written through the
+same codec (ids >= the codec's dim, e.g. the pad id, are dropped). Runs on ``--device cuda`` by
 default; a missing GPU is an error, not a fallback.
 """
 
@@ -59,7 +60,8 @@ def bucket_prompt(prompt: np.ndarray, steps: int, max_seq: int,
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("checkpoint", help="exported .pth checkpoint")
+    p.add_argument("checkpoint", help="exported .pth, or a cli.train "
+                   "checkpoint directory (newest step) or step-<N>.pt")
     p.add_argument("output", help="output .mid path")
     p.add_argument("--steps", type=int, default=512)
     p.add_argument("--prime", default=None, help="prompt MIDI file")

@@ -8,13 +8,15 @@ kernels are [in, out]; torch Linear weights are [out, in].
 
 ``load_checkpoint`` reads the ``.pth`` that
 ``python -m musicgeneration_tpu.cli.export_checkpoint runs/mt model.pth``
-writes (``{'net': state_dict, 'optimizer': {}, 'epoch': step}``), infers
-the model's shape from it and loads it with ``strict=True``. The port
-reads no flax msgpack.
+writes (``{'net': state_dict, 'optimizer': {}, 'epoch': step}``), or the
+port's own training checkpoints (``utils/checkpoint.py``), infers the
+model's shape from it and loads it with ``strict=True``. The port reads
+no flax msgpack.
 """
 
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
 from typing import Any, Dict, Mapping
 
@@ -83,7 +85,8 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> "OrderedDict[str, torch.Te
 def model_from_state_dict(sd: Mapping[str, torch.Tensor], device="cuda",
                           dtype=torch.float32) -> MusicTransformer:
     """Build a MusicTransformer whose shape is read off ``sd`` and load
-    it with ``strict=True``."""
+    it with ``strict=True``, for inference: its parameters are frozen
+    (``requires_grad_(True)`` to train it)."""
     emb = sd["Decoder.embedding.weight"]
     num_layers = 0
     while f"Decoder.enc_layers.{num_layers}.rga.E" in sd:
@@ -95,13 +98,21 @@ def model_from_state_dict(sd: Mapping[str, torch.Tensor], device="cuda",
         ffn_dim=sd["Decoder.enc_layers.0.FFN_pre.weight"].shape[0],
         dtype=dtype, device=device)
     model.load_state_dict(sd, strict=True)
-    return model
+    return model.requires_grad_(False)
 
 
 def load_checkpoint(path: str, device="cuda",
                     dtype=torch.float32) -> MusicTransformer:
-    """A MusicTransformer from an exported ``.pth``
-    (``{'net': state_dict, ...}``, or a bare state_dict)."""
+    """A MusicTransformer from an exported ``.pth`` (``{'net':
+    state_dict, ...}``, or a bare state_dict), a training checkpoint
+    ``step-<N>.pt`` of ``cli.train`` (``{'model': state_dict, ...}``), or
+    a directory of those (its newest step)."""
+    if os.path.isdir(path):
+        from .utils.checkpoint import latest_checkpoint
+        newest = latest_checkpoint(path)
+        if newest is None:
+            raise FileNotFoundError(f"no step-<N>.pt checkpoint in {path}")
+        path = newest
     obj = torch.load(path, map_location="cpu", weights_only=True)
-    sd = obj["net"] if "net" in obj else obj
+    sd = obj.get("model", obj.get("net", obj))
     return model_from_state_dict(sd, device=device, dtype=dtype)

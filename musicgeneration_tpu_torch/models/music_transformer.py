@@ -15,19 +15,27 @@ checkpoint from ``musicgeneration_tpu.cli.export_checkpoint`` loads with
 
 Parameters are float32; ``dtype`` is the compute dtype (bfloat16 on the
 card), as the JAX module's ``dtype``. Full-sequence attention runs
-``ops.fused_attention`` (kernel A on CUDA) and the decode step
-``ops.fused_decode`` (kernel B on CUDA) over the fused cache layout
-``[L, B, S, d]``.
+``ops.fused_attention`` (kernel A forward and kernel C backward on CUDA)
+and the decode step ``ops.fused_decode`` (kernel B on CUDA) over the
+fused cache layout ``[L, B, S, d]``.
+
+``forward`` is the training forward: it runs under autograd, with
+dropout at the JAX module's three sites (after embedding + position,
+after attention, after the FFN) drawn from an explicit
+``torch.Generator``, ``pad_in_input``, ``logits_dtype`` and ``remat``
+(``torch.utils.checkpoint`` per layer). The JAX ``scan_layers`` (a
+compile-size lever of XLA) has no counterpart here.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..ops.fused_attention import fused_relative_attention
@@ -40,6 +48,16 @@ Cache = Dict[str, torch.Tensor]
 def _linear(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
     """nn.Linear computed in ``dtype`` (flax Dense(dtype=...))."""
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate, scale the kept
+    values by 1 / (1 - rate) in x's dtype. The mask is drawn from
+    ``generator`` (on x's device)."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -109,8 +127,21 @@ class EncoderLayer(nn.Module):
         return _layer_norm(self.layernorm2, out1 + ffn), k, v
 
     def forward(self, x: torch.Tensor,
-                key_pad: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.forward_kv(x, key_pad)[0]
+                key_pad: Optional[torch.Tensor] = None,
+                drop: Optional[Callable] = None) -> torch.Tensor:
+        """Training forward (layers.py:136-161): ``drop`` is the dropout
+        applied after attention (drop1) and after the FFN (drop2), or
+        None."""
+        attn = self.rga(x, key_pad)
+        if drop is not None:
+            attn = drop(attn)
+        out1 = _layer_norm(self.layernorm1, attn + x)
+        ffn = _linear(self.FFN_suf,
+                      torch.relu(_linear(self.FFN_pre, out1, self.dtype)),
+                      self.dtype)
+        if drop is not None:
+            ffn = drop(ffn)
+        return _layer_norm(self.layernorm2, out1 + ffn)
 
 
 class _Decoder(nn.Module):
@@ -130,13 +161,18 @@ class MusicTransformer(nn.Module):
     """vocab 309, 6 layers, d_model 256, max_seq 2048 is the flagship
     (``music_transformer_defaults``). ``generator``: optional CPU
     ``torch.Generator`` for the random initial weights (see
-    ``reset_parameters``)."""
+    ``reset_parameters``). ``pad_in_input=False`` asserts that training
+    inputs hold no pad id (dense crops): ``forward`` then masks causally
+    only and the kernels take no key_pad; prefill and decode always mask
+    pads."""
 
     def __init__(self, vocab_size: int = 390, num_layers: int = 6,
                  d_model: int = 256, max_seq: int = 2048,
                  head_dim: int = 64, ffn_dim: int = 0,
                  dtype=torch.float32, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dropout_rate: float = 0.1, pad_in_input: bool = True,
+                 logits_dtype=torch.float32, remat: bool = False):
         super().__init__()
         device = resolve_device(device)
         if d_model % head_dim:
@@ -149,6 +185,10 @@ class MusicTransformer(nn.Module):
         self.num_heads = d_model // head_dim
         self.ffn_dim = ffn_dim or d_model // 2
         self.dtype = dtype
+        self.dropout_rate = dropout_rate
+        self.pad_in_input = pad_in_input
+        self.logits_dtype = logits_dtype
+        self.remat = remat
         self.Decoder = _Decoder(vocab_size, num_layers, d_model,
                                 self.num_heads, max_seq, self.ffn_dim,
                                 dtype, device)
@@ -194,14 +234,27 @@ class MusicTransformer(nn.Module):
         w = self.Decoder.embedding.weight.to(self.dtype)
         return w[tokens] * scale.to(self.dtype).to(w.device)
 
-    @torch.no_grad()
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, L] int tokens -> logits [B, L, vocab] (f32)."""
-        key_pad = (x == self.pad_id).float()
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x: [B, L] int tokens -> logits [B, L, vocab] in
+        ``logits_dtype`` (f32 by default), with autograd. With
+        ``deterministic=False`` dropout draws its masks from
+        ``generator`` (on the model's device); with ``remat`` the
+        generator is rewound for each layer's recompute, so give each
+        forward a generator of its own."""
+        key_pad = (x == self.pad_id).float() if self.pad_in_input else None
         h = self._embed(x) + self.pos_table[:x.shape[1]].to(self.dtype)[None]
+        drop = None
+        if not deterministic and self.dropout_rate > 0.0:
+            def drop(y):
+                return dropout(y, self.dropout_rate, generator)
+            h = drop(h)
         for layer in self.Decoder.enc_layers:
-            h = layer(h, key_pad)
-        return _linear(self.fc, h, self.dtype).float()
+            if self.remat and torch.is_grad_enabled():
+                h = _remat(layer, h, key_pad, drop, generator)
+            else:
+                h = layer(h, key_pad, drop)
+        return _linear(self.fc, h, self.dtype).to(self.logits_dtype)
 
     # -- incremental decoding -------------------------------------------------
 
@@ -273,6 +326,20 @@ class MusicTransformer(nn.Module):
         h, cache["k"], cache["v"] = fused_decode_step(
             h, t, e_all, w_all, cache["k"], cache["v"], self.num_heads)
         return _linear(self.fc, h, self.dtype).float(), cache
+
+
+def _remat(layer: EncoderLayer, h, key_pad, drop, generator):
+    """One layer under ``torch.utils.checkpoint`` (the JAX ``nn.remat``):
+    its activations are recomputed in the backward pass, with the
+    dropout generator rewound so the recompute draws the same masks."""
+    state = generator.get_state() if generator is not None else None
+
+    def run(x):
+        if state is not None:
+            generator.set_state(state)
+        return layer(x, key_pad, drop)
+
+    return checkpoint(run, h, use_reentrant=False, preserve_rng_state=False)
 
 
 def music_transformer_defaults(**overrides) -> dict:
