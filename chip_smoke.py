@@ -37,15 +37,27 @@ Phases (the first failure raises and the exit code is non-zero):
    finite; the same run interrupted at step 20 and resumed (it must start
    at batch 20 and repeat the uninterrupted losses); ``cli.generate`` from
    the checkpoint directory;
-7. timings at the main paths' shapes: each kernel, its plain version, its
+7. serving at full width through ``cli.serve``: kernel B's ragged mode
+   (per-row ``start``, ``start_min`` 0 and min(start)) against its plain
+   version in f32 and bf16; ``cli.serve`` in file mode with its defaults
+   (8 slots, segments of 64, depth 2) on 24 requests (prompts of 1-500
+   tokens from the prime MIDI, 64-768 new tokens, four with eos, four
+   with their own sampling, one sliding window of 256 for 2,560 tokens)
+   in bf16, every MIDI read back and the launch counters of kernels A
+   and B read around it (6 per admission, 18 per decode step); greedy
+   f32 serving of 8 staggered requests through the kernels against the
+   plain versions, token for token; HTTP mode on an ephemeral port
+   (``/generate``, ``/stream``, ``/cancel``);
+8. timings at the main paths' shapes: each kernel, its plain version, its
    bound and, where one PyTorch call computes the same function,
    ``F.scaled_dot_product_attention`` with the relative bias materialized
    as ``attn_mask`` (forward for kernel A, forward + backward for kernel
-   C); the bf16 train step over 25 warm steps (CUDA events) and a
-   ``torch.profiler`` window over 5 of them; a ``torch.profiler`` window
-   over 32 bf16 decode steps (device time by kernel, the device's busy
-   share);
-8. one JSON line of kernels, the card's line, and the final JSON line.
+   C); ragged kernel B at t 1023 with a live window of 256, under
+   ``start_min`` 0 and min(start); the bf16 train step over 25 warm
+   steps (CUDA events) and a ``torch.profiler`` window over 5 of them;
+   ``torch.profiler`` windows over 32 bf16 decode steps and over one
+   serving segment (device time by kernel, the device's busy share);
+9. one JSON line of kernels, the card's line, and the final JSON line.
 
 Imports nothing of JAX or of ``musicgeneration_tpu``. Needs one CUDA card.
 """
@@ -53,13 +65,19 @@ Imports nothing of JAX or of ``musicgeneration_tpu``. Needs one CUDA card.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
+import re
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -72,11 +90,14 @@ from musicgeneration_tpu_torch.cli.generate import (  # noqa: E402
     bucket_prompt, prime_tokens, write_midi)
 from musicgeneration_tpu_torch.cli import train as train_cli  # noqa: E402
 from musicgeneration_tpu_torch.cli.generate import main as cli_main  # noqa: E402
+from musicgeneration_tpu_torch.cli.serve import main as serve_main  # noqa: E402
 from musicgeneration_tpu_torch.cli.tokenize import (  # noqa: E402
     main as tokenize_main)
 from musicgeneration_tpu_torch.data.pipeline import TokenCorpus  # noqa: E402
 from musicgeneration_tpu_torch.decode import (  # noqa: E402
     DecodeParams, SamplingParams, generate)
+from musicgeneration_tpu_torch.decode.serving import (  # noqa: E402
+    ContinuousBatcher)
 from musicgeneration_tpu_torch.models import music_transformer as mt  # noqa: E402
 from musicgeneration_tpu_torch.ops import cuda_build  # noqa: E402
 from musicgeneration_tpu_torch.ops.fused_attention import (  # noqa: E402
@@ -124,6 +145,11 @@ GEN_PRIME, GEN_STEPS = 100, 256  # generation from the trained checkpoint
 N_LAYERS, D_MODEL, VOCAB = 6, 256, 309
 PROMPT, STEPS, GREEDY_STEPS = 500, 512, 64
 T_TIMED = PROMPT + STEPS // 2 - 1  # mid-run decode position
+# serving: cli.serve's defaults, prompt lengths cut from the prime MIDI
+SLOTS, SEG, DEPTH = 8, 64, 2
+SERVE_PROMPTS = (1, 3, 64, 200, 500)
+N_SERVE, SERVE_WINDOW, WINDOW_NEW = 24, 256, 2560
+T_RAGGED, LIVE = 1023, 256  # ragged timing: t, live window of the rows
 
 
 def gpu_line() -> str:
@@ -301,6 +327,56 @@ def check_kernel_b() -> float:
     return worst
 
 
+def ragged_starts(gen, t: int, b: int = B) -> torch.Tensor:
+    """[b] int32 per-row starts in [0, t]: one row at t (only itself
+    live), one in the last live split, the rest random."""
+    start = torch.randint(0, t + 1, (b,), generator=gen)
+    start[0] = t
+    start[1] = (t // 128) * 128 + (t % 128) // 2
+    return start.to(torch.int32)
+
+
+def check_kernel_b_ragged() -> float:
+    """Ragged kernel B (per-row start, start_min 0 and min(start))
+    against its plain version, with t inside a split and at a split's
+    end; every cache row but t untouched."""
+    gen = torch.Generator().manual_seed(12)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        model = flagship(dtype)
+        for t in (300, 383, 1023):
+            start = ragged_starts(gen, t).to(DEV)
+            for smin in (0, int(start.min())):
+                x, e_all, w_all, kc, vc = decode_inputs(model, gen)
+                kc2, vc2 = kc.clone(), vc.clone()
+                out, kc, vc = fused_decode_step(x, t, e_all, w_all, kc, vc,
+                                                H, start=start,
+                                                start_min=smin)
+                ref, kc2, vc2 = fused_decode_step_plain(
+                    x, t, e_all, w_all, kc2, vc2, H, start=start,
+                    start_min=smin)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                row_err = max((kc[:, :, t].float() - kc2[:, :, t].float())
+                              .abs().max().item(),
+                              (vc[:, :, t].float() - vc2[:, :, t].float())
+                              .abs().max().item())
+                ok = (max(err, row_err) <= TOL_B[dtype]
+                      and bool(torch.isfinite(out).all())
+                      and untouched(kc, kc2, t) and untouched(vc, vc2, t))
+                print(f"kernel B ragged {str(dtype):15s} B={B} t={t:5d} "
+                      f"start_min={smin:4d} min(start)="
+                      f"{int(start.min()):4d} max_abs_err={err:.3e} "
+                      f"cache_row_err={row_err:.3e} tol={TOL_B[dtype]:.1e} "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("ragged kernel B disagrees with "
+                                         "its plain version")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err, row_err)
+    return worst
+
+
 @contextlib.contextmanager
 def plain_path():
     """Run the model through the plain versions of both kernels."""
@@ -313,16 +389,23 @@ def plain_path():
         mt.fused_relative_attention, mt.fused_decode_step = saved
 
 
-def run_cli(model, tmp: str) -> np.ndarray:
-    """The user's entry point: export the model as a .pth, write a prime
-    MIDI, run ``cli.generate`` on it (B 8, prime 500 -> bucket 512, 512
-    sampled bf16 tokens) with both launch counters read around it.
-    Returns the tokenized prime."""
+def write_inputs(model, tmp: str) -> tuple:
+    """The model saved as an exported .pth and a prime MIDI of random
+    events. Returns their paths."""
     pth = os.path.join(tmp, "model.pth")
     torch.save({"net": model.state_dict(), "optimizer": {}, "epoch": 0}, pth)
     prime_mid = os.path.join(tmp, "prime.mid")
     write_midi(np.random.default_rng(0).integers(0, VOCAB - 1, 3000),
                prime_mid)
+    return pth, prime_mid
+
+
+def run_cli(model, tmp: str) -> np.ndarray:
+    """The user's entry point: export the model as a .pth, write a prime
+    MIDI, run ``cli.generate`` on it (B 8, prime 500 -> bucket 512, 512
+    sampled bf16 tokens) with both launch counters read around it.
+    Returns the tokenized prime."""
+    pth, prime_mid = write_inputs(model, tmp)
     prime = prime_tokens(prime_mid, PROMPT)
     if len(prime) != PROMPT:
         raise AssertionError(f"prime has {len(prime)} tokens, not {PROMPT}")
@@ -401,7 +484,7 @@ def end_to_end() -> dict:
         first = (kern != plain).nonzero()[0].tolist()
         raise AssertionError(f"greedy tokens differ first at {first}")
     return {"A": launches_a, "B": launches_b, "prefill_ms": prefill_ms,
-            "tok_s": tok_s}
+            "tok_s": tok_s, "prime": prime}
 
 
 def profile_decode(steps: int = 32, warm: int = 3) -> None:
@@ -446,6 +529,242 @@ def profile_decode(steps: int = 32, warm: int = 3) -> None:
           f"of wall)")
     for dev_us, count, key in sorted(rows, reverse=True)[:10]:
         print(f"  {dev_us / steps:8.2f} us/step {count // steps:4d}x/step "
+              f"{key[:90]}")
+
+
+def serve_requests(prime_mid: str) -> list:
+    """cli.serve's 24 requests: prompts of SERVE_PROMPTS tokens from the
+    prime MIDI, 64-768 new tokens; four with an eos id, four with their
+    own sampling fields, the last a sliding window past max_seq."""
+    rng = np.random.default_rng(9)
+    news = rng.integers(64, 769, N_SERVE)
+    own = [{"temperature": 0.9, "top_k": 20}, {"top_p": 0.9},
+           {"greedy": True}, {"temperature": 1.2, "top_k": 5, "top_p": 0.95}]
+    reqs = []
+    for i in range(N_SERVE):
+        r = {"id": f"r{i:02d}", "prime": prime_mid,
+             "prime_len": SERVE_PROMPTS[i % len(SERVE_PROMPTS)],
+             "max_new": int(news[i])}
+        if i < 4:
+            r["eos"] = int(rng.integers(0, VOCAB - 1))
+        elif i < 8:
+            r.update(own[i - 4])
+        reqs.append(r)
+    reqs[-1].update(prime_len=PROMPT, max_new=WINDOW_NEW,
+                    window=SERVE_WINDOW)
+    return reqs
+
+
+def serve_file_mode(tmp: str, pth: str, prime_mid: str) -> dict:
+    """cli.serve in file mode with its defaults, bf16, the launch
+    counters of kernels A and B read around it."""
+    reqs = serve_requests(prime_mid)
+    path = os.path.join(tmp, "requests.jsonl")
+    with open(path, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in reqs)
+    outdir = os.path.join(tmp, "served")
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    fused_relative_attention.launches = 0
+    fused_decode_step.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_main([pth, path, outdir, "--dtype", "bfloat16",
+                         "--seed", "0"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = (fused_relative_attention.launches,
+                fused_decode_step.launches)
+    out = buf.getvalue()
+    summary = next(x for x in out.splitlines() if x.startswith("generated"))
+    print(f"cli.serve bf16 file mode ({N_SERVE} requests, slots {SLOTS}, "
+          f"seg {SEG}, depth {DEPTH}) in {secs:.3f} s (load, warm, serve, "
+          f"write): {summary}")
+    stat = {k: int(re.search(rf"(\d+) {k}", summary).group(1))
+            for k in ("decode steps", "admission calls", "compactions",
+                      "reprimes")}
+    written = dict(re.findall(r"wrote .*/(r\d\d)\.mid \((\d+) tokens\)",
+                              out))
+    n_events = [len(midilike.extract_events(
+        os.path.join(outdir, f"{r['id']}.mid")).events) for r in reqs]
+    exact = all(int(written[r["id"]]) == r["max_new"] for r in reqs
+                if "eos" not in r)
+    cut = all(int(written[r["id"]]) <= r["max_new"] for r in reqs)
+    print(f"  {len(written)} MIDI files read back as {min(n_events)}-"
+          f"{max(n_events)} events; the window request wrote "
+          f"{written[reqs[-1]['id']]} tokens; launches kernel A="
+          f"{launches[0]} (6 x {stat['admission calls']} admission calls), "
+          f"kernel B={launches[1]} (18 x {stat['decode steps']} decode "
+          f"steps)")
+    ok = (rc == 0 and len(written) == N_SERVE and exact and cut
+          and launches[0] == N_LAYERS * stat["admission calls"]
+          and launches[1] == 3 * N_LAYERS * stat["decode steps"]
+          and stat["compactions"] > 0 and stat["reprimes"] > 0)
+    if not ok:
+        raise AssertionError(f"cli.serve: rc {rc}, {len(written)} files, "
+                             f"launches {launches}, {stat}")
+    return {"A": launches[0], "B": launches[1]}
+
+
+def serve_parity(prime: np.ndarray) -> None:
+    """Greedy f32 serving of 8 staggered requests (3 admitted later,
+    mid-flight) through the kernels and through their plain versions:
+    the tokens must be equal."""
+    model32 = flagship(torch.float32)
+    lens = (1, 3, 64, 200, 500, 17, 100, 33)
+    news = (64, 128, 96, 64, 100, 80, 128, 72)
+    outs = []
+    for plain in (False, True):
+        cb = ContinuousBatcher(model32, slots=SLOTS, seg_len=SEG,
+                               depth=DEPTH,
+                               sampling=SamplingParams(greedy=True))
+        with plain_path() if plain else contextlib.nullcontext():
+            rids = [cb.submit(prime[:p], n) for p, n in zip(lens[:5],
+                                                            news[:5])]
+            cb.step()
+            rids += [cb.submit(prime[:p], n) for p, n in zip(lens[5:],
+                                                             news[5:])]
+            done = cb.run()
+        outs.append([done[r] for r in rids])
+    same = all(np.array_equal(a, b) for a, b in zip(*outs))
+    print(f"serving greedy f32, {len(lens)} staggered requests: kernel path "
+          f"== plain path: {same}")
+    if not same:
+        raise AssertionError("served greedy tokens differ from the plain "
+                             "path's")
+
+
+def serve_http(tmp: str, pth: str, prime_mid: str) -> None:
+    """cli.serve --http on an ephemeral port: one /generate, one /stream
+    and one /cancel, then /shutdown."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    rc = {}
+    buf = io.StringIO()
+
+    def run():
+        with contextlib.redirect_stdout(buf):
+            rc["code"] = serve_main([pth, "-", os.path.join(tmp, "http"),
+                                     "--http", str(port), "--dtype",
+                                     "bfloat16"])
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{port}"
+
+    def call(path, data=None):
+        body = None if data is None else json.dumps(data).encode()
+        with urllib.request.urlopen(base + path, data=body, timeout=300) as r:
+            return json.loads(r.read())
+
+    deadline = time.time() + 300
+    while True:
+        try:
+            if call("/healthz")["ready"]:
+                break
+        except OSError:
+            if time.time() > deadline or not th.is_alive():
+                raise AssertionError("cli.serve --http never became ready")
+            time.sleep(0.2)
+    t0 = time.perf_counter()
+    gen = call("/generate", {"id": "g", "prime": prime_mid,
+                             "prime_len": 200, "max_new": 256})
+    gen_s = time.perf_counter() - t0
+    streamed, chunks, done = [], 0, None
+    with urllib.request.urlopen(base + "/stream", data=json.dumps(
+            {"id": "s", "prime": prime_mid, "prime_len": 64,
+             "max_new": 192}).encode(), timeout=300) as sse:
+        event = None
+        for raw in sse:
+            line = raw.decode().rstrip("\n")
+            if line.startswith("event: "):
+                event = line[7:]
+            elif line.startswith("data: "):
+                payload = json.loads(line[6:])
+                if event == "done":
+                    done = payload
+                    break
+                streamed.extend(payload["tokens"])
+                chunks += 1
+                event = None
+    call("/submit", {"id": "c", "prime": prime_mid, "prime_len": 3,
+                     "max_new": 1500})
+    cancel = call("/cancel", {"id": "c"})
+    deadline = time.time() + 300
+    while True:
+        try:
+            res = call("/result/c")
+            if res.get("status") != "pending":
+                break
+        except urllib.error.HTTPError:
+            pass                       # not drained by the engine yet
+        if time.time() > deadline:
+            raise AssertionError("the cancelled request never resolved")
+        time.sleep(0.05)
+    stats = call("/stats")
+    call("/shutdown", {})
+    th.join(timeout=300)
+    ok = (gen["n_tokens"] == 256 and done is not None
+          and done["n_tokens"] == 192 == len(streamed) and chunks >= 2
+          and cancel["status"] == "cancel_requested"
+          and res.get("status") == "cancelled" and res["n_tokens"] < 1500
+          and not th.is_alive() and rc.get("code") == 0)
+    print(f"cli.serve --http bf16: /generate 256 tokens in {gen_s:.3f} s; "
+          f"/stream {len(streamed)} tokens in {chunks} chunks; /cancel -> "
+          f"{res.get('status')} after {res.get('n_tokens')} tokens; "
+          f"/stats committed {stats['stats']['committed_tokens']} tokens; "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("cli.serve --http misbehaved")
+
+
+def serving(prime: np.ndarray) -> dict:
+    model = flagship(torch.bfloat16)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        pth, prime_mid = write_inputs(model, tmp)
+        counts = serve_file_mode(tmp, pth, prime_mid)
+        serve_parity(prime)
+        serve_http(tmp, pth, prime_mid)
+    return counts
+
+
+def profile_serving() -> None:
+    """The device's busy share over one serving segment (8 slots, 64
+    steps, bf16, per-row sampling) under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = flagship(torch.bfloat16)
+    cb = ContinuousBatcher(model, slots=SLOTS, seg_len=SEG, depth=DEPTH,
+                           per_row_sampling=True,
+                           generator=torch.Generator(DEV).manual_seed(0))
+    prime = np.random.default_rng(3).integers(0, VOCAB - 1, PROMPT)
+    for i in range(SLOTS):
+        cb.submit(prime[:SERVE_PROMPTS[i % len(SERVE_PROMPTS)]], 4 * SEG)
+    cb.step()                          # admissions + a first segment
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cb.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            rows.append((dev_us, ev.count, ev.key))
+    busy_us = sum(r[0] for r in rows)
+    print(f"serving profile: one segment ({SEG} steps x {SLOTS} slots, "
+          f"per-row sampling), wall {wall_us / SEG:.1f} us/step under the "
+          f"profiler, device busy {busy_us / SEG:.1f} us/step "
+          f"({100 * busy_us / wall_us:.1f}% of wall)")
+    for dev_us, count, key in sorted(rows, reverse=True)[:10]:
+        print(f"  {dev_us / SEG:8.2f} us/step {count / SEG:5.1f}x/step "
               f"{key[:90]}")
 
 
@@ -805,20 +1124,67 @@ def time_kernel_b(launches: int, err: float) -> dict:
                  iters=50)
     plain_ms = cuda_ms(lambda: fused_decode_step_plain(x, t, e_all, w_all,
                                                        kc, vc, H), iters=10)
-    d, f, n = D_MODEL, D_MODEL // 2, t + 1
-    w_elems = N_LAYERS * (4 * d * d + 2 * d * f + 9 * d + f)
-    nbytes = (w_elems * 2 + 2 * N_LAYERS * B * n * d * 2
-              + N_LAYERS * n * DH * 4 + 2 * B * d * 2
-              + 2 * N_LAYERS * B * d * 2)
-    flops = N_LAYERS * (2 * B * (4 * d * d + 2 * d * f)
-                        + 3 * 2 * B * H * n * DH)
-    bound_ms, by = bound(nbytes, flops, torch.bfloat16)
+    bound_ms, by = decode_bound(np.zeros(B, np.int64), t)
     return {"name": "fused_decode_step", "route": "cuda",
             "source": "musicgeneration_tpu_torch/csrc/fused_decode.cu",
             "replaces": "musicgeneration_tpu/ops/pallas_decode.py:1171",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": None}
+
+
+def decode_bound(starts: np.ndarray, t: int) -> tuple:
+    """Least time of one bf16 decode step at position t whose rows attend
+    [start_b, t]: weights, the live K/V rows and the E rows they need
+    read once, x read and written, the new K/V rows written; the qkv,
+    output and FFN products plus three 64-deep products per live row."""
+    d, f = D_MODEL, D_MODEL // 2
+    live = int(np.sum(t + 1 - starts))          # (b, s) pairs attended
+    e_rows = t + 1 - int(starts.min())
+    w_elems = N_LAYERS * (4 * d * d + 2 * d * f + 9 * d + f)
+    nbytes = (w_elems * 2 + 2 * N_LAYERS * live * d * 2
+              + N_LAYERS * e_rows * DH * 4 + 2 * len(starts) * d * 2
+              + 2 * N_LAYERS * len(starts) * d * 2)
+    flops = N_LAYERS * (2 * len(starts) * (4 * d * d + 2 * d * f)
+                        + 3 * 2 * H * live * DH)
+    return bound(nbytes, flops, torch.bfloat16)
+
+
+def time_kernel_b_ragged(launches: int, err: float) -> dict:
+    """Ragged kernel B at t T_RAGGED, every row's start in the last LIVE
+    rows, under start_min 0 (every split launched) and min(start) (only
+    the live splits), beside the bound of that data and of the full
+    prefix [0, t] for every row."""
+    model = flagship(torch.bfloat16)
+    gen = torch.Generator().manual_seed(13)
+    t = T_RAGGED
+    x, e_all, w_all, kc, vc = decode_inputs(model, gen)
+    start = torch.randint(t - LIVE + 1, t + 1, (B,), generator=gen)
+    start[0] = t - LIVE + 1
+    start = start.to(torch.int32).to(DEV)
+    smin = int(start.min())
+
+    def step(floor):
+        return fused_decode_step(x, t, e_all, w_all, kc, vc, H, start=start,
+                                 start_min=floor)
+
+    ms0 = cuda_ms(lambda: step(0), iters=50)
+    ms = cuda_ms(lambda: step(smin), iters=50)
+    plain_ms = cuda_ms(lambda: fused_decode_step_plain(
+        x, t, e_all, w_all, kc, vc, H, start=start, start_min=smin), iters=10)
+    bound_ms, by = decode_bound(start.cpu().numpy(), t)
+    full_ms, _ = decode_bound(np.zeros(B, np.int64), t)
+    print(f"ragged kernel B bf16 B{B} t={t}, live window {LIVE} rows "
+          f"(min(start) {smin}): start_min 0 {ms0:.4f} ms, start_min "
+          f"{smin} {ms:.4f} ms; bound {bound_ms:.5f} ms ({by}) for this "
+          f"live window, {full_ms:.5f} ms for the full prefix [0, t]")
+    return {"name": "fused_decode_step_ragged", "route": "cuda",
+            "source": "musicgeneration_tpu_torch/csrc/fused_decode.cu",
+            "replaces": "musicgeneration_tpu/ops/pallas_decode.py:1171",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": None, "ms_start_min_0": ms0,
+            "bound_ms_full_prefix": full_ms}
 
 
 def main() -> int:
@@ -839,22 +1205,28 @@ def main() -> int:
 
     err_a = check_kernel_a()
     err_b = check_kernel_b()
+    err_br = check_kernel_b_ragged()
     err_c = check_kernel_c()
     e2e = end_to_end()
+    served = serving(e2e["prime"])
     os.makedirs(OUT_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
         shards = write_corpus(tmp)
         train_parity(shards)
         tr = train_end_to_end(tmp, shards)
         step_t = time_train_step(shards)
-    row_a = time_kernel_a(e2e["A"] + tr["A"], err_a)
-    row_a["launches_by_path"] = {"generate": e2e["A"], "train": tr["A"]}
-    row_b = time_kernel_b(e2e["B"], err_b)
-    row_b["launches_by_path"] = {"generate": e2e["B"]}
+    row_a = time_kernel_a(e2e["A"] + tr["A"] + served["A"], err_a)
+    row_a["launches_by_path"] = {"generate": e2e["A"], "train": tr["A"],
+                                 "serve": served["A"]}
+    row_b = time_kernel_b(e2e["B"] + served["B"], max(err_b, err_br))
+    row_b["launches_by_path"] = {"generate": e2e["B"], "serve": served["B"]}
     row_c = time_kernel_c(tr["C"], err_c)
     row_c["launches_by_path"] = {"train": tr["C"]}
+    row_br = time_kernel_b_ragged(served["B"], err_br)
+    row_br["launches_by_path"] = {"serve": served["B"]}
     profile_decode()
-    for r in (row_a, row_b, row_c):
+    profile_serving()
+    for r in (row_a, row_b, row_c, row_br):
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
         print(f"{r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms,"
@@ -864,7 +1236,7 @@ def main() -> int:
           f"{e2e['tok_s']:.1f} tokens/s; train step {step_t['step_ms']:.3f} "
           f"ms ({step_t['tok_s']:.0f} tokens/s)")
     print(gpu_line())
-    print(json.dumps({"kernels": [row_a, row_b, row_c]}))
+    print(json.dumps({"kernels": [row_a, row_b, row_c, row_br]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,12 +1,14 @@
 """musicgeneration_tpu_torch — the PyTorch/CUDA port of musicgeneration_tpu.
 
-The generation path of the flagship MusicTransformer: prompt MIDI ->
-tokens (``tokenizers.midilike``), one-pass prefill through the
-hand-written relative-attention kernel (``ops.fused_attention``), a
-per-token decode step through the hand-written fused decode kernel
-(``ops.fused_decode``), top-k/nucleus sampling (``decode.sampling``),
-tokens -> MIDI. Weights come from the JAX package's exported ``.pth``
-(``convert.load_checkpoint``).
+The flagship MusicTransformer's paths: generation (prompt MIDI -> tokens
+(``tokenizers.midilike``), one-pass prefill through the hand-written
+relative-attention kernel (``ops.fused_attention``), a per-token decode
+step through the hand-written fused decode kernel (``ops.fused_decode``),
+top-k/nucleus sampling (``decode.sampling``), tokens -> MIDI); training
+(``train``, ``cli.train``, the attention backward kernel); and
+continuous-batching serving (``decode.serving``, ``cli.serve``, kernel
+B's ragged mode). Weights come from the JAX package's exported ``.pth``
+or the port's own training checkpoints (``convert.load_checkpoint``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 asking for CUDA where there is none raises. This package imports

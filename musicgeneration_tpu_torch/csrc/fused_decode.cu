@@ -2,12 +2,13 @@
 //
 // Replaces musicgeneration_tpu/ops/pallas_decode.py::fused_decode_step
 // (its pallas_calls over _kernel / _kernel_grid*, layer body _layer_step),
-// for the non-ragged, non-int8 case. Per layer, for each batch row b at
-// absolute position t:
+// without int8 weights. Per layer, for each batch row b at absolute
+// position t:
 //
 //   q, k, v = x W{q,k,v} + b            (rounded to the model dtype)
 //   cache[b, t] = k, v                   (written IN PLACE, see below)
-//   a_s = (q . k_s + q . E[max_seq - 1 - t + s]) / sqrt(64),  s in [0, t]
+//   a_s = (q . k_s + q . E[max_seq - 1 - t + s]) / sqrt(64),
+//         s in [start[b], t]             (start = 0 when not ragged)
 //   attn = softmax(a) V                  (f32 softmax, P in the cache dtype)
 //   out1 = LN1(attn W_fc + b_fc + x)     (eps 1e-6, f32 statistics)
 //   x'   = LN2(out1 + relu(out1 W1 + b1) W2 + b2)
@@ -28,6 +29,14 @@
 //     Because row t is already in the cache, the current token is just
 //     the last position of the prefix: the TPU kernel's analytic fold
 //     (pallas_decode.py:325-341) by the same formula, E[max_seq - 1].
+//     Ragged mode (continuous-batching serving; the TPU kernel's
+//     start_col, pallas_decode.py:95-103, :237-240): row b masks the
+//     cache rows below start[b], and the grid starts at the split of
+//     start_min <= min(start) (the live-window floor), so the splits
+//     wholly below it are never launched. A split wholly below start[b]
+//     for one row writes the empty record (m = -inf, l = 0, acc = 0),
+//     which the combine weighs by exp(-inf) = 0; row t is always live,
+//     so every row has a finite maximum.
 //  3. tail_kernel: one block per batch row combines the partials, then
 //     fc, residual, LN1, FFN1, ReLU, FFN2, residual, LN2.
 //
@@ -113,21 +122,22 @@ template <typename T>
 __global__ void __launch_bounds__(ATT_CHUNK)
 attn_kernel(const float* __restrict__ q, const T* __restrict__ kc,
             const T* __restrict__ vc, const float* __restrict__ e,
-            float* __restrict__ part, int H, int S, int d, int t,
-            int max_seq, float scale) {
+            const int* __restrict__ start, float* __restrict__ part, int H,
+            int S, int d, int t, int max_seq, int split0, float scale) {
   __shared__ float qs[DH];
   __shared__ float ps[ATT_CHUNK];
   __shared__ float accs[2][DH];
   __shared__ float red[ATT_CHUNK / 32];
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int split = blockIdx.y;
-  const int c0 = split * ATT_CHUNK;
+  const int c0 = (split0 + blockIdx.y) * ATT_CHUNK;
   const int n = min(ATT_CHUNK, t + 1 - c0);
+  // this block's first live position: rows below start[b] are masked
+  const int lo = start != nullptr ? max(start[b] - c0, 0) : 0;
   if (threadIdx.x < DH) qs[threadIdx.x] = q[(size_t)b * d + h * DH + threadIdx.x];
   __syncthreads();
 
   float logit = -INFINITY;
-  if ((int)threadIdx.x < n) {
+  if ((int)threadIdx.x < n && (int)threadIdx.x >= lo) {
     const int s = c0 + threadIdx.x;
     const T* krow = kc + ((size_t)b * S + s) * d + h * DH;
     const float* erow = e + (size_t)(max_seq - 1 - t + s) * DH;
@@ -146,7 +156,9 @@ attn_kernel(const float* __restrict__ q, const T* __restrict__ kc,
     logit = (qk + qe) * scale;
   }
   const float m = mg::block_max(logit, red);
-  const float p = (int)threadIdx.x < n ? expf(logit - m) : 0.f;
+  // a masked position weighs 0; in a wholly masked split m is -inf too,
+  // and exp(-inf - -inf) would be NaN
+  const float p = logit != -INFINITY ? expf(logit - m) : 0.f;
   // weights drop to the cache dtype entering PV (pallas_decode.py:249)
   ps[threadIdx.x] = mg::round_to<T>(p);
   const float l = mg::block_sum(p, red);  // its barriers also publish ps
@@ -154,13 +166,13 @@ attn_kernel(const float* __restrict__ q, const T* __restrict__ kc,
   const int dim = threadIdx.x & (DH - 1), half = threadIdx.x / DH;
   const int j1 = min(n, (half + 1) * (ATT_CHUNK / 2));
   float acc = 0.f;
-  for (int j = half * (ATT_CHUNK / 2); j < j1; ++j)
+  for (int j = max(half * (ATT_CHUNK / 2), lo); j < j1; ++j)
     acc = fmaf(ps[j],
                mg::to_f(vc[((size_t)b * S + c0 + j) * d + h * DH + dim]),
                acc);
   accs[half][dim] = acc;
   __syncthreads();
-  float* rec = part + ((size_t)bh * gridDim.y + split) * PART;
+  float* rec = part + ((size_t)bh * gridDim.y + blockIdx.y) * PART;
   if (threadIdx.x < DH) rec[2 + threadIdx.x] = accs[0][threadIdx.x] + accs[1][threadIdx.x];
   if (threadIdx.x == 0) {
     rec[0] = m;
@@ -203,7 +215,8 @@ tail_kernel(const float* __restrict__ part, float* __restrict__ x,
   float* red = hb + f;   // [32]
   const int b = blockIdx.x;
 
-  // combine the split-K partials of every head
+  // combine the split-K partials of every head (an empty split's
+  // m = -inf weighs exp(-inf) = 0: M is finite, row t being live)
   for (int c = threadIdx.x; c < d; c += blockDim.x) {
     const int h = c / DH, dim = c % DH;
     const float* pp = part + (size_t)(b * H + h) * nsplit * PART;
@@ -251,8 +264,8 @@ tail_kernel(const float* __restrict__ part, float* __restrict__ x,
 template <typename T>
 int launch_step(int num_layers, float* x, float* qbuf, float* part,
                 const void* const* w, void* kc, void* vc, const float* e,
-                int B, int S, int d, int H, int f, int t, int max_seq,
-                cudaStream_t stream) {
+                const int* start, int B, int S, int d, int H, int f, int t,
+                int max_seq, int split0, cudaStream_t stream) {
   // per-layer element strides of the stacked [L, ...] arrays, in
   // WEIGHT_KEYS order: wq bq wk bk wv bv wfc bfc ln1s ln1b w1 b1 w2 b2
   // ln2s ln2b
@@ -263,7 +276,8 @@ int launch_step(int num_layers, float* x, float* qbuf, float* part,
                              (size_t)f * d, (size_t)d, (size_t)d,
                              (size_t)d};
   const size_t cache_stride = (size_t)B * S * d;
-  const int nsplit = (t + 1 + ATT_CHUNK - 1) / ATT_CHUNK;
+  // live splits: from start_min's split to the one holding t
+  const int nsplit = (t + 1 + ATT_CHUNK - 1) / ATT_CHUNK - split0;
   const size_t qkv_smem = (QKV_ROWS * d + QKV_WARPS * QKV_ROWS * 32) * sizeof(float);
   const size_t tail_smem = (3 * d + f + 32) * sizeof(float);
   const float scale = 1.0f / sqrtf((float)DH);
@@ -281,7 +295,7 @@ int launch_step(int num_layers, float* x, float* qbuf, float* part,
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     attn_kernel<T><<<dim3(B * H, nsplit), ATT_CHUNK, 0, stream>>>(
-        qbuf, kl, vl, el, part, H, S, d, t, max_seq, scale);
+        qbuf, kl, vl, el, start, part, H, S, d, t, max_seq, split0, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     tail_kernel<T><<<B, TAIL_THREADS, tail_smem, stream>>>(
@@ -296,24 +310,30 @@ int launch_step(int num_layers, float* x, float* qbuf, float* part,
 }  // namespace
 
 // x: [B, d] f32, the step's input, overwritten with its output;
-// qbuf: [B, d] f32 scratch; part: [B*H, ceil((t+1)/128), 66] f32 scratch;
-// w: 16 pointers to the stacked [L, ...] weights (WEIGHT_KEYS order,
-// [in, out] matrices) in the model dtype; kc, vc: [L, B, S, d] caches in
-// the model dtype, row t written in place; e: [L, max_seq, 64] f32.
+// qbuf: [B, d] f32 scratch; part: [B*H, ceil((t+1)/128) - split0, 66] f32
+// scratch; w: 16 pointers to the stacked [L, ...] weights (WEIGHT_KEYS
+// order, [in, out] matrices) in the model dtype; kc, vc: [L, B, S, d]
+// caches in the model dtype, row t written in place; e: [L, max_seq, 64]
+// f32; start: [B] int32 first live row of each batch row (each <= t), or
+// null for the non-ragged step; split0 = start_min / 128 with start_min
+// <= min(start) (0 without start).
 // Returns the first non-zero cudaGetLastError() of the 3*L launches.
 extern "C" int mg_decode_step(int is_bf16, int num_layers, void* x,
                               void* qbuf, void* part, const void* const* w,
-                              void* kc, void* vc, const void* e, int B,
-                              int S, int d, int H, int f, int t, int max_seq,
+                              void* kc, void* vc, const void* e,
+                              const void* start, int B, int S, int d, int H,
+                              int f, int t, int max_seq, int split0,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* xf = static_cast<float*>(x);
   float* qf = static_cast<float*>(qbuf);
   float* pf = static_cast<float*>(part);
   const float* ef = static_cast<const float*>(e);
+  const int* st = static_cast<const int*>(start);
   if (is_bf16)
     return launch_step<__nv_bfloat16>(num_layers, xf, qf, pf, w, kc, vc, ef,
-                                      B, S, d, H, f, t, max_seq, s);
-  return launch_step<float>(num_layers, xf, qf, pf, w, kc, vc, ef, B, S, d,
-                            H, f, t, max_seq, s);
+                                      st, B, S, d, H, f, t, max_seq, split0,
+                                      s);
+  return launch_step<float>(num_layers, xf, qf, pf, w, kc, vc, ef, st, B, S,
+                            d, H, f, t, max_seq, split0, s);
 }

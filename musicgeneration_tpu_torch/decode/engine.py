@@ -5,6 +5,7 @@ path: one-pass prefill of the (optionally bucketed) prompt through the
 relative-attention kernel, then one fused decode step per generated
 token. JAX ran the loop as one compiled ``lax.scan``; here it is a
 Python loop that keeps tokens on the device and never syncs the host.
+``generate_sliding`` continues past max_seq by re-priming a window.
 """
 
 from __future__ import annotations
@@ -91,3 +92,33 @@ def generate_events(model, prompt_ids, steps: int,
     max_len = max_len or (prompt.shape[1] + steps)
     dp = DecodeParams(max_len=max_len, steps=steps, sampling=sampling)
     return generate(model, prompt, generator, dp)[0].cpu().numpy()
+
+
+def generate_sliding(model, prompt, generator: Optional[torch.Generator],
+                     steps: int, window: int = 512,
+                     sampling: SamplingParams = SamplingParams()
+                     ) -> np.ndarray:
+    """Unbounded-length generation by window re-priming
+    (engine.py:416-452): generate in cached chunks of a 2*window cache;
+    when it fills, re-prime from the last ``window`` tokens and go on.
+
+    prompt: [B, P] ints; returns [B, steps] numpy int64. Chunks draw
+    from ``generator`` in turn (greedy ignores it)."""
+    if 2 * window > model.max_seq:
+        raise ValueError(
+            f"window ({window}) must be <= max_seq//2 ({model.max_seq // 2})"
+            ": the sliding cache spans 2*window positions, all of which "
+            "must stay inside the model's position/E tables")
+    max_len = 2 * window
+    produced = []
+    ctx = np.asarray(prompt, np.int64)[:, -window:]
+    remaining = steps
+    while remaining > 0:
+        chunk = min(remaining, max_len - ctx.shape[1])
+        dp = DecodeParams(max_len=max_len, steps=chunk, sampling=sampling)
+        out = generate(model, torch.from_numpy(ctx), generator,
+                       dp).cpu().numpy()
+        produced.append(out)
+        remaining -= chunk
+        ctx = np.concatenate([ctx, out], axis=1)[:, -window:]
+    return np.concatenate(produced, axis=1)[:, :steps]

@@ -230,9 +230,10 @@ class MusicTransformer(nn.Module):
             p.copy_(torch.randn(p.shape, generator=generator) * std)
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        scale = torch.tensor(math.sqrt(self.d_model), dtype=torch.float32)
-        w = self.Decoder.embedding.weight.to(self.dtype)
-        return w[tokens] * scale.to(self.dtype).to(w.device)
+        # sqrt(d_model) rounded to the compute dtype, as a Python float: a
+        # scalar tensor copied to the device would sync the host per call
+        scale = float(torch.tensor(math.sqrt(self.d_model)).to(self.dtype))
+        return self.Decoder.embedding.weight.to(self.dtype)[tokens] * scale
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -268,6 +269,8 @@ class MusicTransformer(nn.Module):
                 last_idx: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
         """One-pass prompt ingestion: x [B, P] -> (logits [B, vocab] f32 at
         position ``last_idx`` (default P-1), cache [L, B, cache_len, d]).
+        With ``cache_len == P`` (serving's admission) the cache is just
+        the prompt's rows.
 
         ``last_idx`` serves bucketed prompts padded with pad_id past the
         true prompt: causal masking keeps the pad tail from reaching any
@@ -278,7 +281,11 @@ class MusicTransformer(nn.Module):
                              f"({cache_len})")
         key_pad = (x == self.pad_id).float()
         h = self._embed(x) + self.pos_table[:p].to(self.dtype)[None]
-        cache = self.init_cache(b, cache_len)
+        shape = (self.num_layers, b, cache_len, self.d_model)
+        cache = {"k": torch.empty(shape, dtype=self.dtype, device=x.device),
+                 "v": torch.empty(shape, dtype=self.dtype, device=x.device)}
+        for c in cache.values():
+            c[:, :, p:].zero_()  # only the rows past the prompt
         for i, layer in enumerate(self.Decoder.enc_layers):
             h, k, v = layer.forward_kv(h, key_pad)
             # [B, H, P, dh] -> fused layout rows [B, P, d]
@@ -317,14 +324,28 @@ class MusicTransformer(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, cache: Cache, t: int,
-                    stacked) -> Tuple[torch.Tensor, Cache]:
+                    stacked, start: Optional[torch.Tensor] = None,
+                    start_min: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, Cache]:
         """token: [B] int at absolute position t -> (logits [B, vocab]
         f32, cache with row t written in place). ``stacked``: the
-        ``decode_weights()`` pair."""
+        ``decode_weights()`` pair.
+
+        start: optional [B] int32 on the device, for ragged
+        (continuous-batching) decode: row b's sequence occupies cache
+        rows [start[b], t], so its position is t - start[b] (the
+        positional row is gathered per row) and attention masks the rows
+        below start[b]; the relative bias depends only on t - s.
+        start_min: optional int <= min(start), the live-window floor
+        kernel B skips below (the JAX module's decode_step,
+        music_transformer.py:483-523)."""
         w_all, e_all = stacked
-        h = self._embed(token) + self.pos_table[t].to(self.dtype)
+        pos = (self.pos_table[t] if start is None
+               else self.pos_table[(t - start).long()])
+        h = self._embed(token) + pos.to(self.dtype)
         h, cache["k"], cache["v"] = fused_decode_step(
-            h, t, e_all, w_all, cache["k"], cache["v"], self.num_heads)
+            h, t, e_all, w_all, cache["k"], cache["v"], self.num_heads,
+            start=start, start_min=start_min)
         return _linear(self.fc, h, self.dtype).float(), cache
 
 

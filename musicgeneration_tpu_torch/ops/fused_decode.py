@@ -1,15 +1,21 @@
 """Fused decode step through every layer: kernel B and its plain version.
 
 The counterpart of ``musicgeneration_tpu/ops/pallas_decode.py::
-fused_decode_step`` (non-ragged, no int8). ``fused_decode_step`` launches
-the hand-written CUDA kernel ``csrc/fused_decode.cu`` for CUDA tensors
-and runs ``fused_decode_step_plain`` for CPU tensors; there is no other
+fused_decode_step`` (no int8). ``fused_decode_step`` launches the
+hand-written CUDA kernel ``csrc/fused_decode.cu`` for CUDA tensors and
+runs ``fused_decode_step_plain`` for CPU tensors; there is no other
 path. Per layer both compute the qkv projections, attention over the
-live cache prefix [0, t] with the relative bias ``q . E[max_seq-1-t+s]``,
+live cache rows [0, t] with the relative bias ``q . E[max_seq-1-t+s]``,
 the output projection, residual, post-LN, FFN (ReLU), residual, post-LN,
 rounding to the model dtype where ``_layer_step`` does
 (pallas_decode.py:131-134, :343-356) and casting P to the cache dtype
 before PV (:249).
+
+Ragged mode (continuous-batching serving, pallas_decode.py:1108-1121):
+with ``start`` ([B] int32) row b attends only the rows [start[b], t];
+``start_min`` <= min(start) is the live-window floor below which no row
+attends, so the kernel skips those rows' splits entirely. Any value in
+[0, min(start)] gives the same function.
 
 Both write the step's K/V rows into the caches IN PLACE at row t and
 return the same cache tensors; the JAX kernel returned the rows and its
@@ -42,13 +48,25 @@ def _layer_norm(y, scale, bias, eps):
 
 
 def fused_decode_step_plain(x, t: int, e_all, weights, k_cache, v_cache,
-                            num_heads: int, eps: float = 1e-6):
-    """Plain PyTorch version of kernel B (any device)."""
+                            num_heads: int, start=None, start_min=None,
+                            eps: float = 1e-6):
+    """Plain PyTorch version of kernel B (any device). With ``start`` it
+    reads ``start`` back to assert ``start_min <= min(start)`` and
+    ``max(start) <= t``, which the kernel trusts its caller for."""
     b, d = x.shape
     dh = d // num_heads
     max_seq = e_all.shape[1]
     io, cd = x.dtype, k_cache.dtype
     scale = 1.0 / math.sqrt(dh)
+    lo = _start_min(start, start_min, t)
+    if start is not None:
+        lo_row, hi_row = int(start.min()), int(start.max())
+        if not lo <= lo_row <= hi_row <= t:
+            raise ValueError(f"need start_min ({lo}) <= start (min "
+                             f"{lo_row}, max {hi_row}) <= t ({t})")
+        # [B, 1, s]: the rows below each row's start take no weight
+        masked = (torch.arange(lo, t + 1, device=x.device)[None, None]
+                  < start.to(x.device, torch.long)[:, None, None])
 
     def rnd(y, dtype=io):
         return y.to(dtype).float()
@@ -61,12 +79,15 @@ def fused_decode_step_plain(x, t: int, e_all, weights, k_cache, v_cache,
         v_new = rnd(h @ w["wv"] + w["bv"])
         k_cache[li, :, t] = k_new.to(cd)
         v_cache[li, :, t] = v_new.to(cd)
-        keys = k_cache[li, :, :t + 1].float().view(b, t + 1, num_heads, dh)
-        vals = v_cache[li, :, :t + 1].float().view(b, t + 1, num_heads, dh)
+        n = t + 1 - lo
+        keys = k_cache[li, :, lo:t + 1].float().view(b, n, num_heads, dh)
+        vals = v_cache[li, :, lo:t + 1].float().view(b, n, num_heads, dh)
         qh = q.view(b, num_heads, dh)
-        e_rows = e_all[li, max_seq - 1 - t:max_seq].float()  # s = 0..t
+        e_rows = e_all[li, max_seq - 1 - t + lo:max_seq].float()  # s = lo..t
         logits = (torch.einsum("bhd,bshd->bhs", qh, keys)
                   + torch.einsum("bhd,sd->bhs", qh, e_rows)) * scale
+        if start is not None:
+            logits = logits.masked_fill(masked, float("-inf"))
         m = logits.amax(-1, keepdim=True)
         p = torch.exp(logits - m)
         lsum = p.sum(-1, keepdim=True).clamp_min(1e-30)
@@ -80,7 +101,18 @@ def fused_decode_step_plain(x, t: int, e_all, weights, k_cache, v_cache,
     return h.to(io), k_cache, v_cache
 
 
-def _check(x, t, e_all, weights, k_cache, v_cache, num_heads):
+def _start_min(start, start_min, t: int) -> int:
+    """The first cache row any batch row attends: ``start_min``, or 0."""
+    if start_min is None:
+        return 0
+    if start is None:
+        raise ValueError("start_min requires start (ragged decode)")
+    if not 0 <= start_min <= t:
+        raise ValueError(f"start_min {start_min} outside [0, t={t}]")
+    return int(start_min)
+
+
+def _check(x, t, e_all, weights, k_cache, v_cache, num_heads, start):
     if x.dim() != 2:
         raise ValueError(f"x must be [B, d]; got {tuple(x.shape)}")
     b, d = x.shape
@@ -120,32 +152,47 @@ def _check(x, t, e_all, weights, k_cache, v_cache, num_heads):
                             f"{x.device}")
     if any(y.device != x.device for y in (e_all, k_cache, v_cache)):
         raise ValueError("x, e_all and the caches must be on one device")
+    if start is not None and (tuple(start.shape) != (b,)
+                              or start.dtype != torch.int32
+                              or start.device != x.device):
+        raise ValueError(f"start must be [{b}] int32 on {x.device}; got "
+                         f"{tuple(start.shape)} {start.dtype} "
+                         f"{start.device}")
     return nl, b, s, d, dh, f
 
 
 def fused_decode_step(x: torch.Tensor, t: int, e_all: torch.Tensor,
                       weights, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                      num_heads: int):
+                      num_heads: int, start: torch.Tensor = None,
+                      start_min: int = None):
     """All-layers decode step. x: [B, d] (embedded + positioned) in the
     model dtype; t: int position; e_all: [L, max_seq, dh] float32;
     weights: dict of stacked [L, ...] arrays (``WEIGHT_KEYS``, model
     dtype); k_cache/v_cache: [L, B, S, d] in the model dtype. Returns
     (out [B, d], k_cache, v_cache), the caches updated in place at row t.
 
+    start: optional [B] int32 on x's device, each row's first live cache
+    row (<= t); start_min: optional int <= min(start), requires start.
+    The wrapper does not read ``start`` back (that would sync the host
+    every step): the caller guarantees both bounds.
+
     CPU tensors run the plain version. CUDA tensors launch kernel B
     (dh = 64, d <= 1024, FFN <= 4096, contiguous inputs) or raise.
     ``launches`` counts its CUDA launches: three per layer."""
     nl, b, s, d, dh, f = _check(x, t, e_all, weights, k_cache, v_cache,
-                                num_heads)
+                                num_heads, start)
+    lo = _start_min(start, start_min, t)
     if x.device.type == "cpu":
         return fused_decode_step_plain(x, t, e_all, weights, k_cache,
-                                       v_cache, num_heads)
+                                       v_cache, num_heads, start, start_min)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if dh != 64 or d > MAX_D or f > MAX_FFN:
         raise ValueError(f"kernel B takes dh = 64, d <= {MAX_D} and FFN <= "
                          f"{MAX_FFN}; got dh={dh}, d={d}, FFN={f}")
     tensors = [x, e_all, k_cache, v_cache] + [weights[k] for k in WEIGHT_KEYS]
+    if start is not None:
+        tensors.append(start)
     if not all(y.is_contiguous() for y in tensors):
         raise ValueError("kernel B takes contiguous tensors")
     lib = cuda_build.load("fused_decode")
@@ -153,19 +200,22 @@ def fused_decode_step(x: torch.Tensor, t: int, e_all: torch.Tensor,
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
                    + [ctypes.POINTER(ctypes.c_void_p)]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     xbuf = x.to(torch.float32, copy=True)  # the kernel overwrites it
     qbuf = torch.empty(b, d, dtype=torch.float32, device=x.device)
-    nsplit = (t + 1 + 127) // 128
+    split0 = lo // 128  # the attention's 128-row splits below it are skipped
+    nsplit = (t + 1 + 127) // 128 - split0
     part = torch.empty(b * num_heads, nsplit, dh + 2, dtype=torch.float32,
                        device=x.device)
     wptrs = (ctypes.c_void_p * 16)(*[weights[k].data_ptr()
                                      for k in WEIGHT_KEYS])
     rc = fn(int(x.dtype == torch.bfloat16), nl, xbuf.data_ptr(),
             qbuf.data_ptr(), part.data_ptr(), wptrs, k_cache.data_ptr(),
-            v_cache.data_ptr(), e_all.data_ptr(), b, s, d, num_heads, f, t,
-            e_all.shape[1], torch.cuda.current_stream(x.device).cuda_stream)
+            v_cache.data_ptr(), e_all.data_ptr(),
+            start.data_ptr() if start is not None else None, b, s, d,
+            num_heads, f, t, e_all.shape[1], split0,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode step kernel failed: CUDA error {rc}")
     fused_decode_step.launches += 3 * nl

@@ -77,3 +77,83 @@ def test_seeded_draw_reproducible_and_inside_kept_set():
     for _ in range(20):
         tok = tsampling.sample_logits(x, params, gen)
         assert kept[torch.arange(4), tok].all()
+
+
+# per-row params of a mixed pool: (temperature, top_k, top_p, greedy)
+ROWS = [(1.0, 0, 1.0, True), (0.8, 20, 0.95, False), (1.0, 5, 1.0, False),
+        (0.5, 0, 0.3, False), (2.0, 400, 0.8, False), (1.0, 1, 1.0, False),
+        (1.3, 7, 0.6, False), (1.0, 0, 1.0, False)]
+
+
+def _packed(rows):
+    return np.asarray([jsampling.pack_sampling(jsampling.SamplingParams(
+        temperature=t, top_k=k, top_p=p, greedy=g)) for t, k, p, g in rows],
+        np.int32)
+
+
+def test_pack_sampling_matches_jax():
+    for t, k, p, g in ROWS:
+        assert (tsampling.pack_sampling(tsampling.SamplingParams(t, k, p, g))
+                == jsampling.pack_sampling(
+                    jsampling.SamplingParams(t, k, p, g)))
+    samp = tsampling.unpack_sampling(torch.from_numpy(_packed(ROWS)))
+    np.testing.assert_array_equal(samp["temperature"].numpy(),
+                                  np.float32([r[0] for r in ROWS]))
+    np.testing.assert_array_equal(samp["top_p"].numpy(),
+                                  np.float32([r[2] for r in ROWS]))
+    assert samp["top_k"].tolist() == [r[1] for r in ROWS]
+    assert samp["greedy"].tolist() == [r[3] for r in ROWS]
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_batched_kept_sets_match_jax(ties, monkeypatch):
+    """Mixed per-row params: each row keeps the ids JAX's
+    sample_logits_batched keeps (read off its categorical call)."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((len(ROWS), 309)).astype(np.float32) * 3
+    if ties:
+        x[:, 10:20] = x[:, :1]
+    packed = _packed(ROWS)
+    seen = {}
+
+    def capture(key, masked, axis=-1):
+        seen["logits"] = np.asarray(masked)
+        return jnp.argmax(masked, axis=axis)
+
+    monkeypatch.setattr(jax.random, "categorical", capture)
+    jsampling.sample_logits_batched(
+        jax.random.PRNGKey(0), jnp.asarray(x), jsampling.unpack_sampling(
+            *(jnp.asarray(packed[:, i]) for i in range(4))))
+    masked = tsampling.filter_logits_batched(
+        torch.from_numpy(x), tsampling.unpack_sampling(
+            torch.from_numpy(packed)))
+    np.testing.assert_array_equal(torch.isfinite(masked).numpy(),
+                                  np.isfinite(seen["logits"]))
+
+
+def test_batched_greedy_rows_take_the_argmax():
+    x = torch.from_numpy(_logits(4)[:, :64].repeat(2, 0))   # 8 rows
+    samp = tsampling.unpack_sampling(torch.from_numpy(_packed(ROWS)))
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(5):
+        tok = tsampling.sample_logits_batched(x, samp, gen)
+        assert tok[0] == x[0].argmax()
+        kept = torch.isfinite(tsampling.filter_logits_batched(x, samp))
+        assert kept[torch.arange(8), tok].all()
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_batched_uniform_pool_equals_sample_logits(case):
+    """A pool whose rows share one params set keeps sample_logits's
+    sets and, from the same generator state, draws its tokens."""
+    x = torch.from_numpy(_logits(len(str(case)) + 7))
+    params = tsampling.SamplingParams(**case)
+    samp = tsampling.unpack_sampling(torch.from_numpy(np.tile(
+        np.asarray(tsampling.pack_sampling(params), np.int32), (4, 1))))
+    np.testing.assert_array_equal(
+        torch.isfinite(tsampling.filter_logits_batched(x, samp)).numpy(),
+        torch.isfinite(tsampling.filter_logits(x, params)).numpy())
+    a = tsampling.sample_logits_batched(x, samp,
+                                        torch.Generator().manual_seed(3))
+    b = tsampling.sample_logits(x, params, torch.Generator().manual_seed(3))
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
