@@ -1,12 +1,12 @@
-"""Drive the PyTorch/CUDA port's generation and training paths on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's generation, serving and training paths
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (the first failure raises and the exit code is non-zero):
 
 1. the card's name and power limit, torch and CUDA versions;
-2. build the three hand-written kernels from
+2. build the four hand-written kernels from
    ``musicgeneration_tpu_torch/csrc`` (one ``nvcc`` per source, started
    together);
 3. kernel A (relative attention, prefill) against its plain PyTorch
@@ -57,7 +57,25 @@ Phases (the first failure raises and the exit code is non-zero):
    steps (CUDA events) and a ``torch.profiler`` window over 5 of them;
    ``torch.profiler`` windows over 32 bf16 decode steps and over one
    serving segment (device time by kernel, the device's busy share);
-9. one JSON line of kernels, the card's line, and the final JSON line.
+9. the GRU families (EventMelodyRNN 308/32/512/3, PerformanceRNN with 24
+   controls; seeded random weights saved in the reference formats, a
+   bare state dict and a session dict): kernel D (the stacked-GRU step)
+   against its plain version at in 308 and 512, H 512, 3 layers, B 1,
+   4, 8 and 64, f32 and bf16, and at in 32, H 32, 2 layers (run with the
+   other kernel checks); ``cli.generate`` for each family (B 8, the
+   prime's first 500 tokens, 512 sampled bf16 tokens, PerformanceRNN
+   under ``--control``; then ``--beam 4`` and ``--stochastic-beam`` at
+   B 1) with kernel D's launches exactly L x the decode steps and every
+   MIDI read back; decode tokens/s at B 8; greedy f32 generation and
+   greedy f32 serving of 8 staggered requests, kernel path == plain
+   path; ``cli.serve`` file mode with its defaults (8 slots, segments of
+   64, depth 2, boost 8) on 24 requests (prompts of 1-500 tokens, 64-768
+   new, eos, own sampling, ``init_seed``, PerformanceRNN control rows)
+   with exact launches; kernel D's device time warm and with L2 flushed
+   at B 8 and B 1, its plain version, its bound, ``torch.nn.GRU``
+   (cuDNN) over one step; a ``torch.profiler`` window over 32 decode
+   steps;
+10. one JSON line of kernels, the card's line, and the final JSON line.
 
 Imports nothing of JAX or of ``musicgeneration_tpu``. Needs one CUDA card.
 """
@@ -87,7 +105,7 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from musicgeneration_tpu_torch.cli.generate import (  # noqa: E402
-    bucket_prompt, prime_tokens, write_midi)
+    bucket_prompt, parse_control, prime_tokens, write_midi)
 from musicgeneration_tpu_torch.cli import train as train_cli  # noqa: E402
 from musicgeneration_tpu_torch.cli.generate import main as cli_main  # noqa: E402
 from musicgeneration_tpu_torch.cli.serve import main as serve_main  # noqa: E402
@@ -98,13 +116,20 @@ from musicgeneration_tpu_torch.decode import (  # noqa: E402
     DecodeParams, SamplingParams, generate)
 from musicgeneration_tpu_torch.decode.serving import (  # noqa: E402
     ContinuousBatcher)
+from musicgeneration_tpu_torch.decode.serving_rnn import (  # noqa: E402
+    RNNContinuousBatcher)
 from musicgeneration_tpu_torch.models import music_transformer as mt  # noqa: E402
+from musicgeneration_tpu_torch.models import (  # noqa: E402
+    EventMelodyRNN, PerformanceRNN)
+from musicgeneration_tpu_torch.ops import gru as gru_mod  # noqa: E402
 from musicgeneration_tpu_torch.ops import cuda_build  # noqa: E402
 from musicgeneration_tpu_torch.ops.fused_attention import (  # noqa: E402
     fused_relative_attention, fused_relative_attention_bwd,
     fused_relative_attention_bwd_plain, fused_relative_attention_plain)
 from musicgeneration_tpu_torch.ops.fused_decode import (  # noqa: E402
     fused_decode_step, fused_decode_step_plain)
+from musicgeneration_tpu_torch.ops.fused_gru_decode import (  # noqa: E402
+    fused_gru_step, fused_gru_step_plain, pack_gru_weights)
 from musicgeneration_tpu_torch.tokenizers import midilike  # noqa: E402
 from musicgeneration_tpu_torch.train.trainer import (  # noqa: E402
     create_train_state, make_optimizer, make_train_step)
@@ -150,6 +175,20 @@ SLOTS, SEG, DEPTH = 8, 64, 2
 SERVE_PROMPTS = (1, 3, 64, 200, 500)
 N_SERVE, SERVE_WINDOW, WINDOW_NEW = 24, 256, 2560
 T_RAGGED, LIVE = 1023, 256  # ragged timing: t, live window of the rows
+# the GRU families at the reference's full width: EventMelodyRNN 308/32/
+# 512/3, PerformanceRNN with 24 controls (event_rnn.py:44-49,
+# performance_rnn.py:45-49)
+EVENT_DIM, INIT_DIM, RNN_HIDDEN, RNN_LAYERS, CONTROL_DIM = 308, 32, 512, 3, 24
+# kernel D vs plain, max abs: f32 differs in summation order only; bf16
+# rounds gi and gh to bf16, where sums that differ in the last f32 bit
+# can flip a rounding, and the layer outputs are bf16 (one ulp of a
+# value near 1 is 2^-7)
+TOL_D = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+RNN_PROMPT, RNN_STEPS, RNN_GREEDY, BEAM, RNN_BOOST = 500, 512, 64, 4, 8
+PERF_CONTROL = "2,0,1,1,0,1,0,1,1,0,0,1;4"
+# timing: 64 MB written between calls evicts the 50 MB L2
+FLUSH_BYTES = 64 << 20
+_SPIN_CYCLES_PER_MS = []
 
 
 def gpu_line() -> str:
@@ -159,18 +198,71 @@ def gpu_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+def device_rows(prof) -> list:
+    """(device us, count, name) of each kernel in a torch.profiler run:
+    device-side events only (a CPU op's device time repeats the time of
+    the kernels it launched)."""
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            rows.append((dev_us, ev.count, ev.key))
+    return rows
+
+
+def spin_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per millisecond on this card,
+    measured once."""
+    if not _SPIN_CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _SPIN_CYCLES_PER_MS.append(10_000_000 / start.elapsed_time(end))
+    return _SPIN_CYCLES_PER_MS[0]
+
+
+def device_ms(fn, iters: int = 100, flush=None) -> float:
+    """Device time of one ``fn()`` call, averaged over ``iters`` calls.
+    Before each call a spin kernel holds the stream while the host
+    enqueues the call between its own pair of events, so the host's
+    launch cost never shows between them. The spin is twice the host
+    time of one call, doubled until every timed call was enqueued before
+    its spin ended. With ``flush`` (a buffer larger than the 50 MB L2)
+    each call follows a write of the whole buffer, so it reads its
+    inputs from device memory."""
+    fn()
     torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    t0 = time.perf_counter()
+    fn()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    spin_ms = 2 * (time.perf_counter() - t0) * 1e3 + 0.05
+    for _ in range(4):
+        starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+        held = True
+        for s, e in zip(starts, ends):
+            torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms()))
+            if flush is not None:
+                flush.zero_()
+            s.record()
+            fn()
+            e.record()
+            held = held and not s.query()
+        torch.cuda.synchronize()
+        if held:
+            break
+        spin_ms *= 2
+    else:
+        print(f"device_ms: the host outran a {spin_ms / 2:.2f} ms spin; the "
+              "time below includes host gaps")
+    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -377,16 +469,68 @@ def check_kernel_b_ragged() -> float:
     return worst
 
 
+def gru_inputs(b: int, in_dim: int, hidden: int, layers: int, dtype, gen):
+    """x [b, in], h [L, b, H] in ``dtype`` and packed random GRU weights
+    (torch's U(-1/sqrt(H), 1/sqrt(H)) init) on the card."""
+    s = hidden ** -0.5
+    params = []
+    for li in range(layers):
+        width = in_dim if li == 0 else hidden
+        params.append(tuple(
+            (torch.rand(shape, generator=gen) * 2 * s - s).to(DEV)
+            for shape in ((3 * hidden, width), (3 * hidden, hidden),
+                          (3 * hidden,), (3 * hidden,))))
+    x = torch.randn(b, in_dim, generator=gen).to(DEV, dtype)
+    h = (torch.rand(layers, b, hidden, generator=gen) * 2 - 1).to(DEV, dtype)
+    return x, h, pack_gru_weights(params, dtype)
+
+
+def check_kernel_d() -> float:
+    """Kernel D against its plain version at both families' full width
+    (in 308 and 512, H 512, 3 layers) for B 1, 4, 8 and 64, f32 and bf16,
+    and at a small shape (in 32, H 32, 2 layers); its inputs unchanged."""
+    gen = torch.Generator().manual_seed(21)
+    worst = 0.0
+    cases = [(b, in_dim, RNN_HIDDEN, RNN_LAYERS, dtype)
+             for in_dim in (EVENT_DIM, RNN_HIDDEN) for b in (1, 4, 8, 64)
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(b, 32, 32, 2, dtype) for b in (1, 8)
+              for dtype in (torch.float32, torch.bfloat16)]
+    for b, in_dim, hidden, layers, dtype in cases:
+        x, h, w = gru_inputs(b, in_dim, hidden, layers, dtype, gen)
+        x0, h0 = x.clone(), h.clone()
+        out, h_new = fused_gru_step(x, h, w)
+        ref_out, ref_h = fused_gru_step_plain(x, h, w)
+        torch.cuda.synchronize()
+        err = max((out.float() - ref_out.float()).abs().max().item(),
+                  (h_new.float() - ref_h.float()).abs().max().item())
+        ok = (err <= TOL_D[dtype] and torch.equal(x, x0)
+              and torch.equal(h, h0) and torch.equal(out, h_new[-1])
+              and bool(torch.isfinite(h_new.float()).all()))
+        print(f"kernel D {str(dtype):15s} B={b:2d} in={in_dim:3d} H={hidden} "
+              f"L={layers} max_abs_err={err:.3e} tol={TOL_D[dtype]:.0e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("kernel D disagrees with its plain version")
+        if dtype == torch.bfloat16:
+            worst = max(worst, err)
+    return worst
+
+
 @contextlib.contextmanager
 def plain_path():
-    """Run the model through the plain versions of both kernels."""
-    saved = (mt.fused_relative_attention, mt.fused_decode_step)
+    """Run the models through the plain versions of the kernels: A and C
+    (attention), B (the MusicTransformer decode step), D (the GRU step)."""
+    saved = (mt.fused_relative_attention, mt.fused_decode_step,
+             gru_mod.fused_gru_step)
     mt.fused_relative_attention = fused_relative_attention_plain
     mt.fused_decode_step = fused_decode_step_plain
+    gru_mod.fused_gru_step = fused_gru_step_plain
     try:
         yield
     finally:
-        mt.fused_relative_attention, mt.fused_decode_step = saved
+        (mt.fused_relative_attention, mt.fused_decode_step,
+         gru_mod.fused_gru_step) = saved
 
 
 def write_inputs(model, tmp: str) -> tuple:
@@ -464,8 +608,8 @@ def end_to_end() -> dict:
     if toks.shape != (B, STEPS) or toks.min() < 0 or toks.max() >= VOCAB:
         raise AssertionError(f"bad tokens: shape {toks.shape}, range "
                              f"[{toks.min()}, {toks.max()}]")
-    prefill_ms = cuda_ms(lambda: model.prefill(prompt, L_PREFILL + STEPS,
-                                               PROMPT - 1), iters=5)
+    prefill_ms = device_ms(lambda: model.prefill(prompt, L_PREFILL + STEPS,
+                                                 PROMPT - 1), iters=5)
     tok_s = B * STEPS / (total_s - prefill_ms / 1e3)
     print(f"generate bf16: {total_s:.3f} s; prefill {prefill_ms:.3f} ms; "
           f"decode {tok_s:.1f} tokens/s (B={B}, {STEPS} steps, host clock)")
@@ -512,16 +656,7 @@ def profile_decode(steps: int = 32, warm: int = 3) -> None:
             t += 1
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for ev in prof.key_averages():
-        # device-side events only: a CPU op's device time repeats the
-        # time of the kernels it launched
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            rows.append((dev_us, ev.count, ev.key))
+    rows = device_rows(prof)
     busy_us = sum(r[0] for r in rows)
     print(f"decode profile: {steps} steps (decode_step + argmax), wall "
           f"{wall_us / steps:.1f} us/step under the profiler, device busy "
@@ -750,14 +885,7 @@ def profile_serving() -> None:
         cb.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            rows.append((dev_us, ev.count, ev.key))
+    rows = device_rows(prof)
     busy_us = sum(r[0] for r in rows)
     print(f"serving profile: one segment ({SEG} steps x {SLOTS} slots, "
           f"per-row sampling), wall {wall_us / SEG:.1f} us/step under the "
@@ -766,6 +894,390 @@ def profile_serving() -> None:
     for dev_us, count, key in sorted(rows, reverse=True)[:10]:
         print(f"  {dev_us / SEG:8.2f} us/step {count / SEG:5.1f}x/step "
               f"{key[:90]}")
+
+
+def rnn_model(family: str, dtype, seed: int = 0):
+    """A GRU model at the reference's full width, random weights from a
+    seed."""
+    gen = torch.Generator().manual_seed(seed)
+    if family == "event_rnn":
+        return EventMelodyRNN(event_dim=EVENT_DIM, init_dim=INIT_DIM,
+                              hidden_dim=RNN_HIDDEN, num_layers=RNN_LAYERS,
+                              dtype=dtype, device=DEV, generator=gen)
+    return PerformanceRNN(event_dim=EVENT_DIM, control_dim=CONTROL_DIM,
+                          init_dim=INIT_DIM, hidden_dim=RNN_HIDDEN,
+                          num_layers=RNN_LAYERS, dtype=dtype, device=DEV,
+                          generator=gen)
+
+
+def save_rnn(model, path: str) -> None:
+    """The reference formats: EventMelodyRNN's bare state dict,
+    PerformanceRNN's session dict (cli/export_checkpoint.py:98-133)."""
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    if model.family == "event_rnn":
+        torch.save(sd, path)
+        return
+    torch.save({"model_config": {
+        "init_dim": INIT_DIM, "event_dim": EVENT_DIM,
+        "control_dim": CONTROL_DIM, "hidden_dim": RNN_HIDDEN,
+        "gru_layers": RNN_LAYERS, "gru_dropout": 0.3},
+        "model_state": sd, "model_optimizer_state": {}}, path)
+
+
+def count_d(fn):
+    """(fn(), kernel D launches during it, host seconds)."""
+    torch.cuda.synchronize()
+    fused_gru_step.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, fused_gru_step.launches, time.perf_counter() - t0
+
+
+def rnn_prompt(family: str, prime: np.ndarray, b: int) -> torch.Tensor:
+    """[b, P] prompt as cli.generate builds it: PerformanceRNN's starts
+    with the primary event."""
+    toks = list(prime) if family == "event_rnn" else [EVENT_DIM - 1] + list(
+        prime)
+    return torch.tensor([toks] * b, dtype=torch.long, device=DEV)
+
+
+def rnn_conditioning(model, b: int) -> dict:
+    """PerformanceRNN's latent-seeded start state and the control of
+    ``PERF_CONTROL`` (none for EventMelodyRNN)."""
+    if model.family == "event_rnn":
+        return {}
+    init = torch.randn(b, INIT_DIM, generator=torch.Generator().manual_seed(7))
+    ctrl = torch.from_numpy(parse_control(PERF_CONTROL, None, 0).astype(
+        np.float32))[:, None].expand(-1, b, -1)
+    return {"cache0": model.init_cache(b, init=init), "controls": ctrl}
+
+
+def rnn_cli(family: str, tmp: str, pth: str, prime_mid: str) -> int:
+    """cli.generate on the saved checkpoint: B 8, the prime MIDI's first
+    500 tokens, 512 sampled bf16 tokens (PerformanceRNN under
+    ``--control``), then ``--beam 4`` and ``--stochastic-beam`` at B 1;
+    kernel D's counter read around each call must equal L x the decode
+    steps (prompt + steps; a beam's prompt runs to its last token).
+    Returns the launches."""
+    p = RNN_PROMPT + (family == "performance_rnn")
+    ctrl = ["--control", PERF_CONTROL] if family == "performance_rnn" else []
+    total = 0
+    for name, extra, steps in (
+            ("sampled", ["--batch", str(B)], p + RNN_STEPS),
+            ("beam", ["--beam", str(BEAM)], p - 1 + RNN_STEPS),
+            ("stochastic", ["--beam", str(BEAM), "--stochastic-beam"],
+             p - 1 + RNN_STEPS)):
+        out = os.path.join(tmp, f"{family}-{name}.mid")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc, n, secs = count_d(lambda: cli_main(
+                [pth, out, "--prime", prime_mid, "--prime-len",
+                 str(RNN_PROMPT), "--steps", str(RNN_STEPS), "--dtype",
+                 "bfloat16", "--seed", "0"] + extra + ctrl))
+        paths = re.findall(r"wrote (\S+) \((\d+) tokens\)", buf.getvalue())
+        events = [len(midilike.extract_events(path).events)
+                  for path, _ in paths]
+        want = B if name == "sampled" else 1
+        # a beam of a random model may settle on a path without notes
+        ok = (rc == 0 and n == RNN_LAYERS * steps and len(paths) == want
+              and all(int(k) == RNN_STEPS for _, k in paths)
+              and (name != "sampled" or min(events) > 0))
+        print(f"cli.generate {family} {name} bf16 (B={want}, prime {p}, "
+              f"{RNN_STEPS} steps{', beam ' + str(BEAM) if want == 1 else ''}"
+              f"): {secs:.3f} s; kernel D launches {n} (expected "
+              f"{RNN_LAYERS} x {steps}); {len(paths)} MIDI files read back "
+              f"as {min(events)}-{max(events)} events "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"cli.generate {family} {name} failed")
+        total += n
+    return total
+
+
+def rnn_decode_rate(family: str, prime: np.ndarray) -> float:
+    """Decode tokens/s at B 8, bf16, sampled, on the host clock: the
+    500-token prompt plus 512 steps through ``decode.generate``, less
+    the prompt alone."""
+    model = rnn_model(family, torch.bfloat16)
+    prompt = rnn_prompt(family, prime, B)
+    kw = rnn_conditioning(model, B)
+
+    def run(steps):
+        dp = DecodeParams(max_len=prompt.shape[1] + steps, steps=steps,
+                          sampling=SamplingParams())
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(model, prompt, gen, dp, **kw)
+        torch.cuda.synchronize()
+        return toks, time.perf_counter() - t0
+
+    run(8)
+    _, t_prompt = run(0)
+    toks, t_all = run(RNN_STEPS)
+    t = toks.cpu().numpy()
+    if t.shape != (B, RNN_STEPS) or t.min() < 0 or t.max() >= EVENT_DIM:
+        raise AssertionError(f"bad tokens {t.shape} [{t.min()}, {t.max()}]")
+    rate = B * RNN_STEPS / (t_all - t_prompt)
+    print(f"generate {family} bf16: prompt {prompt.shape[1]} tokens "
+          f"{t_prompt:.3f} s, {RNN_STEPS} steps {t_all - t_prompt:.3f} s: "
+          f"decode {rate:.1f} tokens/s (B={B}, host clock)")
+    return rate
+
+
+def rnn_greedy_parity(family: str, prime: np.ndarray) -> None:
+    """Greedy f32, 64 tokens at B 8 after the 500-token prompt: the
+    kernel path's tokens equal the plain path's."""
+    model = rnn_model(family, torch.float32)
+    prompt = rnn_prompt(family, prime, B)
+    kw = rnn_conditioning(model, B)
+    dp = DecodeParams(max_len=prompt.shape[1] + RNN_GREEDY, steps=RNN_GREEDY,
+                      sampling=SamplingParams(greedy=True))
+    kern = generate(model, prompt, None, dp, **kw)
+    with plain_path():
+        plain = generate(model, prompt, None, dp, **kw)
+    same = torch.equal(kern, plain)
+    print(f"greedy f32 {family} {RNN_GREEDY} tokens x {B}: kernel path == "
+          f"plain path: {same}")
+    if not same:
+        first = (kern != plain).nonzero()[0].tolist()
+        raise AssertionError(f"greedy tokens differ first at {first}")
+
+
+def rnn_serve_requests(family: str, prime_mid: str) -> list:
+    """cli.serve's 24 requests: prompts of 1-500 prime tokens, 64-768
+    new tokens, four with an eos id, four with their own sampling, every
+    third with an ``init_seed``; PerformanceRNN adds a single control to
+    every third request and a 100-row control sequence to every third."""
+    rng = np.random.default_rng(19)
+    news = rng.integers(64, 769, N_SERVE)
+    own = [{"temperature": 0.9, "top_k": 20}, {"top_p": 0.9},
+           {"greedy": True}, {"temperature": 1.2, "top_k": 5, "top_p": 0.95}]
+    reqs = []
+    for i in range(N_SERVE):
+        r = {"id": f"q{i:02d}", "prime": prime_mid,
+             "prime_len": SERVE_PROMPTS[i % len(SERVE_PROMPTS)],
+             "max_new": int(news[i])}
+        if i < 4:
+            r["eos"] = int(rng.integers(0, EVENT_DIM - 1))
+        elif i < 8:
+            r.update(own[i - 4])
+        if i % 3 == 0:
+            r["init_seed"] = i
+        if family == "performance_rnn" and i % 3 == 1:
+            r["control"] = rng.random(CONTROL_DIM).round(4).tolist()
+        elif family == "performance_rnn" and i % 3 == 2:
+            r["control"] = rng.random((100, CONTROL_DIM)).round(4).tolist()
+        reqs.append(r)
+    return reqs
+
+
+def rnn_serve_file_mode(family: str, tmp: str, pth: str,
+                        prime_mid: str) -> tuple:
+    """cli.serve in file mode with its defaults (8 slots, segments of
+    64, depth 2, boost 8), bf16; kernel D's launches must be L x (decode
+    steps + admission prefill steps). Returns (launches, summary)."""
+    reqs = rnn_serve_requests(family, prime_mid)
+    path = os.path.join(tmp, f"{family}-requests.jsonl")
+    with open(path, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in reqs)
+    outdir = os.path.join(tmp, f"{family}-served")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, n, secs = count_d(lambda: serve_main(
+            [pth, path, outdir, "--dtype", "bfloat16", "--seed", "0"]))
+    out = buf.getvalue()
+    summary = next(x for x in out.splitlines() if x.startswith("generated"))
+    stat = {k: int(re.search(rf"(\d+) {k}", summary).group(1))
+            for k in ("decode steps", "prefill steps", "admission calls")}
+    written = dict(re.findall(r"wrote .*/(q\d\d)\.mid \((\d+) tokens\)", out))
+    n_events = [len(midilike.extract_events(
+        os.path.join(outdir, f"{r['id']}.mid")).events) for r in reqs]
+    exact = all(int(written[r["id"]]) == r["max_new"] for r in reqs
+                if "eos" not in r)
+    cut = all(int(written[r["id"]]) <= r["max_new"] for r in reqs)
+    expect = RNN_LAYERS * (stat["decode steps"] + stat["prefill steps"])
+    print(f"cli.serve {family} bf16 file mode ({N_SERVE} requests, slots "
+          f"{SLOTS}, seg {SEG}, depth {DEPTH}, boost {RNN_BOOST}) in "
+          f"{secs:.3f} s (load, warm, serve, write): {summary}")
+    print(f"  {len(written)} MIDI files read back as {min(n_events)}-"
+          f"{max(n_events)} events; kernel D launches {n} ({RNN_LAYERS} x "
+          f"({stat['decode steps']} decode + {stat['prefill steps']} "
+          f"prefill steps) = {expect})")
+    ok = (rc == 0 and len(written) == N_SERVE and exact and cut
+          and n == expect and max(n_events) > 0)
+    if not ok:
+        raise AssertionError(f"cli.serve {family}: rc {rc}, {len(written)} "
+                             f"files, launches {n} vs {expect}, {stat}")
+    return n, summary
+
+
+def rnn_serve_parity(family: str, prime: np.ndarray) -> None:
+    """Greedy f32 serving of 8 staggered requests (3 admitted mid-flight;
+    PerformanceRNN with latents and controls) through kernel D and
+    through its plain version: the tokens must be equal."""
+    model = rnn_model(family, torch.float32)
+    lens = (1, 3, 64, 200, 500, 17, 100, 33)
+    news = (64, 128, 96, 64, 100, 80, 128, 72)
+    rng = np.random.default_rng(23)
+    kws = []
+    for i in range(len(lens)):
+        kw = {"init": rng.standard_normal(INIT_DIM)} if i % 2 else {}
+        if family == "performance_rnn" and i % 3:
+            kw["control"] = rng.random((1 + 40 * (i % 3 - 1), CONTROL_DIM))
+        kws.append(kw)
+    prompts = [rnn_prompt(family, prime[:p], 1)[0].cpu().numpy()
+               for p in lens]
+    outs = []
+    for plain in (False, True):
+        cb = RNNContinuousBatcher(model, slots=SLOTS, seg_len=SEG,
+                                  depth=DEPTH, boost=RNN_BOOST,
+                                  sampling=SamplingParams(greedy=True))
+        with plain_path() if plain else contextlib.nullcontext():
+            rids = [cb.submit(prompts[i], news[i], **kws[i])
+                    for i in range(5)]
+            cb.step()
+            rids += [cb.submit(prompts[i], news[i], **kws[i])
+                     for i in range(5, len(lens))]
+            done = cb.run()
+        outs.append([done[r] for r in rids])
+    same = all(np.array_equal(a, b) for a, b in zip(*outs))
+    print(f"serving {family} greedy f32, {len(lens)} staggered requests: "
+          f"kernel path == plain path: {same}")
+    if not same:
+        raise AssertionError(f"{family}: served greedy tokens differ from "
+                             "the plain path's")
+
+
+def rnn_paths(prime: np.ndarray) -> dict:
+    """Both GRU families end to end: cli.generate, the decode rate,
+    greedy parity, cli.serve and serving parity."""
+    launches, rates, serve = {}, {}, {}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        prime_mid = os.path.join(tmp, "prime.mid")
+        write_midi(np.random.default_rng(0).integers(0, EVENT_DIM - 1, 3000),
+                   prime_mid)
+        rnn_prime_toks = np.asarray(prime_tokens(prime_mid, RNN_PROMPT))
+        if len(rnn_prime_toks) != RNN_PROMPT:
+            raise AssertionError("the prime MIDI gives too few tokens")
+        for family in ("event_rnn", "performance_rnn"):
+            pth = os.path.join(tmp, f"{family}.pth")
+            save_rnn(rnn_model(family, torch.float32), pth)
+            gen_n = rnn_cli(family, tmp, pth, prime_mid)
+            rates[family] = rnn_decode_rate(family, rnn_prime_toks)
+            rnn_greedy_parity(family, rnn_prime_toks)
+            serve_n, serve[family] = rnn_serve_file_mode(family, tmp, pth,
+                                                         prime_mid)
+            rnn_serve_parity(family, rnn_prime_toks)
+            launches[f"generate_{family}"] = gen_n
+            launches[f"serve_{family}"] = serve_n
+    return {"launches": launches, "tok_s": rates, "serve": serve}
+
+
+def profile_rnn_decode(steps: int = 32, warm: int = 3) -> None:
+    """Where an EventMelodyRNN bf16 decode step's time goes at B 8:
+    device time by kernel and the device's busy share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = rnn_model("event_rnn", torch.bfloat16)
+    cache = model.init_cache(B)
+    tok = torch.randint(0, EVENT_DIM, (B,), device=DEV,
+                        generator=torch.Generator(DEV).manual_seed(5))
+    for _ in range(warm):
+        logits, cache = model.decode_step(tok, cache)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = model.decode_step(tok, cache)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(prof)
+    busy_us = sum(r[0] for r in rows)
+    print(f"event_rnn decode profile: {steps} steps (decode_step + argmax, "
+          f"B={B}, bf16), wall {wall_us / steps:.1f} us/step under the "
+          f"profiler, device busy {busy_us / steps:.1f} us/step "
+          f"({100 * busy_us / wall_us:.1f}% of wall)")
+    for dev_us, count, key in sorted(rows, reverse=True)[:10]:
+        print(f"  {dev_us / steps:8.2f} us/step {count / steps:4.1f}x/step "
+              f"{key[:90]}")
+
+
+def gru_bound(b: int, in_dim: int, dtype) -> tuple:
+    """Least time of one GRU step at full width: the weights (rows of
+    their true width), biases, x and h read once, the new h written;
+    2 * b * 3H * (in_l + H) operations per layer."""
+    e = torch.finfo(dtype).bits // 8
+    hd, nl = RNN_HIDDEN, RNN_LAYERS
+    widths = [in_dim] + [hd] * (nl - 1)
+    w_elems = sum(3 * hd * (w + hd) for w in widths)
+    nbytes = (w_elems * e + 2 * nl * 3 * hd * 4 + b * in_dim * e
+              + 2 * nl * b * hd * e)
+    flops = sum(2 * b * 3 * hd * (w + hd) for w in widths)
+    return bound(nbytes, flops, dtype)
+
+
+def time_kernel_d(launches: int, err: float) -> dict:
+    """Kernel D in bf16 at EventMelodyRNN's shape (in 308) and
+    PerformanceRNN's (in 512), H 512, 3 layers, B 8 and B 1: device time
+    warm (weights in L2) and with L2 flushed before each call (weights
+    from device memory, what the bound counts); its plain version;
+    torch.nn.GRU (cuDNN) over one time step, the same function."""
+    dtype = torch.bfloat16
+    gen = torch.Generator().manual_seed(31)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEV)
+    res = {}
+    for family, in_dim in (("event_rnn", EVENT_DIM),
+                           ("performance_rnn", RNN_HIDDEN)):
+        for b in (B, 1):
+            x, h, w = gru_inputs(b, in_dim, RNN_HIDDEN, RNN_LAYERS, dtype,
+                                 gen)
+
+            def step():
+                return fused_gru_step(x, h, w)
+            warm = device_ms(step)
+            cold = device_ms(step, flush=flush)
+            bnd, by = gru_bound(b, in_dim, dtype)
+            res[(family, b)] = (warm, cold, bnd, by, x, h, w)
+            print(f"kernel D bf16 {family} in={in_dim} B={b}: warm "
+                  f"{warm:.5f} ms, L2 flushed {cold:.5f} ms; bound "
+                  f"{bnd:.5f} ms ({by}, weights from device memory)")
+    warm, cold, bnd, by, x, h, w = res[("event_rnn", B)]
+    plain_ms = device_ms(lambda: fused_gru_step_plain(x, h, w), iters=20)
+    library = {}
+    for name, ldt in (("bf16", dtype), ("f32", torch.float32)):
+        gru = torch.nn.GRU(EVENT_DIM, RNN_HIDDEN, RNN_LAYERS).to(DEV, ldt)
+        gru.flatten_parameters()   # one weight buffer, as cuDNN wants it
+        xs, h0 = x[None].to(ldt), h.to(ldt)
+        try:
+            with torch.no_grad():
+                library[name] = device_ms(lambda: gru(xs, h0))
+        except RuntimeError as e:      # a yardstick only; never on the path
+            print(f"torch.nn.GRU {name}: {e}")
+            library[name] = None
+    print(f"torch.nn.GRU (cuDNN) one step, in={EVENT_DIM} B={B} L="
+          f"{RNN_LAYERS}: bf16 {library['bf16']} ms, f32 {library['f32']} "
+          f"ms (warm)")
+    return {"name": "fused_gru_step", "route": "cuda",
+            "source": "musicgeneration_tpu_torch/csrc/fused_gru_decode.cu",
+            "replaces": "musicgeneration_tpu/ops/pallas_gru_decode.py:108",
+            "launches": launches, "max_abs_err": err, "ms": cold,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": library["bf16"], "ms_warm": warm,
+            "library_ms_f32": library["f32"],
+            "ms_b1": res[("event_rnn", 1)][1],
+            "ms_b1_warm": res[("event_rnn", 1)][0],
+            "bound_ms_b1": res[("event_rnn", 1)][2],
+            "ms_performance_rnn": res[("performance_rnn", B)][1],
+            "ms_performance_rnn_warm": res[("performance_rnn", B)][0],
+            "bound_ms_performance_rnn": res[("performance_rnn", B)][2],
+            "ms_performance_rnn_b1": res[("performance_rnn", 1)][1],
+            "ms_performance_rnn_b1_warm": res[("performance_rnn", 1)][0]}
 
 
 def write_corpus(tmp: str) -> str:
@@ -997,16 +1509,9 @@ def time_train_step(shards: str) -> dict:
             state, _ = step(state, x, y)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    groups, rows = {}, []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us <= 0:
-            continue
-        rows.append((dev_us, ev.count, ev.key))
-        g = kernel_group(ev.key)
+    rows, groups = device_rows(prof), {}
+    for dev_us, _, key in rows:
+        g = kernel_group(key)
         groups[g] = groups.get(g, 0.0) + dev_us
     busy = sum(groups.values())
     n = PROFILE_STEPS
@@ -1045,9 +1550,9 @@ def time_kernel_c(launches: int, err: float) -> dict:
     dout = torch.randn(q.shape, generator=gen).to(DEV, dtype)
     out, lse = fused_relative_attention(q, k, v, e, None, True,
                                         return_lse=True)
-    ms = cuda_ms(lambda: fused_relative_attention_bwd(q, k, v, e, None, True,
-                                                      out, lse, dout))
-    plain_ms = cuda_ms(lambda: fused_relative_attention_bwd_plain(
+    ms = device_ms(lambda: fused_relative_attention_bwd(q, k, v, e, None,
+                                                        True, out, lse, dout))
+    plain_ms = device_ms(lambda: fused_relative_attention_bwd_plain(
         q, k, v, e, None, True, out, lse, dout), iters=5)
     # yardstick: SDPA forward + backward, the relative bias (and causal
     # mask) as a grad-requiring attn_mask; building it and gathering dE
@@ -1065,7 +1570,7 @@ def time_kernel_c(launches: int, err: float) -> dict:
     def sdpa_fwd_bwd():
         torch.autograd.backward(f(ql, kl, vl, attn_mask=bias), dout)
 
-    library_ms = cuda_ms(sdpa_fwd_bwd)
+    library_ms = device_ms(sdpa_fwd_bwd)
     bh, l = B * H, L_TRAIN
     elems = bh * l * DH
     # read q, k, v, O, dO (bf16), lse (f32), E (f32); write dQ, dK, dV
@@ -1087,9 +1592,9 @@ def time_kernel_a(launches: int, err: float) -> dict:
     dtype = torch.bfloat16
     q, k, v, e, pad = attn_inputs(dtype, torch.Generator().manual_seed(3),
                                   True)
-    ms = cuda_ms(lambda: fused_relative_attention(q, k, v, e, pad))
-    plain_ms = cuda_ms(lambda: fused_relative_attention_plain(q, k, v, e, pad),
-                       iters=5)
+    ms = device_ms(lambda: fused_relative_attention(q, k, v, e, pad))
+    plain_ms = device_ms(
+        lambda: fused_relative_attention_plain(q, k, v, e, pad), iters=5)
     # yardstick: SDPA with the relative bias and both masks materialized
     # as attn_mask; building that mask is left out of the time
     t = torch.arange(L_PREFILL, device=DEV)
@@ -1101,7 +1606,7 @@ def time_kernel_a(launches: int, err: float) -> dict:
             + (t[None, :] > t[:, None]).float() * -1e9
             + pad[:, None, None, :] * -1e9).to(dtype)
     f = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: f(q, k, v, attn_mask=mask))
+    library_ms = device_ms(lambda: f(q, k, v, attn_mask=mask))
     bh, l = B * H, L_PREFILL
     nbytes = (3 * bh * l * DH * 2 + l * DH * 4 + B * l * 4
               + bh * l * DH * 2 + bh * l * 4)
@@ -1120,10 +1625,10 @@ def time_kernel_b(launches: int, err: float) -> dict:
     t = T_TIMED
     x, e_all, w_all, kc, vc = decode_inputs(model,
                                             torch.Generator().manual_seed(4))
-    ms = cuda_ms(lambda: fused_decode_step(x, t, e_all, w_all, kc, vc, H),
-                 iters=50)
-    plain_ms = cuda_ms(lambda: fused_decode_step_plain(x, t, e_all, w_all,
-                                                       kc, vc, H), iters=10)
+    ms = device_ms(lambda: fused_decode_step(x, t, e_all, w_all, kc, vc, H),
+                   iters=50)
+    plain_ms = device_ms(lambda: fused_decode_step_plain(x, t, e_all, w_all,
+                                                         kc, vc, H), iters=10)
     bound_ms, by = decode_bound(np.zeros(B, np.int64), t)
     return {"name": "fused_decode_step", "route": "cuda",
             "source": "musicgeneration_tpu_torch/csrc/fused_decode.cu",
@@ -1168,9 +1673,9 @@ def time_kernel_b_ragged(launches: int, err: float) -> dict:
         return fused_decode_step(x, t, e_all, w_all, kc, vc, H, start=start,
                                  start_min=floor)
 
-    ms0 = cuda_ms(lambda: step(0), iters=50)
-    ms = cuda_ms(lambda: step(smin), iters=50)
-    plain_ms = cuda_ms(lambda: fused_decode_step_plain(
+    ms0 = device_ms(lambda: step(0), iters=50)
+    ms = device_ms(lambda: step(smin), iters=50)
+    plain_ms = device_ms(lambda: fused_decode_step_plain(
         x, t, e_all, w_all, kc, vc, H, start=start, start_min=smin), iters=10)
     bound_ms, by = decode_bound(start.cpu().numpy(), t)
     full_ms, _ = decode_bound(np.zeros(B, np.int64), t)
@@ -1207,8 +1712,10 @@ def main() -> int:
     err_b = check_kernel_b()
     err_br = check_kernel_b_ragged()
     err_c = check_kernel_c()
+    err_d = check_kernel_d()
     e2e = end_to_end()
     served = serving(e2e["prime"])
+    rnn = rnn_paths(e2e["prime"])
     os.makedirs(OUT_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
         shards = write_corpus(tmp)
@@ -1224,9 +1731,12 @@ def main() -> int:
     row_c["launches_by_path"] = {"train": tr["C"]}
     row_br = time_kernel_b_ragged(served["B"], err_br)
     row_br["launches_by_path"] = {"serve": served["B"]}
+    row_d = time_kernel_d(sum(rnn["launches"].values()), err_d)
+    row_d["launches_by_path"] = rnn["launches"]
     profile_decode()
     profile_serving()
-    for r in (row_a, row_b, row_c, row_br):
+    profile_rnn_decode()
+    for r in (row_a, row_b, row_c, row_br, row_d):
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
         print(f"{r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms,"
@@ -1235,8 +1745,11 @@ def main() -> int:
     print(f"end to end: prefill {e2e['prefill_ms']:.3f} ms, decode "
           f"{e2e['tok_s']:.1f} tokens/s; train step {step_t['step_ms']:.3f} "
           f"ms ({step_t['tok_s']:.0f} tokens/s)")
+    for family in ("event_rnn", "performance_rnn"):
+        print(f"{family}: decode {rnn['tok_s'][family]:.1f} tokens/s (B={B}, "
+              f"bf16); serving: {rnn['serve'][family]}")
     print(gpu_line())
-    print(json.dumps({"kernels": [row_a, row_b, row_c, row_br]}))
+    print(json.dumps({"kernels": [row_a, row_b, row_c, row_br, row_d]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

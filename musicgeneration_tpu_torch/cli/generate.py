@@ -1,15 +1,27 @@
-"""Generate MIDI from a MusicTransformer checkpoint on the GPU.
+"""Generate MIDI from a MusicTransformer, EventMelodyRNN or PerformanceRNN
+checkpoint on the GPU.
 
     python -m musicgeneration_tpu_torch.cli.generate model.pth out.mid \\
         --prime prompt.mid --steps 512 --temperature 1.0 --topk 0
 
 The checkpoint is what ``python -m musicgeneration_tpu.cli.export_checkpoint
-runs/mt model.pth`` writes, or the port's own ``cli.train`` checkpoint
-directory (its newest ``step-<N>.pt``) or one file of it. The prime is
-tokenized with the MIDI-like codec, padded to a power-of-two bucket
-(>= 16) as the JAX CLI does, and the continuation is written through the
-same codec (ids >= the codec's dim, e.g. the pad id, are dropped). Runs on ``--device cuda`` by
-default; a missing GPU is an error, not a fallback.
+runs/x model.pth`` writes (the family is read off its state dict), or the
+port's own ``cli.train`` checkpoint directory (its newest ``step-<N>.pt``)
+or one file of it. The prime is tokenized with the MIDI-like codec and
+the continuation is written through the same codec (ids >= the codec's
+dim, e.g. the pad id, are dropped). A MusicTransformer prime is padded
+to a power-of-two bucket (>= 16) as the JAX CLI does; a GRU model takes
+its prime one token at a time, unpadded.
+
+The GRU families add ``--beam N`` (beam search; ``--stochastic-beam``
+for Gumbel-perturbed selection), and PerformanceRNN ``--control``
+(``'PITCH_HISTOGRAM;NOTE_DENSITY'``, e.g. ``'2,0,1,1,0,1,0,1,1,0,0,1;4'``
+or ``';3'`` for uniform pitches, repeated every step; or a
+``midilike_control`` ``.npz`` shard whose per-event control sequence
+drives every step, ``--control-index`` picking the sequence), a latent
+per batch row (``--init-zero`` for zeros) and a prime that starts with
+the primary event. Runs on ``--device cuda`` by default; a missing GPU
+is an error, not a fallback.
 """
 
 from __future__ import annotations
@@ -57,6 +69,108 @@ def bucket_prompt(prompt: np.ndarray, steps: int, max_seq: int,
                    constant_values=pad_id), p_true)
 
 
+def parse_control(spec: str, index: Optional[int], seed: int) -> np.ndarray:
+    """``--control`` -> [S, control_dim] (cli/generate.py:139-169 of the
+    JAX CLI): a ``.npz`` shard's per-event control sequence, else
+    'p1,...,p12;density' (an empty histogram is uniform), one control
+    repeated every step."""
+    from ..tokenizers.midilike import Control, ControlSeq
+
+    if os.path.isdir(spec):
+        raise SystemExit(
+            "--control with a corpus directory needs `cli.tokenize --scheme "
+            "midilike_control`, which comes with a later slice of the port; "
+            "pass one .npz shard of such a corpus, or a "
+            "'PITCH_HISTOGRAM;NOTE_DENSITY' spec")
+    if os.path.isfile(spec):
+        comp = load_compressed_controls(spec, index, seed)
+        return ControlSeq.recover_compressed_array(comp)
+    if ";" not in spec:
+        raise SystemExit(f"--control {spec!r} is neither a file nor a "
+                         "'PITCH_HISTOGRAM;NOTE_DENSITY' spec")
+    hist_s, dens_s = spec.split(";")
+    vals = [v for v in hist_s.split(",") if v]
+    if not vals:
+        hist = (np.ones(12) / 12).tolist()
+    else:
+        hist = np.array([float(v) for v in vals])
+        if hist.size != 12 or np.any(hist < 0):
+            raise SystemExit("--control pitch histogram needs 12 "
+                             "non-negative values")
+        hist = (hist / hist.sum() if hist.sum() else np.ones(12) / 12).tolist()
+    density = int(dens_s)
+    if density not in range(len(ControlSeq.note_density_bins)):
+        raise SystemExit(f"--control note density must be in "
+                         f"[0, {len(ControlSeq.note_density_bins)})")
+    return Control(hist, density).to_array()[None]
+
+
+def load_compressed_controls(path: str, index: Optional[int],
+                             seed: int) -> np.ndarray:
+    """Compressed [S, 13] controls of one sequence of a ``.npz`` shard
+    that ``cli.tokenize --scheme midilike_control`` wrote (a random one
+    unless ``index``, as the JAX CLI). The shard keeps them flat under
+    ``controls_data`` with element ``controls_offsets``
+    (``data/pipeline.py::_write_shard``); ``controls``, the key the JAX
+    CLI reads, is taken too."""
+    with np.load(path) as z:
+        key = next((k for k in ("controls_data", "controls") if k in z),
+                   None)
+        if key is None or "controls_offsets" not in z:
+            raise SystemExit(f"{path!r} has no control data (tokenize "
+                             "with --scheme midilike_control)")
+        offs = z["controls_offsets"]
+        i = (np.random.RandomState(seed).randint(0, len(offs) - 1)
+             if index is None else index)
+        return np.asarray(z[key][offs[i]:offs[i + 1]],
+                          np.uint8).reshape(-1, 13)
+
+
+def rnn_prime(model, prime: Optional[str], prime_len: int) -> List[int]:
+    """The GRU families' prompt: PerformanceRNN starts from its primary
+    event (reference generate.py:171-175), then the prime's tokens if
+    any; EventMelodyRNN takes the prime (default [24, 28, 31])."""
+    if model.family == "performance_rnn":
+        return [model.primary_event] + (
+            [] if prime is None else prime_tokens(prime, prime_len))
+    return prime_tokens(prime, prime_len)
+
+
+def beam_decode(model, prompt: torch.Tensor, steps: int, beam: int,
+                temperature: float, stochastic: bool,
+                generator: Optional[torch.Generator], controls=None,
+                cache0=None) -> torch.Tensor:
+    """(Stochastic) beam search for a GRU model (the JAX CLI's
+    ``_beam_decode``): prompt [1, P] runs through ``decode_step`` up to
+    its last token, the state is replicated per beam, and the search
+    starts from the last token. controls: optional [1 or S, 1, C]; the
+    search's step i takes control row P - 1 + i. Returns [steps]."""
+    from ..decode import beam_search, expand_controls, replicate_for_beams
+
+    p = prompt.shape[1]
+    cache = cache0 if cache0 is not None else model.init_cache(1)
+    ctrl = (None if controls is None else expand_controls(
+        torch.as_tensor(controls, dtype=torch.float32, device=model.device),
+        p + steps))
+    for i in range(p - 1):
+        args = () if ctrl is None else (ctrl[i],)
+        _, cache = model.decode_step(prompt[:, i], cache, *args)
+    cache = replicate_for_beams(cache, beam, batch_axis=1)
+    if ctrl is None:
+        step_fn, per_step = model.decode_step, None
+    else:
+        def step_fn(tokens, state, c):
+            return model.decode_step(tokens, state,
+                                     c.expand(tokens.shape[0], -1))
+        per_step = ctrl[p - 1:p - 1 + steps, 0]
+    seq = beam_search(step_fn, cache, prompt[:, -1], steps=steps,
+                      beam_size=beam, vocab_size=model.event_dim,
+                      generator=generator, temperature=temperature,
+                      stochastic=stochastic, state_batch_axis=1,
+                      per_step_inputs=per_step)
+    return seq[0]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -78,15 +192,116 @@ def main(argv=None) -> int:
                         "<stem>-000.mid ...")
     p.add_argument("--include-prime", action="store_true",
                    help="write prompt + continuation")
+    p.add_argument("--beam", type=int, default=0,
+                   help="beam size (GRU families; reference beam_search, "
+                        "Event_MelodyRNN/network.py:166-268)")
+    p.add_argument("--stochastic-beam", action="store_true",
+                   help="Gumbel-perturbed beam (reference "
+                        "stochastic_beam_search)")
+    p.add_argument("--control", default=None,
+                   help="PerformanceRNN conditioning: "
+                        "'PITCH_HISTOGRAM;NOTE_DENSITY' like "
+                        "'2,0,1,1,0,1,0,1,1,0,0,1;4' or ';3' (uniform "
+                        "pitches), or a midilike_control .npz shard")
+    p.add_argument("--control-index", type=int, default=None,
+                   help="sequence index inside a --control shard "
+                        "(default: random)")
+    p.add_argument("--init-zero", action="store_true",
+                   help="PerformanceRNN: zero latent instead of N(0, 1)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--dtype", default="float32", choices=sorted(_DTYPES))
     args = p.parse_args(argv)
 
     from ..convert import load_checkpoint
-    from ..decode import DecodeParams, SamplingParams, generate
 
     model = load_checkpoint(args.checkpoint, device=args.device,
                             dtype=_DTYPES[args.dtype])
+    if model.family != "music_transformer":
+        return _generate_rnn(model, args)
+    if args.beam > 1 or args.control is not None:
+        raise SystemExit("--beam and --control are for the GRU families "
+                         "(event_rnn / performance_rnn)")
+    return _generate_transformer(model, args)
+
+
+def _sampling(args):
+    from ..decode import SamplingParams
+    # temperature 0 = greedy; top_p 0 means off, as the JAX CLI
+    return SamplingParams(temperature=args.temperature, top_k=args.topk,
+                          top_p=args.topp if args.topp > 0 else 1.0,
+                          greedy=(args.temperature == 0.0))
+
+
+def _write_outputs(outs, prime, args) -> None:
+    nb = len(outs)
+    stem, ext = os.path.splitext(args.output)
+    for i, row in enumerate(outs):
+        tokens = (np.concatenate([np.asarray(prime, np.int64), row])
+                  if args.include_prime else row)
+        path = args.output if nb == 1 else f"{stem}-{i:03d}{ext or '.mid'}"
+        write_midi(tokens, path)
+        print(f"wrote {path} ({len(tokens)} tokens)")
+
+
+def _generate_rnn(model, args) -> int:
+    """EventMelodyRNN / PerformanceRNN: sampled or greedy generation
+    through ``decode.generate``, or (stochastic) beam search."""
+    from ..decode import DecodeParams, generate
+
+    controls = cache0 = None
+    if args.control is not None:
+        if model.family != "performance_rnn":
+            raise SystemExit("--control is PerformanceRNN conditioning "
+                             "(reference PerformanceRNN/generate.py)")
+        ctrl = parse_control(args.control, args.control_index, args.seed)
+        if args.steps <= 0:
+            # reference: the length defaults to the control sequence's
+            if ctrl.shape[0] <= 1:
+                raise SystemExit("--steps must be given with a single "
+                                 "control spec")
+            args.steps = int(ctrl.shape[0])
+        elif 1 < ctrl.shape[0] < args.steps:
+            raise SystemExit(
+                f"control sequence ({ctrl.shape[0]}) shorter than --steps "
+                f"({args.steps}) (reference expand_controls asserts "
+                "controls.shape[0] >= steps, network.py:97-104)")
+        controls = torch.from_numpy(ctrl.astype(np.float32))[:, None, :]
+    if args.steps <= 0:
+        raise SystemExit("--steps must be positive")
+    nb = max(args.batch, 1)
+    gen = torch.Generator(device=model.device).manual_seed(args.seed)
+    if model.family == "performance_rnn":
+        # each batch row gets its own latent (generate.py:356-375 of the
+        # JAX CLI), drawn on the CPU so one seed gives one latent anywhere
+        init = (torch.zeros(nb, model.init_dim) if args.init_zero else
+                torch.randn(nb, model.init_dim,
+                            generator=torch.Generator().manual_seed(
+                                args.seed + 7)))
+        cache0 = model.init_cache(nb, init=init)
+    prime = rnn_prime(model, args.prime, args.prime_len)
+    prompt = torch.tensor([prime] * nb, dtype=torch.long,
+                          device=model.device)
+    if controls is not None:
+        controls = controls.expand(-1, nb, -1)
+    if args.beam > 1:
+        if nb > 1:
+            raise SystemExit("--batch and --beam are mutually exclusive "
+                             "(a beam already explores N hypotheses)")
+        outs = beam_decode(model, prompt, args.steps, args.beam,
+                           args.temperature or 1.0, args.stochastic_beam,
+                           gen, controls, cache0)[None]
+    else:
+        dp = DecodeParams(max_len=len(prime) + args.steps, steps=args.steps,
+                          sampling=_sampling(args))
+        outs = generate(model, prompt, gen, dp, controls=controls,
+                        cache0=cache0)
+    _write_outputs(outs.cpu().numpy(), prime, args)
+    return 0
+
+
+def _generate_transformer(model, args) -> int:
+    from ..decode import DecodeParams, generate
+
     prime = prime_tokens(args.prime, args.prime_len)
     if len(prime) + args.steps > model.max_seq:
         raise SystemExit(
@@ -96,23 +311,12 @@ def main(argv=None) -> int:
     prompt = np.tile(np.asarray(prime, np.int64)[None], (nb, 1))
     prompt, prompt_len = bucket_prompt(prompt, args.steps, model.max_seq,
                                        model.pad_id)
-    # temperature 0 = greedy; top_p 0 means off, as the JAX CLI
-    sampling = SamplingParams(temperature=args.temperature,
-                              top_k=args.topk,
-                              top_p=args.topp if args.topp > 0 else 1.0,
-                              greedy=(args.temperature == 0.0))
     dp = DecodeParams(max_len=prompt.shape[1] + args.steps,
-                      steps=args.steps, sampling=sampling)
+                      steps=args.steps, sampling=_sampling(args))
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     outs = generate(model, torch.from_numpy(prompt), gen, dp,
                     prompt_len).cpu().numpy()
-    stem, ext = os.path.splitext(args.output)
-    for i, row in enumerate(outs):
-        tokens = (np.concatenate([np.asarray(prime, np.int64), row])
-                  if args.include_prime else row)
-        path = args.output if nb == 1 else f"{stem}-{i:03d}{ext or '.mid'}"
-        write_midi(tokens, path)
-        print(f"wrote {path} ({len(tokens)} tokens)")
+    _write_outputs(outs, prime, args)
     return 0
 
 

@@ -1,4 +1,4 @@
-"""Serve MusicTransformer generation requests with continuous batching.
+"""Serve generation requests with continuous batching.
 
     python -m musicgeneration_tpu_torch.cli.serve model.pth requests.jsonl \\
         outdir --slots 8 --seg-len 64 [--greedy | --temperature/--topk/--topp]
@@ -11,15 +11,31 @@
 tokens (500); `tokens` supplies raw ids. `id` defaults to the line
 number. Any sampling field on any line switches the engine to per-row
 sampling: each request decodes under its own params, defaulting to the
-CLI-level flags. {"window": 256} asks for sliding-context decoding:
-max_new is then not bounded by the serve window — the slot re-primes
-from its last `window` tokens whenever the context would exceed
-2*window, as generate_sliding does.)
+CLI-level flags.)
 
 The checkpoint is an exported `.pth` or a `cli.train` checkpoint (a
-directory or one `step-<N>.pt`), as for `cli.generate`. Each request's
-continuation is written to `outdir/<id>.mid` the moment it finalizes.
-Runs on `--device cuda` by default; a missing GPU is an error.
+directory or one `step-<N>.pt`), as for `cli.generate`; its family is
+read off the state dict. A MusicTransformer serves through the KV-cache
+engine (decode/serving.py), where {"window": 256} asks for
+sliding-context decoding: max_new is then not bounded by the serve
+window — the slot re-primes from its last `window` tokens whenever the
+context would exceed 2*window, as generate_sliding does. EventMelodyRNN
+and PerformanceRNN serve through the hidden-state engine
+(decode/serving_rnn.py), whose slots hold O(1) state and take any
+max_new (`window` is refused); their requests may also carry
+    {"init_seed": 3}          — an N(0, 1) latent from that seed, or
+    {"init": [..init_dim..]}  — an explicit latent (default: zeros),
+    {"control": [..C..] | [[..C..], ...]}
+                              — PerformanceRNN conditioning (a single
+                                control repeats; a sequence is consumed
+                                per step and holds its last row, at most
+                                --ctrl-window rows). PerformanceRNN
+                                prompts from `prime` or the default get
+                                the primary event prepended, as in
+                                cli.generate.
+Each request's continuation is written to `outdir/<id>.mid` the moment
+it finalizes. Runs on `--device cuda` by default; a missing GPU is an
+error.
 
 ONLINE mode: pass `-` as the request file to read JSONL from stdin as
 it arrives — requests join the live pool between decode segments, and
@@ -66,17 +82,16 @@ _SAMP_FIELDS = ("temperature", "top_k", "top_p", "greedy")
 
 
 def _load_model(args):
-    """The MusicTransformer of the checkpoint; another family exits."""
+    """The model of the checkpoint; a family the port does not run yet
+    exits."""
     from ..convert import load_checkpoint
     try:
         return load_checkpoint(args.checkpoint, device=args.device,
                                dtype=_DTYPES[args.dtype])
-    except KeyError as e:
+    except (KeyError, ValueError) as e:
         raise SystemExit(
-            f"{args.checkpoint} is not a MusicTransformer checkpoint "
-            f"(no {e} in its state dict): the port serves the "
-            "MusicTransformer only; the RNN families come with a later "
-            "slice of the port") from None
+            f"{args.checkpoint}: {e}; the other families (MelodyRNN, CP, "
+            "PoPMAG) come with a later slice of the port") from None
 
 
 def main(argv=None) -> int:
@@ -92,10 +107,14 @@ def main(argv=None) -> int:
     p.add_argument("--depth", type=int, default=2,
                    help="segments in flight (pipelined dispatch)")
     p.add_argument("--cache-len", type=int, default=None)
-    p.add_argument("--boost", type=int, default=1,
+    p.add_argument("--ctrl-window", type=int, default=256,
+                   help="per-slot control window (performance_rnn)")
+    p.add_argument("--boost", type=int, default=None,
                    help="fuse up to this many segments into one dispatch "
                         "when the queue is empty and every active "
-                        "request has that much left (1 disables)")
+                        "request has that much left (1 disables); "
+                        "default 8 for the GRU families, 1 for the "
+                        "MusicTransformer")
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--topk", type=int, default=0)
     p.add_argument("--topp", type=float, default=1.0)
@@ -114,11 +133,18 @@ def main(argv=None) -> int:
 
     from ..decode.sampling import SamplingParams
     from ..decode.serving import ContinuousBatcher
-    from .generate import prime_tokens, write_midi
+    from ..decode.serving_rnn import RNNContinuousBatcher
+    from .generate import prime_tokens, rnn_prime, write_midi
 
     model = _load_model(args)
-    print(f"loaded MusicTransformer ({model.num_layers} layers, d_model "
-          f"{model.d_model}, max_seq {model.max_seq}) on {model.device}")
+    is_rnn = model.family != "music_transformer"
+    if is_rnn:
+        print(f"loaded {model.family} ({model.num_layers} GRU layers, hidden "
+              f"{model.hidden_dim}, event_dim {model.event_dim}) on "
+              f"{model.device}")
+    else:
+        print(f"loaded MusicTransformer ({model.num_layers} layers, d_model "
+              f"{model.d_model}, max_seq {model.max_seq}) on {model.device}")
     sampling = SamplingParams(temperature=args.temperature,
                               top_k=args.topk, top_p=args.topp,
                               greedy=args.greedy)
@@ -131,6 +157,9 @@ def main(argv=None) -> int:
         name = str(req.get("id", ln))
         if "tokens" in req:
             toks = np.asarray(req["tokens"], np.int32)
+        elif is_rnn:
+            toks = np.asarray(rnn_prime(model, req.get("prime"),
+                                        req.get("prime_len", 500)), np.int32)
         else:
             toks = np.asarray(prime_tokens(req.get("prime"),
                                            req.get("prime_len", 500)),
@@ -142,18 +171,42 @@ def main(argv=None) -> int:
                 top_k=int(req.get("top_k", args.topk)),
                 top_p=float(req.get("top_p", args.topp)),
                 greedy=bool(req.get("greedy", args.greedy)))
-        extra = {"window": int(req["window"])} if "window" in req else {}
+        extra = {}
+        if "window" in req:
+            if is_rnn:
+                raise ValueError(
+                    "window= is a KV-cache sliding-context option; GRU "
+                    "slots hold O(1) state and serve any max_new — drop "
+                    "the field")
+            extra["window"] = int(req["window"])
+        if is_rnn:
+            if "init" in req:
+                extra["init"] = np.asarray(req["init"], np.float32)
+            elif "init_seed" in req:
+                extra["init"] = np.random.RandomState(
+                    int(req["init_seed"])).randn(
+                        model.init_dim).astype(np.float32)
+            if "control" in req:
+                extra["control"] = np.asarray(req["control"], np.float32)
         return (name, toks, int(req.get("max_new", args.max_new)),
                 req.get("eos"), sp, extra)
 
     def build_cb(per_row: bool, on_finalize):
+        gen = torch.Generator(device=model.device).manual_seed(args.seed)
+        if is_rnn:
+            return RNNContinuousBatcher(
+                model, slots=args.slots, sampling=sampling,
+                seg_len=args.seg_len, depth=args.depth,
+                ctrl_window=args.ctrl_window,
+                boost=args.boost if args.boost is not None else 8,
+                per_row_sampling=per_row, on_finalize=on_finalize,
+                generator=gen)
         return ContinuousBatcher(
             model, slots=args.slots, sampling=sampling,
             seg_len=args.seg_len, cache_len=args.cache_len,
-            depth=args.depth, per_row_sampling=per_row, boost=args.boost,
-            on_finalize=on_finalize,
-            generator=torch.Generator(device=model.device).manual_seed(
-                args.seed))
+            depth=args.depth, per_row_sampling=per_row,
+            boost=args.boost if args.boost is not None else 1,
+            on_finalize=on_finalize, generator=gen)
 
     if args.http is not None:
         return _serve_http(build_cb, parse_request, write_midi, args)
@@ -200,12 +253,13 @@ def main(argv=None) -> int:
     total = sum(len(v) for v in outs.values())
     st = cb.stats()
     lat = cb.latency_summary()
+    engine = (f"{st['prefill_steps']} prefill steps" if is_rnn else
+              f"{st['compactions']} compactions, {st['reprimes']} reprimes")
     print(f"generated {total} tokens in {dt:.3f}s "
           f"({total / dt:.1f} tok/s goodput); "
           f"{st['segments']} segments, {st['steps']} decode steps, "
           f"occupancy {st['occupancy']:.1%}, "
-          f"{st['admit_calls']} admission calls, "
-          f"{st['compactions']} compactions, {st['reprimes']} reprimes; "
+          f"{st['admit_calls']} admission calls, {engine}; "
           f"latency p50/p95 {lat['e2e_p50']:.3f}/{lat['e2e_p95']:.3f}s "
           f"(queue wait {lat['wait_p50']:.3f}/{lat['wait_p95']:.3f}s)")
     missing = set(rids) - set(outs)
@@ -588,8 +642,7 @@ def _serve_follow(build_cb, parse_request, write_midi, args) -> int:
     st = cb.stats()
     print(f"served {n_sub} requests in {dt:.1f}s; "
           f"{st['committed_tokens']} tokens, "
-          f"occupancy {st['occupancy']:.1%}, "
-          f"{st['compactions']} compactions", file=sys.stderr)
+          f"occupancy {st['occupancy']:.1%}", file=sys.stderr)
     return 0
 
 

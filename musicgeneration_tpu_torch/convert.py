@@ -1,17 +1,23 @@
-"""Carry JAX-trained MusicTransformer weights into the port.
+"""Carry JAX-trained weights into the port.
 
-``state_dict_from_jax`` maps the JAX package's flax parameter tree (nested
-dicts of numpy arrays, unrolled ``layer_i`` or stacked ``layers_scan``) to
-the port's ``state_dict``, under the reference names that
-``musicgeneration_tpu/cli/export_checkpoint.py:70-95`` writes. Flax
-kernels are [in, out]; torch Linear weights are [out, in].
+``state_dict_from_jax`` maps the JAX package's flax MusicTransformer
+parameter tree (nested dicts of numpy arrays, unrolled ``layer_i`` or
+stacked ``layers_scan``) to the port's ``state_dict``, under the
+reference names that ``musicgeneration_tpu/cli/export_checkpoint.py:
+70-95`` writes; ``event_rnn_state_dict_from_jax`` and
+``performance_rnn_state_dict_from_jax`` are the port's copies of
+``export_event_rnn`` / ``export_performance_rnn`` (:98-133). Flax
+kernels are [in, out] (a GRU's [in, 3H]); torch weights are [out, in].
 
-``load_checkpoint`` reads the ``.pth`` that
-``python -m musicgeneration_tpu.cli.export_checkpoint runs/mt model.pth``
-writes (``{'net': state_dict, 'optimizer': {}, 'epoch': step}``), or the
-port's own training checkpoints (``utils/checkpoint.py``), infers the
-model's shape from it and loads it with ``strict=True``. The port reads
-no flax msgpack.
+``load_checkpoint`` reads what ``python -m
+musicgeneration_tpu.cli.export_checkpoint runs/x model.pth`` writes for
+the three families the port runs: a MusicTransformer's ``{'net':
+state_dict, 'optimizer': {}, 'epoch': step}``, an EventMelodyRNN's bare
+state dict, a PerformanceRNN's session dict ``{'model_config',
+'model_state', 'model_optimizer_state'}``; or the port's own training
+checkpoints (``utils/checkpoint.py``). It infers the family and shape
+from the state dict and loads it with ``strict=True``. The port reads no
+flax msgpack.
 """
 
 from __future__ import annotations
@@ -23,7 +29,9 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from .models.event_rnn import EventMelodyRNN
 from .models.music_transformer import MusicTransformer
+from .models.performance_rnn import PerformanceRNN
 
 
 def _t(a) -> torch.Tensor:
@@ -51,15 +59,16 @@ def _unstack_layers(params: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def _lin(p, name: str, sd) -> None:
+    sd[f"{name}.weight"] = _t(p["kernel"]).T.contiguous()
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
 def state_dict_from_jax(params: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
     """Flax MusicTransformer params -> the port's (reference-named)
     state_dict of float32 tensors."""
     params = _unstack_layers(params)
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-
-    def lin(p, name):
-        sd[f"{name}.weight"] = _t(p["kernel"]).T.contiguous()
-        sd[f"{name}.bias"] = _t(p["bias"])
 
     def ln(p, name):
         sd[f"{name}.weight"] = _t(p["scale"])
@@ -71,22 +80,93 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> "OrderedDict[str, torch.Te
         lp = params[f"layer_{i}"]
         pre = f"Decoder.enc_layers.{i}"
         for name in ("Wq", "Wk", "Wv", "fc"):
-            lin(lp["rga"][name], f"{pre}.rga.{name}")
+            _lin(lp["rga"][name], f"{pre}.rga.{name}", sd)
         sd[f"{pre}.rga.E"] = _t(lp["rga"]["E"])
-        lin(lp["ffn_pre"], f"{pre}.FFN_pre")
-        lin(lp["ffn_suf"], f"{pre}.FFN_suf")
+        _lin(lp["ffn_pre"], f"{pre}.FFN_pre", sd)
+        _lin(lp["ffn_suf"], f"{pre}.FFN_suf", sd)
         ln(lp["ln1"], f"{pre}.layernorm1")
         ln(lp["ln2"], f"{pre}.layernorm2")
         i += 1
-    lin(params["fc"], "fc")
+    _lin(params["fc"], "fc", sd)
     return sd
 
 
+def _gru(p, name: str, sd) -> None:
+    """The JAX GRUStack's ``l{k}_*`` ([in, 3H]) -> nn.GRU names."""
+    k = 0
+    while f"l{k}_w_ih" in p:
+        sd[f"{name}.weight_ih_l{k}"] = _t(p[f"l{k}_w_ih"]).T.contiguous()
+        sd[f"{name}.weight_hh_l{k}"] = _t(p[f"l{k}_w_hh"]).T.contiguous()
+        sd[f"{name}.bias_ih_l{k}"] = _t(p[f"l{k}_b_ih"])
+        sd[f"{name}.bias_hh_l{k}"] = _t(p[f"l{k}_b_hh"])
+        k += 1
+
+
+def event_rnn_state_dict_from_jax(params: Mapping[str, Any]
+                                  ) -> "OrderedDict[str, torch.Tensor]":
+    """Flax EventMelodyRNN params -> the reference state dict."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    sd["event_embedding.weight"] = _t(params["event_embedding"]["embedding"])
+    _lin(params["inithid_fc"], "inithid_fc", sd)
+    _gru(params["gru"], "rnn", sd)
+    _lin(params["output_fc"], "output_fc", sd)
+    return sd
+
+
+def performance_rnn_state_dict_from_jax(params: Mapping[str, Any]
+                                        ) -> "OrderedDict[str, torch.Tensor]":
+    """Flax PerformanceRNN params -> the reference state dict (the
+    session dict's ``model_state``)."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    sd["event_embedding.weight"] = _t(params["event_embedding"]["embedding"])
+    _lin(params["inithid_fc"], "inithid_fc", sd)
+    _lin(params["concat_input_fc"], "concat_input_fc", sd)
+    _gru(params["gru"], "gru", sd)
+    _lin(params["output_fc"], "output_fc", sd)
+    return sd
+
+
+def _gru_layers(sd, name: str) -> int:
+    n = 0
+    while f"{name}.weight_ih_l{n}" in sd:
+        n += 1
+    return n
+
+
 def model_from_state_dict(sd: Mapping[str, torch.Tensor], device="cuda",
-                          dtype=torch.float32) -> MusicTransformer:
-    """Build a MusicTransformer whose shape is read off ``sd`` and load
-    it with ``strict=True``, for inference: its parameters are frozen
-    (``requires_grad_(True)`` to train it)."""
+                          dtype=torch.float32):
+    """Build the model whose family and shape are read off ``sd`` (a
+    MusicTransformer's, EventMelodyRNN's or PerformanceRNN's reference
+    state dict) and load it with ``strict=True``, for inference: its
+    parameters are frozen (``requires_grad_(True)`` to train it). Any
+    other state dict raises ValueError naming what it holds."""
+    if "rnn.weight_ih_l0" in sd and "event_embedding.weight" in sd:
+        model = EventMelodyRNN(
+            event_dim=sd["event_embedding.weight"].shape[0],
+            init_dim=sd["inithid_fc.weight"].shape[1],
+            hidden_dim=sd["rnn.weight_hh_l0"].shape[1],
+            num_layers=_gru_layers(sd, "rnn"), dtype=dtype, device=device)
+    elif "gru.weight_ih_l0" in sd and "concat_input_fc.weight" in sd:
+        event_dim = sd["event_embedding.weight"].shape[0]
+        model = PerformanceRNN(
+            event_dim=event_dim,
+            control_dim=sd["concat_input_fc.weight"].shape[1] - event_dim - 1,
+            init_dim=sd["inithid_fc.weight"].shape[1],
+            hidden_dim=sd["gru.weight_hh_l0"].shape[1],
+            num_layers=_gru_layers(sd, "gru"), dtype=dtype, device=device)
+    elif "Decoder.embedding.weight" in sd:
+        model = _music_transformer(sd, device, dtype)
+    else:
+        keys = sorted(sd)
+        raise ValueError(
+            "not a checkpoint of a family the port runs (MusicTransformer, "
+            "EventMelodyRNN, PerformanceRNN): its state dict holds "
+            f"{len(keys)} keys, {keys[:6]}")
+    model.load_state_dict(sd, strict=True)
+    return model.requires_grad_(False)
+
+
+def _music_transformer(sd, device, dtype) -> MusicTransformer:
     emb = sd["Decoder.embedding.weight"]
     num_layers = 0
     while f"Decoder.enc_layers.{num_layers}.rga.E" in sd:
@@ -97,16 +177,16 @@ def model_from_state_dict(sd: Mapping[str, torch.Tensor], device="cuda",
         max_seq=e.shape[0], head_dim=e.shape[1],
         ffn_dim=sd["Decoder.enc_layers.0.FFN_pre.weight"].shape[0],
         dtype=dtype, device=device)
-    model.load_state_dict(sd, strict=True)
-    return model.requires_grad_(False)
+    return model
 
 
-def load_checkpoint(path: str, device="cuda",
-                    dtype=torch.float32) -> MusicTransformer:
-    """A MusicTransformer from an exported ``.pth`` (``{'net':
-    state_dict, ...}``, or a bare state_dict), a training checkpoint
-    ``step-<N>.pt`` of ``cli.train`` (``{'model': state_dict, ...}``), or
-    a directory of those (its newest step)."""
+def load_checkpoint(path: str, device="cuda", dtype=torch.float32):
+    """A model from an exported ``.pth`` (``{'net': state_dict, ...}``,
+    a PerformanceRNN session dict ``{'model_state': state_dict, ...}``,
+    or a bare state dict), a training checkpoint ``step-<N>.pt`` of
+    ``cli.train`` (``{'model': state_dict, ...}``), or a directory of
+    those (its newest step). The family is read off the state dict
+    (``model_from_state_dict``; ``model.family`` names it)."""
     if os.path.isdir(path):
         from .utils.checkpoint import latest_checkpoint
         newest = latest_checkpoint(path)
@@ -114,5 +194,9 @@ def load_checkpoint(path: str, device="cuda",
             raise FileNotFoundError(f"no step-<N>.pt checkpoint in {path}")
         path = newest
     obj = torch.load(path, map_location="cpu", weights_only=True)
-    sd = obj.get("model", obj.get("net", obj))
+    sd = obj
+    for key in ("model", "net", "model_state"):
+        if isinstance(obj, Mapping) and isinstance(obj.get(key), Mapping):
+            sd = obj[key]
+            break
     return model_from_state_dict(sd, device=device, dtype=dtype)

@@ -1,11 +1,15 @@
-"""KV-cached autoregressive generation.
+"""Autoregressive generation.
 
 The port of ``musicgeneration_tpu/decode/engine.py``'s single-device
-path: one-pass prefill of the (optionally bucketed) prompt through the
-relative-attention kernel, then one fused decode step per generated
-token. JAX ran the loop as one compiled ``lax.scan``; here it is a
-Python loop that keeps tokens on the device and never syncs the host.
-``generate_sliding`` continues past max_seq by re-priming a window.
+path. A MusicTransformer takes a one-pass prefill of the (optionally
+bucketed) prompt through the relative-attention kernel, then one fused
+decode step per generated token. A model without ``prefill`` (the GRU
+families) feeds the prompt one token at a time through ``decode_step``
+(kernel D once per prompt token), optionally from a latent-seeded state
+``cache0`` and with PerformanceRNN ``controls``. JAX ran the loops as
+compiled ``lax.scan``s; here they are Python loops that keep tokens on
+the device and never sync the host. ``generate_sliding`` continues past
+max_seq by re-priming a window.
 """
 
 from __future__ import annotations
@@ -39,17 +43,39 @@ def align_cache_len(model, max_len: int) -> int:
     return aligned
 
 
+def expand_controls(controls: torch.Tensor, steps: int) -> torch.Tensor:
+    """[1 or S, B, C] -> [steps, B, C] (reference PerformanceRNN
+    network.py:97-104; engine.py:84-96): a single control repeats at
+    every step; a per-step sequence is cut to ``steps``, repeating its
+    last row where it is short (the engine consumes one extra trailing
+    control for the final, unused logits)."""
+    if controls.dim() != 3:
+        raise ValueError(f"controls must be [S, B, C]; got "
+                         f"{tuple(controls.shape)}")
+    s = controls.shape[0]
+    if s == 1:
+        return controls.expand(steps, *controls.shape[1:])
+    idx = torch.arange(steps, device=controls.device).clamp_max(s - 1)
+    return controls[idx]
+
+
 @torch.no_grad()
 def generate(model, prompt: torch.Tensor,
              generator: Optional[torch.Generator],
              decode_params: DecodeParams,
-             prompt_len: Optional[int] = None) -> torch.Tensor:
+             prompt_len: Optional[int] = None,
+             controls: Optional[torch.Tensor] = None,
+             cache0: Optional[dict] = None) -> torch.Tensor:
     """prompt: [B, P] int tokens -> generated tokens [B, steps] int64, on
     the model's device.
 
     generator: a ``torch.Generator`` on the model's device for sampled
     decoding (greedy ignores it). prompt_len: the true prompt length when
-    ``prompt`` is padded with ``model.pad_id`` to a bucket length."""
+    ``prompt`` is padded (with ``model.pad_id`` for a MusicTransformer)
+    to a bucket length. controls: optional [1 or S, B, C] PerformanceRNN
+    conditioning, one row per decode step (``expand_controls``): prompt
+    token i takes row i, generated token g row P + g. cache0: optional
+    start state (``model.init_cache(B, init=z)``) for the GRU families."""
     prompt = torch.as_tensor(prompt, dtype=torch.long, device=model.device)
     b, p = prompt.shape
     dp = decode_params
@@ -57,6 +83,13 @@ def generate(model, prompt: torch.Tensor,
         raise ValueError(
             f"prompt ({p}) + steps ({dp.steps}) exceeds cache max_len "
             f"({dp.max_len}); the KV cache would overflow")
+    if prompt_len is not None and not 0 < prompt_len <= p:
+        raise ValueError(f"prompt_len {prompt_len} outside (0, {p}]")
+    if not hasattr(model, "prefill"):
+        return _generate_stepwise(model, prompt, generator, dp, prompt_len,
+                                  controls, cache0)
+    if controls is not None or cache0 is not None:
+        raise ValueError("controls and cache0 are for the GRU families")
     if p + dp.steps > model.max_seq:
         raise ValueError(
             f"prompt ({p}) + steps ({dp.steps}) exceeds the model's "
@@ -67,8 +100,6 @@ def generate(model, prompt: torch.Tensor,
         logits, cache = model.prefill(prompt, cache_len)
         t = p
     else:
-        if not 0 < prompt_len <= p:
-            raise ValueError(f"prompt_len {prompt_len} outside (0, {p}]")
         logits, cache = model.prefill(prompt, cache_len,
                                       last_idx=prompt_len - 1)
         t = int(prompt_len)
@@ -79,6 +110,40 @@ def generate(model, prompt: torch.Tensor,
         out[:, i] = token
         logits, cache = model.decode_step(token, cache, t, stacked)
         t += 1
+    return out
+
+
+def _generate_stepwise(model, prompt, generator, dp: DecodeParams,
+                       prompt_len: Optional[int], controls, cache0):
+    """``generate`` for a model without ``prefill``: the prompt's tokens
+    through ``decode_step`` one at a time, then sample and step. The JAX
+    engine pads a prompt to a bucket and masks the padded steps only to
+    reuse one compiled scan; the state after the true prompt is the
+    same, so only ``prompt_len`` tokens run here."""
+    b, p = prompt.shape
+    n = p if prompt_len is None else int(prompt_len)
+    if controls is not None:
+        if prompt_len is not None and prompt_len != p:
+            raise ValueError("controls + a padded prompt are not supported "
+                             "together (control/step alignment assumes the "
+                             "unpadded prompt)")
+        controls = expand_controls(
+            torch.as_tensor(controls, dtype=torch.float32,
+                            device=model.device), p + dp.steps)
+    cache = cache0 if cache0 is not None else model.init_cache(b)
+
+    def step(token, cache, i):
+        if controls is None:
+            return model.decode_step(token, cache)
+        return model.decode_step(token, cache, controls[i])
+
+    for i in range(n):
+        logits, cache = step(prompt[:, i], cache, i)
+    out = torch.empty(b, dp.steps, dtype=torch.long, device=model.device)
+    for g in range(dp.steps):
+        token = sample_logits(logits, dp.sampling, generator)
+        out[:, g] = token
+        logits, cache = step(token, cache, n + g)
     return out
 
 

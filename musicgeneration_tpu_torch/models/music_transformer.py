@@ -166,6 +166,8 @@ class MusicTransformer(nn.Module):
     only and the kernels take no key_pad; prefill and decode always mask
     pads."""
 
+    family = "music_transformer"
+
     def __init__(self, vocab_size: int = 390, num_layers: int = 6,
                  d_model: int = 256, max_seq: int = 2048,
                  head_dim: int = 64, ffn_dim: int = 0,

@@ -23,7 +23,8 @@ from typing import Dict, Iterable
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-KERNELS = ("relative_attention", "relative_attention_bwd", "fused_decode")
+KERNELS = ("relative_attention", "relative_attention_bwd", "fused_decode",
+           "fused_gru_decode")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -12,7 +12,9 @@ reference (mg/model/utils/sequence.py):
 * decode replays events, clamping note length to MIN_NOTE_LENGTH
   (sequence.py:243-281).
 
-Conditioning controls (``ControlSeq``) come with PerformanceRNN.
+and PerformanceRNN's conditioning controls (``Control``, ``ControlSeq``,
+midilike.py:259-406 there): a 4-beat sliding window's pitch-class
+histogram and note density per event, 24 values per control.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from .. import vocab
 from ..midi import Instrument, MidiFile, Note, TempoChange
 
 SPEC = vocab.MIDILIKE
+CONTROL_SPEC = vocab.CONTROL
 
 DEFAULT_SAVING_PROGRAM = 1
 DEFAULT_LOADING_PROGRAMS = range(128)
@@ -200,6 +203,160 @@ class EventSeq:
         ranges = SPEC.feat_ranges()
         idxs = [ranges[ev.type].start + ev.value for ev in self.events]
         return np.array(idxs, dtype=SPEC.array_dtype())
+
+
+# ---------------------------------------------------------------------------
+# ControlSeq
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Control:
+    pitch_histogram: List[float]
+    note_density: int
+
+    def to_array(self) -> np.ndarray:
+        dens_dim = CONTROL_SPEC.feat_dims()["note_density"]
+        ndens = np.zeros(dens_dim)
+        ndens[self.note_density] = 1.0
+        return np.concatenate([ndens, np.array(self.pitch_histogram)], 0)
+
+
+class ControlSeq:
+    note_density_bins = vocab.NOTE_DENSITY_BINS
+    window_size = vocab.CONTROL_WINDOW_SIZE
+
+    def __init__(self, controls: List[Control]):
+        self.controls = list(controls)
+
+    @staticmethod
+    def from_event_seq(event_seq: EventSeq) -> "ControlSeq":
+        """Sliding 4-beat window pitch histogram + density
+        (reference: sequence.py:317-362)."""
+        events = event_seq.events
+        start, end = 0, 0
+        pitch_count = np.zeros(12)
+        note_count = 0.0
+        controls: List[Control] = []
+        base = EventSeq.pitch_range.start
+
+        for i, event in enumerate(events):
+            while start < i:
+                if events[start].type == "note_on":
+                    pitch_count[(events[start].value + base - 24) % 12] -= 1.0
+                    note_count -= 1.0
+                start += 1
+            while end < len(events):
+                if events[end].time - event.time > ControlSeq.window_size:
+                    break
+                if events[end].type == "note_on":
+                    pitch_count[(events[end].value + base - 24) % 12] += 1.0
+                    note_count += 1.0
+                end += 1
+            if note_count:
+                hist = (pitch_count / note_count).tolist()
+            else:
+                hist = (np.ones(12) / 12).tolist()
+            density = max(
+                int(np.searchsorted(ControlSeq.note_density_bins,
+                                    note_count, side="right")) - 1, 0)
+            controls.append(Control(hist, density))
+        return ControlSeq(controls)
+
+    @staticmethod
+    def compressed_from_ids(ids) -> np.ndarray:
+        """Vectorized `from_event_seq(EventSeq.from_array(ids))
+        .to_compressed_array()` — the corpus-pipeline hot path.
+
+        Event times are BY CONSTRUCTION the cumulative time_shift chain
+        (EventSeq.__init__, reference sequence.py:236-241), so controls
+        are a pure function of the token ids: prefix-sum the shift bins
+        for times (np.cumsum accumulates left-to-right, bit-identical to
+        the loop), prefix-sum one-hot pitch classes for the window
+        histograms, searchsorted + an exact diff-form fix-up for the
+        window ends. Byte-equal to the object path (tested)."""
+        ids = np.asarray(ids, dtype=np.int64)
+        n = len(ids)
+        if n == 0:
+            return np.zeros((0, 13), np.uint8)
+        ranges = SPEC.feat_ranges()
+        ts = ranges["time_shift"]
+        on = ranges["note_on"]
+        bins = EventSeq.time_shift_bins
+        shift = np.where((ids >= ts.start) & (ids < ts.stop),
+                         bins[np.clip(ids - ts.start, 0, len(bins) - 1)],
+                         0.0)
+        acc = np.cumsum(shift)
+        times = np.concatenate([[0.0], acc[:-1]])  # time BEFORE event i
+
+        window = float(ControlSeq.window_size)
+        end = np.searchsorted(times, times + window, side="right")
+        # exact loop semantics: first j with times[j] - times[i] > window
+        # (searchsorted compares times[j] > times[i]+window, which can
+        # differ by 1 ulp — fix up with the diff form, iterated to a
+        # FIXED POINT: each pass moves an end by at most one slot, and a
+        # long cumsum chain of tiny shifts can drift more than that)
+        for _ in range(64):
+            over = (end > np.arange(n)) & (times[np.minimum(end, n) - 1]
+                                           - times > window)
+            end = np.where(over, end - 1, end)
+            under = (end < n) & (times[np.minimum(end, n - 1)]
+                                 - times <= window)
+            under &= end < n
+            end = np.where(under, end + 1, end)
+            if not (over.any() or under.any()):
+                break
+        else:
+            # non-converged repair: fall back to the object-path oracle
+            # instead of emitting silently-diverged window ends
+            return ControlSeq.from_event_seq(
+                EventSeq.from_array(np.asarray(ids))
+            ).to_compressed_array()
+
+        on_mask = (ids >= on.start) & (ids < on.stop)
+        base = EventSeq.pitch_range.start
+        cls = (ids - on.start + base - 24) % 12
+        onehot = np.zeros((n, 12), np.int64)
+        onehot[np.nonzero(on_mask)[0], cls[on_mask]] = 1
+        cum = np.zeros((n + 1, 12), np.int64)
+        np.cumsum(onehot, axis=0, out=cum[1:])
+        idx = np.arange(n)
+        counts = cum[end] - cum[idx]          # [n, 12]
+        note_count = counts.sum(axis=1)
+        dens = np.searchsorted(ControlSeq.note_density_bins, note_count,
+                               side="right") - 1
+        dens = np.maximum(dens, 0).astype(np.uint8).reshape(-1, 1)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            hist = counts / note_count[:, None].astype(np.float64)
+        hist[note_count == 0] = 1.0 / 12
+        return np.concatenate([dens, (hist * 255).astype(np.uint8)], 1)
+
+    @staticmethod
+    def dim() -> int:
+        return CONTROL_SPEC.dim()
+
+    @staticmethod
+    def feat_dims():
+        return CONTROL_SPEC.feat_dims()
+
+    @staticmethod
+    def feat_ranges():
+        return CONTROL_SPEC.feat_ranges()
+
+    def to_compressed_array(self) -> np.ndarray:
+        ndens = np.array([c.note_density for c in self.controls],
+                         dtype=np.uint8).reshape(-1, 1)
+        phist = (np.array([c.pitch_histogram for c in self.controls]) * 255
+                 ).astype(np.uint8)
+        return np.concatenate([ndens, phist], 1)
+
+    @staticmethod
+    def recover_compressed_array(array: np.ndarray) -> np.ndarray:
+        dims = CONTROL_SPEC.feat_dims()
+        assert array.shape[1] == 1 + dims["pitch_histogram"]
+        ndens = np.zeros([array.shape[0], dims["note_density"]])
+        ndens[np.arange(array.shape[0]), array[:, 0]] = 1.0
+        phist = array[:, 1:].astype(np.float64) / 255
+        return np.concatenate([ndens, phist], 1)
 
 
 def extract_events(path: str) -> EventSeq:

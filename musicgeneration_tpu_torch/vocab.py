@@ -2,8 +2,10 @@
 
 A copy of the MIDI-like part of ``musicgeneration_tpu/vocab.py``
 (reference: mg/model/utils/sequence.py:14-36, 204-228): note_on 88 |
-note_off 88 | velocity 32 | time_shift 100 = 308 ids. The other schemes
-(REMI, MuMIDI, controls) come with the families that use them.
+note_off 88 | velocity 32 | time_shift 100 = 308 ids, and the
+PerformanceRNN control spec (``vocab.py:210-214``): pitch_histogram 12 |
+note_density 12 = 24. The other schemes (REMI, MuMIDI) come with the
+families that use them.
 """
 
 from __future__ import annotations
@@ -22,6 +24,9 @@ BEAT_LENGTH = 60 / DEFAULT_TEMPO
 DEFAULT_NOTE_LENGTH = BEAT_LENGTH * 2
 MIN_NOTE_LENGTH = BEAT_LENGTH / 2
 DEFAULT_VELOCITY = 64
+# PerformanceRNN controls (musicgeneration_tpu/vocab.py:44-45)
+CONTROL_WINDOW_SIZE = BEAT_LENGTH * 4
+NOTE_DENSITY_BINS = np.arange(12) * 3 + 1
 
 
 def midilike_velocity_bins() -> np.ndarray:
@@ -51,6 +56,9 @@ class VocabSpec:
     def dim(self) -> int:
         return self._dim
 
+    def feat_dims(self) -> "collections.OrderedDict[str, int]":
+        return collections.OrderedDict(self._feat_dims)
+
     def feat_ranges(self) -> "collections.OrderedDict[str, range]":
         return collections.OrderedDict(self._feat_ranges)
 
@@ -78,4 +86,12 @@ def _midilike_spec() -> VocabSpec:
     return VocabSpec(d)
 
 
+def _control_spec() -> VocabSpec:
+    d = collections.OrderedDict()
+    d["pitch_histogram"] = 12
+    d["note_density"] = len(NOTE_DENSITY_BINS)
+    return VocabSpec(d)
+
+
 MIDILIKE = _midilike_spec()
+CONTROL = _control_spec()

@@ -326,3 +326,215 @@ def test_serve_cuda_request_without_gpu_raises(monkeypatch, exported):
     reqs.write_text('{"tokens": [1, 2], "max_new": 4}\n')
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tserve.main([pth, str(reqs), str(tmp / "nogpu")])
+
+
+# ---------------------------------------------------------------- GRU families
+
+@pytest.fixture(scope="module")
+def rnn_exported(tmp_path_factory):
+    """A JAX EventMelodyRNN exported as a bare state dict and a JAX
+    PerformanceRNN exported as a session dict, both at event_dim 308 (the
+    MIDI-like codec), hidden 32, 2 layers."""
+    from musicgeneration_tpu.cli.export_checkpoint import (
+        export_event_rnn, export_performance_rnn)
+    from musicgeneration_tpu.models import EventMelodyRNN as JE
+    from musicgeneration_tpu.models import PerformanceRNN as JP
+    tmp = tmp_path_factory.mktemp("rnn_cli")
+    je = JE(event_dim=308, init_dim=8, hidden_dim=32, num_layers=2)
+    ep = jax.tree.map(np.asarray, je.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8)),
+        jnp.zeros((4, 1), jnp.int32))["params"])
+    jp = JP(event_dim=308, control_dim=24, init_dim=8, hidden_dim=32,
+            num_layers=2)
+    pp = jax.tree.map(np.asarray, jp.init(
+        jax.random.PRNGKey(1), jnp.zeros((1, 8)),
+        jnp.zeros((4, 1), jnp.int32))["params"])
+    ev, pf = tmp / "event.pth", tmp / "perf.pth"
+    torch.save(export_event_rnn(ep, {}, 1), ev)
+    torch.save(export_performance_rnn(pp, {}, 1), pf)
+    prime = tmp / "prime.mid"
+    simple_piano_midi(str(prime))
+    return je, ep, str(ev), str(pf), str(prime), tmp
+
+
+def _events(path):
+    """The MIDI file reads back (an untrained model's short continuation
+    may hold no note, so the event count may be 0)."""
+    assert os.path.getsize(path) > 22, path     # more than the headers
+    return len(midilike.extract_events(str(path)).events)
+
+
+def test_cli_event_rnn_greedy_matches_jax(rnn_exported):
+    """Greedy EventMelodyRNN generation from a prime MIDI writes the MIDI
+    the JAX engine's tokens give (its CLI pads the prime to a bucket of
+    64 with id 0 and masks the padded steps)."""
+    je, ep, ev, _, prime, tmp = rnn_exported
+    out = tmp / "ev_greedy.mid"
+    assert tcli.main([ev, str(out), "--prime", prime, "--prime-len", "40",
+                      "--steps", "24", "--temperature", "0",
+                      "--device", "cpu"]) == 0
+    toks = _prime_tokens("midilike", prime, 40)
+    padded = np.pad(np.asarray([toks], np.int32), ((0, 0), (0, 24)))
+    ref = jgenerate(je, ep, jnp.asarray(padded), jax.random.PRNGKey(0),
+                    JDecodeParams(max_len=64 + 24, steps=24,
+                                  sampling=JSampling(greedy=True)),
+                    None, None, jnp.int32(40))
+    ref_path = tmp / "ev_jax.mid"
+    _write_midi("midilike", np.asarray(ref[0]), str(ref_path))
+    assert out.read_bytes() == ref_path.read_bytes()
+
+
+@pytest.mark.parametrize("extra", [["--beam", "3"],
+                                   ["--beam", "3", "--stochastic-beam"],
+                                   ["--batch", "2", "--topk", "8",
+                                    "--dtype", "bfloat16"]])
+def test_cli_event_rnn_beam_and_batch(rnn_exported, extra):
+    _, _, ev, _, prime, tmp = rnn_exported
+    out = tmp / f"ev_{len(extra)}_{extra[-1].strip('-')}.mid"
+    assert tcli.main([ev, str(out), "--prime", prime, "--prime-len", "16",
+                      "--steps", "20", "--seed", "2", "--device", "cpu"]
+                     + extra) == 0
+    if "--batch" in extra:
+        for i in range(2):
+            _events(out.with_name(f"{out.stem}-{i:03d}.mid"))
+    else:
+        _events(out)
+
+
+def _control_shard(path):
+    """A midilike_control shard as data/pipeline.py::_write_shard writes
+    it: two sequences of compressed [S, 13] controls, flat."""
+    from musicgeneration_tpu.tokenizers.midilike import ControlSeq
+    rng = np.random.RandomState(0)
+    seqs = [ControlSeq.compressed_from_ids(rng.randint(0, 308, n))
+            for n in (40, 30)]
+    offs = np.zeros(3, np.int64)
+    np.cumsum([s.size for s in seqs], out=offs[1:])
+    np.savez(path, controls_data=np.concatenate([s.reshape(-1)
+                                                 for s in seqs]),
+             controls_offsets=offs)
+    return seqs
+
+
+def test_cli_performance_rnn_controls(rnn_exported):
+    """--control as a spec, as the uniform shorthand with a zero latent,
+    and as a .npz shard (``--steps 0`` takes the sequence's length);
+    beam search under a control; the JAX CLI's error cases."""
+    _, _, _, pf, _, tmp = rnn_exported
+    out = tmp / "perf.mid"
+    base = [pf, str(out), "--device", "cpu"]
+    assert tcli.main(base + ["--steps", "24", "--control",
+                             "1,0,1,0,1,1,0,1,0,1,0,1;3"]) == 0
+    _events(out)
+    assert tcli.main(base + ["--steps", "24", "--control", ";3",
+                             "--init-zero", "--batch", "2"]) == 0
+    _events(tmp / "perf-001.mid")
+    shard = tmp / "ctl.npz"
+    seqs = _control_shard(shard)
+    assert tcli.main(base + ["--steps", "0", "--control", str(shard),
+                             "--control-index", "1"]) == 0
+    _events(out)
+    assert tcli.main(base + ["--steps", "16", "--beam", "3", "--control",
+                             ";3"]) == 0
+    _events(out)
+    assert seqs[1].shape == (30, 13)
+    for bad in (["--steps", "8", "--control", "1,2;3"],
+                ["--steps", "8", "--control", ";99"],
+                ["--steps", "40", "--control", str(shard),
+                 "--control-index", "1"],        # 30 rows < 40 steps
+                ["--steps", "8", "--control", str(tmp)]):   # corpus dir
+        with pytest.raises(SystemExit):
+            tcli.main(base + bad)
+
+
+def test_cli_control_and_beam_refused_where_they_do_not_apply(
+        rnn_exported, exported):
+    _, _, ev, _, _, tmp = rnn_exported
+    with pytest.raises(SystemExit, match="PerformanceRNN"):
+        tcli.main([ev, str(tmp / "x.mid"), "--steps", "4", "--control",
+                   ";3", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        tcli.main([ev, str(tmp / "x.mid"), "--steps", "4", "--beam", "2",
+                   "--batch", "2", "--device", "cpu"])
+    _, _, pth, _, _ = exported
+    with pytest.raises(SystemExit, match="GRU families"):
+        tcli.main([pth, str(tmp / "x.mid"), "--steps", "4", "--beam", "2",
+                   "--device", "cpu"])
+
+
+def test_serve_event_rnn_file_mode(rnn_exported):
+    """cli.serve on an EventMelodyRNN: latents from init_seed, per-row
+    sampling, a prime MIDI; the greedy request without a latent writes
+    cli.generate's MIDI; every file reads back; window= is refused."""
+    _, _, ev, _, prime, tmp = rnn_exported
+    reqs = tmp / "ev_reqs.jsonl"
+    lines = [{"id": "a", "tokens": [24, 28, 31], "max_new": 24},
+             {"id": "b", "tokens": [10, 20, 30], "max_new": 40,
+              "init_seed": 3},
+             {"id": "c", "tokens": [5, 15], "max_new": 16, "init_seed": 4,
+              "temperature": 0.9, "top_k": 12, "greedy": False},
+             {"id": "d", "prime": prime, "prime_len": 20, "max_new": 16,
+              "eos": 307}]
+    reqs.write_text("".join(json.dumps(r) + "\n" for r in lines))
+    outdir = tmp / "ev_served"
+    assert tserve.main([ev, str(reqs), str(outdir), "--slots", "2",
+                        "--seg-len", "8", "--greedy", "--device",
+                        "cpu"]) == 0
+    ref = tmp / "ev_ref_a.mid"
+    assert tcli.main([ev, str(ref), "--steps", "24", "--temperature", "0",
+                      "--device", "cpu"]) == 0
+    assert (outdir / "a.mid").read_bytes() == ref.read_bytes()
+    for name in "abc":
+        _events(outdir / f"{name}.mid")
+    assert (outdir / "d.mid").exists()
+    bad = tmp / "ev_bad.jsonl"
+    bad.write_text(json.dumps({"tokens": [1], "max_new": 4,
+                               "window": 16}) + "\n")
+    with pytest.raises(SystemExit, match="window"):
+        tserve.main([ev, str(bad), str(tmp / "o"), "--device", "cpu"])
+
+
+def test_serve_performance_rnn_control_rows(rnn_exported):
+    """cli.serve on a PerformanceRNN: a repeated control, a per-step
+    control sequence, none; each greedy result equals ``generate`` from
+    the primary-event prompt with the request's latent and controls."""
+    from musicgeneration_tpu_torch.convert import load_checkpoint
+    from musicgeneration_tpu_torch.decode import (DecodeParams,
+                                                  SamplingParams, generate)
+    _, _, _, pf, _, tmp = rnn_exported
+    rng = np.random.RandomState(1)
+    ctrl_seq = rng.rand(20, 24).round(3).tolist()
+    lines = [{"id": "r", "max_new": 24, "init_seed": 1,
+              "control": rng.rand(24).round(3).tolist()},
+             {"id": "s", "max_new": 30, "init_seed": 2, "control": ctrl_seq},
+             {"id": "n", "max_new": 12}]
+    reqs = tmp / "pf_reqs.jsonl"
+    reqs.write_text("".join(json.dumps(r) + "\n" for r in lines))
+    outdir = tmp / "pf_served"
+    assert tserve.main([pf, str(reqs), str(outdir), "--slots", "2",
+                        "--seg-len", "8", "--greedy", "--ctrl-window", "32",
+                        "--device", "cpu"]) == 0
+    model = load_checkpoint(pf, device="cpu")
+    for r in lines:
+        init = (np.random.RandomState(r["init_seed"]).randn(8).astype(
+            np.float32) if "init_seed" in r else np.zeros(8, np.float32))
+        ctrl = None
+        if "control" in r:
+            c = np.asarray(r["control"], np.float32)
+            ctrl = torch.from_numpy(c[None] if c.ndim == 1 else c)[:, None]
+        toks = generate(model, torch.tensor([[model.primary_event]]), None,
+                        DecodeParams(max_len=1 + r["max_new"],
+                                     steps=r["max_new"],
+                                     sampling=SamplingParams(greedy=True)),
+                        controls=ctrl, cache0=model.init_cache(
+                            1, init=torch.from_numpy(init)[None]))
+        ref = tmp / f"pf_ref_{r['id']}.mid"
+        tcli.write_midi(toks[0].numpy(), str(ref))
+        assert (outdir / f"{r['id']}.mid").read_bytes() == ref.read_bytes()
+
+
+def test_import_check_covers_the_gru_modules():
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"ops/gru.py", "ops/fused_gru_decode.py", "decode/beam.py",
+            "decode/serving_rnn.py", "models/event_rnn.py",
+            "models/performance_rnn.py"} <= scanned
