@@ -1,14 +1,14 @@
-"""Drive the PyTorch/CUDA port's generation, serving and training paths
-on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's generation, speculative decoding,
+serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (the first failure raises and the exit code is non-zero):
 
 1. the card's name and power limit, torch and CUDA versions;
-2. build the four hand-written kernels from
-   ``musicgeneration_tpu_torch/csrc`` (one ``nvcc`` per source, started
-   together);
+2. build the hand-written kernels from ``musicgeneration_tpu_torch/csrc``
+   (one ``nvcc`` per source, started together; kernels B and E share
+   ``fused_decode.cu``) and print each kernel's ptxas line;
 3. kernel A (relative attention, prefill) against its plain PyTorch
    version at B8 H4 L512 dh64 max_seq 2048, f32 (TF32 off) and bf16,
    with and without key padding, non-causal, and at L 100 (a ragged
@@ -18,7 +18,12 @@ Phases (the first failure raises and the exit code is non-zero):
    f32 and bf16, and at B 1 and B 3; then kernel C (relative attention
    backward) against its plain backward at B8 H4 L512 dh64, max_seq 512
    (training) and 2048, f32 (TF32 off) and bf16, causal and not, with
-   and without key padding, and at L 100;
+   and without key padding, and at L 100; kernel E (the chunk-verify
+   forward) against its plain version at the flagship width, f32 and
+   bf16, B 1, 4 and 8, C 2, 5, 8 and 64, t 1, across the 128-row split,
+   755 and max_seq - C, the cache rows outside [t, t+C) unchanged; then
+   one kernel-E call against C chained kernel-B steps (outputs and
+   caches);
 5. end to end at full width (vocab 309, 6 layers, d 256, max_seq 2048,
    seeded random weights) through the user's entry point: the weights
    saved as a .pth, a prime MIDI written, ``cli.generate`` run on them
@@ -48,16 +53,30 @@ Phases (the first failure raises and the exit code is non-zero):
    f32 serving of 8 staggered requests through the kernels against the
    plain versions, token for token; HTTP mode on an ephemeral port
    (``/generate``, ``/stream``, ``/cancel``);
-8. timings at the main paths' shapes: each kernel, its plain version, its
+8. speculative decoding at full width through ``cli.generate --spec``
+   (bf16, the 500-token prime, 512 sampled tokens, ``--spec-chunk 8``):
+   lookup at B 1 and B 4, a seeded random 2-layer d_model 128 draft
+   checkpoint, the target as its own draft, with the launch counters of
+   kernels A, E and B read around each run and checked exactly (A: one
+   prefill of the target and one of the draft; E: 18 per verify forward;
+   B: 8 x 3 x the draft's layers per verify forward) and every MIDI read
+   back; greedy f32 speculation against greedy f32 ``decode.generate``
+   token for token (lookup at B 1 and B 3; self-draft, every proposal
+   accepted); B 1 bf16 greedy tokens/s of plain, lookup and self-draft
+   runs interleaved;
+9. timings at the main paths' shapes: each kernel, its plain version, its
    bound and, where one PyTorch call computes the same function,
    ``F.scaled_dot_product_attention`` with the relative bias materialized
    as ``attn_mask`` (forward for kernel A, forward + backward for kernel
    C); ragged kernel B at t 1023 with a live window of 256, under
    ``start_min`` 0 and min(start); the bf16 train step over 25 warm
    steps (CUDA events) and a ``torch.profiler`` window over 5 of them;
-   ``torch.profiler`` windows over 32 bf16 decode steps and over one
-   serving segment (device time by kernel, the device's busy share);
-9. the GRU families (EventMelodyRNN 308/32/512/3, PerformanceRNN with 24
+   ``torch.profiler`` windows over 32 bf16 decode steps, over one
+   serving segment and over 8 verify iterations of lookup and of
+   self-draft speculation (device time by kernel, the device's busy
+   share); kernel E at C 8, t 755, B 1 and B 8 beside its plain version,
+   its bound and one kernel-B step;
+10. the GRU families (EventMelodyRNN 308/32/512/3, PerformanceRNN with 24
    controls; seeded random weights saved in the reference formats, a
    bare state dict and a session dict): kernel D (the stacked-GRU step)
    against its plain version at in 308 and 512, H 512, 3 layers, B 1,
@@ -75,7 +94,7 @@ Phases (the first failure raises and the exit code is non-zero):
    at B 8 and B 1, its plain version, its bound, ``torch.nn.GRU``
    (cuDNN) over one step; a ``torch.profiler`` window over 32 decode
    steps;
-10. one JSON line of kernels, the card's line, and the final JSON line.
+11. one JSON line of kernels, the card's line, and the final JSON line.
 
 Imports nothing of JAX or of ``musicgeneration_tpu``. Needs one CUDA card.
 """
@@ -113,7 +132,7 @@ from musicgeneration_tpu_torch.cli.tokenize import (  # noqa: E402
     main as tokenize_main)
 from musicgeneration_tpu_torch.data.pipeline import TokenCorpus  # noqa: E402
 from musicgeneration_tpu_torch.decode import (  # noqa: E402
-    DecodeParams, SamplingParams, generate)
+    DecodeParams, SamplingParams, SpecParams, generate, generate_speculative)
 from musicgeneration_tpu_torch.decode.serving import (  # noqa: E402
     ContinuousBatcher)
 from musicgeneration_tpu_torch.decode.serving_rnn import (  # noqa: E402
@@ -127,7 +146,8 @@ from musicgeneration_tpu_torch.ops.fused_attention import (  # noqa: E402
     fused_relative_attention, fused_relative_attention_bwd,
     fused_relative_attention_bwd_plain, fused_relative_attention_plain)
 from musicgeneration_tpu_torch.ops.fused_decode import (  # noqa: E402
-    fused_decode_step, fused_decode_step_plain)
+    fused_decode_chunk, fused_decode_chunk_plain, fused_decode_step,
+    fused_decode_step_plain)
 from musicgeneration_tpu_torch.ops.fused_gru_decode import (  # noqa: E402
     fused_gru_step, fused_gru_step_plain, pack_gru_weights)
 from musicgeneration_tpu_torch.tokenizers import midilike  # noqa: E402
@@ -185,6 +205,13 @@ EVENT_DIM, INIT_DIM, RNN_HIDDEN, RNN_LAYERS, CONTROL_DIM = 308, 32, 512, 3, 24
 # value near 1 is 2^-7)
 TOL_D = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 RNN_PROMPT, RNN_STEPS, RNN_GREEDY, BEAM, RNN_BOOST = 500, 512, 64, 4, 8
+# speculative decoding: cli.generate --spec-chunk 8 on the 500-token
+# prime, 512 new tokens; the draft checkpoint is a seeded random 2-layer
+# d_model 128 MusicTransformer (dh 64, as kernel B takes)
+SPEC_CHUNK, DRAFT_LAYERS, DRAFT_D = 8, 2, 128
+SPEC_GREEDY, SPEC_ROUNDS, SPEC_PROFILE = 128, 3, 8
+# kernel E's check: C of 2-64 at B 1, 4, 8 (2 to 128 are taken)
+CHUNKS, CHUNK_BATCHES = (2, 5, 8, 64), (1, 4, 8)
 PERF_CONTROL = "2,0,1,1,0,1,0,1,1,0,0,1;4"
 # timing: 64 MB written between calls evicts the 50 MB L2
 FLUSH_BYTES = 64 << 20
@@ -381,10 +408,10 @@ def decode_inputs(model, gen, b: int = B):
     return x, e_all, w_all, kc, vc
 
 
-def untouched(a, b, t: int) -> bool:
-    """Every cache row but t is equal."""
+def untouched(a, b, t: int, c: int = 1) -> bool:
+    """Every cache row outside [t, t+c) is equal."""
     return (torch.equal(a[:, :, :t], b[:, :, :t])
-            and torch.equal(a[:, :, t + 1:], b[:, :, t + 1:]))
+            and torch.equal(a[:, :, t + c:], b[:, :, t + c:]))
 
 
 def check_kernel_b() -> float:
@@ -469,6 +496,102 @@ def check_kernel_b_ragged() -> float:
     return worst
 
 
+def chunk_inputs(model, stacked, gen, b: int, c: int, cache_len: int):
+    """x [b, c, d] and filled [L, b, cache_len, d] caches in the model
+    dtype, drawn on the card; the model's stacked weights."""
+    w_all, e_all = stacked
+    shape = (N_LAYERS, b, cache_len, D_MODEL)
+    kc = torch.randn(shape, generator=gen, device=DEV).to(model.dtype)
+    vc = torch.randn(shape, generator=gen, device=DEV).to(model.dtype)
+    x = torch.randn(b, c, D_MODEL, generator=gen, device=DEV).to(model.dtype)
+    return x, e_all, w_all, kc, vc
+
+
+def chunk_ts(c: int) -> tuple:
+    """t = 1; [t, t+c) across the 128-row split boundary; t 755 (the
+    main path's middle); t + c = max_seq."""
+    return (1, 128 - c // 2, T_TIMED, MAX_SEQ - c)
+
+
+def check_kernel_e() -> float:
+    """Kernel E against its plain version at the flagship width (cache
+    of max_seq rows) for B 1, 4, 8, C 2, 5, 8, 64 and four t each, f32
+    and bf16; every cache row outside [t, t+C) unchanged by both."""
+    gen = torch.Generator(DEV).manual_seed(14)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        model = flagship(dtype)
+        stacked = model.decode_weights()
+        for b in CHUNK_BATCHES:
+            for c in CHUNKS:
+                errs = []
+                for t in chunk_ts(c):
+                    x, e_all, w_all, kc, vc = chunk_inputs(model, stacked,
+                                                           gen, b, c, MAX_SEQ)
+                    kc0, vc0 = kc.clone(), vc.clone()
+                    kc2, vc2 = kc.clone(), vc.clone()
+                    out, kc, vc = fused_decode_chunk(x, t, e_all, w_all, kc,
+                                                     vc, H)
+                    ref, kc2, vc2 = fused_decode_chunk_plain(
+                        x, t, e_all, w_all, kc2, vc2, H)
+                    torch.cuda.synchronize()
+                    err = max((out.float() - ref.float()).abs().max().item(),
+                              (kc[:, :, t:t + c].float()
+                               - kc2[:, :, t:t + c].float()).abs().max()
+                              .item(),
+                              (vc[:, :, t:t + c].float()
+                               - vc2[:, :, t:t + c].float()).abs().max()
+                              .item())
+                    same = all(untouched(a, a0, t, c) for a, a0 in (
+                        (kc, kc0), (vc, vc0), (kc2, kc0), (vc2, vc0)))
+                    if not (err <= TOL_B[dtype] and same
+                            and bool(torch.isfinite(out.float()).all())):
+                        raise AssertionError(
+                            f"kernel E disagrees with its plain version: "
+                            f"{dtype} B={b} C={c} t={t} max_abs_err={err:.3e}"
+                            f" other rows untouched: {same}")
+                    errs.append((t, err))
+                    if dtype == torch.bfloat16:
+                        worst = max(worst, err)
+                print(f"kernel E {str(dtype):15s} B={b} C={c:2d} max_abs_err "
+                      + " ".join(f"t={t}:{e:.2e}" for t, e in errs)
+                      + f" tol={TOL_B[dtype]:.1e}; rows outside [t, t+C) "
+                      "untouched ok")
+    return worst
+
+
+def check_chunk_vs_steps() -> None:
+    """One kernel-E call against C chained kernel-B steps on the same
+    tokens and caches: the outputs and the written cache rows agree
+    (f32 1e-4, bf16 kernel B's tolerance)."""
+    gen = torch.Generator(DEV).manual_seed(15)
+    for dtype in (torch.float32, torch.bfloat16):
+        model = flagship(dtype)
+        stacked = model.decode_weights()
+        for b, c, t in ((B, SPEC_CHUNK, T_TIMED), (1, 64, 100), (4, 5, 126)):
+            x, e_all, w_all, kc, vc = chunk_inputs(model, stacked, gen, b, c,
+                                                   1024)
+            kb, vb = kc.clone(), vc.clone()
+            out, kc, vc = fused_decode_chunk(x, t, e_all, w_all, kc, vc, H)
+            steps = []
+            for i in range(c):
+                o, kb, vb = fused_decode_step(x[:, i].contiguous(), t + i,
+                                              e_all, w_all, kb, vb, H)
+                steps.append(o)
+            torch.cuda.synchronize()
+            err = max((out.float() - torch.stack(steps, 1).float()).abs()
+                      .max().item(),
+                      (kc.float() - kb.float()).abs().max().item(),
+                      (vc.float() - vb.float()).abs().max().item())
+            ok = err <= TOL_B[dtype]
+            print(f"kernel E vs {c} chained kernel-B steps {str(dtype):15s} "
+                  f"B={b} t={t}: max_abs_err {err:.3e} (outputs and caches) "
+                  f"tol={TOL_B[dtype]:.1e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("kernel E disagrees with chained kernel "
+                                     "B steps")
+
+
 def gru_inputs(b: int, in_dim: int, hidden: int, layers: int, dtype, gen):
     """x [b, in], h [L, b, H] in ``dtype`` and packed random GRU weights
     (torch's U(-1/sqrt(H), 1/sqrt(H)) init) on the card."""
@@ -520,17 +643,19 @@ def check_kernel_d() -> float:
 @contextlib.contextmanager
 def plain_path():
     """Run the models through the plain versions of the kernels: A and C
-    (attention), B (the MusicTransformer decode step), D (the GRU step)."""
+    (attention), B and E (the MusicTransformer decode step and chunk
+    forward), D (the GRU step)."""
     saved = (mt.fused_relative_attention, mt.fused_decode_step,
-             gru_mod.fused_gru_step)
+             mt.fused_decode_chunk, gru_mod.fused_gru_step)
     mt.fused_relative_attention = fused_relative_attention_plain
     mt.fused_decode_step = fused_decode_step_plain
+    mt.fused_decode_chunk = fused_decode_chunk_plain
     gru_mod.fused_gru_step = fused_gru_step_plain
     try:
         yield
     finally:
         (mt.fused_relative_attention, mt.fused_decode_step,
-         gru_mod.fused_gru_step) = saved
+         mt.fused_decode_chunk, gru_mod.fused_gru_step) = saved
 
 
 def write_inputs(model, tmp: str) -> tuple:
@@ -894,6 +1019,217 @@ def profile_serving() -> None:
     for dev_us, count, key in sorted(rows, reverse=True)[:10]:
         print(f"  {dev_us / SEG:8.2f} us/step {count / SEG:5.1f}x/step "
               f"{key[:90]}")
+
+
+def draft_model(dtype) -> mt.MusicTransformer:
+    """The draft of the speculative runs: seeded random weights."""
+    return mt.MusicTransformer(
+        vocab_size=VOCAB, num_layers=DRAFT_LAYERS, d_model=DRAFT_D,
+        max_seq=MAX_SEQ, dtype=dtype, device=DEV,
+        generator=torch.Generator().manual_seed(3))
+
+
+def reset_counts() -> None:
+    torch.cuda.synchronize()
+    fused_relative_attention.launches = 0
+    fused_decode_step.launches = 0
+    fused_decode_chunk.launches = 0
+
+
+def spec_cli(tmp: str, pth: str, prime_mid: str) -> dict:
+    """cli.generate --spec at full width in bf16 (the 500-token prime, 512
+    sampled tokens, --spec-chunk 8): lookup at B 1 and B 4, the draft
+    checkpoint, and the target as its own draft. The launch counters,
+    set to 0 before each run and read after it, must be exactly: kernel
+    A one prefill of the target (6) plus one of the draft; kernel E 18
+    per verify forward; kernel B C x 3 x the draft's layers per verify
+    forward (none for lookup). Every MIDI file is read back."""
+    dpth = os.path.join(tmp, "draft.pth")
+    torch.save({"net": draft_model(torch.float32).state_dict(),
+                "optimizer": {}, "epoch": 0}, dpth)
+    runs = {}
+    for name, spec, nb, l_draft in (("lookup_b1", "lookup", 1, 0),
+                                    ("lookup_b4", "lookup", 4, 0),
+                                    ("draft", dpth, 1, DRAFT_LAYERS),
+                                    ("self", pth, 1, N_LAYERS)):
+        out = os.path.join(tmp, f"spec-{name}.mid")
+        buf = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main([pth, out, "--prime", prime_mid, "--prime-len",
+                           str(PROMPT), "--steps", str(STEPS), "--batch",
+                           str(nb), "--dtype", "bfloat16", "--seed", "0",
+                           "--spec", spec, "--spec-chunk", str(SPEC_CHUNK)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = (fused_relative_attention.launches, fused_decode_chunk.launches,
+             fused_decode_step.launches)
+        text = buf.getvalue()
+        m = re.search(r"speculative: (\d+) verify forwards for (\d+) tokens "
+                      r"\(mean accepted ([\d.]+)/(\d+)\)", text)
+        iters = int(m.group(1))
+        want = (N_LAYERS + l_draft, iters * 3 * N_LAYERS,
+                iters * SPEC_CHUNK * 3 * l_draft)
+        paths = re.findall(r"wrote (\S+) \((\d+) tokens\)", text)
+        events = [len(midilike.extract_events(path).events)
+                  for path, _ in paths]
+        ok = (rc == 0 and n == want and len(paths) == nb
+              and all(int(k) == STEPS for _, k in paths) and min(events) > 0)
+        print(f"cli.generate --spec {name} bf16 (B={nb}, prime {PROMPT}, "
+              f"{STEPS} steps, chunk {SPEC_CHUNK}): {secs:.3f} s; "
+              f"{iters} verify forwards, mean accepted {m.group(3)}/"
+              f"{m.group(4)}; launches A={n[0]} E={n[1]} B={n[2]} (expected "
+              f"{want[0]}, {want[1]}, {want[2]}); {len(paths)} MIDI files "
+              f"read back as {min(events)}-{max(events)} events "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"cli.generate --spec {name} failed")
+        runs[name] = {"A": n[0], "E": n[1], "B": n[2], "iterations": iters,
+                      "mean_accepted": float(m.group(3)), "secs": secs}
+    return runs
+
+
+def spec_parity(prime: np.ndarray) -> None:
+    """Greedy f32 speculative decoding through kernels A, E (and B for
+    the draft) against greedy f32 ``decode.generate`` through kernels A
+    and B, token for token: lookup at B 1 and B 3, the target as its own
+    draft (every proposal accepted: mean_accepted == C - 1)."""
+    model32 = flagship(torch.float32)
+    sp = SpecParams(chunk=SPEC_CHUNK)
+    p3 = PROMPT - 20
+    for name, prompt, draft in (
+            ("lookup B=1", prime[None], None),
+            ("lookup B=3", np.stack([prime[i:i + p3] for i in (0, 10, 20)]),
+             None),
+            ("self-draft B=1", prime[None], model32)):
+        prompt = torch.from_numpy(np.ascontiguousarray(prompt)).to(DEV)
+        dp = DecodeParams(max_len=prompt.shape[1] + SPEC_GREEDY,
+                          steps=SPEC_GREEDY,
+                          sampling=SamplingParams(greedy=True))
+        want = generate(model32, prompt, None, dp)
+        got, stats = generate_speculative(model32, prompt, None, dp,
+                                          draft_model=draft, spec=sp,
+                                          with_stats=True)
+        same = torch.equal(got, want)
+        full = draft is None or stats["mean_accepted"] == SPEC_CHUNK - 1
+        print(f"speculative greedy f32 {name}, {SPEC_GREEDY} tokens: == "
+              f"generate: {same}; {stats['iterations']} verify forwards, "
+              f"mean accepted {stats['mean_accepted']:.3f}/{SPEC_CHUNK - 1}")
+        if not (same and full):
+            raise AssertionError(f"speculative {name}: tokens equal {same}, "
+                                 f"mean accepted {stats['mean_accepted']}")
+
+
+def spec_rates(prime: np.ndarray) -> dict:
+    """B 1 bf16 greedy, the 500-token prime and 512 new tokens: plain
+    ``generate``, lookup and self-draft speculation run interleaved in
+    SPEC_ROUNDS rounds; tokens/s over the whole call (prefill included)
+    on the host clock, the median and range of each."""
+    model = flagship(torch.bfloat16)
+    prompt = torch.from_numpy(prime[None]).to(DEV)
+    dp = DecodeParams(max_len=PROMPT + STEPS, steps=STEPS,
+                      sampling=SamplingParams(greedy=True))
+    sp = SpecParams(chunk=SPEC_CHUNK)
+    kinds = {"plain": lambda: (generate(model, prompt, None, dp), None),
+             "lookup": lambda: generate_speculative(
+                 model, prompt, None, dp, spec=sp, with_stats=True),
+             "self": lambda: generate_speculative(
+                 model, prompt, None, dp, draft_model=model, spec=sp,
+                 with_stats=True)}
+    rates = {k: [] for k in kinds}
+    stats = {}
+    for _ in range(SPEC_ROUNDS):
+        for k, fn in kinds.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks, st = fn()
+            torch.cuda.synchronize()
+            rates[k].append(STEPS / (time.perf_counter() - t0))
+            stats[k] = st
+            if toks.shape != (1, STEPS):
+                raise AssertionError(f"{k}: tokens {tuple(toks.shape)}")
+    out = {}
+    for k, r in rates.items():
+        med = float(np.median(r))
+        extra = ("" if stats[k] is None else
+                 f"; {stats[k]['iterations']} verify forwards, mean accepted "
+                 f"{stats[k]['mean_accepted']:.3f}/{SPEC_CHUNK - 1}")
+        print(f"B=1 bf16 greedy {k}: {med:.1f} tokens/s median of "
+              f"{SPEC_ROUNDS} interleaved runs [{min(r):.1f}-{max(r):.1f}] "
+              f"(prefill included, host clock){extra}")
+        out[k] = {"tok_s": med, "tok_s_range": [min(r), max(r)],
+                  **({} if stats[k] is None else
+                     {"iterations": stats[k]["iterations"],
+                      "mean_accepted": stats[k]["mean_accepted"]})}
+    return out
+
+
+def profile_spec(prime: np.ndarray, draft: bool, warm: int = 3) -> None:
+    """Where a verify iteration's time goes at B 1 (bf16, greedy, the
+    500-token prime): torch.profiler over SPEC_PROFILE iterations after
+    ``warm``, from the end of one verify forward to the end of another
+    (a wrapper around the model's decode_chunk starts and stops it);
+    device time by kernel and the device's busy share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = flagship(torch.bfloat16)
+    prompt = torch.from_numpy(prime[None]).to(DEV)
+    dp = DecodeParams(max_len=PROMPT + STEPS, steps=STEPS,
+                      sampling=SamplingParams(greedy=True))
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    verify = model.decode_chunk
+    calls, wall = [], []
+
+    def traced(*args):
+        out = verify(*args)
+        calls.append(1)
+        if len(calls) in (warm, warm + SPEC_PROFILE):
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter())
+            if len(calls) == warm:
+                prof.start()
+            else:
+                prof.stop()
+        return out
+
+    model.decode_chunk = traced
+    try:
+        generate_speculative(model, prompt, None, dp,
+                             draft_model=model if draft else None,
+                             spec=SpecParams(chunk=SPEC_CHUNK))
+    finally:
+        del model.decode_chunk
+    if len(wall) != 2:
+        raise AssertionError(f"only {len(calls)} verify forwards to profile")
+    wall_us = (wall[1] - wall[0]) * 1e6
+    rows = device_rows(prof)
+    busy_us = sum(r[0] for r in rows)
+    n = SPEC_PROFILE
+    name = "self-draft" if draft else "lookup"
+    print(f"speculative {name} profile: {n} verify iterations (B=1, bf16, "
+          f"chunk {SPEC_CHUNK}), wall {wall_us / n:.1f} us/iteration under "
+          f"the profiler, device busy {busy_us / n:.1f} us/iteration "
+          f"({100 * busy_us / wall_us:.1f}% of wall)")
+    for dev_us, count, key in sorted(rows, reverse=True)[:10]:
+        print(f"  {dev_us / n:8.2f} us/iteration {count / n:5.1f}x/iteration "
+              f"{key[:90]}")
+
+
+def speculative_paths(prime: np.ndarray) -> dict:
+    """Speculative decoding end to end: cli.generate --spec, greedy
+    parity with plain generation, interleaved B 1 rates."""
+    model = flagship(torch.bfloat16)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        pth, prime_mid = write_inputs(model, tmp)
+        runs = spec_cli(tmp, pth, prime_mid)
+    spec_parity(prime)
+    rates = spec_rates(prime)
+    return {"runs": runs, "rates": rates,
+            "A": sum(r["A"] for r in runs.values()),
+            "B": sum(r["B"] for r in runs.values()),
+            "E": sum(r["E"] for r in runs.values())}
 
 
 def rnn_model(family: str, dtype, seed: int = 0):
@@ -1692,6 +2028,59 @@ def time_kernel_b_ragged(launches: int, err: float) -> dict:
             "bound_ms_full_prefix": full_ms}
 
 
+def chunk_bound(b: int, c: int, t: int) -> tuple:
+    """Least time of one bf16 verify forward of c tokens at t: the six
+    layers' weights once, the K/V rows [0, t+c) of each batch row, the E
+    rows they need (t+c per layer), x read and the output written, the
+    chunk's K/V rows written; the qkv, output and FFN products of b*c
+    rows plus three 64-deep products per (query, live row) pair."""
+    d, f = D_MODEL, D_MODEL // 2
+    w_elems = N_LAYERS * (4 * d * d + 2 * d * f + 9 * d + f)
+    pairs = b * sum(t + i + 1 for i in range(c))
+    nbytes = (w_elems * 2 + 2 * N_LAYERS * b * (t + c) * d * 2
+              + N_LAYERS * (t + c) * DH * 4 + 2 * b * c * d * 2
+              + 2 * N_LAYERS * b * c * d * 2)
+    flops = N_LAYERS * (2 * b * c * (4 * d * d + 2 * d * f)
+                        + 3 * 2 * H * pairs * DH)
+    return bound(nbytes, flops, torch.bfloat16)
+
+
+def time_kernel_e(launches: int, err: float) -> dict:
+    """Kernel E in bf16 at the speculative path's shape (C 8, t 755, the
+    flagship width) at B 1 and B 8: device time, its plain version, its
+    bound; beside it one kernel-B step at the same B and t. No single
+    PyTorch call computes the chunk forward (library null)."""
+    model = flagship(torch.bfloat16)
+    stacked = model.decode_weights()
+    gen = torch.Generator(DEV).manual_seed(16)
+    t, c = T_TIMED, SPEC_CHUNK
+    res = {}
+    for b in (1, B):
+        x, e_all, w_all, kc, vc = chunk_inputs(model, stacked, gen, b, c,
+                                               1024)
+        ms = device_ms(lambda: fused_decode_chunk(x, t, e_all, w_all, kc, vc,
+                                                  H), iters=50)
+        plain_ms = device_ms(lambda: fused_decode_chunk_plain(
+            x, t, e_all, w_all, kc, vc, H), iters=10)
+        x1 = x[:, 0].contiguous()
+        step_ms = device_ms(lambda: fused_decode_step(x1, t, e_all, w_all, kc,
+                                                      vc, H), iters=50)
+        bnd, by = chunk_bound(b, c, t)
+        res[b] = (ms, plain_ms, step_ms, bnd, by)
+        print(f"kernel E bf16 B={b} C={c} t={t}: {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bnd:.5f} ms ({by}); one kernel-B "
+              f"step at B={b} t={t}: {step_ms:.4f} ms")
+    ms, plain_ms, step_ms, bnd, by = res[1]
+    return {"name": "fused_decode_chunk", "route": "cuda",
+            "source": "musicgeneration_tpu_torch/csrc/fused_decode.cu",
+            "replaces": "musicgeneration_tpu/ops/pallas_decode.py:1487",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None, "ms_b8": res[B][0], "plain_ms_b8": res[B][1],
+            "bound_ms_b8": res[B][3], "kernel_b_step_ms_b1": step_ms,
+            "kernel_b_step_ms_b8": res[B][2]}
+
+
 def main() -> int:
     print(gpu_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1704,17 +2093,24 @@ def main() -> int:
     print(f"built kernels in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{n} {s:.1f} s" for n, s in secs.items()))
     for name, log in cuda_build.BUILD_LOGS.items():
+        fn = ""
         for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = re.search(r"'\S*?\d([a-z_]+_kernel)", line)
+                fn = " " + entry.group(1) if entry else ""
             if "registers" in line or "spill" in line or "error" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+                print(f"  ptxas {name}{fn}: {line.strip()}")
 
     err_a = check_kernel_a()
     err_b = check_kernel_b()
     err_br = check_kernel_b_ragged()
     err_c = check_kernel_c()
     err_d = check_kernel_d()
+    err_e = check_kernel_e()
+    check_chunk_vs_steps()
     e2e = end_to_end()
     served = serving(e2e["prime"])
+    spec = speculative_paths(e2e["prime"])
     rnn = rnn_paths(e2e["prime"])
     os.makedirs(OUT_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
@@ -1722,21 +2118,31 @@ def main() -> int:
         train_parity(shards)
         tr = train_end_to_end(tmp, shards)
         step_t = time_train_step(shards)
-    row_a = time_kernel_a(e2e["A"] + tr["A"] + served["A"], err_a)
+    row_a = time_kernel_a(e2e["A"] + tr["A"] + served["A"] + spec["A"],
+                          err_a)
     row_a["launches_by_path"] = {"generate": e2e["A"], "train": tr["A"],
-                                 "serve": served["A"]}
-    row_b = time_kernel_b(e2e["B"] + served["B"], max(err_b, err_br))
-    row_b["launches_by_path"] = {"generate": e2e["B"], "serve": served["B"]}
+                                 "serve": served["A"],
+                                 "speculative": spec["A"]}
+    row_b = time_kernel_b(e2e["B"] + served["B"] + spec["B"],
+                          max(err_b, err_br))
+    row_b["launches_by_path"] = {"generate": e2e["B"], "serve": served["B"],
+                                 "speculative": spec["B"]}
     row_c = time_kernel_c(tr["C"], err_c)
     row_c["launches_by_path"] = {"train": tr["C"]}
     row_br = time_kernel_b_ragged(served["B"], err_br)
     row_br["launches_by_path"] = {"serve": served["B"]}
     row_d = time_kernel_d(sum(rnn["launches"].values()), err_d)
     row_d["launches_by_path"] = rnn["launches"]
+    row_e = time_kernel_e(spec["E"], err_e)
+    row_e["launches_by_path"] = {f"speculative_{k}": r["E"]
+                                 for k, r in spec["runs"].items()}
     profile_decode()
     profile_serving()
     profile_rnn_decode()
-    for r in (row_a, row_b, row_c, row_br, row_d):
+    profile_spec(e2e["prime"], draft=False)
+    profile_spec(e2e["prime"], draft=True)
+    rows = [row_a, row_b, row_c, row_br, row_d, row_e]
+    for r in rows:
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
         print(f"{r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms,"
@@ -1748,8 +2154,10 @@ def main() -> int:
     for family in ("event_rnn", "performance_rnn"):
         print(f"{family}: decode {rnn['tok_s'][family]:.1f} tokens/s (B={B}, "
               f"bf16); serving: {rnn['serve'][family]}")
+    print("speculative B=1 bf16 greedy, tokens/s (median): " + ", ".join(
+        f"{k} {r['tok_s']:.1f}" for k, r in spec["rates"].items()))
     print(gpu_line())
-    print(json.dumps({"kernels": [row_a, row_b, row_c, row_br, row_d]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

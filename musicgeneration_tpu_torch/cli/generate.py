@@ -11,7 +11,15 @@ or one file of it. The prime is tokenized with the MIDI-like codec and
 the continuation is written through the same codec (ids >= the codec's
 dim, e.g. the pad id, are dropped). A MusicTransformer prime is padded
 to a power-of-two bucket (>= 16) as the JAX CLI does; a GRU model takes
-its prime one token at a time, unpadded.
+its prime one token at a time, unpadded. A MusicTransformer continuation
+past max_seq (batch 1) re-primes a sliding window of max_seq // 2.
+
+A MusicTransformer adds ``--spec lookup|DRAFT``: speculative decoding,
+each verify forward checking ``--spec-chunk`` tokens (kernel E on the
+card), proposals from prompt lookup (``--spec-ngram``) or from a draft
+MusicTransformer of the same vocabulary (``DRAFT``: any checkpoint this
+CLI reads), loaded in the same ``--dtype`` on the same device. Greedy
+output equals plain decoding's; the prime is not bucketed.
 
 The GRU families add ``--beam N`` (beam search; ``--stochastic-beam``
 for Gumbel-perturbed selection), and PerformanceRNN ``--control``
@@ -208,6 +216,15 @@ def main(argv=None) -> int:
                         "(default: random)")
     p.add_argument("--init-zero", action="store_true",
                    help="PerformanceRNN: zero latent instead of N(0, 1)")
+    p.add_argument("--spec", default=None, metavar="lookup|DRAFT",
+                   help="speculative decoding (music_transformer): "
+                        "'lookup' proposes by n-gram prompt lookup, "
+                        "otherwise a draft music_transformer checkpoint "
+                        "proposes (decode/speculative.py)")
+    p.add_argument("--spec-chunk", type=int, default=8,
+                   help="tokens per speculative verify forward")
+    p.add_argument("--spec-ngram", type=int, default=3,
+                   help="lookup match length (--spec lookup)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--dtype", default="float32", choices=sorted(_DTYPES))
     args = p.parse_args(argv)
@@ -216,6 +233,12 @@ def main(argv=None) -> int:
 
     model = load_checkpoint(args.checkpoint, device=args.device,
                             dtype=_DTYPES[args.dtype])
+    if args.spec is not None:
+        if model.family != "music_transformer":
+            raise SystemExit("--spec needs a music_transformer target "
+                             "(chunked verify forward)")
+        if args.beam > 1:
+            raise SystemExit("--spec is mutually exclusive with --beam")
     if model.family != "music_transformer":
         return _generate_rnn(model, args)
     if args.beam > 1 or args.control is not None:
@@ -300,24 +323,67 @@ def _generate_rnn(model, args) -> int:
 
 
 def _generate_transformer(model, args) -> int:
-    from ..decode import DecodeParams, generate
+    from ..decode import DecodeParams, generate, generate_sliding
 
     prime = prime_tokens(args.prime, args.prime_len)
-    if len(prime) + args.steps > model.max_seq:
-        raise SystemExit(
-            f"prime ({len(prime)}) + steps ({args.steps}) exceeds max_seq "
-            f"({model.max_seq}); sliding-window generation is not ported")
     nb = max(args.batch, 1)
     prompt = np.tile(np.asarray(prime, np.int64)[None], (nb, 1))
-    prompt, prompt_len = bucket_prompt(prompt, args.steps, model.max_seq,
-                                       model.pad_id)
-    dp = DecodeParams(max_len=prompt.shape[1] + args.steps,
-                      steps=args.steps, sampling=_sampling(args))
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
-    outs = generate(model, torch.from_numpy(prompt), gen, dp,
-                    prompt_len).cpu().numpy()
+    if len(prime) + args.steps > model.max_seq:
+        if nb > 1 or args.spec is not None:
+            raise SystemExit(
+                f"prime ({len(prime)}) + steps ({args.steps}) exceeds "
+                f"max_seq ({model.max_seq}): --batch/--spec with a "
+                "continuation beyond max_seq (sliding window) is not "
+                "supported")
+        # the cache spans 2 * window rows, inside the relative table
+        outs = generate_sliding(model, prompt, gen, args.steps,
+                                window=max(model.max_seq // 2, 16),
+                                sampling=_sampling(args))
+    elif args.spec is not None:
+        outs = _speculative(model, prompt, gen, args)
+    else:
+        prompt, prompt_len = bucket_prompt(prompt, args.steps, model.max_seq,
+                                           model.pad_id)
+        dp = DecodeParams(max_len=prompt.shape[1] + args.steps,
+                          steps=args.steps, sampling=_sampling(args))
+        outs = generate(model, torch.from_numpy(prompt), gen, dp,
+                        prompt_len).cpu().numpy()
     _write_outputs(outs, prime, args)
     return 0
+
+
+def _speculative(model, prompt: np.ndarray, gen, args) -> np.ndarray:
+    """--spec: lookup proposals or a draft checkpoint's; prints the
+    acceptance line of the JAX CLI."""
+    from ..convert import load_checkpoint
+    from ..decode import DecodeParams, SpecParams, generate_speculative
+
+    draft = None
+    if args.spec != "lookup":
+        draft = load_checkpoint(args.spec, device=args.device,
+                                dtype=_DTYPES[args.dtype])
+        if draft.family != "music_transformer":
+            raise SystemExit("--spec draft must be a music_transformer "
+                             f"checkpoint (or 'lookup'); {args.spec} holds "
+                             f"a {draft.family}")
+        if draft.vocab_size != model.vocab_size:
+            raise SystemExit(
+                f"draft vocab ({draft.vocab_size}) != target vocab "
+                f"({model.vocab_size}): train the draft on the same scheme")
+    spec = SpecParams(chunk=args.spec_chunk, ngram=args.spec_ngram)
+    dp = DecodeParams(max_len=prompt.shape[1] + args.steps, steps=args.steps,
+                      sampling=_sampling(args))
+    try:
+        outs, stats = generate_speculative(
+            model, torch.from_numpy(prompt), gen, dp, draft_model=draft,
+            spec=spec, with_stats=True)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    print(f"speculative: {stats['iterations']} verify forwards for "
+          f"{args.steps} tokens (mean accepted {stats['mean_accepted']:.2f}/"
+          f"{spec.chunk - 1})")
+    return outs.cpu().numpy()
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
-// Kernel B: one decode step through every layer of a MusicTransformer.
+// Kernels B and E: the decode step and the chunk-verify forward through
+// every layer of a MusicTransformer.
 //
-// Replaces musicgeneration_tpu/ops/pallas_decode.py::fused_decode_step
-// (its pallas_calls over _kernel / _kernel_grid*, layer body _layer_step),
-// without int8 weights. Per layer, for each batch row b at absolute
-// position t:
+// Kernel B replaces musicgeneration_tpu/ops/pallas_decode.py::
+// fused_decode_step (its pallas_calls over _kernel / _kernel_grid*, layer
+// body _layer_step), without int8 weights. Per layer, for each batch row
+// b at absolute position t:
 //
 //   q, k, v = x W{q,k,v} + b            (rounded to the model dtype)
 //   cache[b, t] = k, v                   (written IN PLACE, see below)
@@ -20,8 +21,8 @@
 //
 // Design for this card: three launches per layer on the current stream.
 //  1. qkv_kernel: x W + b for q, k, v. Each block owns 32 output columns
-//     of 8 batch rows; its 8 warps split the input dimension and reduce
-//     through shared memory. k and v go straight into cache row t — the
+//     of 8 rows; its 8 warps split the input dimension and reduce
+//     through shared memory. k and v go straight into the cache — the
 //     port updates the KV cache in place (the JAX kernel returned the
 //     rows and the caller wrote them with dynamic_update_slice).
 //  2. attn_kernel: split-K over the live prefix [0, t] — one block per
@@ -37,8 +38,8 @@
 //     for one row writes the empty record (m = -inf, l = 0, acc = 0),
 //     which the combine weighs by exp(-inf) = 0; row t is always live,
 //     so every row has a finite maximum.
-//  3. tail_kernel: one block per batch row combines the partials, then
-//     fc, residual, LN1, FFN1, ReLU, FFN2, residual, LN2.
+//  3. tail_kernel: one block per row combines the partials, then fc,
+//     residual, LN1, FFN1, ReLU, FFN2, residual, LN2.
 //
 // What bounds it: at the flagship decode shape (6 layers, d 256, B 8,
 // t ~ 768 of a 1024-row bf16 cache) the step must read ~38 MB of KV
@@ -48,6 +49,35 @@
 // cache read over B*H*ceil((t+1)/128) blocks so it is not limited by
 // B*H blocks. At this size the 18 launches per step cost more than the
 // bytes; a CUDA graph or one persistent kernel is the next step.
+//
+// Kernel E replaces musicgeneration_tpu/ops/pallas_decode.py::
+// fused_decode_chunk (pallas_calls at :1487 and :1568 over _kernel_chunk
+// / _kernel_chunk_grid*, layer body _layer_chunk_step), without int8: the
+// verify forward of speculative decoding. C tokens at positions
+// t..t+C-1 of each batch row go through every layer at once; query c
+// attends the rows [0, t+c] with the bias q . E[max_seq - 1 - (t+c) + s].
+// It is C chained kernel-B steps computed together, with the same three
+// launches per layer over R = B*C rows:
+//  1. qkv_kernel over the R rows: row (b, c) writes its K/V into cache
+//     row t+c of batch b, so the chunk's own keys are just the last rows
+//     of the prefix (the TPU kernel's separate in-chunk causal pass and
+//     its lane-roll band extraction have no counterpart here).
+//  2. chunk_attn_kernel: one block per (b*h, 128-row split of [0, t+C)).
+//     The block stages the split's V rows, the C queries and the E window
+//     of 128 + C - 1 rows that covers every query's band in shared memory
+//     and keeps each thread's K row in registers: the cache and E are read
+//     once per chunk instead of once per query. It then runs kernel B's
+//     split body for each query in turn (query c masks s > t+c), with
+//     kernel B's reduction orders, and writes one (m, l, acc) record per
+//     query; a split wholly above t+c writes the empty record. Kernel E
+//     therefore gives the same bits as C kernel-B steps up to the row's
+//     extra empty records, which the combine weighs by 0.
+//  3. tail_kernel over the R rows.
+// What bounds it: the same bytes as one decode step plus the chunk's
+// rows (the weights and the prefix read once for C tokens), so on the
+// bytes it costs about one kernel-B step; the C queries per block are
+// a serial loop, the first thing to parallelise for speed. C runs from
+// 2 to 128 (no power-of-two or sublane constraint on this card).
 #include <math.h>
 
 #include "common.cuh"
@@ -61,21 +91,24 @@ constexpr int QKV_ROWS = 8;     // batch rows per qkv block
 constexpr int ATT_CHUNK = 128;  // cache positions per attention block
 constexpr int PART = DH + 2;    // partial record: m, l, acc[64]
 constexpr int TAIL_THREADS = 256;
+constexpr int MAX_CHUNK = 128;  // kernel E's largest C
 
+// R = B*C rows of x; row (b, c) is position t + c of batch row b (C = 1
+// for kernel B)
 template <typename T>
 __global__ void __launch_bounds__(QKV_WARPS * 32)
 qkv_kernel(const float* __restrict__ x, const T* __restrict__ wq,
            const T* __restrict__ bq, const T* __restrict__ wk,
            const T* __restrict__ bk, const T* __restrict__ wv,
            const T* __restrict__ bv, float* __restrict__ qout,
-           T* __restrict__ kc, T* __restrict__ vc, int B, int S, int d,
-           int t) {
+           T* __restrict__ kc, T* __restrict__ vc, int R, int C, int S,
+           int d, int t) {
   extern __shared__ float sm[];
   float* xs = sm;                    // [QKV_ROWS][d]
   float* red = sm + QKV_ROWS * d;    // [QKV_WARPS][QKV_ROWS][32]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = blockIdx.y * QKV_ROWS;
-  const int nr = min(QKV_ROWS, B - r0);
+  const int nr = min(QKV_ROWS, R - r0);
   for (int i = threadIdx.x; i < QKV_ROWS * d; i += blockDim.x) {
     const int r = i / d;
     xs[i] = r < nr ? x[(size_t)(r0 + r) * d + i % d] : 0.f;
@@ -109,12 +142,12 @@ qkv_kernel(const float* __restrict__ x, const T* __restrict__ wq,
   for (int w = 0; w < QKV_WARPS; ++w) y += red[(w * QKV_ROWS + r) * 32 + lane];
   const T* bias = which == 0 ? bq : (which == 1 ? bk : bv);
   y = mg::round_to<T>(y + mg::to_f(bias[o]));
-  const int b = r0 + r;
+  const int row = r0 + r, b = row / C, c = row % C;
   if (which == 0) {
-    qout[(size_t)b * d + o] = y;
+    qout[(size_t)row * d + o] = y;
   } else {
     T* cache = which == 1 ? kc : vc;
-    cache[((size_t)b * S + t) * d + o] = mg::from_f<T>(y);
+    cache[((size_t)b * S + t + c) * d + o] = mg::from_f<T>(y);
   }
 }
 
@@ -177,6 +210,89 @@ attn_kernel(const float* __restrict__ q, const T* __restrict__ kc,
   if (threadIdx.x == 0) {
     rec[0] = m;
     rec[1] = l;
+  }
+}
+
+// Dynamic shared memory of chunk_attn_kernel: the C queries, the split's
+// V rows and the E window (rows padded to DH + 1 floats, so the 32
+// threads of a warp, reading 32 consecutive rows, hit 32 banks).
+inline size_t chunk_attn_smem(int C) {
+  return ((size_t)C * DH + (size_t)ATT_CHUNK * DH
+          + (size_t)(ATT_CHUNK + C - 1) * (DH + 1)) * sizeof(float);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ATT_CHUNK)
+chunk_attn_kernel(const float* __restrict__ q, const T* __restrict__ kc,
+                  const T* __restrict__ vc, const float* __restrict__ e,
+                  float* __restrict__ part, int H, int C, int S, int d,
+                  int t, int max_seq, float scale) {
+  extern __shared__ float sm[];
+  float* qs = sm;                       // [C][DH]
+  float* vs = qs + C * DH;              // [ATT_CHUNK][DH]
+  float* es = vs + ATT_CHUNK * DH;      // [ATT_CHUNK + C - 1][DH + 1]
+  __shared__ float ps[ATT_CHUNK];
+  __shared__ float accs[2][DH];
+  __shared__ float red[ATT_CHUNK / 32];
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int c0 = blockIdx.y * ATT_CHUNK;
+  const int n_all = min(ATT_CHUNK, t + C - c0);  // split rows below t + C
+  // window row w holds E[e0 + w]; query c's row for position c0 + j is
+  // w = C - 1 - c + j. Rows past max_seq - 1 meet only masked positions.
+  const int e0 = max_seq - (t + C) + c0;
+  const int n_e = ATT_CHUNK + C - 1;
+  for (int i = threadIdx.x; i < C * DH; i += blockDim.x)
+    qs[i] = q[(size_t)(b * C + i / DH) * d + h * DH + i % DH];
+  for (int i = threadIdx.x; i < n_all * DH; i += blockDim.x)
+    vs[i] = mg::to_f(vc[((size_t)b * S + c0 + i / DH) * d + h * DH + i % DH]);
+  for (int i = threadIdx.x; i < n_e * DH; i += blockDim.x) {
+    const int row = e0 + i / DH;
+    es[(i / DH) * (DH + 1) + i % DH] =
+        row < max_seq ? e[(size_t)row * DH + i % DH] : 0.f;
+  }
+  float kreg[DH];
+  if ((int)threadIdx.x < n_all) {
+    const T* krow = kc + ((size_t)b * S + c0 + threadIdx.x) * d + h * DH;
+#pragma unroll
+    for (int c = 0; c < DH; c += 8) mg::load8(krow + c, kreg + c);
+  }
+  __syncthreads();
+
+  const int dim = threadIdx.x & (DH - 1), half = threadIdx.x / DH;
+  for (int c = 0; c < C; ++c) {
+    // kernel B's split body at position t + c (rows [c0, t + c] live)
+    const int n = min(ATT_CHUNK, t + c + 1 - c0);  // <= 0: split above it
+    float logit = -INFINITY;
+    if ((int)threadIdx.x < n) {
+      const float* qc = qs + c * DH;
+      const float* erow = es + (C - 1 - c + threadIdx.x) * (DH + 1);
+      float qk = 0.f, qe = 0.f;
+#pragma unroll
+      for (int i = 0; i < DH; ++i) {
+        qk = fmaf(qc[i], kreg[i], qk);
+        qe = fmaf(qc[i], erow[i], qe);
+      }
+      logit = (qk + qe) * scale;
+    }
+    const float m = mg::block_max(logit, red);
+    const float p = logit != -INFINITY ? expf(logit - m) : 0.f;
+    ps[threadIdx.x] = mg::round_to<T>(p);
+    const float l = mg::block_sum(p, red);  // its barriers also publish ps
+    const int j1 = min(n, (half + 1) * (ATT_CHUNK / 2));
+    float acc = 0.f;
+    for (int j = half * (ATT_CHUNK / 2); j < j1; ++j)
+      acc = fmaf(ps[j], vs[j * DH + dim], acc);
+    accs[half][dim] = acc;
+    __syncthreads();
+    float* rec = part + ((size_t)((b * C + c) * H + h) * gridDim.y
+                         + blockIdx.y) * PART;
+    if (threadIdx.x < DH)
+      rec[2 + threadIdx.x] = accs[0][threadIdx.x] + accs[1][threadIdx.x];
+    if (threadIdx.x == 0) {
+      rec[0] = m;
+      rec[1] = l;
+    }
+    // the next query rewrites ps and accs only after block_max's barriers
   }
 }
 
@@ -261,11 +377,14 @@ tail_kernel(const float* __restrict__ part, float* __restrict__ x,
   layer_norm<T>(z, ln2s, ln2b, x + (size_t)b * d, d, eps, red);
 }
 
+// The layer loop of both kernels: R = B*C rows (C = 1 for kernel B),
+// attention by attn_kernel (kernel B) or chunk_attn_kernel (kernel E).
 template <typename T>
-int launch_step(int num_layers, float* x, float* qbuf, float* part,
-                const void* const* w, void* kc, void* vc, const float* e,
-                const int* start, int B, int S, int d, int H, int f, int t,
-                int max_seq, int split0, cudaStream_t stream) {
+int launch_layers(bool chunk, int num_layers, float* x, float* qbuf,
+                  float* part, const void* const* w, void* kc, void* vc,
+                  const float* e, const int* start, int B, int C, int S,
+                  int d, int H, int f, int t, int max_seq, int split0,
+                  cudaStream_t stream) {
   // per-layer element strides of the stacked [L, ...] arrays, in
   // WEIGHT_KEYS order: wq bq wk bk wv bv wfc bfc ln1s ln1b w1 b1 w2 b2
   // ln2s ln2b
@@ -276,11 +395,20 @@ int launch_step(int num_layers, float* x, float* qbuf, float* part,
                              (size_t)f * d, (size_t)d, (size_t)d,
                              (size_t)d};
   const size_t cache_stride = (size_t)B * S * d;
-  // live splits: from start_min's split to the one holding t
-  const int nsplit = (t + 1 + ATT_CHUNK - 1) / ATT_CHUNK - split0;
+  const int R = B * C;
+  // live splits: from start_min's split to the one holding t + C - 1
+  const int nsplit = (t + C + ATT_CHUNK - 1) / ATT_CHUNK - split0;
   const size_t qkv_smem = (QKV_ROWS * d + QKV_WARPS * QKV_ROWS * 32) * sizeof(float);
   const size_t tail_smem = (3 * d + f + 32) * sizeof(float);
+  const size_t chunk_smem = chunk_attn_smem(C);
   const float scale = 1.0f / sqrtf((float)DH);
+  cudaError_t err;
+  if (chunk) {
+    err = cudaFuncSetAttribute(chunk_attn_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)chunk_smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   for (int li = 0; li < num_layers; ++li) {
     const T* p[16];
     for (int i = 0; i < 16; ++i)
@@ -289,16 +417,21 @@ int launch_step(int num_layers, float* x, float* qbuf, float* part,
     T* vl = static_cast<T*>(vc) + li * cache_stride;
     const float* el = e + (size_t)li * max_seq * DH;
 
-    qkv_kernel<T><<<dim3(3 * d / QKV_COLS, (B + QKV_ROWS - 1) / QKV_ROWS),
+    qkv_kernel<T><<<dim3(3 * d / QKV_COLS, (R + QKV_ROWS - 1) / QKV_ROWS),
                     QKV_WARPS * 32, qkv_smem, stream>>>(
-        x, p[0], p[1], p[2], p[3], p[4], p[5], qbuf, kl, vl, B, S, d, t);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    attn_kernel<T><<<dim3(B * H, nsplit), ATT_CHUNK, 0, stream>>>(
-        qbuf, kl, vl, el, start, part, H, S, d, t, max_seq, split0, scale);
+        x, p[0], p[1], p[2], p[3], p[4], p[5], qbuf, kl, vl, R, C, S, d, t);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    tail_kernel<T><<<B, TAIL_THREADS, tail_smem, stream>>>(
+    if (chunk)
+      chunk_attn_kernel<T><<<dim3(B * H, nsplit), ATT_CHUNK, chunk_smem,
+                             stream>>>(qbuf, kl, vl, el, part, H, C, S, d, t,
+                                       max_seq, scale);
+    else
+      attn_kernel<T><<<dim3(B * H, nsplit), ATT_CHUNK, 0, stream>>>(
+          qbuf, kl, vl, el, start, part, H, S, d, t, max_seq, split0, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    tail_kernel<T><<<R, TAIL_THREADS, tail_smem, stream>>>(
         part, x, p[6], p[7], p[8], p[9], p[10], p[11], p[12], p[13], p[14],
         p[15], H, d, f, nsplit, 1e-6f);
     err = cudaGetLastError();
@@ -307,9 +440,27 @@ int launch_step(int num_layers, float* x, float* qbuf, float* part,
   return 0;
 }
 
+int launch(bool chunk, int is_bf16, int num_layers, void* x, void* qbuf,
+           void* part, const void* const* w, void* kc, void* vc,
+           const void* e, const void* start, int B, int C, int S, int d,
+           int H, int f, int t, int max_seq, int split0, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* xf = static_cast<float*>(x);
+  float* qf = static_cast<float*>(qbuf);
+  float* pf = static_cast<float*>(part);
+  const float* ef = static_cast<const float*>(e);
+  const int* st = static_cast<const int*>(start);
+  if (is_bf16)
+    return launch_layers<__nv_bfloat16>(chunk, num_layers, xf, qf, pf, w, kc,
+                                        vc, ef, st, B, C, S, d, H, f, t,
+                                        max_seq, split0, s);
+  return launch_layers<float>(chunk, num_layers, xf, qf, pf, w, kc, vc, ef,
+                              st, B, C, S, d, H, f, t, max_seq, split0, s);
+}
+
 }  // namespace
 
-// x: [B, d] f32, the step's input, overwritten with its output;
+// Kernel B. x: [B, d] f32, the step's input, overwritten with its output;
 // qbuf: [B, d] f32 scratch; part: [B*H, ceil((t+1)/128) - split0, 66] f32
 // scratch; w: 16 pointers to the stacked [L, ...] weights (WEIGHT_KEYS
 // order, [in, out] matrices) in the model dtype; kc, vc: [L, B, S, d]
@@ -324,16 +475,23 @@ extern "C" int mg_decode_step(int is_bf16, int num_layers, void* x,
                               const void* start, int B, int S, int d, int H,
                               int f, int t, int max_seq, int split0,
                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* xf = static_cast<float*>(x);
-  float* qf = static_cast<float*>(qbuf);
-  float* pf = static_cast<float*>(part);
-  const float* ef = static_cast<const float*>(e);
-  const int* st = static_cast<const int*>(start);
-  if (is_bf16)
-    return launch_step<__nv_bfloat16>(num_layers, xf, qf, pf, w, kc, vc, ef,
-                                      st, B, S, d, H, f, t, max_seq, split0,
-                                      s);
-  return launch_step<float>(num_layers, xf, qf, pf, w, kc, vc, ef, st, B, S,
-                            d, H, f, t, max_seq, split0, s);
+  return launch(false, is_bf16, num_layers, x, qbuf, part, w, kc, vc, e,
+                start, B, 1, S, d, H, f, t, max_seq, split0, stream);
+}
+
+// Kernel E. x: [B*C, d] f32 (row b*C + c at position t + c), overwritten
+// with the output; qbuf: [B*C, d] f32 scratch; part: [B*C*H,
+// ceil((t+C)/128), 66] f32 scratch; w, e as for kernel B; kc, vc: [L, B,
+// S, d] caches, rows [t, t+C) written in place; 2 <= C <= 128 and
+// t + C <= min(S, max_seq), which the caller checks.
+// Returns the first non-zero CUDA error of the attribute call and the 3*L
+// launches.
+extern "C" int mg_decode_chunk(int is_bf16, int num_layers, void* x,
+                               void* qbuf, void* part, const void* const* w,
+                               void* kc, void* vc, const void* e, int B,
+                               int C, int S, int d, int H, int f, int t,
+                               int max_seq, void* stream) {
+  if (C < 2 || C > MAX_CHUNK) return (int)cudaErrorInvalidValue;
+  return launch(true, is_bf16, num_layers, x, qbuf, part, w, kc, vc, e,
+                nullptr, B, C, S, d, H, f, t, max_seq, 0, stream);
 }

@@ -15,9 +15,9 @@ checkpoint from ``musicgeneration_tpu.cli.export_checkpoint`` loads with
 
 Parameters are float32; ``dtype`` is the compute dtype (bfloat16 on the
 card), as the JAX module's ``dtype``. Full-sequence attention runs
-``ops.fused_attention`` (kernel A forward and kernel C backward on CUDA)
-and the decode step ``ops.fused_decode`` (kernel B on CUDA) over the
-fused cache layout ``[L, B, S, d]``.
+``ops.fused_attention`` (kernel A forward and kernel C backward on CUDA),
+the decode step and the speculative verify forward ``ops.fused_decode``
+(kernels B and E on CUDA) over the fused cache layout ``[L, B, S, d]``.
 
 ``forward`` is the training forward: it runs under autograd, with
 dropout at the JAX module's three sites (after embedding + position,
@@ -39,7 +39,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..ops.fused_attention import fused_relative_attention
-from ..ops.fused_decode import WEIGHT_KEYS, fused_decode_step
+from ..ops.fused_decode import (WEIGHT_KEYS, fused_decode_chunk,
+                                fused_decode_step)
 from ..ops.relative_attention import sinusoid_position_encoding
 
 Cache = Dict[str, torch.Tensor]
@@ -348,6 +349,26 @@ class MusicTransformer(nn.Module):
         h, cache["k"], cache["v"] = fused_decode_step(
             h, t, e_all, w_all, cache["k"], cache["v"], self.num_heads,
             start=start, start_min=start_min)
+        return _linear(self.fc, h, self.dtype).float(), cache
+
+    @torch.no_grad()
+    def decode_chunk(self, tokens: torch.Tensor, cache: Cache, t: int,
+                     stacked) -> Tuple[torch.Tensor, Cache]:
+        """Verify forward of speculative decoding: tokens [B, C] at
+        absolute positions t..t+C-1 -> (logits [B, C, vocab] f32, cache
+        with rows [t, t+C) written in place); logits[:, i] follow
+        tokens[:, i]. Position by position equal to C ``decode_step``
+        calls, in one pass over the weights and the cache (kernel E on
+        CUDA; the JAX module's decode_chunk, music_transformer.py:525-581).
+        Requires t + C <= max_seq."""
+        c = tokens.shape[1]
+        if t + c > self.max_seq:
+            raise ValueError(f"chunk rows [{t}, {t + c}) pass max_seq "
+                             f"({self.max_seq})")
+        w_all, e_all = stacked
+        h = self._embed(tokens) + self.pos_table[t:t + c].to(self.dtype)[None]
+        h, cache["k"], cache["v"] = fused_decode_chunk(
+            h, t, e_all, w_all, cache["k"], cache["v"], self.num_heads)
         return _linear(self.fc, h, self.dtype).float(), cache
 
 

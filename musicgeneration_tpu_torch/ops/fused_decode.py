@@ -1,10 +1,11 @@
-"""Fused decode step through every layer: kernel B and its plain version.
+"""Fused decode step and chunk-verify forward through every layer:
+kernels B and E and their plain versions.
 
-The counterpart of ``musicgeneration_tpu/ops/pallas_decode.py::
-fused_decode_step`` (no int8). ``fused_decode_step`` launches the
-hand-written CUDA kernel ``csrc/fused_decode.cu`` for CUDA tensors and
-runs ``fused_decode_step_plain`` for CPU tensors; there is no other
-path. Per layer both compute the qkv projections, attention over the
+``fused_decode_step`` is the counterpart of ``musicgeneration_tpu/ops/
+pallas_decode.py::fused_decode_step`` (no int8), ``fused_decode_chunk``
+of its ``fused_decode_chunk`` (no int8). Both launch hand-written CUDA
+kernels of ``csrc/fused_decode.cu`` for CUDA tensors and run their plain
+versions for CPU tensors; there is no other path. Per layer both compute the qkv projections, attention over the
 live cache rows [0, t] with the relative bias ``q . E[max_seq-1-t+s]``,
 the output projection, residual, post-LN, FFN (ReLU), residual, post-LN,
 rounding to the model dtype where ``_layer_step`` does
@@ -17,9 +18,15 @@ with ``start`` ([B] int32) row b attends only the rows [start[b], t];
 attends, so the kernel skips those rows' splits entirely. Any value in
 [0, min(start)] gives the same function.
 
-Both write the step's K/V rows into the caches IN PLACE at row t and
-return the same cache tensors; the JAX kernel returned the rows and its
-caller wrote them with ``dynamic_update_slice``.
+Chunk mode (the verify forward of speculative decoding): C tokens at
+positions t..t+C-1; query c attends the rows [0, t+c] with the bias
+``q . E[max_seq-1-(t+c)+s]``, which, once the chunk's rows are in the
+cache, is the Pallas kernel's "prefix [0, t) + in-chunk causal" split.
+It equals C chained decode steps.
+
+Both write the new K/V rows into the caches IN PLACE (rows [t, t+C))
+and return the same cache tensors; the JAX kernels returned the rows and
+their callers wrote them with ``dynamic_update_slice``.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import math
 import torch
 
 from . import cuda_build
+from .relative_attention import relative_chunk_bias
 
 # keys of the stacked weights dict, in kernel argument order; matrices
 # are [L, in, out] (the flax kernel layout), vectors [L, n]
@@ -39,6 +47,7 @@ WEIGHT_KEYS = ("wq", "bq", "wk", "bk", "wv", "bv", "wfc", "bfc",
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_D = 1024     # kernel B's shared-memory budget for d_model
 MAX_FFN = 4096   # and for the FFN width
+MAX_CHUNK = 128  # kernel E's largest chunk (its shared-memory budget)
 
 
 def _layer_norm(y, scale, bias, eps):
@@ -92,13 +101,61 @@ def fused_decode_step_plain(x, t: int, e_all, weights, k_cache, v_cache,
         p = torch.exp(logits - m)
         lsum = p.sum(-1, keepdim=True).clamp_min(1e-30)
         attn = torch.einsum("bhs,bshd->bhd", rnd(p, cd), vals) / lsum
-        attn = rnd(attn.reshape(b, d))
-        attn = rnd(attn @ w["wfc"] + w["bfc"])
-        out1 = rnd(_layer_norm(attn + h, w["ln1_scale"], w["ln1_bias"], eps))
-        hid = torch.relu(rnd(out1 @ w["ffn1_w"] + w["ffn1_b"]))
-        ffn = rnd(hid @ w["ffn2_w"] + w["ffn2_b"])
-        h = rnd(_layer_norm(out1 + ffn, w["ln2_scale"], w["ln2_bias"], eps))
+        h = _tail(attn.reshape(b, d), h, w, io, eps)
     return h.to(io), k_cache, v_cache
+
+
+def _tail(attn, h, w, io, eps):
+    """The layer after attention, with the TPU kernels' rounding points
+    (pallas_decode.py:343-356, :610-621): attn, the output projection,
+    out1, the FFN hidden layer and output and the layer output go to the
+    model dtype ``io``. attn, h: [R, d] f32."""
+    def rnd(y):
+        return y.to(io).float()
+
+    attn = rnd(rnd(attn) @ w["wfc"] + w["bfc"])
+    out1 = rnd(_layer_norm(attn + h, w["ln1_scale"], w["ln1_bias"], eps))
+    hid = torch.relu(rnd(out1 @ w["ffn1_w"] + w["ffn1_b"]))
+    ffn = rnd(hid @ w["ffn2_w"] + w["ffn2_b"])
+    return rnd(_layer_norm(out1 + ffn, w["ln2_scale"], w["ln2_bias"], eps))
+
+
+def fused_decode_chunk_plain(x, t: int, e_all, weights, k_cache, v_cache,
+                             num_heads: int, eps: float = 1e-6):
+    """Plain PyTorch version of kernel E (any device): x [B, C, d] at
+    positions t..t+C-1 -> (out [B, C, d], k_cache, v_cache), the caches
+    written in place at rows [t, t+C). Rounds where _layer_chunk_step
+    does (pallas_decode.py:434-442, :534, :599, :610-621)."""
+    b, c, d = x.shape
+    dh = d // num_heads
+    io, cd = x.dtype, k_cache.dtype
+    scale = 1.0 / math.sqrt(dh)
+    n = t + c
+    # [C, n]: query c (position t + c) sees the rows s <= t + c
+    future = (torch.arange(n, device=x.device)[None, :]
+              > t + torch.arange(c, device=x.device)[:, None])
+
+    def rnd(y, dtype=io):
+        return y.to(dtype).float()
+
+    h = x.reshape(b * c, d).float()
+    for li in range(k_cache.shape[0]):
+        w = {key: weights[key][li].float() for key in WEIGHT_KEYS}
+        q = rnd(h @ w["wq"] + w["bq"])
+        k_cache[li, :, t:n] = rnd(h @ w["wk"] + w["bk"]).view(b, c, d).to(cd)
+        v_cache[li, :, t:n] = rnd(h @ w["wv"] + w["bv"]).view(b, c, d).to(cd)
+        keys = k_cache[li, :, :n].float().view(b, n, num_heads, dh)
+        vals = v_cache[li, :, :n].float().view(b, n, num_heads, dh)
+        qh = q.view(b, c, num_heads, dh).transpose(1, 2)       # [B, H, C, dh]
+        logits = (torch.einsum("bhcd,bshd->bhcs", qh, keys)
+                  + relative_chunk_bias(qh, e_all[li], t, n)) * scale
+        logits = logits.masked_fill(future, float("-inf"))
+        m = logits.amax(-1, keepdim=True)
+        p = torch.exp(logits - m)
+        lsum = p.sum(-1, keepdim=True).clamp_min(1e-30)
+        attn = torch.einsum("bhcs,bshd->bhcd", rnd(p, cd), vals) / lsum
+        h = _tail(attn.transpose(1, 2).reshape(b * c, d), h, w, io, eps)
+    return h.view(b, c, d).to(io), k_cache, v_cache
 
 
 def _start_min(start, start_min, t: int) -> int:
@@ -161,6 +218,21 @@ def _check(x, t, e_all, weights, k_cache, v_cache, num_heads, start):
     return nl, b, s, d, dh, f
 
 
+def _kernel_inputs(kernel: str, x, dh: int, d: int, f: int, weights,
+                   tensors) -> ctypes.Array:
+    """Raise unless kernel B or E takes these inputs on the card; return
+    the 16 weight pointers in ``WEIGHT_KEYS`` order."""
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if dh != 64 or d > MAX_D or f > MAX_FFN:
+        raise ValueError(f"kernel {kernel} takes dh = 64, d <= {MAX_D} and "
+                         f"FFN <= {MAX_FFN}; got dh={dh}, d={d}, FFN={f}")
+    ws = [weights[k] for k in WEIGHT_KEYS]
+    if not all(y.is_contiguous() for y in tensors + ws):
+        raise ValueError(f"kernel {kernel} takes contiguous tensors")
+    return (ctypes.c_void_p * 16)(*[w.data_ptr() for w in ws])
+
+
 def fused_decode_step(x: torch.Tensor, t: int, e_all: torch.Tensor,
                       weights, k_cache: torch.Tensor, v_cache: torch.Tensor,
                       num_heads: int, start: torch.Tensor = None,
@@ -185,16 +257,9 @@ def fused_decode_step(x: torch.Tensor, t: int, e_all: torch.Tensor,
     if x.device.type == "cpu":
         return fused_decode_step_plain(x, t, e_all, weights, k_cache,
                                        v_cache, num_heads, start, start_min)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if dh != 64 or d > MAX_D or f > MAX_FFN:
-        raise ValueError(f"kernel B takes dh = 64, d <= {MAX_D} and FFN <= "
-                         f"{MAX_FFN}; got dh={dh}, d={d}, FFN={f}")
-    tensors = [x, e_all, k_cache, v_cache] + [weights[k] for k in WEIGHT_KEYS]
-    if start is not None:
-        tensors.append(start)
-    if not all(y.is_contiguous() for y in tensors):
-        raise ValueError("kernel B takes contiguous tensors")
+    wptrs = _kernel_inputs("B", x, dh, d, f, weights,
+                           [x, e_all, k_cache, v_cache]
+                           + ([] if start is None else [start]))
     lib = cuda_build.load("fused_decode")
     fn = lib.mg_decode_step
     fn.restype = ctypes.c_int
@@ -208,8 +273,6 @@ def fused_decode_step(x: torch.Tensor, t: int, e_all: torch.Tensor,
     nsplit = (t + 1 + 127) // 128 - split0
     part = torch.empty(b * num_heads, nsplit, dh + 2, dtype=torch.float32,
                        device=x.device)
-    wptrs = (ctypes.c_void_p * 16)(*[weights[k].data_ptr()
-                                     for k in WEIGHT_KEYS])
     rc = fn(int(x.dtype == torch.bfloat16), nl, xbuf.data_ptr(),
             qbuf.data_ptr(), part.data_ptr(), wptrs, k_cache.data_ptr(),
             v_cache.data_ptr(), e_all.data_ptr(),
@@ -223,3 +286,57 @@ def fused_decode_step(x: torch.Tensor, t: int, e_all: torch.Tensor,
 
 
 fused_decode_step.launches = 0
+
+
+def fused_decode_chunk(x: torch.Tensor, t: int, e_all: torch.Tensor,
+                       weights, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, num_heads: int):
+    """All-layers chunk-verify forward. x: [B, C, d] (embedded +
+    positioned, position t + c in row c) in the model dtype, 2 <= C <=
+    128; t: int, t + C <= the cache length and max_seq; the other
+    arguments as ``fused_decode_step``. Returns (out [B, C, d], k_cache,
+    v_cache), the caches written in place at rows [t, t+C).
+
+    CPU tensors run the plain version. CUDA tensors launch kernel E
+    (dh = 64, d <= 1024, FFN <= 4096, contiguous inputs) or raise; the
+    wrapper never reads a tensor back. ``launches`` counts its CUDA
+    launches: three per layer."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, C, d]; got {tuple(x.shape)}")
+    b, c, _ = x.shape
+    if not 2 <= c <= MAX_CHUNK:
+        raise ValueError(f"chunk C={c} outside [2, {MAX_CHUNK}]")
+    nl, b, s, d, dh, f = _check(x[:, 0], t, e_all, weights, k_cache,
+                                v_cache, num_heads, None)
+    if t + c > min(s, e_all.shape[1]):
+        raise ValueError(f"rows [{t}, {t + c}) pass the cache ({s}) or the "
+                         f"relative table ({e_all.shape[1]})")
+    if x.device.type == "cpu":
+        return fused_decode_chunk_plain(x, t, e_all, weights, k_cache,
+                                        v_cache, num_heads)
+    wptrs = _kernel_inputs("E", x, dh, d, f, weights,
+                           [e_all, k_cache, v_cache])
+    lib = cuda_build.load("fused_decode")
+    fn = lib.mg_decode_chunk
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.POINTER(ctypes.c_void_p)]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+    # the kernel overwrites its input rows
+    xbuf = x.reshape(b * c, d).to(torch.float32, copy=True)
+    qbuf = torch.empty(b * c, d, dtype=torch.float32, device=x.device)
+    nsplit = (t + c + 127) // 128
+    part = torch.empty(b * c * num_heads, nsplit, dh + 2,
+                       dtype=torch.float32, device=x.device)
+    rc = fn(int(x.dtype == torch.bfloat16), nl, xbuf.data_ptr(),
+            qbuf.data_ptr(), part.data_ptr(), wptrs, k_cache.data_ptr(),
+            v_cache.data_ptr(), e_all.data_ptr(), b, c, s, d, num_heads, f,
+            t, e_all.shape[1], torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"chunk-verify kernel failed: CUDA error {rc}")
+    fused_decode_chunk.launches += 3 * nl
+    return xbuf.view(b, c, d).to(x.dtype), k_cache, v_cache
+
+
+fused_decode_chunk.launches = 0

@@ -11,7 +11,8 @@ with the reference's semantics (mg/model/MusicTransformer/layers.py:42-133):
 
 These are the plain versions the hand-written kernels
 (``ops/fused_attention.py``, ``ops/fused_decode.py``) are held against.
-Identity used by the kernels and by ``relative_decode_bias``:
+Identity used by the kernels, ``relative_decode_bias`` and
+``relative_chunk_bias``:
 ``Srel[t, j] = q_t . E[max_seq - 1 - (t - j)]`` for ``j <= t``.
 """
 
@@ -92,6 +93,20 @@ def relative_decode_bias(q: torch.Tensor, e: torch.Tensor, t: int,
     j = torch.arange(kv_len, device=q.device)
     idx = torch.clamp(max_seq - 1 - t + j, 0, max_seq - 1)
     return torch.einsum("bhd,jd->bhj", q.float(), e[idx].float())
+
+
+def relative_chunk_bias(q: torch.Tensor, e: torch.Tensor, t: int,
+                        kv_len: int) -> torch.Tensor:
+    """Relative bias for a chunk of C queries at absolute positions
+    t..t+C-1 against a KV cache (the speculative verify forward).
+    q: [B, H, C, dh]; returns [B, H, C, kv_len] f32. Row c is
+    ``relative_decode_bias`` at position t+c; slots j > t+c read clipped
+    rows that the caller's causal mask hides."""
+    max_seq = e.shape[0]
+    ci = torch.arange(q.shape[2], device=q.device)[:, None]
+    j = torch.arange(kv_len, device=q.device)[None, :]
+    idx = torch.clamp(max_seq - 1 - t - ci + j, 0, max_seq - 1)  # [C, S]
+    return torch.einsum("bhcd,csd->bhcs", q.float(), e[idx].float())
 
 
 def causal_pad_mask(x: torch.Tensor, pad_id: int) -> torch.Tensor:

@@ -92,10 +92,94 @@ def test_cli_batch_bf16_include_prime(exported):
 
 
 def test_cli_refuses_past_max_seq(exported):
+    """Past max_seq (256) only batch 1 without --spec continues (by the
+    sliding window), as in the JAX CLI."""
     _, _, pth, _, tmp = exported
-    with pytest.raises(SystemExit):
-        tcli.main([pth, str(tmp / "x.mid"), "--steps", "300",
-                   "--device", "cpu"])
+    for extra in (["--batch", "2"], ["--spec", "lookup"]):
+        with pytest.raises(SystemExit, match="sliding window"):
+            tcli.main([pth, str(tmp / "x.mid"), "--steps", "300",
+                       "--device", "cpu"] + extra)
+
+
+def test_cli_sliding_past_max_seq_matches_jax(exported):
+    """A continuation past max_seq re-primes a window of max_seq // 2
+    (128): the greedy tokens of the JAX CLI's path (its engine's
+    generate_sliding, XLA decode) written as the same MIDI."""
+    from musicgeneration_tpu.decode.engine import (
+        generate_sliding as jgenerate_sliding)
+    _, params, pth, _, tmp = exported
+    out = tmp / "sliding.mid"
+    assert tcli.main([pth, str(out), "--steps", "300", "--temperature", "0",
+                      "--device", "cpu"]) == 0
+    jm = JMusicTransformer(vocab_size=309, num_layers=2, d_model=128,
+                           max_seq=256, dropout_rate=0.0)
+    ref = jgenerate_sliding(jm, params, jnp.asarray([[24, 28, 31]]),
+                            jax.random.PRNGKey(0), 300, window=128,
+                            sampling=JSampling(greedy=True))
+    assert ref.shape == (1, 300)
+    ref_path = tmp / "sliding_jax.mid"
+    _write_midi("midilike", np.asarray(ref[0]), str(ref_path))
+    assert out.read_bytes() == ref_path.read_bytes()
+
+
+def _save_mt(path, **kw):
+    """A seeded random port MusicTransformer saved as an exported .pth."""
+    m = MusicTransformer(device="cpu",
+                         generator=torch.Generator().manual_seed(5), **kw)
+    torch.save({"net": m.state_dict(), "optimizer": {}, "epoch": 0}, path)
+    return str(path)
+
+
+def test_cli_spec_lookup_and_draft(exported, capsys):
+    """--spec lookup and --spec <draft.pth> (a 1-layer d_model 64 draft)
+    write the greedy MIDI of plain decoding and print the acceptance
+    line; sampled --batch 2 writes both files."""
+    from musicgeneration_tpu_torch.convert import load_checkpoint
+    from musicgeneration_tpu_torch.decode import (DecodeParams,
+                                                  SamplingParams, generate)
+    _, _, pth, prime, tmp = exported
+    draft = _save_mt(tmp / "draft.pth", vocab_size=309, num_layers=1,
+                     d_model=64, max_seq=256)
+    base = [pth, "--prime", prime, "--prime-len", "40", "--steps", "24",
+            "--temperature", "0", "--spec-chunk", "5", "--device", "cpu"]
+    model = load_checkpoint(pth, device="cpu")
+    toks = tcli.prime_tokens(prime, 40)
+    want = generate(model, torch.tensor([toks]), None,
+                    DecodeParams(max_len=64, steps=24,
+                                 sampling=SamplingParams(greedy=True)))
+    ref = tmp / "spec_ref.mid"
+    tcli.write_midi(want[0].numpy(), str(ref))
+    for spec in ("lookup", draft):
+        out = tmp / f"spec_{len(spec)}.mid"
+        assert tcli.main([base[0], str(out), "--spec", spec] + base[1:]) == 0
+        assert out.read_bytes() == ref.read_bytes()
+        line = [x for x in capsys.readouterr().out.splitlines()
+                if x.startswith("speculative:")]
+        assert len(line) == 1 and "for 24 tokens (mean accepted" in line[0]
+        assert line[0].endswith("/4)")
+    out = tmp / "spec_batch.mid"
+    assert tcli.main([pth, str(out), "--spec", "lookup", "--batch", "2",
+                      "--steps", "16", "--topk", "8", "--seed", "1",
+                      "--dtype", "bfloat16", "--device", "cpu"]) == 0
+    for i in range(2):
+        assert (tmp / f"spec_batch-{i:03d}.mid").stat().st_size > 22
+
+
+def test_cli_spec_refusals(exported, rnn_exported):
+    """--spec with --beam, on a GRU target, and with a draft of another
+    family or vocabulary exits."""
+    _, _, pth, _, tmp = exported
+    _, _, ev, _, _, _ = rnn_exported
+    small_vocab = _save_mt(tmp / "draft48.pth", vocab_size=48, num_layers=1,
+                           d_model=64, max_seq=256)
+    for ckpt, extra, match in (
+            (pth, ["--spec", "lookup", "--beam", "2"], "mutually exclusive"),
+            (ev, ["--spec", "lookup"], "music_transformer target"),
+            (pth, ["--spec", ev], "must be a music_transformer"),
+            (pth, ["--spec", small_vocab], "vocab")):
+        with pytest.raises(SystemExit, match=match):
+            tcli.main([ckpt, str(tmp / "r.mid"), "--steps", "4",
+                       "--device", "cpu"] + extra)
 
 
 def _imports(path):
@@ -538,3 +622,9 @@ def test_import_check_covers_the_gru_modules():
     assert {"ops/gru.py", "ops/fused_gru_decode.py", "decode/beam.py",
             "decode/serving_rnn.py", "models/event_rnn.py",
             "models/performance_rnn.py"} <= scanned
+
+
+def test_import_check_covers_the_speculative_modules():
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"decode/speculative.py", "ops/fused_decode.py",
+            "ops/relative_attention.py", "cli/generate.py"} <= scanned
