@@ -1,5 +1,6 @@
-"""Drive the PyTorch/CUDA port's generation, speculative decoding,
-serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's generation (step by step and through
+the decode loop), speculative decoding, serving and training paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -23,7 +24,12 @@ Phases (the first failure raises and the exit code is non-zero):
    bf16, B 1, 4 and 8, C 2, 5, 8 and 64, t 1, across the 128-row split,
    755 and max_seq - C, the cache rows outside [t, t+C) unchanged; then
    one kernel-E call against C chained kernel-B steps (outputs and
-   caches);
+   caches); kernel F (the decode loop: C whole sampling-and-decode steps
+   per launch) against its plain version, greedy in f32 and bf16 at B 1
+   and 8, C 1, 7 and 32, t0 1, 127, 128, 755 and 2047 - C (a bf16 row may
+   part only at a near tie, which is printed), and sampled in f32 with
+   fixed seeds (T 1; T 0.9 top-k 20; top-p 0.9), the cache rows outside
+   [t0, t0+C) unchanged;
 5. end to end at full width (vocab 309, 6 layers, d 256, max_seq 2048,
    seeded random weights) through the user's entry point: the weights
    saved as a .pth, a prime MIDI written, ``cli.generate`` run on them
@@ -31,7 +37,14 @@ Phases (the first failure raises and the exit code is non-zero):
    8 MIDI files written and read back) with the launch counters of both
    kernels read around it; the same generation timed through
    ``decode.generate``; then greedy in f32 for 64 tokens, where the
-   kernel path's tokens must equal the plain path's;
+   kernel path's tokens must equal the plain path's; the decode loop:
+   kernel F's sampler alone against the plain sampler bit for bit (V 309
+   with ties, V 384 padded, V 4096), chi2 < 52 of 64 x 64 first-token
+   draws through ``decode.generate(use_loop_kernel=True)`` in three
+   modes, the same generation as above through the loop (exactly 6 A,
+   16 F and 0 B launches), greedy f32 loop path == step path at 64 and
+   70 tokens, and B 8 bf16 tokens/s of the step and loop paths
+   interleaved;
 6. training at full width (vocab 309, 6 layers, d 256, 4 heads, FFN 128,
    max_seq = seq_len 512, B 8): synthetic MIDI files written with the
    port's MIDI writer and tokenized by ``cli.tokenize``; one f32 train
@@ -75,7 +88,9 @@ Phases (the first failure raises and the exit code is non-zero):
    serving segment and over 8 verify iterations of lookup and of
    self-draft speculation (device time by kernel, the device's busy
    share); kernel E at C 8, t 755, B 1 and B 8 beside its plain version,
-   its bound and one kernel-B step;
+   its bound and one kernel-B step; kernel F at C 32, t0 755, B 8 and
+   B 1 beside its plain version and its bound, and a ``torch.profiler``
+   window over the loop path's 16 chunks;
 10. the GRU families (EventMelodyRNN 308/32/512/3, PerformanceRNN with 24
    controls; seeded random weights saved in the reference formats, a
    bare state dict and a session dict): kernel D (the stacked-GRU step)
@@ -102,6 +117,7 @@ Imports nothing of JAX or of ``musicgeneration_tpu``. Needs one CUDA card.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -142,6 +158,9 @@ from musicgeneration_tpu_torch.models import (  # noqa: E402
     EventMelodyRNN, PerformanceRNN)
 from musicgeneration_tpu_torch.ops import gru as gru_mod  # noqa: E402
 from musicgeneration_tpu_torch.ops import cuda_build  # noqa: E402
+from musicgeneration_tpu_torch.ops.decode_loop import (  # noqa: E402
+    fused_decode_loop, fused_decode_loop_plain, gumbel, inv_temperature,
+    loop_bits, loop_sample, loop_sample_kernel, sample_mask)
 from musicgeneration_tpu_torch.ops.fused_attention import (  # noqa: E402
     fused_relative_attention, fused_relative_attention_bwd,
     fused_relative_attention_bwd_plain, fused_relative_attention_plain)
@@ -213,6 +232,15 @@ SPEC_GREEDY, SPEC_ROUNDS, SPEC_PROFILE = 128, 3, 8
 # kernel E's check: C of 2-64 at B 1, 4, 8 (2 to 128 are taken)
 CHUNKS, CHUNK_BATCHES = (2, 5, 8, 64), (1, 4, 8)
 PERF_CONTROL = "2,0,1,1,0,1,0,1,1,0,0,1;4"
+# the decode loop (kernel F): chunk 32 on the main path; its check takes
+# C 1, 7, 32 at B 1 and 8; the distribution check draws 64 rows x 64
+# seeds of first tokens and holds them to chi2 < 52 (tests/
+# test_tpu_sampling.py's statistic); the loop/step rates take 3 rounds
+LOOP_CHUNK, LOOP_CHUNKS, LOOP_GREEDY_LONG = 32, (1, 7, 32), 70
+DIST_ROWS, DIST_SEEDS, CHI2_CRIT, LOOP_ROUNDS = 64, 64, 52.0, 3
+LOOP_MODES = (("T 1", SamplingParams(temperature=1.0)),
+              ("T 0.9 top-k 20", SamplingParams(temperature=0.9, top_k=20)),
+              ("top-p 0.9", SamplingParams(temperature=1.0, top_p=0.9)))
 # timing: 64 MB written between calls evicts the 50 MB L2
 FLUSH_BYTES = 64 << 20
 _SPIN_CYCLES_PER_MS = []
@@ -644,18 +672,21 @@ def check_kernel_d() -> float:
 def plain_path():
     """Run the models through the plain versions of the kernels: A and C
     (attention), B and E (the MusicTransformer decode step and chunk
-    forward), D (the GRU step)."""
+    forward), F (the decode loop), D (the GRU step)."""
     saved = (mt.fused_relative_attention, mt.fused_decode_step,
-             mt.fused_decode_chunk, gru_mod.fused_gru_step)
+             mt.fused_decode_chunk, mt.fused_decode_loop,
+             gru_mod.fused_gru_step)
     mt.fused_relative_attention = fused_relative_attention_plain
     mt.fused_decode_step = fused_decode_step_plain
     mt.fused_decode_chunk = fused_decode_chunk_plain
+    mt.fused_decode_loop = fused_decode_loop_plain
     gru_mod.fused_gru_step = fused_gru_step_plain
     try:
         yield
     finally:
         (mt.fused_relative_attention, mt.fused_decode_step,
-         mt.fused_decode_chunk, gru_mod.fused_gru_step) = saved
+         mt.fused_decode_chunk, mt.fused_decode_loop,
+         gru_mod.fused_gru_step) = saved
 
 
 def write_inputs(model, tmp: str) -> tuple:
@@ -1034,6 +1065,7 @@ def reset_counts() -> None:
     fused_relative_attention.launches = 0
     fused_decode_step.launches = 0
     fused_decode_chunk.launches = 0
+    fused_decode_loop.launches = 0
 
 
 def spec_cli(tmp: str, pth: str, prime_mid: str) -> dict:
@@ -2081,6 +2113,406 @@ def time_kernel_e(launches: int, err: float) -> dict:
             "kernel_b_step_ms_b8": res[B][2]}
 
 
+# ---------------------------------------------------------------- kernel F
+
+def loop_inputs(model, stacked, lw, gen, b: int, cache_len: int = MAX_SEQ):
+    """Kernel F's inputs at the flagship width, drawn on the card: carried
+    logits [b, V] f32, filled caches [L, b, cache_len, d] in the model
+    dtype, the stacked and loop weights, one seed."""
+    shape = (N_LAYERS, b, cache_len, D_MODEL)
+    embed, pos, fc_w, fc_b = lw
+    return {"logits": torch.randn(b, VOCAB, generator=gen, device=DEV) * 2,
+            "kc": torch.randn(shape, generator=gen, device=DEV).to(model.dtype),
+            "vc": torch.randn(shape, generator=gen, device=DEV).to(model.dtype),
+            "seed": torch.randint(0, 1 << 31, (1,), generator=gen,
+                                  device=DEV),
+            "embed": embed, "pos": pos, "fc_w": fc_w, "fc_b": fc_b,
+            "w_all": stacked[0], "e_all": stacked[1]}
+
+
+def loop_call(fn, inp, t0: int, c: int, sp: SamplingParams):
+    """One call of kernel F (or its plain version) on copies of the
+    carried logits and caches: (tokens, logits, k cache, v cache)."""
+    logits, kc, vc = (inp["logits"].clone(), inp["kc"].clone(),
+                      inp["vc"].clone())
+    toks, logits = fn(logits, t0, inp["seed"], inp["embed"], inp["pos"],
+                      inp["e_all"], inp["w_all"], inp["fc_w"], inp["fc_b"],
+                      kc, vc, H, c, sp.temperature, sp.greedy, sp.top_k,
+                      sp.top_p)
+    return toks, logits, kc, vc
+
+
+def loop_agreement(inp, kern, plain, t0: int, c: int, dtype,
+                   sp: SamplingParams) -> tuple:
+    """Kernel F against its plain version on the same inputs: every cache
+    row outside [t0, t0+c) untouched by both; per batch row the tokens
+    equal, the written K/V rows and the last logits within TOL_B. A bf16
+    greedy row may part at a near tie: then both versions' logits before
+    that step must lie within TOL_B (so the two argmaxes are within
+    2 TOL_B of each other), and the rows written before it are compared.
+    f32 and sampled rows must not part. A parting prints its position
+    and the two competing scores. Returns (max abs error, rows parted)."""
+    tk, lk, kck, vck = kern
+    tp, lp, kcp, vcp = plain
+    tol = TOL_B[dtype]
+    for a, a0 in ((kck, inp["kc"]), (vck, inp["vc"]), (kcp, inp["kc"]),
+                  (vcp, inp["vc"])):
+        if not untouched(a, a0, t0, c):
+            raise AssertionError(f"kernel F: cache rows outside [{t0}, "
+                                 f"{t0 + c}) changed")
+    err, parted = 0.0, 0
+    for row in range(tk.shape[0]):
+        diff = (tk[row] != tp[row]).nonzero()
+        n_eq = c if len(diff) == 0 else int(diff[0])
+        if n_eq:
+            for a, p in ((kck, kcp), (vck, vcp)):
+                err = max(err, (a[:, row, t0:t0 + n_eq].float()
+                                - p[:, row, t0:t0 + n_eq].float()).abs()
+                          .max().item())
+        if n_eq == c:
+            err = max(err, (lk[row] - lp[row]).abs().max().item())
+            continue
+        before_k, before_p = (
+            loop_call(fn, inp, t0, n_eq, sp)[1][row] if n_eq
+            else inp["logits"][row]
+            for fn in (fused_decode_loop, fused_decode_loop_plain))
+        a_tok, p_tok = int(tk[row, n_eq]), int(tp[row, n_eq])
+        scores = before_p
+        if not sp.greedy:
+            scaled = before_p[None] * inv_temperature(sp.temperature)
+            if sp.top_k or sp.top_p < 1.0:
+                scaled = sample_mask(scaled, sp.top_k, sp.top_p)
+            bits = loop_bits(inp["seed"].reshape(1),
+                             torch.tensor([row], device=DEV),
+                             torch.tensor([t0 + n_eq], device=DEV), VOCAB)
+            scores = (scaled + gumbel(bits))[0]
+        e_before = (before_k - before_p).abs().max().item()
+        print(f"kernel F {str(dtype):15s} row {row} parts at step {n_eq} "
+              f"(position {t0 + n_eq}): kernel token {a_tok} score "
+              f"{scores[a_tok].item():.6f}, plain token {p_tok} score "
+              f"{scores[p_tok].item():.6f} (plain's scores); the logits "
+              f"before it differ by {e_before:.3e}")
+        if dtype == torch.float32 or not sp.greedy or e_before > tol:
+            raise AssertionError("kernel F's tokens differ from its plain "
+                                 "version's")
+        err, parted = max(err, e_before), parted + 1
+    return err, parted
+
+
+def check_kernel_f() -> float:
+    """Kernel F against its plain version at the flagship width (caches of
+    max_seq rows): greedy, f32 and bf16, B 1 and 8, C 1, 7, 32, t0 1,
+    127, 128, 755, 2047 - C; then sampled f32 (T 1; T 0.9 top-k 20;
+    top-p 0.9) at B 8, C 32, t0 1 and 755 with fixed seeds."""
+    gen = torch.Generator(DEV).manual_seed(17)
+    greedy = SamplingParams(greedy=True)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        model = flagship(dtype)
+        stacked, lw = model.decode_weights(), model.loop_weights()
+        cases = [(greedy, "greedy", b, c, t0) for b in (1, B)
+                 for c in LOOP_CHUNKS
+                 for t0 in (1, 127, 128, T_TIMED, MAX_SEQ - 1 - c)]
+        if dtype == torch.float32:
+            cases += [(sp, name, B, LOOP_CHUNK, t0) for name, sp in LOOP_MODES
+                      for t0 in (1, T_TIMED)]
+        for sp, name, b, c, t0 in cases:
+            inp = loop_inputs(model, stacked, lw, gen, b)
+            kern = loop_call(fused_decode_loop, inp, t0, c, sp)
+            plain = loop_call(fused_decode_loop_plain, inp, t0, c, sp)
+            torch.cuda.synchronize()
+            err, parted = loop_agreement(inp, kern, plain, t0, c, dtype, sp)
+            ok = err <= TOL_B[dtype] and bool(torch.isfinite(kern[1]).all())
+            print(f"kernel F {str(dtype):15s} {name:14s} B={b} C={c:2d} "
+                  f"t0={t0:4d}: tokens equal in {b - parted}/{b} rows, "
+                  f"max_abs_err={err:.3e} tol={TOL_B[dtype]:.1e}; rows "
+                  f"outside [t0, t0+C) untouched {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("kernel F disagrees with its plain "
+                                     "version")
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+    return worst
+
+
+def sampler_cases() -> list:
+    """(logits, top_k, top_p) of test_pallas_decode.py:538-606: V 309 with
+    forced ties, V 309 padded to 384 with -1e30 columns, V 4096."""
+    cases = []
+    rng = np.random.RandomState(7)
+    for trial in range(30):
+        logits = rng.randn(4, 309).astype(np.float32) * 3
+        if trial % 3 == 0:
+            logits[:, 50:60] = logits[:, 49:50]
+        cases.append((logits, [0, 1, 5, 40, 309][trial % 5],
+                      [1.0, 0.9, 0.5, 0.99, 0.01][(trial // 5) % 5]))
+    rng = np.random.RandomState(8)
+    padded = np.pad(rng.randn(2, 309).astype(np.float32),
+                    ((0, 0), (0, 384 - 309)), constant_values=-1e30)
+    cases += [(padded, k, p) for k, p in [(10, 1.0), (0, 0.8), (7, 0.9)]]
+    rng = np.random.RandomState(11)
+    for trial in range(8):
+        logits = rng.randn(2, 4096).astype(np.float32) * 4
+        if trial % 2 == 0:
+            logits[:, 1000:1032] = logits[:, 999:1000]
+        cases.append((logits, [0, 50, 1, 4096][trial % 4],
+                      [0.9, 1.0, 0.5, 0.995][(trial // 2) % 4]))
+    return cases
+
+
+def check_loop_sampler() -> None:
+    """Kernel F's sampler alone (``mg_loop_sample``) against the plain
+    sampler on the same logits, seeds, rows and positions: the masked
+    scaled logits (the kept sets and values) and the tokens equal bit for
+    bit, at T 1 and T 0.9, and greedy (ties to the lowest index)."""
+    gen = torch.Generator().manual_seed(19)
+    n_cases = 0
+    for logits, k, p in sampler_cases():
+        x = torch.from_numpy(logits).to(DEV)
+        n = x.shape[0]
+        seeds = torch.randint(0, 1 << 62, (n,), generator=gen).to(DEV)
+        rows = torch.randint(0, 64, (n,), generator=gen).to(DEV)
+        pos = torch.randint(0, MAX_SEQ, (n,), generator=gen).to(DEV)
+        for temp, greedy in ((1.0, False), (0.9, False), (1.0, True)):
+            tk, mk = loop_sample_kernel(x, seeds, rows, pos, temp, greedy, k,
+                                        p)
+            tp, mp = loop_sample(x, seeds, rows, pos, temp, greedy, k, p)
+            torch.cuda.synchronize()
+            if not (torch.equal(tk, tp) and torch.equal(mk, mp)):
+                bad = (mk != mp).any(-1).nonzero().flatten().tolist()
+                raise AssertionError(
+                    f"kernel F's sampler differs: V={x.shape[1]} k={k} p={p} "
+                    f"T={temp} greedy={greedy}: tokens {tk.tolist()} vs "
+                    f"{tp.tolist()}, masked rows differ {bad}")
+            n_cases += 1
+    print(f"kernel F sampler: {n_cases} cases (V 309 with ties, V 384 "
+          f"padded, V 4096; top-k, top-p, T 1 and 0.9, greedy): kept sets, "
+          f"values and tokens equal the plain sampler's bit for bit ok")
+
+
+def chi_square(draws: np.ndarray, probs: np.ndarray, n_bins: int = 20):
+    """tests/test_tpu_sampling.py's statistic: the top n_bins tokens as
+    bins plus one tail bin; every draw must lie in the support."""
+    n = len(draws)
+    top = np.argsort(probs)[::-1][:n_bins]
+    counts = np.array([(draws == t).sum() for t in top], np.float64)
+    expect = probs[top] * n
+    tail_c, tail_e = n - counts.sum(), max(n - expect.sum(), 1e-9)
+    keep = expect > 5
+    chi2 = (((counts[keep] - expect[keep]) ** 2) / expect[keep]).sum()
+    if tail_e > 5:
+        chi2 += (tail_c - tail_e) ** 2 / tail_e
+    if not (probs[draws] > 0).all():
+        raise AssertionError("kernel F sampled outside the masked set")
+    return float(chi2)
+
+
+def loop_distribution() -> dict:
+    """First-token draws through ``generate(use_loop_kernel=True)``, bf16
+    at full width: DIST_ROWS identical prompts x DIST_SEEDS generators in
+    each mode, against the masked softmax of the prefill's logits under
+    the plain sampler: chi2 < 52. Returns each mode's chi2 and the loop
+    launches."""
+    model = flagship(torch.bfloat16)
+    prompt = torch.ones(DIST_ROWS, 4, dtype=torch.long, device=DEV)
+    logits, _ = model.prefill(prompt, 32)
+    out = {}
+    reset_counts()
+    for name, sp in LOOP_MODES:
+        dp = DecodeParams(max_len=32, steps=1, sampling=sp,
+                          use_loop_kernel=True)
+        draws = np.concatenate([
+            generate(model, prompt, torch.Generator(DEV).manual_seed(s),
+                     dp)[:, 0].cpu().numpy() for s in range(DIST_SEEDS)])
+        scaled = logits[:1] * inv_temperature(sp.temperature)
+        if sp.top_k or sp.top_p < 1.0:
+            scaled = sample_mask(scaled, sp.top_k, sp.top_p)
+        probs = torch.softmax(scaled, -1)[0].double().cpu().numpy()
+        chi2 = chi_square(draws, probs)
+        print(f"kernel F distribution bf16 {name}: {len(draws)} first-token "
+              f"draws, chi2 {chi2:.2f} (< {CHI2_CRIT}) "
+              f"{'ok' if chi2 < CHI2_CRIT else 'FAIL'}")
+        if chi2 >= CHI2_CRIT:
+            raise AssertionError(f"kernel F's draws ({name}) do not follow "
+                                 "the masked softmax")
+        out[name] = chi2
+    torch.cuda.synchronize()
+    out["F"] = fused_decode_loop.launches
+    return out
+
+
+def loop_generate(prime: np.ndarray) -> dict:
+    """``decode.generate(use_loop_kernel=True)`` at full width: bf16, B 8,
+    the 500-token prime bucketed to 512, 512 sampled tokens in chunks of
+    32, with exactly 6 A, 16 F and 0 B launches; greedy f32 over 64 and
+    70 tokens (2 and 3 launches, the last short) equal to the step path's
+    (kernel B) token for token; B 8 bf16 sampled tokens/s of the step and
+    loop paths interleaved, LOOP_ROUNDS rounds."""
+    model = flagship(torch.bfloat16)
+    prompt_np, prompt_len = bucket_prompt(np.tile(prime, (B, 1)), STEPS,
+                                          MAX_SEQ, model.pad_id)
+    prompt = torch.from_numpy(prompt_np).to(DEV)
+    dps = {use: DecodeParams(max_len=L_PREFILL + STEPS, steps=STEPS,
+                             sampling=SamplingParams(), use_loop_kernel=use)
+           for use in (False, True)}
+    reset_counts()
+    toks = generate(model, prompt, torch.Generator(DEV).manual_seed(0),
+                    dps[True], prompt_len)
+    torch.cuda.synchronize()
+    n = (fused_relative_attention.launches, fused_decode_loop.launches,
+         fused_decode_step.launches)
+    want = (N_LAYERS, -(-STEPS // LOOP_CHUNK), 0)
+    t = toks.cpu().numpy()
+    ok = (n == want and t.shape == (B, STEPS)
+          and 0 <= t.min() <= t.max() < VOCAB)
+    print(f"generate use_loop_kernel bf16: B={B} prime {PROMPT}->{L_PREFILL} "
+          f"steps={STEPS} chunk {LOOP_CHUNK}: launches A={n[0]} F={n[1]} "
+          f"B={n[2]} (expected {want[0]}, {want[1]}, {want[2]}); tokens "
+          f"{t.shape} in [{t.min()}, {t.max()}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the loop path's launches or tokens are wrong")
+    launches = {"generate": n[1]}
+
+    model32 = flagship(torch.float32)
+    reset_counts()
+    for steps in (GREEDY_STEPS, LOOP_GREEDY_LONG):
+        dp = DecodeParams(max_len=L_PREFILL + steps, steps=steps,
+                          sampling=SamplingParams(greedy=True))
+        step = generate(model32, prompt, None, dp, prompt_len)
+        loop = generate(model32, prompt, None, dataclasses.replace(
+            dp, use_loop_kernel=True), prompt_len)
+        same = torch.equal(step, loop)
+        print(f"greedy f32 {steps} tokens x {B}: loop path "
+              f"({-(-steps // LOOP_CHUNK)} launches) == step path: {same}")
+        if not same:
+            first = (step != loop).nonzero()[0].tolist()
+            raise AssertionError(f"loop and step paths differ first at "
+                                 f"{first}")
+    torch.cuda.synchronize()
+    launches["greedy_parity"] = fused_decode_loop.launches
+
+    reset_counts()
+    rates = {"step": [], "loop": []}
+    for _ in range(LOOP_ROUNDS):
+        for kind in ("step", "loop"):
+            gen = torch.Generator(DEV).manual_seed(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            generate(model, prompt, gen, dps[kind == "loop"], prompt_len)
+            torch.cuda.synchronize()
+            rates[kind].append(B * STEPS / (time.perf_counter() - t0))
+    launches["rates"] = fused_decode_loop.launches
+    out = {"launches": launches}
+    for kind, r in rates.items():
+        out[kind] = float(np.median(r))
+        print(f"B={B} bf16 sampled {kind} path: {out[kind]:.1f} tokens/s "
+              f"median of {LOOP_ROUNDS} interleaved runs [{min(r):.1f}-"
+              f"{max(r):.1f}] (prefill included, host clock)")
+    print(f"loop / step: {out['loop'] / out['step']:.2f}x")
+    return out
+
+
+def profile_loop(prime: np.ndarray) -> dict:
+    """Where the loop path's time goes: ``decode_loop`` for 512 sampled
+    bf16 tokens at B 8 after the bucketed prefill (16 chunks) under
+    torch.profiler, after one warm chunk: wall and device time per chunk,
+    the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = flagship(torch.bfloat16)
+    prompt_np, _ = bucket_prompt(np.tile(prime, (B, 1)), STEPS, MAX_SEQ,
+                                 model.pad_id)
+    prompt = torch.from_numpy(prompt_np).to(DEV)
+    logits, cache = model.prefill(prompt, L_PREFILL + STEPS, PROMPT - 1)
+    gen = torch.Generator(DEV).manual_seed(2)
+    model.decode_loop(logits, PROMPT, gen,
+                      {k: v.clone() for k, v in cache.items()}, LOOP_CHUNK)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.decode_loop(logits, PROMPT, gen, cache, STEPS)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(prof)
+    busy_us = sum(r[0] for r in rows)
+    n = -(-STEPS // LOOP_CHUNK)
+    print(f"loop profile: {n} chunks of {LOOP_CHUNK} (B={B}, bf16, sampled), "
+          f"wall {wall_us / n:.1f} us/chunk under the profiler, device busy "
+          f"{busy_us / n:.1f} us/chunk ({100 * busy_us / wall_us:.1f}% of "
+          f"wall); {busy_us / STEPS:.1f} us of device time per step")
+    for dev_us, count, key in sorted(rows, reverse=True)[:6]:
+        print(f"  {dev_us / n:10.2f} us/chunk {count / n:5.1f}x/chunk "
+              f"{key[:90]}")
+    return {"wall_us_per_chunk": wall_us / n,
+            "busy_us_per_chunk": busy_us / n,
+            "busy_share": busy_us / wall_us}
+
+
+def loop_bound(b: int, c: int, t0: int) -> tuple:
+    """Least time of one bf16 launch of c steps from t0: the weights, the
+    embedding and the head read once, the K/V prefix [0, t0) of every row,
+    the E rows [0, t0+c) of each layer, c positional rows, the logits in
+    and out, the chunk's K/V rows and the tokens written; the products of
+    c steps for b rows (layers and head) plus three 64-deep products per
+    (head, live row) pair."""
+    d, f = D_MODEL, D_MODEL // 2
+    w_elems = N_LAYERS * (4 * d * d + 2 * d * f + 9 * d + f)
+    nbytes = (w_elems * 2 + VOCAB * d * 2 + (VOCAB * d + VOCAB) * 2
+              + 2 * N_LAYERS * b * t0 * d * 2 + N_LAYERS * (t0 + c) * DH * 4
+              + c * d * 2 + 2 * b * VOCAB * 4 + 2 * N_LAYERS * b * c * d * 2
+              + b * c * 8)
+    pairs = b * sum(t0 + i + 1 for i in range(c))
+    flops = (N_LAYERS * (2 * b * c * (4 * d * d + 2 * d * f)
+                         + 3 * 2 * H * pairs * DH) + 2 * b * c * d * VOCAB)
+    return bound(nbytes, flops, torch.bfloat16)
+
+
+def time_kernel_f(launches: int, by_path: dict, err: float) -> dict:
+    """Kernel F in bf16 at the main path's shape (C 32, t0 755, sampled
+    T 1, the flagship width) at B 8 and B 1: device time, its plain
+    version, its bound. No single PyTorch call computes C decode steps
+    (library null)."""
+    model = flagship(torch.bfloat16)
+    stacked, lw = model.decode_weights(), model.loop_weights()
+    gen = torch.Generator(DEV).manual_seed(18)
+    t0, c = T_TIMED, LOOP_CHUNK
+    res = {}
+    for b in (B, 1):
+        inp = loop_inputs(model, stacked, lw, gen, b, 1024)
+        args = (inp["logits"], t0, inp["seed"], inp["embed"], inp["pos"],
+                inp["e_all"], inp["w_all"], inp["fc_w"], inp["fc_b"],
+                inp["kc"], inp["vc"], H, c)
+        ms = device_ms(lambda: fused_decode_loop(*args), iters=10)
+        plain_ms = device_ms(lambda: fused_decode_loop_plain(*args), iters=2)
+        bnd, by = loop_bound(b, c, t0)
+        res[b] = (ms, plain_ms, bnd, by)
+        print(f"kernel F bf16 B={b} C={c} t0={t0}: {ms:.4f} ms per launch "
+              f"({1e3 * ms / c:.1f} us per step), plain {plain_ms:.4f} ms, "
+              f"bound {bnd:.5f} ms ({by})")
+    ms, plain_ms, bnd, by = res[B]
+    return {"name": "fused_decode_loop", "route": "cuda",
+            "source": "musicgeneration_tpu_torch/csrc/fused_decode.cu",
+            "replaces": "musicgeneration_tpu/ops/pallas_decode_loop.py:377",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None, "launches_by_path": by_path,
+            "ms_b1": res[1][0], "plain_ms_b1": res[1][1],
+            "bound_ms_b1": res[1][2]}
+
+
+def loop_paths(prime: np.ndarray) -> dict:
+    """The decode-loop path: the sampler alone, the distribution, the
+    main path's generation, parity and rates."""
+    check_loop_sampler()
+    dist = loop_distribution()
+    run = loop_generate(prime)
+    by_path = {"distribution": dist["F"], **run["launches"]}
+    return {"chi2": {k: v for k, v in dist.items() if k != "F"},
+            "by_path": by_path, "F": sum(by_path.values()),
+            "tok_s": {"step": run["step"], "loop": run["loop"]}}
+
+
 def main() -> int:
     print(gpu_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2108,7 +2540,9 @@ def main() -> int:
     err_d = check_kernel_d()
     err_e = check_kernel_e()
     check_chunk_vs_steps()
+    err_f = check_kernel_f()
     e2e = end_to_end()
+    loop = loop_paths(e2e["prime"])
     served = serving(e2e["prime"])
     spec = speculative_paths(e2e["prime"])
     rnn = rnn_paths(e2e["prime"])
@@ -2136,12 +2570,14 @@ def main() -> int:
     row_e = time_kernel_e(spec["E"], err_e)
     row_e["launches_by_path"] = {f"speculative_{k}": r["E"]
                                  for k, r in spec["runs"].items()}
+    row_f = time_kernel_f(loop["F"], loop["by_path"], err_f)
     profile_decode()
+    loop_prof = profile_loop(e2e["prime"])
     profile_serving()
     profile_rnn_decode()
     profile_spec(e2e["prime"], draft=False)
     profile_spec(e2e["prime"], draft=True)
-    rows = [row_a, row_b, row_c, row_br, row_d, row_e]
+    rows = [row_a, row_b, row_c, row_br, row_d, row_e, row_f]
     for r in rows:
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
@@ -2156,6 +2592,10 @@ def main() -> int:
               f"bf16); serving: {rnn['serve'][family]}")
     print("speculative B=1 bf16 greedy, tokens/s (median): " + ", ".join(
         f"{k} {r['tok_s']:.1f}" for k, r in spec["rates"].items()))
+    print(f"decode loop B={B} bf16 sampled, tokens/s (median): step path "
+          f"{loop['tok_s']['step']:.1f}, loop path {loop['tok_s']['loop']:.1f}"
+          f"; under the profiler {loop_prof['busy_share'] * 100:.1f}% busy; "
+          "chi2 " + ", ".join(f"{k} {v:.2f}" for k, v in loop["chi2"].items()))
     print(gpu_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

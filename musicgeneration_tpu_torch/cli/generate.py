@@ -45,6 +45,12 @@ import torch
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _dtype(args):
+    """--dtype, or None: the dtype the checkpoint records (float32 for
+    an exported .pth)."""
+    return None if args.dtype is None else _DTYPES[args.dtype]
+
+
 def prime_tokens(prime: Optional[str], prime_len: int) -> List[int]:
     """Tokenize a prompt MIDI; default prime = [24, 28, 31]
     (MusicTransformer/generate.py:103-110)."""
@@ -226,13 +232,15 @@ def main(argv=None) -> int:
     p.add_argument("--spec-ngram", type=int, default=3,
                    help="lookup match length (--spec lookup)")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--dtype", default="float32", choices=sorted(_DTYPES))
+    p.add_argument("--dtype", default=None, choices=sorted(_DTYPES),
+                   help="compute dtype (default: the one a cli.train "
+                        "checkpoint records, else float32)")
     args = p.parse_args(argv)
 
     from ..convert import load_checkpoint
 
     model = load_checkpoint(args.checkpoint, device=args.device,
-                            dtype=_DTYPES[args.dtype])
+                            dtype=_dtype(args))
     if args.spec is not None:
         if model.family != "music_transformer":
             raise SystemExit("--spec needs a music_transformer target "
@@ -362,7 +370,7 @@ def _speculative(model, prompt: np.ndarray, gen, args) -> np.ndarray:
     draft = None
     if args.spec != "lookup":
         draft = load_checkpoint(args.spec, device=args.device,
-                                dtype=_DTYPES[args.dtype])
+                                dtype=model.dtype)
         if draft.family != "music_transformer":
             raise SystemExit("--spec draft must be a music_transformer "
                              f"checkpoint (or 'lookup'); {args.spec} holds "

@@ -78,6 +78,12 @@ import numpy as np
 import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _dtype(args):
+    """--dtype, or None: the dtype the checkpoint records (float32 for
+    an exported .pth)."""
+    return None if args.dtype is None else _DTYPES[args.dtype]
 _SAMP_FIELDS = ("temperature", "top_k", "top_p", "greedy")
 
 
@@ -87,7 +93,7 @@ def _load_model(args):
     from ..convert import load_checkpoint
     try:
         return load_checkpoint(args.checkpoint, device=args.device,
-                               dtype=_DTYPES[args.dtype])
+                               dtype=_dtype(args))
     except (KeyError, ValueError) as e:
         raise SystemExit(
             f"{args.checkpoint}: {e}; the other families (MelodyRNN, CP, "
@@ -128,7 +134,9 @@ def main(argv=None) -> int:
     p.add_argument("--http-timeout", type=float, default=600.0,
                    help="per-request completion timeout (seconds)")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--dtype", default="float32", choices=sorted(_DTYPES))
+    p.add_argument("--dtype", default=None, choices=sorted(_DTYPES),
+                   help="compute dtype (default: the one a cli.train "
+                        "checkpoint records, else float32)")
     args = p.parse_args(argv)
 
     from ..decode.sampling import SamplingParams

@@ -180,13 +180,35 @@ def _music_transformer(sd, device, dtype) -> MusicTransformer:
     return model
 
 
-def load_checkpoint(path: str, device="cuda", dtype=torch.float32):
+_DTYPE_NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def recorded_dtype(config: Mapping) -> torch.dtype:
+    """The compute dtype a ``cli.train`` step file's config records
+    (``config["model_kwargs"]["dtype"]``, as the JAX CLI's
+    ``build_session`` rebuilds the model from ``model_kwargs``); float32
+    where it records none (an exported ``.pth``)."""
+    name = (config.get("model_kwargs") or {}).get("dtype", "float32")
+    if isinstance(name, torch.dtype):
+        return name
+    if name not in _DTYPE_NAMES:
+        raise ValueError(f"recorded model dtype {name!r} is not one of "
+                         f"{sorted(_DTYPE_NAMES)}")
+    return _DTYPE_NAMES[name]
+
+
+def load_checkpoint(path: str, device="cuda", dtype=torch.float32,
+                    with_config: bool = False):
     """A model from an exported ``.pth`` (``{'net': state_dict, ...}``,
     a PerformanceRNN session dict ``{'model_state': state_dict, ...}``,
     or a bare state dict), a training checkpoint ``step-<N>.pt`` of
     ``cli.train`` (``{'model': state_dict, ...}``), or a directory of
     those (its newest step). The family is read off the state dict
-    (``model_from_state_dict``; ``model.family`` names it)."""
+    (``model_from_state_dict``; ``model.family`` names it).
+
+    dtype: the compute dtype, or None for the one the checkpoint records
+    (``recorded_dtype``). With ``with_config`` returns (model, the
+    recorded config: a step file's ``config``, else {})."""
     if os.path.isdir(path):
         from .utils.checkpoint import latest_checkpoint
         newest = latest_checkpoint(path)
@@ -199,4 +221,11 @@ def load_checkpoint(path: str, device="cuda", dtype=torch.float32):
         if isinstance(obj, Mapping) and isinstance(obj.get(key), Mapping):
             sd = obj[key]
             break
-    return model_from_state_dict(sd, device=device, dtype=dtype)
+    config = {}
+    if isinstance(obj, Mapping) and isinstance(obj.get("config"), Mapping) \
+            and sd is obj.get("model"):
+        config = dict(obj["config"])
+    if dtype is None:
+        dtype = recorded_dtype(config)
+    model = model_from_state_dict(sd, device=device, dtype=dtype)
+    return (model, config) if with_config else model

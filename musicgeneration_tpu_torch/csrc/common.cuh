@@ -29,22 +29,46 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
 
-// Eight consecutive elements as f32. `p` must be 16-byte aligned.
-__device__ __forceinline__ void load8(const float* p, float* o) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+// Eight consecutive elements as loaded (16 bytes of bf16, 32 of f32),
+// widened to f32 only where they are used, so a batch of loads in flight
+// holds half the registers in bf16. `p` must be 16-byte aligned.
+template <typename T>
+struct Raw8;
+template <>
+struct Raw8<float> {
+  float4 a, b;
+};
+template <>
+struct Raw8<__nv_bfloat16> {
+  uint4 a;
+};
+__device__ __forceinline__ Raw8<float> load_raw8(const float* p) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+  return {q[0], q[1]};
 }
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+__device__ __forceinline__ Raw8<__nv_bfloat16> load_raw8(
+    const __nv_bfloat16* p) {
+  return {*reinterpret_cast<const uint4*>(p)};
+}
+__device__ __forceinline__ void widen8(const Raw8<float>& r, float* o) {
+  o[0] = r.a.x; o[1] = r.a.y; o[2] = r.a.z; o[3] = r.a.w;
+  o[4] = r.b.x; o[5] = r.b.y; o[6] = r.b.z; o[7] = r.b.w;
+}
+__device__ __forceinline__ void widen8(const Raw8<__nv_bfloat16>& r,
+                                       float* o) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r.a);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h[i]);
     o[2 * i] = f.x;
     o[2 * i + 1] = f.y;
   }
+}
+
+// Eight consecutive elements as f32. `p` must be 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float* o) {
+  widen8(load_raw8(p), o);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -1,5 +1,6 @@
-// Kernels B and E: the decode step and the chunk-verify forward through
-// every layer of a MusicTransformer.
+// Kernels B, E and F: the decode step, the chunk-verify forward and the
+// chunked decode loop (C whole sampling-and-decode steps per launch,
+// described at its code below) through every layer of a MusicTransformer.
 //
 // Kernel B replaces musicgeneration_tpu/ops/pallas_decode.py::
 // fused_decode_step (its pallas_calls over _kernel / _kernel_grid*, layer
@@ -494,4 +495,598 @@ extern "C" int mg_decode_chunk(int is_bf16, int num_layers, void* x,
   if (C < 2 || C > MAX_CHUNK) return (int)cudaErrorInvalidValue;
   return launch(true, is_bf16, num_layers, x, qbuf, part, w, kc, vc, e,
                 nullptr, B, C, S, d, H, f, t, max_seq, 0, stream);
+}
+
+// Kernel F replaces musicgeneration_tpu/ops/pallas_decode_loop.py::
+// fused_decode_chunk (pallas_call :377 over _chunk_kernel :162; sampler
+// sample_mask :108): C whole generation steps per launch. Each step of
+// batch row b samples a token from the carried logits (greedy argmax, or
+// Gumbel-max over logits * inv_temp after the sort-free top-k / top-p
+// masks), embeds it (embed row * sqrt(d) and the positional row, rounded
+// as the step path rounds), runs every layer with kernel B's arithmetic
+// and rounding points, writes the step's K/V rows into the caches IN
+// PLACE at row t, and runs the head (rounded to the model dtype, carried
+// as f32). There is no host work between the steps of a launch.
+//
+// Design for this card: one block of 512 threads per batch row. Rows are
+// independent (row b's step i reads only row b's cache), so no grid-wide
+// barrier is needed; a later step reads the K/V rows an earlier one wrote
+// after a __syncthreads (the same block, the same SM; the caches are
+// read through plain, coherent loads, never the read-only path). The
+// ~4 MB of bf16 weights stay L2-resident across the B blocks and the C
+// steps. Products of the stacked weights ([in, out]) give each thread 8
+// adjacent output columns (16-byte loads) over a slice of the input,
+// summed through shared memory; the head ([V, d], the nn.Linear weight)
+// is one warp per vocabulary row. Attention scores the live prefix
+// [0, t] of all heads into shared memory (one warp per prefix row, its
+// K row and E row read once for all heads), takes the softmax with one
+// warp per head (a global max, as the plain version, so P rounds where
+// it does) and sums PV with 8 columns per thread.
+// What bounds it: a row's step streams its weights (~4 MB) and its K/V
+// prefix through one SM, whose L2 bandwidth (~64 B/clock) sets ~100 us
+// per step at the flagship's shapes; the card's bytes bound for a whole
+// launch is far lower. Splitting a row across SMs (a cluster) and tensor
+// cores are the levers for a later PR.
+//
+// The random stream: Philox4x32-10, key (seed lo, seed hi), counter
+// (v / 4, b, t, 0), word v % 4 (ops/decode_loop.py's layout).
+
+#include <limits.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int LOOP_THREADS = 512;
+constexpr int LOOP_WARPS = LOOP_THREADS / 32;
+constexpr float LOOP_NEG = -1e30f;  // an entry the masks exclude
+// rows each thread (or warp) loads before it uses any: the loads of one
+// batch are in flight together (a store between two loads would keep
+// them in order)
+constexpr int LOOP_BATCH = 2;
+
+struct LoopSampling {
+  float inv_temp;
+  int greedy, top_k, use_p;
+  float top_p;
+};
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k.x += 0x9E3779B9u;
+      k.y += 0xBB67AE85u;
+    }
+    const unsigned long long p0 = (unsigned long long)0xD2511F53u * c.x;
+    const unsigned long long p1 = (unsigned long long)0xCD9E8D57u * c.z;
+    c = make_uint4((uint32_t)(p1 >> 32) ^ c.y ^ k.x, (uint32_t)p1,
+                   (uint32_t)(p0 >> 32) ^ c.w ^ k.y, (uint32_t)p0);
+  }
+  return c;
+}
+
+__device__ __forceinline__ float gumbel_noise(uint32_t bits) {
+  const float u = fmaxf((float)(bits >> 8) * (1.0f / 16777216.0f), 1e-10f);
+  return -logf(-logf(u));
+}
+
+// f32 -> int32, strictly monotone in float order
+__device__ __forceinline__ int sort_key(float x) {
+  const int s = __float_as_int(x);
+  return s ^ ((s >> 31) & 0x7fffffff);
+}
+
+// The block's largest value, the lowest index on ties (every thread
+// calls it and gets the index). red: LOOP_WARPS floats, redi as many ints.
+__device__ int block_argmax(float v, int i, float* red, int* redi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float v2 = __shfl_xor_sync(0xffffffffu, v, o);
+    const int i2 = __shfl_xor_sync(0xffffffffu, i, o);
+    if (v2 > v || (v2 == v && i2 < i)) {
+      v = v2;
+      i = i2;
+    }
+  }
+  __syncthreads();
+  if (lane == 0) {
+    red[warp] = v;
+    redi[warp] = i;
+  }
+  __syncthreads();
+  float bv = red[0];
+  int bi = redi[0];
+  for (int w = 1; w < LOOP_WARPS; ++w)
+    if (red[w] > bv || (red[w] == bv && redi[w] < bi)) {
+      bv = red[w];
+      bi = redi[w];
+    }
+  return bi;
+}
+
+// Smallest int32 T with stat(T) < thr, stat(T) summed over the entries
+// whose key is above T: 32 bisection steps with the overflow-safe
+// midpoint (pallas_decode_loop.py:89-105). mass: count (null) or the
+// probabilities.
+__device__ int mask_search(const float* vals, const float* mass, int V,
+                           float thr, float* red) {
+  int lo = INT_MIN, hi = INT_MAX;
+  for (int it = 0; it < 32; ++it) {
+    const int mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1);
+    float s = 0.f;
+    for (int v = threadIdx.x; v < V; v += LOOP_THREADS)
+      if (sort_key(vals[v]) > mid) s += mass != nullptr ? mass[v] : 1.f;
+    if (mg::block_sum(s, red) >= thr)
+      lo = mid;
+    else
+      hi = mid;
+  }
+  return hi;
+}
+
+// One draw of the sampler for batch row `row` at position t. vals: the
+// carried logits [V] in shared memory, each thread reading and writing
+// only its own entries v = tid + k * LOOP_THREADS; on return they hold
+// the scaled, masked values the draw was taken over (untouched when
+// greedy). probs: [V] shared scratch. Every thread gets the token.
+__device__ int loop_sample(float* vals, float* probs, int V,
+                           const LoopSampling& sp, uint2 key, uint32_t row,
+                           uint32_t t, float* red, int* redi) {
+  const int tid = threadIdx.x;
+  if (sp.greedy) {
+    float bv = -INFINITY;
+    int bi = INT_MAX;
+    for (int v = tid; v < V; v += LOOP_THREADS)
+      if (vals[v] > bv) {
+        bv = vals[v];
+        bi = v;
+      }
+    return block_argmax(bv, bi, red, redi);
+  }
+  for (int v = tid; v < V; v += LOOP_THREADS) vals[v] *= sp.inv_temp;
+  if (sp.top_k > 0) {
+    const int tk = mask_search(vals, nullptr, V, (float)sp.top_k, red);
+    for (int v = tid; v < V; v += LOOP_THREADS)
+      if (sort_key(vals[v]) < tk) vals[v] = LOOP_NEG;
+  }
+  if (sp.use_p) {
+    // excluded entries weigh exp(-1e30 - m) = 0, so the masses sum the
+    // kept entries only
+    float m = -INFINITY;
+    for (int v = tid; v < V; v += LOOP_THREADS) m = fmaxf(m, vals[v]);
+    m = mg::block_max(m, red);
+    float s = 0.f;
+    for (int v = tid; v < V; v += LOOP_THREADS) {
+      probs[v] = expf(vals[v] - m);
+      s += probs[v];
+    }
+    s = mg::block_sum(s, red);
+    for (int v = tid; v < V; v += LOOP_THREADS) probs[v] = probs[v] / s;
+    const int tp = mask_search(vals, probs, V, sp.top_p, red);
+    for (int v = tid; v < V; v += LOOP_THREADS)
+      if (sort_key(vals[v]) < tp) vals[v] = LOOP_NEG;
+  }
+  float bv = -INFINITY;
+  int bi = INT_MAX;
+  for (int g = tid; g * 4 < V; g += LOOP_THREADS) {
+    const uint4 w = philox4x32_10(make_uint4(g, row, t, 0), key);
+    const uint32_t word[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int v = g * 4 + j;
+      if (v >= V) break;
+      const float y = vals[v] + gumbel_noise(word[j]);
+      if (y > bv) {
+        bv = y;
+        bi = v;
+      }
+    }
+  }
+  return block_argmax(bv, bi, red, redi);
+}
+
+// out[o] = sum_i x[i] W[i * N + o] + bias[o], f32 (unrounded), for the
+// N columns of an [K, N] matrix: each thread owns 8 adjacent columns
+// over a slice of the K rows; part ([ks][N] <= 4096 floats) sums the
+// slices. N % 8 == 0, N <= 4096. Ends with a barrier.
+template <typename T>
+__device__ void loop_matvec(const float* x, const T* W, const T* bias, int K,
+                            int N, float* part, float* out) {
+  const int tid = threadIdx.x;
+  const int tpc = N / 8, ks = LOOP_THREADS / tpc;
+  const int per = (K + ks - 1) / ks;
+  if (tid < ks * tpc) {
+    const int c0 = (tid % tpc) * 8, s = tid / tpc;
+    const int i1 = min(K, (s + 1) * per);
+    float acc[8] = {};
+    // bf16 rows are half the registers: twice the loads in flight
+    constexpr int kB = sizeof(T) == 2 ? 2 * LOOP_BATCH : LOOP_BATCH;
+    for (int i0 = s * per; i0 < i1; i0 += kB) {
+      mg::Raw8<T> raw[kB];
+#pragma unroll
+      for (int u = 0; u < kB; ++u)
+        if (i0 + u < i1) raw[u] = mg::load_raw8(W + (size_t)(i0 + u) * N + c0);
+#pragma unroll
+      for (int u = 0; u < kB; ++u) {
+        if (i0 + u >= i1) break;
+        float w[8];
+        mg::widen8(raw[u], w);
+        const float xi = x[i0 + u];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[j] = fmaf(xi, w[j], acc[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; j += 4)  // 16-byte stores: no bank conflicts
+      *reinterpret_cast<float4*>(part + s * N + c0 + j) =
+          make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
+  }
+  __syncthreads();
+  for (int o = tid; o < N; o += LOOP_THREADS) {
+    float sum = 0.f;
+    for (int k = 0; k < ks; ++k) sum += part[k * N + o];
+    out[o] = sum + mg::to_f(bias[o]);
+  }
+  __syncthreads();
+}
+
+template <typename T>
+struct LoopArgs {
+  float* logits;          // [B, V] f32, carried: read first, written last
+  long long* tokens;      // [B, >= C] int64, row stride tok_stride
+  const long long* seed;  // this chunk's seed
+  const T* w[16];         // stacked [L, ...] weights, WEIGHT_KEYS order
+  const T* embed;         // [V, d]
+  const T* pos;           // [>= t0 + C, d]
+  const T* fc_w;          // [V, d]
+  const T* fc_b;          // [V]
+  T* kc;                  // [L, B, S, d], rows [t0, t0 + C) written
+  T* vc;
+  const float* e;         // [L, max_seq, 64]
+  int tok_stride, num_layers, C, S, d, H, f, V, t0, max_seq;
+  float scale;            // sqrt(d) in the model dtype
+  LoopSampling sp;
+};
+
+// Shared memory of kernel F's block, in floats: the logits and the
+// sampler's probabilities (V rounded up to 4, so every later buffer is
+// 16-byte aligned), five activation buffers, the partial sums, the scores
+// of H heads (rows of S + 1, so the heads' rows start in different banks)
+// and the reductions' scratch.
+inline size_t loop_smem(int d, int f, int V, int S, int H) {
+  const int w = d > f ? d : f;
+  return ((size_t)2 * ((V + 3) & ~3) + 5 * (size_t)w + 8 * LOOP_THREADS
+          + (size_t)H * (S + 1) + 64) * sizeof(float);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(LOOP_THREADS)
+decode_loop_kernel(const LoopArgs<T> a) {
+  extern __shared__ float sm[];
+  const int V = a.V, d = a.d, f = a.f, H = a.H, S = a.S;
+  const int w = d > f ? d : f;
+  const int Vp = (V + 3) & ~3, SP = S + 1;
+  float* lg = sm;                 // carried logits [V]
+  float* pr = lg + Vp;            // sampler probabilities [V]
+  float* x = pr + Vp;             // layer input / output [d]
+  float* q = x + w;               // q, then the FFN output
+  float* at = q + w;              // attention output, then out1
+  float* z = at + w;              // pre-LN sums
+  float* y = z + w;               // product outputs, FFN hidden [f]
+  float* part = y + w;            // [8 * LOOP_THREADS]
+  float* sc = part + 8 * LOOP_THREADS;  // scores / P [H][SP]
+  float* red = sc + (size_t)H * SP;     // [16] reductions
+  int* redi = reinterpret_cast<int*>(red + 16);  // [16]
+  float* lsum = red + 32;               // [16] softmax sums
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x;
+  const float att_scale = 1.0f / sqrtf((float)DH);
+  const size_t wstride[16] = {(size_t)d * d, (size_t)d, (size_t)d * d,
+                              (size_t)d,     (size_t)d * d, (size_t)d,
+                              (size_t)d * d, (size_t)d, (size_t)d,
+                              (size_t)d,     (size_t)d * f, (size_t)f,
+                              (size_t)f * d, (size_t)d, (size_t)d,
+                              (size_t)d};
+  const unsigned long long seed = (unsigned long long)a.seed[0];
+  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
+
+  for (int v = tid; v < V; v += LOOP_THREADS) lg[v] = a.logits[(size_t)b * V + v];
+  __syncthreads();
+  for (int i = 0; i < a.C; ++i) {
+    const int t = a.t0 + i;
+    const int tok = loop_sample(lg, pr, V, a.sp, key, b, t, red, redi);
+    if (tid == 0) a.tokens[(size_t)b * a.tok_stride + i] = tok;
+    for (int c = tid; c < d; c += LOOP_THREADS)
+      x[c] = mg::round_to<T>(
+          mg::round_to<T>(mg::to_f(a.embed[(size_t)tok * d + c]) * a.scale)
+          + mg::to_f(a.pos[(size_t)t * d + c]));
+    __syncthreads();
+
+    const int n = t + 1;  // live rows [0, t]
+    for (int li = 0; li < a.num_layers; ++li) {
+      const T* p[16];
+      for (int k = 0; k < 16; ++k) p[k] = a.w[k] + li * wstride[k];
+      T* kl = a.kc + (size_t)li * gridDim.x * S * d;
+      T* vl = a.vc + (size_t)li * gridDim.x * S * d;
+      const float* el = a.e + (size_t)li * a.max_seq * DH;
+      T* krow = kl + ((size_t)b * S + t) * d;
+      T* vrow = vl + ((size_t)b * S + t) * d;
+
+      // q, k, v (rounded to the model dtype); row t into the caches
+      loop_matvec<T>(x, p[0], p[1], d, d, part, q);
+      for (int c = tid; c < d; c += LOOP_THREADS) q[c] = mg::round_to<T>(q[c]);
+      loop_matvec<T>(x, p[2], p[3], d, d, part, y);
+      for (int c = tid; c < d; c += LOOP_THREADS) krow[c] = mg::from_f<T>(y[c]);
+      loop_matvec<T>(x, p[4], p[5], d, d, part, y);
+      for (int c = tid; c < d; c += LOOP_THREADS) vrow[c] = mg::from_f<T>(y[c]);
+      __syncthreads();  // publishes q and the cache rows to the block
+
+      // scores of every head over [0, t]: (q.k_s + q.E[max_seq-1-t+s]) / 8.
+      // One warp per prefix row, each lane 8 of the d dims: the K row is
+      // one coalesced read and the E row is read once for every head; the
+      // 8 lanes of a head sum their partial products by shuffles.
+      for (int base = 0; base < d; base += 256) {
+        const int c0 = base + lane * 8;
+        float qv[8];  // this lane's slice of q, in registers for every row
+#pragma unroll
+        for (int j = 0; j < 8; ++j) qv[j] = c0 < d ? q[c0 + j] : 0.f;
+        for (int s0 = warp; s0 < n; s0 += LOOP_BATCH * LOOP_WARPS) {
+          mg::Raw8<T> kraw[LOOP_BATCH];
+          mg::Raw8<float> eraw[LOOP_BATCH];
+#pragma unroll
+          for (int u = 0; u < LOOP_BATCH; ++u) {
+            const int s = s0 + u * LOOP_WARPS;
+            if (s < n && c0 < d) {
+              kraw[u] = mg::load_raw8(kl + ((size_t)b * S + s) * d + c0);
+              eraw[u] = mg::load_raw8(el + (size_t)(a.max_seq - 1 - t + s) * DH
+                                  + (c0 & (DH - 1)));
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < LOOP_BATCH; ++u) {
+            const int s = s0 + u * LOOP_WARPS;
+            float qk = 0.f, qe = 0.f;
+            if (s < n && c0 < d) {
+              float kv[8], ev[8];
+              mg::widen8(kraw[u], kv);
+              mg::widen8(eraw[u], ev);
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                qk = fmaf(qv[j], kv[j], qk);
+                qe = fmaf(qv[j], ev[j], qe);
+              }
+            }
+#pragma unroll
+            for (int o = 4; o > 0; o >>= 1) {
+              qk += __shfl_xor_sync(0xffffffffu, qk, o);
+              qe += __shfl_xor_sync(0xffffffffu, qe, o);
+            }
+            if ((lane & 7) == 0 && c0 < d && s < n)
+              sc[(size_t)(c0 / DH) * SP + s] = (qk + qe) * att_scale;
+          }
+        }
+      }
+      __syncthreads();
+      // softmax, one warp per head: P in the cache dtype (pallas_decode.py
+      // :249) over the sum of the unrounded P
+      if (warp < H) {
+        float* sh = sc + (size_t)warp * SP;
+        float m = -INFINITY;
+        for (int s = lane; s < n; s += 32) m = fmaxf(m, sh[s]);
+        m = mg::warp_max(m);
+        float l = 0.f;
+        for (int s = lane; s < n; s += 32) {
+          const float pv = expf(sh[s] - m);
+          l += pv;
+          sh[s] = mg::round_to<T>(pv);
+        }
+        l = mg::warp_sum(l);
+        if (lane == 0) lsum[warp] = l;
+      }
+      __syncthreads();
+      // PV: 8 columns per thread, the rows split over G groups
+      {
+        const int tpc = d / 8, G = LOOP_THREADS / tpc;
+        if (tid < G * tpc) {
+          const int g = tid / tpc, c0 = (tid % tpc) * 8;
+          const float* ph = sc + (size_t)(c0 / DH) * SP;
+          float acc[8] = {};
+          for (int s0 = g; s0 < n; s0 += LOOP_BATCH * G) {
+            mg::Raw8<T> raw[LOOP_BATCH];
+#pragma unroll
+            for (int u = 0; u < LOOP_BATCH; ++u)
+              if (s0 + u * G < n)
+                raw[u] = mg::load_raw8(vl + ((size_t)b * S + s0 + u * G) * d + c0);
+#pragma unroll
+            for (int u = 0; u < LOOP_BATCH; ++u) {
+              if (s0 + u * G >= n) break;
+              float vv[8];
+              mg::widen8(raw[u], vv);
+              const float pv = ph[s0 + u * G];
+#pragma unroll
+              for (int j = 0; j < 8; ++j) acc[j] = fmaf(pv, vv[j], acc[j]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 8; j += 4)
+            *reinterpret_cast<float4*>(part + g * d + c0 + j) =
+                make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
+        }
+        __syncthreads();
+        for (int c = tid; c < d; c += LOOP_THREADS) {
+          float A = 0.f;
+          for (int g = 0; g < G; ++g) A += part[g * d + c];
+          at[c] = mg::round_to<T>(A / fmaxf(lsum[c / DH], 1e-30f));
+        }
+        __syncthreads();
+      }
+
+      // the tail: fc, residual, LN1, FFN (ReLU), residual, LN2
+      loop_matvec<T>(at, p[6], p[7], d, d, part, y);
+      for (int c = tid; c < d; c += LOOP_THREADS) z[c] = mg::round_to<T>(y[c]) + x[c];
+      __syncthreads();
+      layer_norm<T>(z, p[8], p[9], at, d, 1e-6f, red);  // at := out1
+      __syncthreads();
+      loop_matvec<T>(at, p[10], p[11], d, f, part, y);
+      for (int j = tid; j < f; j += LOOP_THREADS) y[j] = fmaxf(mg::round_to<T>(y[j]), 0.f);
+      __syncthreads();
+      loop_matvec<T>(y, p[12], p[13], f, d, part, q);
+      for (int c = tid; c < d; c += LOOP_THREADS) z[c] = at[c] + mg::round_to<T>(q[c]);
+      __syncthreads();
+      layer_norm<T>(z, p[14], p[15], x, d, 1e-6f, red);
+      __syncthreads();
+    }
+
+    // the head, one warp per vocabulary row: the logits in the model dtype
+    for (int v0 = warp; v0 < V; v0 += LOOP_BATCH * LOOP_WARPS) {
+      float acc[LOOP_BATCH] = {};
+      for (int c = lane * 8; c < d; c += 256) {
+        mg::Raw8<T> raw[LOOP_BATCH];
+#pragma unroll
+        for (int u = 0; u < LOOP_BATCH; ++u)
+          if (v0 + u * LOOP_WARPS < V)
+            raw[u] = mg::load_raw8(a.fc_w + (size_t)(v0 + u * LOOP_WARPS) * d + c);
+#pragma unroll
+        for (int u = 0; u < LOOP_BATCH; ++u) {
+          if (v0 + u * LOOP_WARPS >= V) break;
+          float wv[8];
+          mg::widen8(raw[u], wv);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[u] = fmaf(x[c + j], wv[j], acc[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < LOOP_BATCH; ++u) {
+        const int v = v0 + u * LOOP_WARPS;
+        const float sum = mg::warp_sum(acc[u]);
+        if (lane == 0 && v < V) lg[v] = mg::round_to<T>(sum + mg::to_f(a.fc_b[v]));
+      }
+    }
+    __syncthreads();
+  }
+  for (int v = tid; v < V; v += LOOP_THREADS) a.logits[(size_t)b * V + v] = lg[v];
+}
+
+// The sampler alone: one block per row n of logits [N, V].
+__global__ void __launch_bounds__(LOOP_THREADS)
+loop_sample_kernel(const float* __restrict__ logits,
+                   long long* __restrict__ tokens, float* __restrict__ masked,
+                   const long long* __restrict__ seeds,
+                   const int* __restrict__ rows, const int* __restrict__ pos,
+                   int V, LoopSampling sp) {
+  extern __shared__ float sm[];
+  float* vals = sm;
+  float* probs = vals + V;
+  float* red = probs + V;
+  int* redi = reinterpret_cast<int*>(red + 16);
+  const int n = blockIdx.x;
+  for (int v = threadIdx.x; v < V; v += LOOP_THREADS)
+    vals[v] = logits[(size_t)n * V + v];
+  __syncthreads();
+  const unsigned long long seed = (unsigned long long)seeds[n];
+  const int tok = loop_sample(vals, probs, V, sp,
+                              make_uint2((uint32_t)seed, (uint32_t)(seed >> 32)),
+                              rows[n], pos[n], red, redi);
+  for (int v = threadIdx.x; v < V; v += LOOP_THREADS)
+    masked[(size_t)n * V + v] = vals[v];
+  if (threadIdx.x == 0) tokens[n] = tok;
+}
+
+template <typename T>
+int decode_loop(int num_layers, void* logits, void* tokens, int tok_stride,
+                const void* seed, const void* const* w, const void* embed,
+                const void* pos, const void* fc_w, const void* fc_b, void* kc,
+                void* vc, const void* e, int B, int C, int S, int d, int H,
+                int f, int V, int t0, int max_seq, float scale,
+                LoopSampling sp, cudaStream_t stream) {
+  LoopArgs<T> a;
+  a.logits = static_cast<float*>(logits);
+  a.tokens = static_cast<long long*>(tokens);
+  a.seed = static_cast<const long long*>(seed);
+  for (int i = 0; i < 16; ++i) a.w[i] = static_cast<const T*>(w[i]);
+  a.embed = static_cast<const T*>(embed);
+  a.pos = static_cast<const T*>(pos);
+  a.fc_w = static_cast<const T*>(fc_w);
+  a.fc_b = static_cast<const T*>(fc_b);
+  a.kc = static_cast<T*>(kc);
+  a.vc = static_cast<T*>(vc);
+  a.e = static_cast<const float*>(e);
+  a.tok_stride = tok_stride;
+  a.num_layers = num_layers;
+  a.C = C;
+  a.S = S;
+  a.d = d;
+  a.H = H;
+  a.f = f;
+  a.V = V;
+  a.t0 = t0;
+  a.max_seq = max_seq;
+  a.scale = scale;
+  a.sp = sp;
+  const size_t smem = loop_smem(d, f, V, S, H);
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_loop_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  decode_loop_kernel<T><<<B, LOOP_THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Kernel F. logits: [B, V] f32, the logits of position t0 - 1, overwritten
+// with the last step's; tokens: int64, row b's C tokens at tokens[b *
+// tok_stride + i]; seed: one int64 on the device; w: 16 pointers to the
+// stacked [L, ...] weights (WEIGHT_KEYS order, [in, out]); embed, fc_w:
+// [V, d]; pos: [>= t0 + C, d]; fc_b: [V], all in the model dtype; kc, vc:
+// [L, B, S, d] caches, rows [t0, t0 + C) written in place; e: [L,
+// max_seq, 64] f32; scale: sqrt(d) in the model dtype. dh = 64, d <=
+// 1024 with d / 64 heads, f % 8 == 0, t0 + C <= min(S, max_seq) and the
+// shared memory within a block's: the caller checks. Returns the first
+// non-zero CUDA error of the attribute call and the launch.
+extern "C" int mg_decode_loop(int is_bf16, int num_layers, void* logits,
+                              void* tokens, int tok_stride, const void* seed,
+                              const void* const* w, const void* embed,
+                              const void* pos, const void* fc_w,
+                              const void* fc_b, void* kc, void* vc,
+                              const void* e, int B, int C, int S, int d,
+                              int H, int f, int V, int t0, int max_seq,
+                              float scale, float inv_temp, int greedy,
+                              int top_k, int use_p, float top_p,
+                              void* stream) {
+  const LoopSampling sp{inv_temp, greedy, top_k, use_p, top_p};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C < 1 || H > LOOP_WARPS || d % 8 || f % 8 || f > 8 * LOOP_THREADS)
+    return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return decode_loop<__nv_bfloat16>(num_layers, logits, tokens, tok_stride,
+                                      seed, w, embed, pos, fc_w, fc_b, kc, vc,
+                                      e, B, C, S, d, H, f, V, t0, max_seq,
+                                      scale, sp, s);
+  return decode_loop<float>(num_layers, logits, tokens, tok_stride, seed, w,
+                            embed, pos, fc_w, fc_b, kc, vc, e, B, C, S, d, H,
+                            f, V, t0, max_seq, scale, sp, s);
+}
+
+// Kernel F's sampler alone (for holding it against the plain one): row n
+// of logits [N, V] f32 drawn for batch row rows[n] at position pos[n]
+// under seeds[n]; writes tokens[n] and the masked scaled row masked[n]
+// (the raw row when greedy).
+extern "C" int mg_loop_sample(const void* logits, void* tokens, void* masked,
+                              const void* seeds, const void* rows,
+                              const void* pos, int N, int V, float inv_temp,
+                              int greedy, int top_k, int use_p, float top_p,
+                              void* stream) {
+  const LoopSampling sp{inv_temp, greedy, top_k, use_p, top_p};
+  const size_t smem = ((size_t)2 * V + 64) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      loop_sample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  loop_sample_kernel<<<N, LOOP_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(logits), static_cast<long long*>(tokens),
+      static_cast<float*>(masked), static_cast<const long long*>(seeds),
+      static_cast<const int*>(rows), static_cast<const int*>(pos), V, sp);
+  return (int)cudaGetLastError();
 }

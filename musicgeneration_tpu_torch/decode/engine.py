@@ -3,7 +3,8 @@
 The port of ``musicgeneration_tpu/decode/engine.py``'s single-device
 path. A MusicTransformer takes a one-pass prefill of the (optionally
 bucketed) prompt through the relative-attention kernel, then one fused
-decode step per generated token. A model without ``prefill`` (the GRU
+decode step per generated token, or, with ``use_loop_kernel``, chunks of
+whole sampling-and-decode steps in one launch each (kernel F). A model without ``prefill`` (the GRU
 families) feeds the prompt one token at a time through ``decode_step``
 (kernel D once per prompt token), optionally from a latent-seeded state
 ``cache0`` and with PerformanceRNN ``controls``. JAX ran the loops as
@@ -28,6 +29,12 @@ class DecodeParams:
     max_len: int                  # cache length (prompt + generated)
     steps: int                    # tokens to generate
     sampling: SamplingParams = SamplingParams()
+    # opt-in, as in the JAX engine (engine.py:37-49): generate in chunks of
+    # whole sampling-and-decode steps, one kernel-F launch per chunk
+    # (``MusicTransformer.decode_loop``). Greedy runs give the step path's
+    # tokens; sampled runs draw from the kernel's Philox stream, so the
+    # same generator gives other (identically distributed) tokens.
+    use_loop_kernel: bool = False
 
 
 def align_cache_len(model, max_len: int) -> int:
@@ -103,6 +110,15 @@ def generate(model, prompt: torch.Tensor,
         logits, cache = model.prefill(prompt, cache_len,
                                       last_idx=prompt_len - 1)
         t = int(prompt_len)
+    sp = dp.sampling
+    if dp.use_loop_kernel and hasattr(model, "decode_loop"):
+        # the JAX engine's conditions (engine.py:228-234): no controls and
+        # no cache0 (both refused above for this family); the kernel's
+        # limits raise, never falling back to the step path
+        out, _ = model.decode_loop(logits, t, generator, cache, dp.steps,
+                                   sp.temperature, sp.greedy, sp.top_k,
+                                   sp.top_p)
+        return out
     stacked = model.decode_weights()
     out = torch.empty(b, dp.steps, dtype=torch.long, device=model.device)
     for i in range(dp.steps):

@@ -17,7 +17,8 @@ Parameters are float32; ``dtype`` is the compute dtype (bfloat16 on the
 card), as the JAX module's ``dtype``. Full-sequence attention runs
 ``ops.fused_attention`` (kernel A forward and kernel C backward on CUDA),
 the decode step and the speculative verify forward ``ops.fused_decode``
-(kernels B and E on CUDA) over the fused cache layout ``[L, B, S, d]``.
+(kernels B and E on CUDA) and the opt-in decode loop ``ops.decode_loop``
+(kernel F) over the fused cache layout ``[L, B, S, d]``.
 
 ``forward`` is the training forward: it runs under autograd, with
 dropout at the JAX module's three sites (after embedding + position,
@@ -38,6 +39,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..ops.decode_loop import fused_decode_loop
 from ..ops.fused_attention import fused_relative_attention
 from ..ops.fused_decode import (WEIGHT_KEYS, fused_decode_chunk,
                                 fused_decode_step)
@@ -370,6 +372,57 @@ class MusicTransformer(nn.Module):
         h, cache["k"], cache["v"] = fused_decode_chunk(
             h, t, e_all, w_all, cache["k"], cache["v"], self.num_heads)
         return _linear(self.fc, h, self.dtype).float(), cache
+
+
+    @torch.no_grad()
+    def loop_weights(self) -> Tuple[torch.Tensor, ...]:
+        """The decode loop's other inputs, in the compute dtype: the
+        embedding [V, d], the positional table [max_seq, d] and the head's
+        weight [V, d] and bias [V]. Build once per generation."""
+        return tuple(y.to(self.dtype).contiguous() for y in (
+            self.Decoder.embedding.weight, self.pos_table, self.fc.weight,
+            self.fc.bias))
+
+    @torch.no_grad()
+    def decode_loop(self, last_logits: torch.Tensor, t: int,
+                    generator: Optional[torch.Generator], cache: Cache,
+                    steps: int, temperature: float = 1.0,
+                    greedy: bool = False, top_k: int = 0, top_p: float = 1.0,
+                    chunk: int = 32) -> Tuple[torch.Tensor, Cache]:
+        """Generate ``steps`` tokens after position t - 1 in
+        ceil(steps / chunk) launches of ``fused_decode_loop`` (kernel F on
+        CUDA), each running ``chunk`` whole sampling steps (the last may be
+        shorter); the JAX module's decode_loop (music_transformer.py:
+        583-635). last_logits: [B, vocab] f32, the logits of position
+        t - 1. Returns (tokens [B, steps] int64, cache with rows
+        [t, t + steps) written in place).
+
+        The per-chunk seeds are drawn once, as one device tensor, from
+        ``generator`` (the counterpart of ``fold_in(rng, chunk_idx)``);
+        greedy runs draw none. Sampled runs take the kernel's Philox
+        stream, not ``torch.multinomial``'s, so the same generator gives
+        other (identically distributed) tokens than the step path."""
+        b = last_logits.shape[0]
+        n_chunks = -(-steps // chunk)
+        stacked = self.decode_weights()
+        embed, pos, fc_w, fc_b = self.loop_weights()
+        if greedy:
+            seeds = torch.zeros(n_chunks, dtype=torch.long,
+                                device=self.device)
+        else:
+            seeds = torch.randint(0, (1 << 31) - 1, (n_chunks,),
+                                  generator=generator, device=self.device)
+        logits = last_logits.float().clone()  # the carried logits
+        out = torch.empty(b, steps, dtype=torch.long, device=self.device)
+        for i in range(n_chunks):
+            c = min(chunk, steps - i * chunk)
+            fused_decode_loop(
+                logits, t, seeds[i:i + 1], embed, pos, stacked[1],
+                stacked[0], fc_w, fc_b, cache["k"], cache["v"],
+                self.num_heads, c, temperature, greedy, top_k, top_p,
+                tokens=out[:, i * chunk:i * chunk + c])
+            t += c
+        return out, cache
 
 
 def _remat(layer: EncoderLayer, h, key_pad, drop, generator):

@@ -412,6 +412,85 @@ def test_serve_cuda_request_without_gpu_raises(monkeypatch, exported):
         tserve.main([pth, str(reqs), str(tmp / "nogpu")])
 
 
+@pytest.fixture(scope="module")
+def bf16_run(exported):
+    """A cli.train checkpoint directory (written by the trainer's own
+    ``save_checkpoint``) that records ``model.dtype=bfloat16``."""
+    from types import SimpleNamespace
+
+    from musicgeneration_tpu_torch import convert
+    from musicgeneration_tpu_torch.utils.checkpoint import save_checkpoint
+    _, _, pth, _, tmp = exported
+    model = convert.load_checkpoint(pth, device="cpu")
+    zeros = [torch.zeros_like(p) for p in model.parameters()]
+    state = SimpleNamespace(model=model, dropout_seed=0, opt_state=(
+        SimpleNamespace(count=1, mu=zeros, nu=zeros)))
+    run = tmp / "bf16_run"
+    save_checkpoint(str(run), 1, state, config={
+        "cli": {}, "scheme": "midilike",
+        "model_kwargs": {"dtype": "bfloat16", "num_layers": 2}})
+    return str(run)
+
+
+@pytest.mark.parametrize("cli,source,flag,want", [
+    ("generate", "run", None, torch.bfloat16),
+    ("generate", "run", "float32", torch.float32),
+    ("generate", "pth", None, torch.float32),
+    ("generate", "pth", "bfloat16", torch.bfloat16),
+    ("serve", "run", None, torch.bfloat16),
+    ("serve", "run", "float32", torch.float32),
+    ("serve", "pth", None, torch.float32)])
+def test_cli_dtype_defaults_to_the_recorded_one(monkeypatch, exported,
+                                                bf16_run, cli, source, flag,
+                                                want):
+    """cli.generate and cli.serve load a cli.train run in the dtype it
+    recorded (as the JAX CLI rebuilds the model from model_kwargs); an
+    exported .pth records none and loads in float32; --dtype wins."""
+    from musicgeneration_tpu_torch import convert
+    _, _, pth, _, tmp = exported
+    seen = []
+    real = convert.load_checkpoint
+
+    def spy(*args, **kw):
+        model = real(*args, **kw)
+        seen.append(model.dtype)
+        return model
+
+    monkeypatch.setattr(convert, "load_checkpoint", spy)
+    ckpt = bf16_run if source == "run" else pth
+    extra = [] if flag is None else ["--dtype", flag]
+    name = f"dtype_{cli}_{source}_{flag}"
+    if cli == "generate":
+        assert tcli.main([ckpt, str(tmp / f"{name}.mid"), "--steps", "4",
+                          "--temperature", "0", "--device", "cpu",
+                          *extra]) == 0
+    else:
+        reqs = tmp / f"{name}.jsonl"
+        reqs.write_text('{"id": "a", "tokens": [24, 28], "max_new": 4}\n')
+        assert tserve.main([ckpt, str(reqs), str(tmp / name), "--slots", "1",
+                            "--seg-len", "4", "--device", "cpu",
+                            *extra]) == 0
+    assert seen == [want]
+
+
+def test_recorded_dtype_reads_model_kwargs(exported, bf16_run):
+    """load_checkpoint exposes a step file's config (an exported .pth has
+    none) and, with dtype=None, builds the model in the recorded dtype."""
+    from musicgeneration_tpu_torch import convert
+    model, config = convert.load_checkpoint(bf16_run, device="cpu",
+                                            dtype=None, with_config=True)
+    assert config["model_kwargs"]["dtype"] == "bfloat16"
+    assert model.dtype == torch.bfloat16
+    model, config = convert.load_checkpoint(exported[2], device="cpu",
+                                            dtype=None, with_config=True)
+    assert config == {} and model.dtype == torch.float32
+    assert convert.recorded_dtype({}) == torch.float32
+    assert convert.recorded_dtype(
+        {"model_kwargs": {"dtype": "bfloat16"}}) == torch.bfloat16
+    with pytest.raises(ValueError):
+        convert.recorded_dtype({"model_kwargs": {"dtype": "float16"}})
+
+
 # ---------------------------------------------------------------- GRU families
 
 @pytest.fixture(scope="module")
@@ -622,6 +701,12 @@ def test_import_check_covers_the_gru_modules():
     assert {"ops/gru.py", "ops/fused_gru_decode.py", "decode/beam.py",
             "decode/serving_rnn.py", "models/event_rnn.py",
             "models/performance_rnn.py"} <= scanned
+
+
+def test_import_check_covers_the_decode_loop_modules():
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"ops/decode_loop.py", "decode/engine.py",
+            "models/music_transformer.py"} <= scanned
 
 
 def test_import_check_covers_the_speculative_modules():
