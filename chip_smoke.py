@@ -109,7 +109,24 @@ Phases (the first failure raises and the exit code is non-zero):
    at B 8 and B 1, its plain version, its bound, ``torch.nn.GRU``
    (cuDNN) over one step; a ``torch.profiler`` window over 32 decode
    steps;
-11. one JSON line of kernels, the card's line, and the final JSON line.
+11. weight-only int8 decode (``decode_quant="int8"``): the int8 modes of
+   kernels B (non-ragged at t 755, ragged at t 1023 with ``start_min``)
+   and E (C 8, B 1 and 8) against their plain int8 versions at the
+   flagship's shapes, f32 and bf16, kernel E against C chained int8
+   kernel-B steps bit for bit, each within 3e-2 relative of the
+   unquantized kernel, int8 weights without scales refused; kernel B at
+   the d 1024 rung (bench.py:455-464: 16 heads, FFN 512), unquantized
+   and int8, against its plain version; greedy f32 on an int8 model,
+   kernel path == plain path, for ``decode.generate`` and serving of 8
+   staggered requests, and lookup speculation at B 1 == ``generate``;
+   ``cli.generate --quant int8`` (bf16, B 8, the 500-token prime, 512
+   sampled tokens: exactly 18 int8 kernel-B launches per decode step)
+   and ``--spec lookup --quant int8`` (exactly 18 int8 kernel-E launches
+   per verify forward); device times of the int8 modes beside the
+   unquantized kernels, their plain versions and bounds (the flagship
+   and the d 1024 rung); decode tokens/s int8 against unquantized at
+   both widths (B 8, a 16-token prompt, 512 tokens, cache 1024);
+12. one JSON line of kernels, the card's line, and the final JSON line.
 
 Imports nothing of JAX or of ``musicgeneration_tpu``. Needs one CUDA card.
 """
@@ -241,6 +258,15 @@ DIST_ROWS, DIST_SEEDS, CHI2_CRIT, LOOP_ROUNDS = 64, 64, 52.0, 3
 LOOP_MODES = (("T 1", SamplingParams(temperature=1.0)),
               ("T 0.9 top-k 20", SamplingParams(temperature=0.9, top_k=20)),
               ("top-p 0.9", SamplingParams(temperature=1.0, top_p=0.9)))
+# weight-only int8: the d 1024 rung of bench.py:455-464 (vocab 309, 6
+# layers, d 1024, 16 heads, FFN 512, max_seq 2048), beside the flagship;
+# int8 against the unquantized kernel within JAX's bound, max |int8 -
+# full| / max |full| < 3e-2 (tests/test_pallas_decode.py:459-460); the
+# decode rates at bench.py:25-44's shape (B 8, a 16-token prompt, 512
+# sampled tokens, cache 1024), interleaved, median of 3
+D_RUNG = 1024
+TOL_INT8_REL = 3e-2
+RATE_PROMPT, RATE_CACHE, RATE_ROUNDS = 16, 1024, 3
 # timing: 64 MB written between calls evicts the 50 MB L2
 FLUSH_BYTES = 64 << 20
 _SPIN_CYCLES_PER_MS = []
@@ -419,20 +445,25 @@ def check_kernel_c() -> float:
     return worst
 
 
-def flagship(dtype, seed: int = 0) -> mt.MusicTransformer:
+def flagship(dtype, seed: int = 0, quant: str = "none",
+             d_model: int = D_MODEL) -> mt.MusicTransformer:
+    """The flagship (or, with ``d_model=D_RUNG``, the d 1024 rung) with
+    seeded random weights."""
     return mt.MusicTransformer(
-        vocab_size=VOCAB, num_layers=N_LAYERS, d_model=D_MODEL,
+        vocab_size=VOCAB, num_layers=N_LAYERS, d_model=d_model,
         max_seq=MAX_SEQ, dtype=dtype, device=DEV,
-        generator=torch.Generator().manual_seed(seed))
+        generator=torch.Generator().manual_seed(seed), decode_quant=quant)
 
 
 def decode_inputs(model, gen, b: int = B):
+    """x [b, d] and filled [L, b, 1024, d] caches in the model dtype; the
+    model's stacked weights (an int8 model's hold their "int8" pair)."""
     w_all, e_all = model.decode_weights()
     cache_len = 1024
-    shape = (N_LAYERS, b, cache_len, D_MODEL)
+    shape = (model.num_layers, b, cache_len, model.d_model)
     kc = torch.randn(shape, generator=gen).to(DEV, model.dtype)
     vc = torch.randn(shape, generator=gen).to(DEV, model.dtype)
-    x = torch.randn(b, D_MODEL, generator=gen).to(DEV, model.dtype)
+    x = torch.randn(b, model.d_model, generator=gen).to(DEV, model.dtype)
     return x, e_all, w_all, kc, vc
 
 
@@ -528,10 +559,11 @@ def chunk_inputs(model, stacked, gen, b: int, c: int, cache_len: int):
     """x [b, c, d] and filled [L, b, cache_len, d] caches in the model
     dtype, drawn on the card; the model's stacked weights."""
     w_all, e_all = stacked
-    shape = (N_LAYERS, b, cache_len, D_MODEL)
+    shape = (model.num_layers, b, cache_len, model.d_model)
     kc = torch.randn(shape, generator=gen, device=DEV).to(model.dtype)
     vc = torch.randn(shape, generator=gen, device=DEV).to(model.dtype)
-    x = torch.randn(b, c, D_MODEL, generator=gen, device=DEV).to(model.dtype)
+    x = torch.randn(b, c, model.d_model, generator=gen,
+                    device=DEV).to(model.dtype)
     return x, e_all, w_all, kc, vc
 
 
@@ -787,12 +819,14 @@ def end_to_end() -> dict:
             "tok_s": tok_s, "prime": prime}
 
 
-def profile_decode(steps: int = 32, warm: int = 3) -> None:
-    """Where a bf16 decode step's time goes: device time by kernel and
-    the device's busy share of the wall time, under torch.profiler."""
+def profile_decode(steps: int = 32, warm: int = 3, d_model: int = D_MODEL,
+                   quant: str = "none") -> None:
+    """Where a bf16 decode step's time goes (the flagship, or the d 1024
+    rung; unquantized or int8): device time by kernel and the device's
+    busy share of the wall time, under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    model = flagship(torch.bfloat16)
+    model = flagship(torch.bfloat16, quant=quant, d_model=d_model)
     prompt = torch.randint(0, VOCAB - 1, (B, L_PREFILL), device=DEV,
                            generator=torch.Generator(DEV).manual_seed(5))
     logits, cache = model.prefill(prompt, L_PREFILL + warm + steps)
@@ -814,7 +848,8 @@ def profile_decode(steps: int = 32, warm: int = 3) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = device_rows(prof)
     busy_us = sum(r[0] for r in rows)
-    print(f"decode profile: {steps} steps (decode_step + argmax), wall "
+    print(f"decode profile d={d_model} {quant}: {steps} steps "
+          f"(decode_step + argmax), wall "
           f"{wall_us / steps:.1f} us/step under the profiler, device busy "
           f"{busy_us / steps:.1f} us/step ({100 * busy_us / wall_us:.1f}% "
           f"of wall)")
@@ -897,11 +932,11 @@ def serve_file_mode(tmp: str, pth: str, prime_mid: str) -> dict:
     return {"A": launches[0], "B": launches[1]}
 
 
-def serve_parity(prime: np.ndarray) -> None:
+def serve_parity(prime: np.ndarray, quant: str = "none") -> None:
     """Greedy f32 serving of 8 staggered requests (3 admitted later,
     mid-flight) through the kernels and through their plain versions:
-    the tokens must be equal."""
-    model32 = flagship(torch.float32)
+    the tokens must be equal. ``quant``: the model's decode_quant."""
+    model32 = flagship(torch.float32, quant=quant)
     lens = (1, 3, 64, 200, 500, 17, 100, 33)
     news = (64, 128, 96, 64, 100, 80, 128, 72)
     outs = []
@@ -918,8 +953,9 @@ def serve_parity(prime: np.ndarray) -> None:
             done = cb.run()
         outs.append([done[r] for r in rids])
     same = all(np.array_equal(a, b) for a, b in zip(*outs))
-    print(f"serving greedy f32, {len(lens)} staggered requests: kernel path "
-          f"== plain path: {same}")
+    print(f"serving greedy f32{' int8' if quant == 'int8' else ''}, "
+          f"{len(lens)} staggered requests: kernel path == plain path: "
+          f"{same}")
     if not same:
         raise AssertionError("served greedy tokens differ from the plain "
                              "path's")
@@ -1064,7 +1100,9 @@ def reset_counts() -> None:
     torch.cuda.synchronize()
     fused_relative_attention.launches = 0
     fused_decode_step.launches = 0
+    fused_decode_step.int8_launches = 0
     fused_decode_chunk.launches = 0
+    fused_decode_chunk.int8_launches = 0
     fused_decode_loop.launches = 0
 
 
@@ -2006,20 +2044,32 @@ def time_kernel_b(launches: int, err: float) -> dict:
             "library_ms": None}
 
 
-def decode_bound(starts: np.ndarray, t: int) -> tuple:
+def weight_bytes(d: int, int8: bool) -> int:
+    """Bytes of the six layers' bf16 decode weights (FFN d / 2), or with
+    the six matrices in int8 plus their f32 scale tables (one per output
+    column)."""
+    f = d // 2
+    mats, vecs = 4 * d * d + 2 * d * f, 9 * d + f
+    if int8:
+        return N_LAYERS * (mats + 2 * vecs + 4 * (5 * d + f))
+    return N_LAYERS * 2 * (mats + vecs)
+
+
+def decode_bound(starts: np.ndarray, t: int, d: int = D_MODEL,
+                 int8: bool = False) -> tuple:
     """Least time of one bf16 decode step at position t whose rows attend
-    [start_b, t]: weights, the live K/V rows and the E rows they need
-    read once, x read and written, the new K/V rows written; the qkv,
-    output and FFN products plus three 64-deep products per live row."""
-    d, f = D_MODEL, D_MODEL // 2
+    [start_b, t]: weights (``weight_bytes``), the live K/V rows and the E
+    rows they need read once, x read and written, the new K/V rows
+    written; the qkv, output and FFN products plus three 64-deep products
+    per live row and head."""
+    f, heads = d // 2, d // DH
     live = int(np.sum(t + 1 - starts))          # (b, s) pairs attended
     e_rows = t + 1 - int(starts.min())
-    w_elems = N_LAYERS * (4 * d * d + 2 * d * f + 9 * d + f)
-    nbytes = (w_elems * 2 + 2 * N_LAYERS * live * d * 2
+    nbytes = (weight_bytes(d, int8) + 2 * N_LAYERS * live * d * 2
               + N_LAYERS * e_rows * DH * 4 + 2 * len(starts) * d * 2
               + 2 * N_LAYERS * len(starts) * d * 2)
     flops = N_LAYERS * (2 * len(starts) * (4 * d * d + 2 * d * f)
-                        + 3 * 2 * H * live * DH)
+                        + 3 * 2 * heads * live * DH)
     return bound(nbytes, flops, torch.bfloat16)
 
 
@@ -2060,16 +2110,16 @@ def time_kernel_b_ragged(launches: int, err: float) -> dict:
             "bound_ms_full_prefix": full_ms}
 
 
-def chunk_bound(b: int, c: int, t: int) -> tuple:
+def chunk_bound(b: int, c: int, t: int, int8: bool = False) -> tuple:
     """Least time of one bf16 verify forward of c tokens at t: the six
-    layers' weights once, the K/V rows [0, t+c) of each batch row, the E
-    rows they need (t+c per layer), x read and the output written, the
-    chunk's K/V rows written; the qkv, output and FFN products of b*c
-    rows plus three 64-deep products per (query, live row) pair."""
+    layers' weights once (``weight_bytes``), the K/V rows [0, t+c) of
+    each batch row, the E rows they need (t+c per layer), x read and the
+    output written, the chunk's K/V rows written; the qkv, output and
+    FFN products of b*c rows plus three 64-deep products per (query,
+    live row) pair."""
     d, f = D_MODEL, D_MODEL // 2
-    w_elems = N_LAYERS * (4 * d * d + 2 * d * f + 9 * d + f)
     pairs = b * sum(t + i + 1 for i in range(c))
-    nbytes = (w_elems * 2 + 2 * N_LAYERS * b * (t + c) * d * 2
+    nbytes = (weight_bytes(d, int8) + 2 * N_LAYERS * b * (t + c) * d * 2
               + N_LAYERS * (t + c) * DH * 4 + 2 * b * c * d * 2
               + 2 * N_LAYERS * b * c * d * 2)
     flops = N_LAYERS * (2 * b * c * (4 * d * d + 2 * d * f)
@@ -2111,6 +2161,418 @@ def time_kernel_e(launches: int, err: float) -> dict:
             "library_ms": None, "ms_b8": res[B][0], "plain_ms_b8": res[B][1],
             "bound_ms_b8": res[B][3], "kernel_b_step_ms_b1": step_ms,
             "kernel_b_step_ms_b8": res[B][2]}
+
+
+# ------------------------------------------------ weight-only int8 (B, E)
+
+def int8_refusals(model) -> None:
+    """Kernels B and E given int8 weights without their scales raise
+    before launching anything."""
+    gen = torch.Generator().manual_seed(23)
+    x, e_all, w_all, kc, vc = decode_inputs(model, gen)
+    qw = w_all["int8"][0]
+    xc = torch.stack([x] * SPEC_CHUNK, 1)
+    reset_counts()
+    for name, fn in (
+            ("B", lambda: fused_decode_step(x, T_TIMED, e_all, qw, kc, vc, H)),
+            ("E", lambda: fused_decode_chunk(xc, T_TIMED, e_all, qw, kc, vc,
+                                             H))):
+        try:
+            fn()
+        except ValueError as e:
+            if "scales" not in str(e):
+                raise
+            print(f"kernel {name} with int8 weights and no scales raises: "
+                  f"{e}")
+        else:
+            raise AssertionError(f"kernel {name} took int8 weights without "
+                                 "their scales")
+    n = (fused_decode_step.launches + fused_decode_step.int8_launches
+         + fused_decode_chunk.launches + fused_decode_chunk.int8_launches)
+    if n:
+        raise AssertionError(f"a refused call launched {n} kernels")
+
+
+def check_step_int8(model, gen, t: int, ragged: bool, label: str) -> float:
+    """One int8 kernel-B call against its plain int8 version on the same
+    inputs (output and cache row t within TOL_B, every other row
+    untouched) and against the unquantized kernel (TOL_INT8_REL).
+    Returns the max abs error against the plain version."""
+    x, e_all, w_all, kc, vc = decode_inputs(model, gen)
+    qw, sc = w_all["int8"]
+    heads = model.num_heads
+    kw = {}
+    if ragged:
+        start = ragged_starts(gen, t).to(DEV)
+        kw = {"start": start, "start_min": int(start.min())}
+    kc2, vc2, kc3, vc3 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    out, kc, vc = fused_decode_step(x, t, e_all, qw, kc, vc, heads,
+                                    scales=sc, **kw)
+    ref, kc2, vc2 = fused_decode_step_plain(x, t, e_all, qw, kc2, vc2, heads,
+                                            scales=sc, **kw)
+    full, _, _ = fused_decode_step(x, t, e_all, w_all, kc3, vc3, heads, **kw)
+    torch.cuda.synchronize()
+    err = max((out.float() - ref.float()).abs().max().item(),
+              (kc[:, :, t].float() - kc2[:, :, t].float()).abs().max().item(),
+              (vc[:, :, t].float() - vc2[:, :, t].float()).abs().max().item())
+    rel = rel_err(out, full)
+    tol = TOL_B[model.dtype]
+    ok = (err <= tol and rel < TOL_INT8_REL and untouched(kc, kc2, t)
+          and untouched(vc, vc2, t) and bool(torch.isfinite(out).all()))
+    extra = f" start_min={kw['start_min']}" if ragged else ""
+    print(f"kernel B int8 {label} {str(model.dtype):15s} d={model.d_model} "
+          f"B={x.shape[0]} t={t}{extra}: max_abs_err {err:.3e} (tol "
+          f"{tol:.1e}); vs unquantized {rel:.3e} relative (< "
+          f"{TOL_INT8_REL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"int8 kernel B ({label}) disagrees")
+    return err
+
+
+def check_chunk_int8(model, gen, b: int, t: int) -> float:
+    """One int8 kernel-E call (C SPEC_CHUNK) against its plain int8
+    version (TOL_B, rows outside [t, t+C) untouched), against the
+    unquantized kernel E (TOL_INT8_REL) and against C chained int8
+    kernel-B steps, bit for bit. Returns the error against plain."""
+    c = SPEC_CHUNK
+    w_all, e_all = model.decode_weights()
+    x, e_all, w_all, kc, vc = chunk_inputs(model, (w_all, e_all), gen, b, c,
+                                           1024)
+    qw, sc = w_all["int8"]
+    kc0, vc0 = kc.clone(), vc.clone()
+    kc2, vc2, kb, vb = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    out, kc, vc = fused_decode_chunk(x, t, e_all, qw, kc, vc, H, scales=sc)
+    ref, kc2, vc2 = fused_decode_chunk_plain(x, t, e_all, qw, kc2, vc2, H,
+                                             scales=sc)
+    full, _, _ = fused_decode_chunk(x, t, e_all, w_all, kc0.clone(),
+                                    vc0.clone(), H)
+    steps = []
+    for i in range(c):
+        o, kb, vb = fused_decode_step(x[:, i].contiguous(), t + i, e_all, qw,
+                                      kb, vb, H, scales=sc)
+        steps.append(o)
+    torch.cuda.synchronize()
+    err = max((out.float() - ref.float()).abs().max().item(),
+              (kc[:, :, t:t + c].float() - kc2[:, :, t:t + c].float()).abs()
+              .max().item(),
+              (vc[:, :, t:t + c].float() - vc2[:, :, t:t + c].float()).abs()
+              .max().item())
+    rel = rel_err(out, full)
+    same = all(untouched(a, a0, t, c) for a, a0 in (
+        (kc, kc0), (vc, vc0), (kc2, kc0), (vc2, vc0)))
+    chained = (torch.equal(out, torch.stack(steps, 1)) and torch.equal(kc, kb)
+               and torch.equal(vc, vb))
+    tol = TOL_B[model.dtype]
+    ok = err <= tol and rel < TOL_INT8_REL and same and chained
+    print(f"kernel E int8 {str(model.dtype):15s} B={b} C={c} t={t}: "
+          f"max_abs_err {err:.3e} (tol {tol:.1e}); vs unquantized {rel:.3e} "
+          f"relative; == {c} chained int8 kernel-B steps bit for bit: "
+          f"{chained}; other rows untouched: {same} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("int8 kernel E disagrees")
+    return err
+
+
+def check_int8_kernels() -> dict:
+    """The int8 modes of kernels B (non-ragged at t 755, ragged at t 1023
+    with start_min = min(start)) and E (C 8, B 1 and 8, t 755) at the
+    flagship's shapes, f32 and bf16; the refusals. Returns the worst
+    bf16 error of each mode."""
+    gen = torch.Generator().manual_seed(21)
+    dgen = torch.Generator(DEV).manual_seed(22)
+    worst = {"B": 0.0, "B_ragged": 0.0, "E": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = flagship(dtype, quant="int8")
+        errs = {"B": check_step_int8(model, gen, T_TIMED, False, "non-ragged"),
+                "B_ragged": check_step_int8(model, gen, T_RAGGED, True,
+                                            "ragged"),
+                "E": max(check_chunk_int8(model, dgen, b, T_TIMED)
+                         for b in (1, B))}
+        if dtype == torch.bfloat16:
+            worst = errs
+    int8_refusals(flagship(torch.bfloat16, quant="int8"))
+    return worst
+
+
+def check_kernel_b_rung() -> None:
+    """Kernel B at the d 1024 rung (16 heads, FFN 512; B 8, t 755), which
+    no earlier run took to the card: model-dtype and int8 weights against
+    their plain versions, f32 and bf16."""
+    gen = torch.Generator().manual_seed(24)
+    for dtype in (torch.float32, torch.bfloat16):
+        model = flagship(dtype, quant="int8", d_model=D_RUNG)
+        x, e_all, w_all, kc, vc = decode_inputs(model, gen)
+        heads = model.num_heads
+        kc2, vc2 = kc.clone(), vc.clone()
+        out, kc, vc = fused_decode_step(x, T_TIMED, e_all, w_all, kc, vc,
+                                        heads)
+        ref, kc2, vc2 = fused_decode_step_plain(x, T_TIMED, e_all, w_all,
+                                                kc2, vc2, heads)
+        torch.cuda.synchronize()
+        err = max((out.float() - ref.float()).abs().max().item(),
+                  (kc[:, :, T_TIMED].float() - kc2[:, :, T_TIMED].float())
+                  .abs().max().item())
+        ok = (err <= TOL_B[dtype] and untouched(kc, kc2, T_TIMED)
+              and bool(torch.isfinite(out).all()))
+        print(f"kernel B {str(dtype):15s} d={D_RUNG} H={heads} B={B} "
+              f"t={T_TIMED}: max_abs_err {err:.3e} tol {TOL_B[dtype]:.1e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("kernel B at d 1024 disagrees with its "
+                                 "plain version")
+        check_step_int8(model, gen, T_TIMED, False, "rung")
+
+
+def int8_paths(prime: np.ndarray) -> dict:
+    """Greedy f32 on an int8 flagship, the kernel path against the plain
+    path: ``decode.generate`` (64 tokens x 8, the bucketed prime) and
+    serving of 8 staggered requests; lookup speculation at B 1 equal to
+    ``generate`` on it. Returns the int8 launches of each run."""
+    model32 = flagship(torch.float32, quant="int8")
+    prompt_np, prompt_len = bucket_prompt(np.tile(prime, (B, 1)),
+                                          GREEDY_STEPS, MAX_SEQ,
+                                          model32.pad_id)
+    prompt = torch.from_numpy(prompt_np).to(DEV)
+    dpg = DecodeParams(max_len=prompt.shape[1] + GREEDY_STEPS,
+                       steps=GREEDY_STEPS,
+                       sampling=SamplingParams(greedy=True))
+    reset_counts()
+    kern = generate(model32, prompt, None, dpg, prompt_len)
+    torch.cuda.synchronize()
+    launches = {"generate": fused_decode_step.int8_launches}
+    with plain_path():
+        plain = generate(model32, prompt, None, dpg, prompt_len)
+    same = torch.equal(kern, plain)
+    print(f"greedy f32 int8 {GREEDY_STEPS} tokens x {B}: kernel path == "
+          f"plain path: {same}; int8 kernel-B launches "
+          f"{launches['generate']}")
+    if not same or launches["generate"] != 3 * N_LAYERS * GREEDY_STEPS:
+        raise AssertionError("greedy int8 generation: kernel path differs "
+                             "or kernel B's int8 mode was not launched")
+    reset_counts()
+    serve_parity(prime, quant="int8")
+    torch.cuda.synchronize()
+    launches["serve"] = fused_decode_step.int8_launches
+    if launches["serve"] == 0 or fused_decode_step.launches:
+        raise AssertionError("int8 serving did not run kernel B's int8 mode")
+
+    prompt1 = torch.from_numpy(prime[None]).to(DEV)
+    dp = DecodeParams(max_len=PROMPT + SPEC_GREEDY, steps=SPEC_GREEDY,
+                      sampling=SamplingParams(greedy=True))
+    want = generate(model32, prompt1, None, dp)
+    reset_counts()
+    got, stats = generate_speculative(model32, prompt1, None, dp,
+                                      spec=SpecParams(chunk=SPEC_CHUNK),
+                                      with_stats=True)
+    torch.cuda.synchronize()
+    launches["speculative"] = fused_decode_chunk.int8_launches
+    same = torch.equal(got, want)
+    print(f"speculative greedy f32 int8 lookup B=1, {SPEC_GREEDY} tokens: == "
+          f"generate: {same}; {stats['iterations']} verify forwards, int8 "
+          f"kernel-E launches {launches['speculative']}")
+    if (not same or launches["speculative"]
+            != 3 * N_LAYERS * stats["iterations"]):
+        raise AssertionError("int8 lookup speculation differs from "
+                             "generate or missed kernel E's int8 mode")
+    return launches
+
+
+def int8_cli() -> dict:
+    """``cli.generate --quant int8`` at full width, bf16: B 8, the
+    500-token prime bucketed to 512, 512 sampled tokens, with exactly
+    18 int8 kernel-B launches per decode step, 6 kernel-A launches and no
+    unquantized kernel-B launch, every MIDI read back; then ``--spec
+    lookup --quant int8`` at B 1 with exactly 18 int8 kernel-E launches
+    per verify forward."""
+    model = flagship(torch.bfloat16)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        pth, prime_mid = write_inputs(model, tmp)
+        for name, extra, nb in (
+                ("generate", [], B),
+                ("spec_lookup", ["--spec", "lookup", "--spec-chunk",
+                                 str(SPEC_CHUNK)], 1)):
+            out = os.path.join(tmp, f"int8-{name}.mid")
+            buf = io.StringIO()
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main([pth, out, "--prime", prime_mid, "--prime-len",
+                               str(PROMPT), "--steps", str(STEPS), "--batch",
+                               str(nb), "--dtype", "bfloat16", "--seed", "0",
+                               "--quant", "int8"] + extra)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            text = buf.getvalue()
+            n = {"A": fused_relative_attention.launches,
+                 "B": fused_decode_step.launches,
+                 "B_int8": fused_decode_step.int8_launches,
+                 "E": fused_decode_chunk.launches,
+                 "E_int8": fused_decode_chunk.int8_launches}
+            if name == "generate":
+                want = {"A": N_LAYERS, "B": 0, "B_int8": 3 * N_LAYERS * STEPS,
+                        "E": 0, "E_int8": 0}
+                detail = f"{STEPS} decode steps"
+            else:
+                m = re.search(r"speculative: (\d+) verify forwards", text)
+                iters = int(m.group(1))
+                want = {"A": N_LAYERS, "B": 0, "B_int8": 0, "E": 0,
+                        "E_int8": 3 * N_LAYERS * iters}
+                detail = f"{iters} verify forwards"
+            paths = re.findall(r"wrote (\S+) \((\d+) tokens\)", text)
+            events = [len(midilike.extract_events(path).events)
+                      for path, _ in paths]
+            ok = (rc == 0 and n == want and len(paths) == nb
+                  and all(int(k) == STEPS for _, k in paths)
+                  and min(events) > 0)
+            print(f"cli.generate --quant int8 {name} bf16 (B={nb}, prime "
+                  f"{PROMPT}, {STEPS} steps): {secs:.3f} s; {detail}; "
+                  f"launches {n} (expected {want}); {len(paths)} MIDI files "
+                  f"read back as {min(events)}-{max(events)} events "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"cli.generate --quant int8 {name} "
+                                     "failed")
+            runs[name] = n
+    return runs
+
+
+def time_int8(err: dict, launches: dict) -> list:
+    """Device times of the int8 modes in bf16 beside the unquantized
+    kernels, interleaved (unquantized, int8, int8, unquantized): kernel B
+    at B 8, t 755 at the flagship and the d 1024 rung; ragged kernel B at
+    t 1023 with a live window of LIVE rows; kernel E at C 8, t 755, B 1
+    and B 8; each with its plain int8 version and its bound (int8
+    matrices 1 byte, their scale tables 4). Returns the kernels rows."""
+    def pair(full_fn, int8_fn):
+        a1, b1, b2, a2 = (device_ms(fn, iters=50)
+                          for fn in (full_fn, int8_fn, int8_fn, full_fn))
+        return (a1 + a2) / 2, (b1 + b2) / 2
+
+    rows = []
+    gen = torch.Generator().manual_seed(25)
+    step_ms = {}
+    for d in (D_MODEL, D_RUNG):
+        model = flagship(torch.bfloat16, quant="int8", d_model=d)
+        x, e_all, w_all, kc, vc = decode_inputs(model, gen)
+        qw, sc = w_all["int8"]
+        heads, t = model.num_heads, T_TIMED
+        full_ms, ms = pair(
+            lambda: fused_decode_step(x, t, e_all, w_all, kc, vc, heads),
+            lambda: fused_decode_step(x, t, e_all, qw, kc, vc, heads,
+                                      scales=sc))
+        plain_ms = device_ms(lambda: fused_decode_step_plain(
+            x, t, e_all, qw, kc, vc, heads, scales=sc), iters=10)
+        zeros = np.zeros(B, np.int64)
+        bnd, by = decode_bound(zeros, t, d, int8=True)
+        full_bnd, _ = decode_bound(zeros, t, d)
+        print(f"kernel B bf16 d={d} B={B} t={t}: int8 {ms:.4f} ms (bound "
+              f"{bnd:.5f} ms, {by}; plain int8 {plain_ms:.4f} ms), "
+              f"unquantized {full_ms:.4f} ms (bound {full_bnd:.5f} ms); "
+              f"int8 / unquantized {ms / full_ms:.3f}")
+        step_ms[d] = (ms, plain_ms, bnd, by, full_ms, full_bnd)
+    ms, plain_ms, bnd, by, full_ms, full_bnd = step_ms[D_MODEL]
+    rung = step_ms[D_RUNG]
+    rows.append({
+        "name": "fused_decode_step_int8", "route": "cuda",
+        "source": "musicgeneration_tpu_torch/csrc/fused_decode.cu",
+        "replaces": "musicgeneration_tpu/ops/pallas_decode.py:1278",
+        "launches": launches["B"], "max_abs_err": err["B"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+        "library_ms": None, "unquantized_ms": full_ms,
+        "d1024_ms": rung[0], "d1024_plain_ms": rung[1],
+        "d1024_bound_ms": rung[2], "d1024_unquantized_ms": rung[4],
+        "d1024_unquantized_bound_ms": rung[5]})
+
+    model = flagship(torch.bfloat16, quant="int8")
+    x, e_all, w_all, kc, vc = decode_inputs(model, gen)
+    qw, sc = w_all["int8"]
+    t = T_RAGGED
+    start = torch.randint(t - LIVE + 1, t + 1, (B,), generator=gen)
+    start[0] = t - LIVE + 1
+    start = start.to(torch.int32).to(DEV)
+    kw = {"start": start, "start_min": int(start.min())}
+    full_ms, ms = pair(
+        lambda: fused_decode_step(x, t, e_all, w_all, kc, vc, H, **kw),
+        lambda: fused_decode_step(x, t, e_all, qw, kc, vc, H, scales=sc,
+                                  **kw))
+    plain_ms = device_ms(lambda: fused_decode_step_plain(
+        x, t, e_all, qw, kc, vc, H, scales=sc, **kw), iters=10)
+    bnd, by = decode_bound(start.cpu().numpy(), t, int8=True)
+    print(f"ragged kernel B bf16 B={B} t={t}, live window {LIVE}: int8 "
+          f"{ms:.4f} ms (bound {bnd:.5f} ms, {by}; plain int8 {plain_ms:.4f} "
+          f"ms, host gaps included), unquantized {full_ms:.4f} ms")
+    rows.append({
+        "name": "fused_decode_step_ragged_int8", "route": "cuda",
+        "source": "musicgeneration_tpu_torch/csrc/fused_decode.cu",
+        "replaces": "musicgeneration_tpu/ops/pallas_decode.py:1278",
+        "launches": launches["B_ragged"], "max_abs_err": err["B_ragged"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+        "library_ms": None, "unquantized_ms": full_ms})
+
+    dgen = torch.Generator(DEV).manual_seed(26)
+    res = {}
+    for b in (1, B):
+        x, e_all, w_all, kc, vc = chunk_inputs(model, (w_all, e_all), dgen, b,
+                                               SPEC_CHUNK, 1024)
+        full_ms, ms = pair(
+            lambda: fused_decode_chunk(x, T_TIMED, e_all, w_all, kc, vc, H),
+            lambda: fused_decode_chunk(x, T_TIMED, e_all, qw, kc, vc, H,
+                                       scales=sc))
+        plain_ms = device_ms(lambda: fused_decode_chunk_plain(
+            x, T_TIMED, e_all, qw, kc, vc, H, scales=sc), iters=10)
+        bnd, by = chunk_bound(b, SPEC_CHUNK, T_TIMED, int8=True)
+        res[b] = (ms, plain_ms, bnd, by, full_ms)
+        print(f"kernel E bf16 B={b} C={SPEC_CHUNK} t={T_TIMED}: int8 "
+              f"{ms:.4f} ms (bound {bnd:.5f} ms, {by}; plain int8 "
+              f"{plain_ms:.4f} ms), unquantized {full_ms:.4f} ms")
+    ms, plain_ms, bnd, by, full_ms = res[1]
+    rows.append({
+        "name": "fused_decode_chunk_int8", "route": "cuda",
+        "source": "musicgeneration_tpu_torch/csrc/fused_decode.cu",
+        "replaces": "musicgeneration_tpu/ops/pallas_decode.py:1568",
+        "launches": launches["E"], "max_abs_err": err["E"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+        "library_ms": None, "unquantized_ms": full_ms, "ms_b8": res[B][0],
+        "plain_ms_b8": res[B][1], "bound_ms_b8": res[B][2],
+        "unquantized_ms_b8": res[B][4]})
+    return rows
+
+
+def int8_rates() -> dict:
+    """Decode tokens/s, bf16 sampled, int8 against unquantized at the
+    flagship and the d 1024 rung: B 8, a 16-token prompt, 512 tokens,
+    cache 1024 (bench.py:25-44), host clock around each whole call,
+    RATE_ROUNDS interleaved rounds, the median."""
+    out = {}
+    for d in (D_MODEL, D_RUNG):
+        models = {q: flagship(torch.bfloat16, quant=q, d_model=d)
+                  for q in ("none", "int8")}
+        prompt = torch.ones(B, RATE_PROMPT, dtype=torch.long, device=DEV)
+        dp = DecodeParams(max_len=RATE_CACHE, steps=STEPS,
+                          sampling=SamplingParams())
+        rates = {q: [] for q in models}
+        for _ in range(RATE_ROUNDS):
+            for q, m in models.items():
+                gen = torch.Generator(DEV).manual_seed(0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                toks = generate(m, prompt, gen, dp)
+                torch.cuda.synchronize()
+                rates[q].append(B * STEPS / (time.perf_counter() - t0))
+                if toks.shape != (B, STEPS):
+                    raise AssertionError(f"tokens {tuple(toks.shape)}")
+        out[d] = {q: float(np.median(r)) for q, r in rates.items()}
+        for q, r in rates.items():
+            print(f"decode d={d} bf16 {q}: {out[d][q]:.1f} tokens/s median "
+                  f"of {RATE_ROUNDS} interleaved runs [{min(r):.1f}-"
+                  f"{max(r):.1f}] (B={B}, prompt {RATE_PROMPT}, {STEPS} "
+                  "tokens, cache 1024, host clock)")
+        print(f"decode d={d}: int8 / unquantized "
+              f"{out[d]['int8'] / out[d]['none']:.3f}")
+    return out
 
 
 # ---------------------------------------------------------------- kernel F
@@ -2540,11 +3002,15 @@ def main() -> int:
     err_d = check_kernel_d()
     err_e = check_kernel_e()
     check_chunk_vs_steps()
+    err_int8 = check_int8_kernels()
+    check_kernel_b_rung()
     err_f = check_kernel_f()
     e2e = end_to_end()
     loop = loop_paths(e2e["prime"])
     served = serving(e2e["prime"])
     spec = speculative_paths(e2e["prime"])
+    q_paths = int8_paths(e2e["prime"])
+    q_cli = int8_cli()
     rnn = rnn_paths(e2e["prime"])
     os.makedirs(OUT_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
@@ -2571,13 +3037,26 @@ def main() -> int:
     row_e["launches_by_path"] = {f"speculative_{k}": r["E"]
                                  for k, r in spec["runs"].items()}
     row_f = time_kernel_f(loop["F"], loop["by_path"], err_f)
+    q_by_path = {
+        "B": {"cli_generate": q_cli["generate"]["B_int8"],
+              "generate_parity": q_paths["generate"]},
+        "B_ragged": {"serve_parity": q_paths["serve"]},
+        "E": {"cli_spec_lookup": q_cli["spec_lookup"]["E_int8"],
+              "speculative_parity": q_paths["speculative"]}}
+    q_rows = time_int8(err_int8, {k: sum(v.values())
+                                  for k, v in q_by_path.items()})
+    for r, k in zip(q_rows, ("B", "B_ragged", "E")):
+        r["launches_by_path"] = q_by_path[k]
+    q_rates = int8_rates()
     profile_decode()
+    for d, q in ((D_MODEL, "int8"), (D_RUNG, "none"), (D_RUNG, "int8")):
+        profile_decode(d_model=d, quant=q)
     loop_prof = profile_loop(e2e["prime"])
     profile_serving()
     profile_rnn_decode()
     profile_spec(e2e["prime"], draft=False)
     profile_spec(e2e["prime"], draft=True)
-    rows = [row_a, row_b, row_c, row_br, row_d, row_e, row_f]
+    rows = [row_a, row_b, row_c, row_br, row_d, row_e, row_f] + q_rows
     for r in rows:
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
@@ -2592,6 +3071,9 @@ def main() -> int:
               f"bf16); serving: {rnn['serve'][family]}")
     print("speculative B=1 bf16 greedy, tokens/s (median): " + ", ".join(
         f"{k} {r['tok_s']:.1f}" for k, r in spec["rates"].items()))
+    print("decode B=8 bf16 sampled, int8 / unquantized tokens/s (median): "
+          + ", ".join(f"d {d} {r['int8']:.1f} / {r['none']:.1f}"
+                      for d, r in q_rates.items()))
     print(f"decode loop B={B} bf16 sampled, tokens/s (median): step path "
           f"{loop['tok_s']['step']:.1f}, loop path {loop['tok_s']['loop']:.1f}"
           f"; under the profiler {loop_prof['busy_share'] * 100:.1f}% busy; "

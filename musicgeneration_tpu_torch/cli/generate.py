@@ -14,12 +14,16 @@ to a power-of-two bucket (>= 16) as the JAX CLI does; a GRU model takes
 its prime one token at a time, unpadded. A MusicTransformer continuation
 past max_seq (batch 1) re-primes a sliding window of max_seq // 2.
 
-A MusicTransformer adds ``--spec lookup|DRAFT``: speculative decoding,
+A MusicTransformer adds ``--quant int8``: weight-only int8 decode (the
+decode step's six matrices, and the verify forward's where C is a power
+of two in [8, 128], in int8 with per-column scales; a ``cli.train``
+checkpoint may record it), and ``--spec lookup|DRAFT``: speculative decoding,
 each verify forward checking ``--spec-chunk`` tokens (kernel E on the
 card), proposals from prompt lookup (``--spec-ngram``) or from a draft
 MusicTransformer of the same vocabulary (``DRAFT``: any checkpoint this
-CLI reads), loaded in the same ``--dtype`` on the same device. Greedy
-output equals plain decoding's; the prime is not bucketed.
+CLI reads), loaded in the same ``--dtype`` on the same device, with
+the ``decode_quant`` its own checkpoint records. Greedy output equals
+plain decoding's; the prime is not bucketed.
 
 The GRU families add ``--beam N`` (beam search; ``--stochastic-beam``
 for Gumbel-perturbed selection), and PerformanceRNN ``--control``
@@ -231,6 +235,11 @@ def main(argv=None) -> int:
                    help="tokens per speculative verify forward")
     p.add_argument("--spec-ngram", type=int, default=3,
                    help="lookup match length (--spec lookup)")
+    p.add_argument("--quant", default="none", choices=("none", "int8"),
+                   help="weight-only int8 decode (music_transformer): the "
+                        "decode step's and the verify forward's matrices "
+                        "in int8 with per-column scales; 'none' keeps what "
+                        "a cli.train checkpoint records")
     p.add_argument("--device", default="cuda")
     p.add_argument("--dtype", default=None, choices=sorted(_DTYPES),
                    help="compute dtype (default: the one a cli.train "
@@ -239,8 +248,12 @@ def main(argv=None) -> int:
 
     from ..convert import load_checkpoint
 
-    model = load_checkpoint(args.checkpoint, device=args.device,
-                            dtype=_dtype(args))
+    try:
+        model = load_checkpoint(
+            args.checkpoint, device=args.device, dtype=_dtype(args),
+            decode_quant=None if args.quant == "none" else args.quant)
+    except ValueError as e:  # e.g. --quant int8 on a GRU checkpoint
+        raise SystemExit(f"{args.checkpoint}: {e}") from None
     if args.spec is not None:
         if model.family != "music_transformer":
             raise SystemExit("--spec needs a music_transformer target "

@@ -37,7 +37,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # model.<field> overrides the port's MusicTransformer takes
 _MODEL_KEYS = ("vocab_size", "num_layers", "d_model", "max_seq",
                "head_dim", "ffn_dim", "dtype", "dropout_rate",
-               "pad_in_input", "logits_dtype", "remat")
+               "pad_in_input", "logits_dtype", "remat", "decode_quant")
 
 
 @dataclasses.dataclass

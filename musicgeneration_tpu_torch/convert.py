@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import os
 from collections import OrderedDict
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -134,12 +134,14 @@ def _gru_layers(sd, name: str) -> int:
 
 
 def model_from_state_dict(sd: Mapping[str, torch.Tensor], device="cuda",
-                          dtype=torch.float32):
+                          dtype=torch.float32, decode_quant: str = "none"):
     """Build the model whose family and shape are read off ``sd`` (a
     MusicTransformer's, EventMelodyRNN's or PerformanceRNN's reference
     state dict) and load it with ``strict=True``, for inference: its
     parameters are frozen (``requires_grad_(True)`` to train it). Any
-    other state dict raises ValueError naming what it holds."""
+    other state dict raises ValueError naming what it holds.
+    decode_quant: the MusicTransformer's ("none" or "int8"); a GRU
+    family takes only "none"."""
     if "rnn.weight_ih_l0" in sd and "event_embedding.weight" in sd:
         model = EventMelodyRNN(
             event_dim=sd["event_embedding.weight"].shape[0],
@@ -155,18 +157,22 @@ def model_from_state_dict(sd: Mapping[str, torch.Tensor], device="cuda",
             hidden_dim=sd["gru.weight_hh_l0"].shape[1],
             num_layers=_gru_layers(sd, "gru"), dtype=dtype, device=device)
     elif "Decoder.embedding.weight" in sd:
-        model = _music_transformer(sd, device, dtype)
+        model = _music_transformer(sd, device, dtype, decode_quant)
     else:
         keys = sorted(sd)
         raise ValueError(
             "not a checkpoint of a family the port runs (MusicTransformer, "
             "EventMelodyRNN, PerformanceRNN): its state dict holds "
             f"{len(keys)} keys, {keys[:6]}")
+    if decode_quant != "none" and model.family != "music_transformer":
+        raise ValueError(f"decode_quant {decode_quant!r} applies to the "
+                         "transformer families (the fused decode kernels); "
+                         f"this checkpoint holds a {model.family}")
     model.load_state_dict(sd, strict=True)
     return model.requires_grad_(False)
 
 
-def _music_transformer(sd, device, dtype) -> MusicTransformer:
+def _music_transformer(sd, device, dtype, decode_quant) -> MusicTransformer:
     emb = sd["Decoder.embedding.weight"]
     num_layers = 0
     while f"Decoder.enc_layers.{num_layers}.rga.E" in sd:
@@ -176,7 +182,7 @@ def _music_transformer(sd, device, dtype) -> MusicTransformer:
         vocab_size=emb.shape[0], num_layers=num_layers, d_model=emb.shape[1],
         max_seq=e.shape[0], head_dim=e.shape[1],
         ffn_dim=sd["Decoder.enc_layers.0.FFN_pre.weight"].shape[0],
-        dtype=dtype, device=device)
+        dtype=dtype, device=device, decode_quant=decode_quant)
     return model
 
 
@@ -197,8 +203,17 @@ def recorded_dtype(config: Mapping) -> torch.dtype:
     return _DTYPE_NAMES[name]
 
 
+def recorded_quant(config: Mapping) -> str:
+    """The ``decode_quant`` a ``cli.train`` step file's config records
+    (``config["model_kwargs"]["decode_quant"]``, as the JAX CLI rebuilds
+    the model from ``model_kwargs``); "none" where it records none (an
+    exported ``.pth``)."""
+    return (config.get("model_kwargs") or {}).get("decode_quant", "none")
+
+
 def load_checkpoint(path: str, device="cuda", dtype=torch.float32,
-                    with_config: bool = False):
+                    with_config: bool = False,
+                    decode_quant: Optional[str] = None):
     """A model from an exported ``.pth`` (``{'net': state_dict, ...}``,
     a PerformanceRNN session dict ``{'model_state': state_dict, ...}``,
     or a bare state dict), a training checkpoint ``step-<N>.pt`` of
@@ -207,8 +222,9 @@ def load_checkpoint(path: str, device="cuda", dtype=torch.float32,
     (``model_from_state_dict``; ``model.family`` names it).
 
     dtype: the compute dtype, or None for the one the checkpoint records
-    (``recorded_dtype``). With ``with_config`` returns (model, the
-    recorded config: a step file's ``config``, else {})."""
+    (``recorded_dtype``); decode_quant likewise ("none" or "int8", or
+    None for ``recorded_quant``). With ``with_config`` returns (model,
+    the recorded config: a step file's ``config``, else {})."""
     if os.path.isdir(path):
         from .utils.checkpoint import latest_checkpoint
         newest = latest_checkpoint(path)
@@ -227,5 +243,8 @@ def load_checkpoint(path: str, device="cuda", dtype=torch.float32,
         config = dict(obj["config"])
     if dtype is None:
         dtype = recorded_dtype(config)
-    model = model_from_state_dict(sd, device=device, dtype=dtype)
+    if decode_quant is None:
+        decode_quant = recorded_quant(config)
+    model = model_from_state_dict(sd, device=device, dtype=dtype,
+                                  decode_quant=decode_quant)
     return (model, config) if with_config else model

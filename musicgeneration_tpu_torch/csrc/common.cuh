@@ -14,6 +14,8 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+// weight-only int8 values (exact in f32)
+__device__ __forceinline__ float to_f(signed char v) { return (float)v; }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);

@@ -4,8 +4,8 @@
 //
 // Kernel B replaces musicgeneration_tpu/ops/pallas_decode.py::
 // fused_decode_step (its pallas_calls over _kernel / _kernel_grid*, layer
-// body _layer_step), without int8 weights. Per layer, for each batch row
-// b at absolute position t:
+// body _layer_step), its int8 `scales` mode included. Per layer, for each
+// batch row b at absolute position t:
 //
 //   q, k, v = x W{q,k,v} + b            (rounded to the model dtype)
 //   cache[b, t] = k, v                   (written IN PLACE, see below)
@@ -19,6 +19,21 @@
 // fc, out1, the FFN pre-activation and output, and the layer output are
 // rounded to the model dtype; E stays f32; matmuls read model-dtype
 // weights into f32 and accumulate in f32.
+//
+// Weight-only int8 (the TPU's stream mode with scales=, pallas_decode.py:
+// 781-884): the six matrices W{q,k,v}, W_fc, W1 and W2 are int8 with one
+// f32 scale per (layer, output column). Each product is the f32 dot of
+// the activations with the int8 values, multiplied once by its column's
+// scale after the dot and before the bias (_make_stream_mm :814-821);
+// biases, LN and the caches stay in the model dtype. qkv_kernel and
+// tail_kernel take the weight type W (T or int8_t) as a template
+// argument, so the model-dtype instantiations are the programs they were;
+// kernels B and E share them, so E's int8 mode still equals C chained
+// int8 kernel-B steps bit for bit. The int8 loads are single bytes (32
+// consecutive ones per warp). tail_kernel's products are latency-bound
+// (one block per row, each thread's column dot a serial chain), so what
+// sets their time is how many loads each thread keeps in flight, not the
+// bytes: dot_column loads the int8 weights in groups before using them.
 //
 // Design for this card: three launches per layer on the current stream.
 //  1. qkv_kernel: x W + b for q, k, v. Each block owns 32 output columns
@@ -53,8 +68,8 @@
 //
 // Kernel E replaces musicgeneration_tpu/ops/pallas_decode.py::
 // fused_decode_chunk (pallas_calls at :1487 and :1568 over _kernel_chunk
-// / _kernel_chunk_grid*, layer body _layer_chunk_step), without int8: the
-// verify forward of speculative decoding. C tokens at positions
+// / _kernel_chunk_grid*, layer body _layer_chunk_step), its int8 `scales`
+// mode included: the verify forward of speculative decoding. C tokens at positions
 // t..t+C-1 of each batch row go through every layer at once; query c
 // attends the rows [0, t+c] with the bias q . E[max_seq - 1 - (t+c) + s].
 // It is C chained kernel-B steps computed together, with the same three
@@ -80,6 +95,10 @@
 // a serial loop, the first thing to parallelise for speed. C runs from
 // 2 to 128 (no power-of-two or sublane constraint on this card).
 #include <math.h>
+#include <stdint.h>
+
+#include <initializer_list>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -94,16 +113,29 @@ constexpr int PART = DH + 2;    // partial record: m, l, acc[64]
 constexpr int TAIL_THREADS = 256;
 constexpr int MAX_CHUNK = 128;  // kernel E's largest C
 
+// One output column's product, scaled where the weights are int8: the
+// scale multiplies the finished f32 dot (never contracted into an FMA
+// with the bias), as the TPU kernel's dot-then-scale.
+template <typename W>
+__device__ __forceinline__ float scaled(float dot, const float* scale,
+                                        int col) {
+  if constexpr (std::is_same<W, int8_t>::value)
+    return __fmul_rn(dot, scale[col]);
+  return dot;
+}
+
 // R = B*C rows of x; row (b, c) is position t + c of batch row b (C = 1
-// for kernel B)
-template <typename T>
+// for kernel B). W: the weights' type, T or int8_t (then sq, sk, sv are
+// the [d] scales of the layer's columns; unused otherwise).
+template <typename T, typename W>
 __global__ void __launch_bounds__(QKV_WARPS * 32)
-qkv_kernel(const float* __restrict__ x, const T* __restrict__ wq,
-           const T* __restrict__ bq, const T* __restrict__ wk,
-           const T* __restrict__ bk, const T* __restrict__ wv,
-           const T* __restrict__ bv, float* __restrict__ qout,
-           T* __restrict__ kc, T* __restrict__ vc, int R, int C, int S,
-           int d, int t) {
+qkv_kernel(const float* __restrict__ x, const W* __restrict__ wq,
+           const T* __restrict__ bq, const W* __restrict__ wk,
+           const T* __restrict__ bk, const W* __restrict__ wv,
+           const T* __restrict__ bv, const float* __restrict__ sq,
+           const float* __restrict__ sk, const float* __restrict__ sv,
+           float* __restrict__ qout, T* __restrict__ kc, T* __restrict__ vc,
+           int R, int C, int S, int d, int t) {
   extern __shared__ float sm[];
   float* xs = sm;                    // [QKV_ROWS][d]
   float* red = sm + QKV_ROWS * d;    // [QKV_WARPS][QKV_ROWS][32]
@@ -118,7 +150,7 @@ qkv_kernel(const float* __restrict__ x, const T* __restrict__ wq,
 
   const int col = blockIdx.x * QKV_COLS + lane;  // in [0, 3d)
   const int which = col / d, o = col % d;
-  const T* W = which == 0 ? wq : (which == 1 ? wk : wv);
+  const W* wm = which == 0 ? wq : (which == 1 ? wk : wv);
   float acc[QKV_ROWS];
 #pragma unroll
   for (int r = 0; r < QKV_ROWS; ++r) acc[r] = 0.f;
@@ -126,7 +158,7 @@ qkv_kernel(const float* __restrict__ x, const T* __restrict__ wq,
   const int i0 = warp * per;
 #pragma unroll 4
   for (int i = i0; i < i0 + per; ++i) {
-    const float w = mg::to_f(W[(size_t)i * d + o]);
+    const float w = mg::to_f(wm[(size_t)i * d + o]);
 #pragma unroll
     for (int r = 0; r < QKV_ROWS; ++r) acc[r] = fmaf(xs[r * d + i], w, acc[r]);
   }
@@ -142,6 +174,7 @@ qkv_kernel(const float* __restrict__ x, const T* __restrict__ wq,
 #pragma unroll
   for (int w = 0; w < QKV_WARPS; ++w) y += red[(w * QKV_ROWS + r) * 32 + lane];
   const T* bias = which == 0 ? bq : (which == 1 ? bk : bv);
+  y = scaled<W>(y, which == 0 ? sq : (which == 1 ? sk : sv), o);
   y = mg::round_to<T>(y + mg::to_f(bias[o]));
   const int row = r0 + r, b = row / C, c = row % C;
   if (which == 0) {
@@ -315,15 +348,45 @@ __device__ void layer_norm(const float* z, const T* scale, const T* bias,
                              + mg::to_f(bias[i]));
 }
 
-template <typename T>
+// sum over i < n of a[i] * w[i * stride + col], in the order of i (the
+// tail's products). The int8 instantiation loads each group of 8 weights
+// into registers before it uses any: left to itself, nvcc issued a
+// group's last byte load only after its first FMA, so every group waited
+// for two round trips to memory (the model-dtype loop issues all 8 first).
+template <typename W>
+__device__ __forceinline__ float dot_column(const float* a, const W* w,
+                                            int n, int stride, int col) {
+  float acc = 0.f;
+  if constexpr (std::is_same<W, int8_t>::value) {
+    int i = 0;
+    for (; i + 8 <= n; i += 8) {
+      int8_t v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = w[(size_t)(i + k) * stride + col];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc = fmaf(a[i + k], mg::to_f(v[k]), acc);
+    }
+    for (; i < n; ++i) acc = fmaf(a[i], mg::to_f(w[(size_t)i * stride + col]), acc);
+  } else {
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) acc = fmaf(a[i], mg::to_f(w[(size_t)i * stride + col]), acc);
+  }
+  return acc;
+}
+
+// W as qkv_kernel's; sfc, s1, s2: the [d], [f], [d] column scales of
+// W_fc, W1, W2 (int8 only)
+template <typename T, typename W>
 __global__ void __launch_bounds__(TAIL_THREADS)
 tail_kernel(const float* __restrict__ part, float* __restrict__ x,
-            const T* __restrict__ wfc, const T* __restrict__ bfc,
+            const W* __restrict__ wfc, const T* __restrict__ bfc,
             const T* __restrict__ ln1s, const T* __restrict__ ln1b,
-            const T* __restrict__ w1, const T* __restrict__ b1,
-            const T* __restrict__ w2, const T* __restrict__ b2,
-            const T* __restrict__ ln2s, const T* __restrict__ ln2b, int H,
-            int d, int f, int nsplit, float eps) {
+            const W* __restrict__ w1, const T* __restrict__ b1,
+            const W* __restrict__ w2, const T* __restrict__ b2,
+            const T* __restrict__ ln2s, const T* __restrict__ ln2b,
+            const float* __restrict__ sfc, const float* __restrict__ s1,
+            const float* __restrict__ s2, int H, int d, int f, int nsplit,
+            float eps) {
   extern __shared__ float sm[];
   float* a = sm;         // attn, then out1
   float* xin = a + d;    // layer input
@@ -351,28 +414,23 @@ tail_kernel(const float* __restrict__ part, float* __restrict__ x,
   __syncthreads();
 
   for (int o = threadIdx.x; o < d; o += blockDim.x) {
-    float acc = 0.f;
-#pragma unroll 8
-    for (int i = 0; i < d; ++i) acc = fmaf(a[i], mg::to_f(wfc[(size_t)i * d + o]), acc);
-    z[o] = mg::round_to<T>(acc + mg::to_f(bfc[o])) + xin[o];
+    const float acc = dot_column(a, wfc, d, d, o);
+    z[o] = mg::round_to<T>(scaled<W>(acc, sfc, o) + mg::to_f(bfc[o])) + xin[o];
   }
   __syncthreads();
   layer_norm<T>(z, ln1s, ln1b, a, d, eps, red);  // a := out1
   __syncthreads();
 
   for (int j = threadIdx.x; j < f; j += blockDim.x) {
-    float acc = 0.f;
-#pragma unroll 8
-    for (int i = 0; i < d; ++i) acc = fmaf(a[i], mg::to_f(w1[(size_t)i * f + j]), acc);
-    hb[j] = fmaxf(mg::round_to<T>(acc + mg::to_f(b1[j])), 0.f);
+    const float acc = dot_column(a, w1, d, f, j);
+    hb[j] = fmaxf(mg::round_to<T>(scaled<W>(acc, s1, j) + mg::to_f(b1[j])),
+                  0.f);
   }
   __syncthreads();
 
   for (int o = threadIdx.x; o < d; o += blockDim.x) {
-    float acc = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < f; ++j) acc = fmaf(hb[j], mg::to_f(w2[(size_t)j * d + o]), acc);
-    z[o] = a[o] + mg::round_to<T>(acc + mg::to_f(b2[o]));
+    const float acc = dot_column(hb, w2, f, d, o);
+    z[o] = a[o] + mg::round_to<T>(scaled<W>(acc, s2, o) + mg::to_f(b2[o]));
   }
   __syncthreads();
   layer_norm<T>(z, ln2s, ln2b, x + (size_t)b * d, d, eps, red);
@@ -380,12 +438,13 @@ tail_kernel(const float* __restrict__ part, float* __restrict__ x,
 
 // The layer loop of both kernels: R = B*C rows (C = 1 for kernel B),
 // attention by attn_kernel (kernel B) or chunk_attn_kernel (kernel E).
-template <typename T>
+// W: the six matrices' type (T, or int8_t with the six scale tables sc).
+template <typename T, typename W>
 int launch_layers(bool chunk, int num_layers, float* x, float* qbuf,
-                  float* part, const void* const* w, void* kc, void* vc,
-                  const float* e, const int* start, int B, int C, int S,
-                  int d, int H, int f, int t, int max_seq, int split0,
-                  cudaStream_t stream) {
+                  float* part, const void* const* w, const void* const* sc,
+                  void* kc, void* vc, const float* e, const int* start,
+                  int B, int C, int S, int d, int H, int f, int t,
+                  int max_seq, int split0, cudaStream_t stream) {
   // per-layer element strides of the stacked [L, ...] arrays, in
   // WEIGHT_KEYS order: wq bq wk bk wv bv wfc bfc ln1s ln1b w1 b1 w2 b2
   // ln2s ln2b
@@ -395,6 +454,11 @@ int launch_layers(bool chunk, int num_layers, float* x, float* qbuf,
                              (size_t)d,     (size_t)d * f, (size_t)f,
                              (size_t)f * d, (size_t)d, (size_t)d,
                              (size_t)d};
+  // the [L, d_out] scale tables' strides, in MATRIX_KEYS order: wq wk wv
+  // wfc w1 w2
+  const size_t sstride[6] = {(size_t)d, (size_t)d, (size_t)d,
+                             (size_t)d, (size_t)f, (size_t)d};
+  constexpr bool quant = std::is_same<W, int8_t>::value;
   const size_t cache_stride = (size_t)B * S * d;
   const int R = B * C;
   // live splits: from start_min's split to the one holding t + C - 1
@@ -411,16 +475,25 @@ int launch_layers(bool chunk, int num_layers, float* x, float* qbuf,
     if (err != cudaSuccess) return (int)err;
   }
   for (int li = 0; li < num_layers; ++li) {
+    // layer li's vectors (T) and matrices (W), at their WEIGHT_KEYS index
     const T* p[16];
+    const W* m[16] = {};
     for (int i = 0; i < 16; ++i)
       p[i] = static_cast<const T*>(w[i]) + li * stride[i];
+    for (int i : {0, 2, 4, 6, 10, 12})
+      m[i] = static_cast<const W*>(w[i]) + li * stride[i];
+    const float* s[6] = {};
+    if (quant)
+      for (int i = 0; i < 6; ++i)
+        s[i] = static_cast<const float*>(sc[i]) + li * sstride[i];
     T* kl = static_cast<T*>(kc) + li * cache_stride;
     T* vl = static_cast<T*>(vc) + li * cache_stride;
     const float* el = e + (size_t)li * max_seq * DH;
 
-    qkv_kernel<T><<<dim3(3 * d / QKV_COLS, (R + QKV_ROWS - 1) / QKV_ROWS),
-                    QKV_WARPS * 32, qkv_smem, stream>>>(
-        x, p[0], p[1], p[2], p[3], p[4], p[5], qbuf, kl, vl, R, C, S, d, t);
+    qkv_kernel<T, W><<<dim3(3 * d / QKV_COLS, (R + QKV_ROWS - 1) / QKV_ROWS),
+                       QKV_WARPS * 32, qkv_smem, stream>>>(
+        x, m[0], p[1], m[2], p[3], m[4], p[5], s[0], s[1], s[2], qbuf, kl,
+        vl, R, C, S, d, t);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     if (chunk)
@@ -432,19 +505,35 @@ int launch_layers(bool chunk, int num_layers, float* x, float* qbuf,
           qbuf, kl, vl, el, start, part, H, S, d, t, max_seq, split0, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    tail_kernel<T><<<R, TAIL_THREADS, tail_smem, stream>>>(
-        part, x, p[6], p[7], p[8], p[9], p[10], p[11], p[12], p[13], p[14],
-        p[15], H, d, f, nsplit, 1e-6f);
+    tail_kernel<T, W><<<R, TAIL_THREADS, tail_smem, stream>>>(
+        part, x, m[6], p[7], p[8], p[9], m[10], p[11], m[12], p[13], p[14],
+        p[15], s[3], s[4], s[5], H, d, f, nsplit, 1e-6f);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
 }
 
+template <typename T>
+int launch_typed(bool chunk, int num_layers, float* x, float* qbuf,
+                 float* part, const void* const* w, const void* const* sc,
+                 void* kc, void* vc, const float* e, const int* start, int B,
+                 int C, int S, int d, int H, int f, int t, int max_seq,
+                 int split0, cudaStream_t stream) {
+  if (sc != nullptr)
+    return launch_layers<T, int8_t>(chunk, num_layers, x, qbuf, part, w, sc,
+                                    kc, vc, e, start, B, C, S, d, H, f, t,
+                                    max_seq, split0, stream);
+  return launch_layers<T, T>(chunk, num_layers, x, qbuf, part, w, sc, kc, vc,
+                             e, start, B, C, S, d, H, f, t, max_seq, split0,
+                             stream);
+}
+
 int launch(bool chunk, int is_bf16, int num_layers, void* x, void* qbuf,
-           void* part, const void* const* w, void* kc, void* vc,
-           const void* e, const void* start, int B, int C, int S, int d,
-           int H, int f, int t, int max_seq, int split0, void* stream) {
+           void* part, const void* const* w, const void* const* sc, void* kc,
+           void* vc, const void* e, const void* start, int B, int C, int S,
+           int d, int H, int f, int t, int max_seq, int split0,
+           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* xf = static_cast<float*>(x);
   float* qf = static_cast<float*>(qbuf);
@@ -452,11 +541,11 @@ int launch(bool chunk, int is_bf16, int num_layers, void* x, void* qbuf,
   const float* ef = static_cast<const float*>(e);
   const int* st = static_cast<const int*>(start);
   if (is_bf16)
-    return launch_layers<__nv_bfloat16>(chunk, num_layers, xf, qf, pf, w, kc,
-                                        vc, ef, st, B, C, S, d, H, f, t,
-                                        max_seq, split0, s);
-  return launch_layers<float>(chunk, num_layers, xf, qf, pf, w, kc, vc, ef,
-                              st, B, C, S, d, H, f, t, max_seq, split0, s);
+    return launch_typed<__nv_bfloat16>(chunk, num_layers, xf, qf, pf, w, sc,
+                                       kc, vc, ef, st, B, C, S, d, H, f, t,
+                                       max_seq, split0, s);
+  return launch_typed<float>(chunk, num_layers, xf, qf, pf, w, sc, kc, vc,
+                             ef, st, B, C, S, d, H, f, t, max_seq, split0, s);
 }
 
 }  // namespace
@@ -464,36 +553,38 @@ int launch(bool chunk, int is_bf16, int num_layers, void* x, void* qbuf,
 // Kernel B. x: [B, d] f32, the step's input, overwritten with its output;
 // qbuf: [B, d] f32 scratch; part: [B*H, ceil((t+1)/128) - split0, 66] f32
 // scratch; w: 16 pointers to the stacked [L, ...] weights (WEIGHT_KEYS
-// order, [in, out] matrices) in the model dtype; kc, vc: [L, B, S, d]
-// caches in the model dtype, row t written in place; e: [L, max_seq, 64]
-// f32; start: [B] int32 first live row of each batch row (each <= t), or
-// null for the non-ragged step; split0 = start_min / 128 with start_min
-// <= min(start) (0 without start).
+// order, [in, out] matrices) in the model dtype; sc: null, or 6 pointers
+// to the [L, d_out] f32 scales of wq wk wv wfc w1 w2, which are then int8;
+// kc, vc: [L, B, S, d] caches in the model dtype, row t written in place;
+// e: [L, max_seq, 64] f32; start: [B] int32 first live row of each batch
+// row (each <= t), or null for the non-ragged step; split0 = start_min /
+// 128 with start_min <= min(start) (0 without start).
 // Returns the first non-zero cudaGetLastError() of the 3*L launches.
 extern "C" int mg_decode_step(int is_bf16, int num_layers, void* x,
                               void* qbuf, void* part, const void* const* w,
-                              void* kc, void* vc, const void* e,
-                              const void* start, int B, int S, int d, int H,
-                              int f, int t, int max_seq, int split0,
-                              void* stream) {
-  return launch(false, is_bf16, num_layers, x, qbuf, part, w, kc, vc, e,
+                              const void* const* sc, void* kc, void* vc,
+                              const void* e, const void* start, int B, int S,
+                              int d, int H, int f, int t, int max_seq,
+                              int split0, void* stream) {
+  return launch(false, is_bf16, num_layers, x, qbuf, part, w, sc, kc, vc, e,
                 start, B, 1, S, d, H, f, t, max_seq, split0, stream);
 }
 
 // Kernel E. x: [B*C, d] f32 (row b*C + c at position t + c), overwritten
 // with the output; qbuf: [B*C, d] f32 scratch; part: [B*C*H,
-// ceil((t+C)/128), 66] f32 scratch; w, e as for kernel B; kc, vc: [L, B,
-// S, d] caches, rows [t, t+C) written in place; 2 <= C <= 128 and
+// ceil((t+C)/128), 66] f32 scratch; w, sc, e as for kernel B; kc, vc:
+// [L, B, S, d] caches, rows [t, t+C) written in place; 2 <= C <= 128 and
 // t + C <= min(S, max_seq), which the caller checks.
 // Returns the first non-zero CUDA error of the attribute call and the 3*L
 // launches.
 extern "C" int mg_decode_chunk(int is_bf16, int num_layers, void* x,
                                void* qbuf, void* part, const void* const* w,
-                               void* kc, void* vc, const void* e, int B,
-                               int C, int S, int d, int H, int f, int t,
-                               int max_seq, void* stream) {
+                               const void* const* sc, void* kc, void* vc,
+                               const void* e, int B, int C, int S, int d,
+                               int H, int f, int t, int max_seq,
+                               void* stream) {
   if (C < 2 || C > MAX_CHUNK) return (int)cudaErrorInvalidValue;
-  return launch(true, is_bf16, num_layers, x, qbuf, part, w, kc, vc, e,
+  return launch(true, is_bf16, num_layers, x, qbuf, part, w, sc, kc, vc, e,
                 nullptr, B, C, S, d, H, f, t, max_seq, 0, stream);
 }
 

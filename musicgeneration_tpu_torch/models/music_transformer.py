@@ -19,6 +19,9 @@ card), as the JAX module's ``dtype``. Full-sequence attention runs
 the decode step and the speculative verify forward ``ops.fused_decode``
 (kernels B and E on CUDA) and the opt-in decode loop ``ops.decode_loop``
 (kernel F) over the fused cache layout ``[L, B, S, d]``.
+``decode_quant="int8"`` (the JAX module's field) runs the decode step,
+and the verify forward where the JAX module takes its kernel, on
+weight-only int8 matrices (``quantize_stream_weights``).
 
 ``forward`` is the training forward: it runs under autograd, with
 dropout at the JAX module's three sites (after embedding + position,
@@ -42,7 +45,7 @@ from .. import resolve_device
 from ..ops.decode_loop import fused_decode_loop
 from ..ops.fused_attention import fused_relative_attention
 from ..ops.fused_decode import (WEIGHT_KEYS, fused_decode_chunk,
-                                fused_decode_step)
+                                fused_decode_step, quantize_stream_weights)
 from ..ops.relative_attention import sinusoid_position_encoding
 
 Cache = Dict[str, torch.Tensor]
@@ -167,7 +170,8 @@ class MusicTransformer(nn.Module):
     ``reset_parameters``). ``pad_in_input=False`` asserts that training
     inputs hold no pad id (dense crops): ``forward`` then masks causally
     only and the kernels take no key_pad; prefill and decode always mask
-    pads."""
+    pads. ``decode_quant``: "none" or "int8", weight-only int8 in the
+    decode step and the verify forward (``decode_weights``)."""
 
     family = "music_transformer"
 
@@ -177,8 +181,11 @@ class MusicTransformer(nn.Module):
                  dtype=torch.float32, device="cuda",
                  generator: Optional[torch.Generator] = None,
                  dropout_rate: float = 0.1, pad_in_input: bool = True,
-                 logits_dtype=torch.float32, remat: bool = False):
+                 logits_dtype=torch.float32, remat: bool = False,
+                 decode_quant: str = "none"):
         super().__init__()
+        if decode_quant not in ("none", "int8"):
+            raise ValueError(f"unknown decode_quant {decode_quant!r}")
         device = resolve_device(device)
         if d_model % head_dim:
             raise ValueError(f"d_model {d_model} not divisible by head_dim "
@@ -194,6 +201,7 @@ class MusicTransformer(nn.Module):
         self.pad_in_input = pad_in_input
         self.logits_dtype = logits_dtype
         self.remat = remat
+        self.decode_quant = decode_quant
         self.Decoder = _Decoder(vocab_size, num_layers, d_model,
                                 self.num_heads, max_seq, self.ffn_dim,
                                 dtype, device)
@@ -300,10 +308,21 @@ class MusicTransformer(nn.Module):
         return _linear(self.fc, h_last, self.dtype).float(), cache
 
     @torch.no_grad()
-    def decode_weights(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    def decode_weights(self, quant: Optional[str] = None
+                       ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """Stacked [L, ...] weights for ``fused_decode_step`` (matrices
         [in, out], in the compute dtype) and the stacked E tables
-        [L, max_seq, dh] f32. Build once per generation, not per token."""
+        [L, max_seq, dh] f32. Build once per generation, not per token.
+
+        quant: "none" or "int8", by default ``decode_quant``. With int8
+        the weights dict also holds, under "int8", the pair
+        (``quantize_stream_weights`` of the stacked weights, their
+        scales): quantized from the compute-dtype stack, as the JAX
+        module's ``fused_layer_stack_step``. ``decode_step`` and
+        ``decode_chunk`` pick the pair they run."""
+        quant = self.decode_quant if quant is None else quant
+        if quant not in ("none", "int8"):
+            raise ValueError(f"unknown decode_quant {quant!r}")
         def mats(layer):
             r = layer.rga
             return {
@@ -325,6 +344,8 @@ class MusicTransformer(nn.Module):
             self.dtype).contiguous() for k in WEIGHT_KEYS}
         e_all = torch.stack([layer.rga.E for layer in self.Decoder.enc_layers]
                             ).float().contiguous()
+        if quant == "int8":
+            w_all["int8"] = quantize_stream_weights(w_all)
         return w_all, e_all
 
     @torch.no_grad()
@@ -343,14 +364,16 @@ class MusicTransformer(nn.Module):
         below start[b]; the relative bias depends only on t - s.
         start_min: optional int <= min(start), the live-window floor
         kernel B skips below (the JAX module's decode_step,
-        music_transformer.py:483-523)."""
+        music_transformer.py:483-523). Int8 ``stacked`` weights (an int8
+        model's ``decode_weights()``) run kernel B's int8 mode."""
         w_all, e_all = stacked
+        w_all, scales = w_all.get("int8", (w_all, None))
         pos = (self.pos_table[t] if start is None
                else self.pos_table[(t - start).long()])
         h = self._embed(token) + pos.to(self.dtype)
         h, cache["k"], cache["v"] = fused_decode_step(
             h, t, e_all, w_all, cache["k"], cache["v"], self.num_heads,
-            start=start, start_min=start_min)
+            start=start, start_min=start_min, scales=scales)
         return _linear(self.fc, h, self.dtype).float(), cache
 
     @torch.no_grad()
@@ -362,15 +385,24 @@ class MusicTransformer(nn.Module):
         tokens[:, i]. Position by position equal to C ``decode_step``
         calls, in one pass over the weights and the cache (kernel E on
         CUDA; the JAX module's decode_chunk, music_transformer.py:525-581).
-        Requires t + C <= max_seq."""
+        Requires t + C <= max_seq.
+
+        Int8 ``stacked`` weights run kernel E's int8 mode only where the
+        JAX module takes its chunk kernel: C a power of two in [8, 128]
+        and max_seq >= 128. Any other C runs on the full-precision
+        weights, as the JAX module's XLA chunk does."""
         c = tokens.shape[1]
         if t + c > self.max_seq:
             raise ValueError(f"chunk rows [{t}, {t + c}) pass max_seq "
                              f"({self.max_seq})")
         w_all, e_all = stacked
+        scales = None
+        if c & (c - 1) == 0 and 8 <= c <= 128 and self.max_seq >= 128:
+            w_all, scales = w_all.get("int8", (w_all, None))
         h = self._embed(tokens) + self.pos_table[t:t + c].to(self.dtype)[None]
         h, cache["k"], cache["v"] = fused_decode_chunk(
-            h, t, e_all, w_all, cache["k"], cache["v"], self.num_heads)
+            h, t, e_all, w_all, cache["k"], cache["v"], self.num_heads,
+            scales=scales)
         return _linear(self.fc, h, self.dtype).float(), cache
 
 
@@ -401,10 +433,12 @@ class MusicTransformer(nn.Module):
         ``generator`` (the counterpart of ``fold_in(rng, chunk_idx)``);
         greedy runs draw none. Sampled runs take the kernel's Philox
         stream, not ``torch.multinomial``'s, so the same generator gives
-        other (identically distributed) tokens than the step path."""
+        other (identically distributed) tokens than the step path. The
+        loop runs on the full-precision weights whatever ``decode_quant``
+        says, as the JAX module's loop does."""
         b = last_logits.shape[0]
         n_chunks = -(-steps // chunk)
-        stacked = self.decode_weights()
+        stacked = self.decode_weights(quant="none")
         embed, pos, fc_w, fc_b = self.loop_weights()
         if greedy:
             seeds = torch.zeros(n_chunks, dtype=torch.long,

@@ -282,7 +282,7 @@ def _check_loop(logits, t0, seed, embed, pos, e_all, weights, fc_w, fc_b,
     d = embed.shape[1]
     x = torch.empty(b, d, dtype=embed.dtype, device=embed.device)
     nl, _, s, _, dh, f = _check(x, t0, e_all, weights, k_cache, v_cache,
-                                num_heads, None)
+                                num_heads, None, None)
     if chunk < 1 or t0 + chunk > min(s, e_all.shape[1]):
         raise ValueError(f"chunk {chunk} at t0={t0}: rows [{t0}, "
                          f"{t0 + chunk}) must lie in the cache ({s}) and the "

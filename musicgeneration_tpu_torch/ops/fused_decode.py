@@ -2,10 +2,10 @@
 kernels B and E and their plain versions.
 
 ``fused_decode_step`` is the counterpart of ``musicgeneration_tpu/ops/
-pallas_decode.py::fused_decode_step`` (no int8), ``fused_decode_chunk``
-of its ``fused_decode_chunk`` (no int8). Both launch hand-written CUDA
-kernels of ``csrc/fused_decode.cu`` for CUDA tensors and run their plain
-versions for CPU tensors; there is no other path. Per layer both compute the qkv projections, attention over the
+pallas_decode.py::fused_decode_step``, ``fused_decode_chunk`` of its
+``fused_decode_chunk``. Both launch hand-written CUDA kernels of
+``csrc/fused_decode.cu`` for CUDA tensors and run their plain versions
+for CPU tensors; there is no other path. Per layer both compute the qkv projections, attention over the
 live cache rows [0, t] with the relative bias ``q . E[max_seq-1-t+s]``,
 the output projection, residual, post-LN, FFN (ReLU), residual, post-LN,
 rounding to the model dtype where ``_layer_step`` does
@@ -23,6 +23,15 @@ positions t..t+C-1; query c attends the rows [0, t+c] with the bias
 ``q . E[max_seq-1-(t+c)+s]``, which, once the chunk's rows are in the
 cache, is the Pallas kernel's "prefix [0, t) + in-chunk causal" split.
 It equals C chained decode steps.
+
+Weight-only int8 (``scales``, pallas_decode.py:933-951, :781-824): the
+six matrices (``MATRIX_KEYS``) come as int8 from
+``quantize_stream_weights`` with one f32 scale per (layer, output
+column); each product is the f32 dot of the activations with the int8
+values, times the column's scale, then the bias, then the rounding to
+the model dtype. Biases, LN and the caches stay in the model dtype. The
+TPU took int8 only in its weight-streaming mode (d_model a multiple of
+256); here both kernels take it at every width they take.
 
 Both write the new K/V rows into the caches IN PLACE (rows [t, t+C))
 and return the same cache tensors; the JAX kernels returned the rows and
@@ -44,6 +53,8 @@ from .relative_attention import relative_chunk_bias
 WEIGHT_KEYS = ("wq", "bq", "wk", "bk", "wv", "bv", "wfc", "bfc",
                "ln1_scale", "ln1_bias", "ffn1_w", "ffn1_b",
                "ffn2_w", "ffn2_b", "ln2_scale", "ln2_bias")
+# the six matrices weight-only int8 quantizes (pallas_decode.py:930)
+MATRIX_KEYS = ("wq", "wk", "wv", "wfc", "ffn1_w", "ffn2_w")
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_D = 1024     # kernel B's shared-memory budget for d_model
 MAX_FFN = 4096   # and for the FFN width
@@ -56,12 +67,42 @@ def _layer_norm(y, scale, bias, eps):
     return (y - mu) * torch.rsqrt(var + eps) * scale + bias
 
 
+def quantize_stream_weights(weights):
+    """Weight-only int8 (pallas_decode.py::quantize_stream_weights): per
+    (layer, output column) symmetric scales s = max(max |w| / 127, 1e-12)
+    over the input dimension, in f32, and q = clip(round(w / s), -127,
+    127) as int8, for the six ``MATRIX_KEYS`` of the stacked weights as
+    given (the model dtype, upcast to f32). Returns (qweights: the dict
+    with those six replaced, the vectors as they were; scales: {key: [L,
+    d_out] f32}). ``torch.round`` rounds half to even as ``jnp.round``."""
+    q = dict(weights)
+    scales = {}
+    for k in MATRIX_KEYS:
+        w = weights[k].float()                                # [L, in, out]
+        s = (w.abs().amax(dim=1) / 127.0).clamp_min(1e-12)     # [L, out]
+        q[k] = torch.round(w / s[:, None, :]).clamp(-127, 127).to(
+            torch.int8).contiguous()
+        scales[k] = s.contiguous()
+    return q, scales
+
+
+def _layer_weights(weights, scales, li: int):
+    """Layer li's weights in f32 and its product ``mm(inp, key)``: inp @
+    w[key], times the output columns' scales where the matrix is int8."""
+    w = {key: weights[key][li].float() for key in WEIGHT_KEYS}
+    if scales is None:
+        return w, lambda inp, key: inp @ w[key]
+    sc = {key: scales[key][li] for key in MATRIX_KEYS}
+    return w, lambda inp, key: (inp @ w[key]) * sc[key]
+
+
 def fused_decode_step_plain(x, t: int, e_all, weights, k_cache, v_cache,
                             num_heads: int, start=None, start_min=None,
-                            eps: float = 1e-6):
+                            scales=None, eps: float = 1e-6):
     """Plain PyTorch version of kernel B (any device). With ``start`` it
     reads ``start`` back to assert ``start_min <= min(start)`` and
-    ``max(start) <= t``, which the kernel trusts its caller for."""
+    ``max(start) <= t``, which the kernel trusts its caller for. With
+    ``scales`` the six matrices are int8 (``quantize_stream_weights``)."""
     b, d = x.shape
     dh = d // num_heads
     max_seq = e_all.shape[1]
@@ -82,10 +123,10 @@ def fused_decode_step_plain(x, t: int, e_all, weights, k_cache, v_cache,
 
     h = x.float()
     for li in range(k_cache.shape[0]):
-        w = {key: weights[key][li].float() for key in WEIGHT_KEYS}
-        q = rnd(h @ w["wq"] + w["bq"])
-        k_new = rnd(h @ w["wk"] + w["bk"])
-        v_new = rnd(h @ w["wv"] + w["bv"])
+        w, mm = _layer_weights(weights, scales, li)
+        q = rnd(mm(h, "wq") + w["bq"])
+        k_new = rnd(mm(h, "wk") + w["bk"])
+        v_new = rnd(mm(h, "wv") + w["bv"])
         k_cache[li, :, t] = k_new.to(cd)
         v_cache[li, :, t] = v_new.to(cd)
         n = t + 1 - lo
@@ -101,31 +142,33 @@ def fused_decode_step_plain(x, t: int, e_all, weights, k_cache, v_cache,
         p = torch.exp(logits - m)
         lsum = p.sum(-1, keepdim=True).clamp_min(1e-30)
         attn = torch.einsum("bhs,bshd->bhd", rnd(p, cd), vals) / lsum
-        h = _tail(attn.reshape(b, d), h, w, io, eps)
+        h = _tail(attn.reshape(b, d), h, w, mm, io, eps)
     return h.to(io), k_cache, v_cache
 
 
-def _tail(attn, h, w, io, eps):
+def _tail(attn, h, w, mm, io, eps):
     """The layer after attention, with the TPU kernels' rounding points
     (pallas_decode.py:343-356, :610-621): attn, the output projection,
     out1, the FFN hidden layer and output and the layer output go to the
-    model dtype ``io``. attn, h: [R, d] f32."""
+    model dtype ``io``. attn, h: [R, d] f32; ``mm``: the layer's product
+    (``_layer_weights``)."""
     def rnd(y):
         return y.to(io).float()
 
-    attn = rnd(rnd(attn) @ w["wfc"] + w["bfc"])
+    attn = rnd(mm(rnd(attn), "wfc") + w["bfc"])
     out1 = rnd(_layer_norm(attn + h, w["ln1_scale"], w["ln1_bias"], eps))
-    hid = torch.relu(rnd(out1 @ w["ffn1_w"] + w["ffn1_b"]))
-    ffn = rnd(hid @ w["ffn2_w"] + w["ffn2_b"])
+    hid = torch.relu(rnd(mm(out1, "ffn1_w") + w["ffn1_b"]))
+    ffn = rnd(mm(hid, "ffn2_w") + w["ffn2_b"])
     return rnd(_layer_norm(out1 + ffn, w["ln2_scale"], w["ln2_bias"], eps))
 
 
 def fused_decode_chunk_plain(x, t: int, e_all, weights, k_cache, v_cache,
-                             num_heads: int, eps: float = 1e-6):
+                             num_heads: int, scales=None, eps: float = 1e-6):
     """Plain PyTorch version of kernel E (any device): x [B, C, d] at
     positions t..t+C-1 -> (out [B, C, d], k_cache, v_cache), the caches
     written in place at rows [t, t+C). Rounds where _layer_chunk_step
-    does (pallas_decode.py:434-442, :534, :599, :610-621)."""
+    does (pallas_decode.py:434-442, :534, :599, :610-621). ``scales`` as
+    ``fused_decode_step_plain``."""
     b, c, d = x.shape
     dh = d // num_heads
     io, cd = x.dtype, k_cache.dtype
@@ -140,10 +183,10 @@ def fused_decode_chunk_plain(x, t: int, e_all, weights, k_cache, v_cache,
 
     h = x.reshape(b * c, d).float()
     for li in range(k_cache.shape[0]):
-        w = {key: weights[key][li].float() for key in WEIGHT_KEYS}
-        q = rnd(h @ w["wq"] + w["bq"])
-        k_cache[li, :, t:n] = rnd(h @ w["wk"] + w["bk"]).view(b, c, d).to(cd)
-        v_cache[li, :, t:n] = rnd(h @ w["wv"] + w["bv"]).view(b, c, d).to(cd)
+        w, mm = _layer_weights(weights, scales, li)
+        q = rnd(mm(h, "wq") + w["bq"])
+        k_cache[li, :, t:n] = rnd(mm(h, "wk") + w["bk"]).view(b, c, d).to(cd)
+        v_cache[li, :, t:n] = rnd(mm(h, "wv") + w["bv"]).view(b, c, d).to(cd)
         keys = k_cache[li, :, :n].float().view(b, n, num_heads, dh)
         vals = v_cache[li, :, :n].float().view(b, n, num_heads, dh)
         qh = q.view(b, c, num_heads, dh).transpose(1, 2)       # [B, H, C, dh]
@@ -154,7 +197,7 @@ def fused_decode_chunk_plain(x, t: int, e_all, weights, k_cache, v_cache,
         p = torch.exp(logits - m)
         lsum = p.sum(-1, keepdim=True).clamp_min(1e-30)
         attn = torch.einsum("bhcs,bshd->bhcd", rnd(p, cd), vals) / lsum
-        h = _tail(attn.transpose(1, 2).reshape(b * c, d), h, w, io, eps)
+        h = _tail(attn.transpose(1, 2).reshape(b * c, d), h, w, mm, io, eps)
     return h.view(b, c, d).to(io), k_cache, v_cache
 
 
@@ -169,7 +212,8 @@ def _start_min(start, start_min, t: int) -> int:
     return int(start_min)
 
 
-def _check(x, t, e_all, weights, k_cache, v_cache, num_heads, start):
+def _check(x, t, e_all, weights, k_cache, v_cache, num_heads, start,
+           scales):
     if x.dim() != 2:
         raise ValueError(f"x must be [B, d]; got {tuple(x.shape)}")
     b, d = x.shape
@@ -199,14 +243,34 @@ def _check(x, t, e_all, weights, k_cache, v_cache, num_heads, start):
               "ln1_scale": (d,), "ln1_bias": (d,), "ffn1_w": (d, f),
               "ffn1_b": (f,), "ffn2_w": (f, d), "ffn2_b": (d,),
               "ln2_scale": (d,), "ln2_bias": (d,)}
+    int8 = weights["wq"].dtype == torch.int8
+    if int8 and scales is None:
+        raise ValueError("int8 weights need their scales dict "
+                         "(quantize_stream_weights)")
+    if scales is not None and not int8:
+        raise ValueError("scales are for int8 weights "
+                         "(quantize_stream_weights); got "
+                         f"{weights['wq'].dtype} weights")
     for key in WEIGHT_KEYS:
         w = weights[key]
         if tuple(w.shape) != (nl,) + shapes[key]:
             raise ValueError(f"weights[{key!r}] must be "
                              f"{(nl,) + shapes[key]}; got {tuple(w.shape)}")
-        if w.dtype != x.dtype or w.device != x.device:
-            raise TypeError(f"weights[{key!r}] must be {x.dtype} on "
-                            f"{x.device}")
+        dtype = torch.int8 if int8 and key in MATRIX_KEYS else x.dtype
+        if w.dtype != dtype or w.device != x.device:
+            raise TypeError(f"weights[{key!r}] must be {dtype} on "
+                            f"{x.device}; got {w.dtype} on {w.device}")
+    if scales is not None:
+        if sorted(scales) != sorted(MATRIX_KEYS):
+            raise ValueError(f"scales must hold {MATRIX_KEYS}; got "
+                             f"{tuple(sorted(scales))}")
+        for key in MATRIX_KEYS:
+            sc, want = scales[key], (nl, shapes[key][1])
+            if (tuple(sc.shape) != want or sc.dtype != torch.float32
+                    or sc.device != x.device):
+                raise ValueError(f"scales[{key!r}] must be {want} float32 "
+                                 f"on {x.device}; got {tuple(sc.shape)} "
+                                 f"{sc.dtype} {sc.device}")
     if any(y.device != x.device for y in (e_all, k_cache, v_cache)):
         raise ValueError("x, e_all and the caches must be on one device")
     if start is not None and (tuple(start.shape) != (b,)
@@ -219,24 +283,29 @@ def _check(x, t, e_all, weights, k_cache, v_cache, num_heads, start):
 
 
 def _kernel_inputs(kernel: str, x, dh: int, d: int, f: int, weights,
-                   tensors) -> ctypes.Array:
+                   scales, tensors):
     """Raise unless kernel B or E takes these inputs on the card; return
-    the 16 weight pointers in ``WEIGHT_KEYS`` order."""
+    the 16 weight pointers in ``WEIGHT_KEYS`` order and the six scale
+    pointers in ``MATRIX_KEYS`` order (None without int8)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if dh != 64 or d > MAX_D or f > MAX_FFN:
         raise ValueError(f"kernel {kernel} takes dh = 64, d <= {MAX_D} and "
                          f"FFN <= {MAX_FFN}; got dh={dh}, d={d}, FFN={f}")
     ws = [weights[k] for k in WEIGHT_KEYS]
-    if not all(y.is_contiguous() for y in tensors + ws):
+    ss = [] if scales is None else [scales[k] for k in MATRIX_KEYS]
+    if not all(y.is_contiguous() for y in tensors + ws + ss):
         raise ValueError(f"kernel {kernel} takes contiguous tensors")
-    return (ctypes.c_void_p * 16)(*[w.data_ptr() for w in ws])
+    wptrs = (ctypes.c_void_p * 16)(*[w.data_ptr() for w in ws])
+    sptrs = None if scales is None else (ctypes.c_void_p * 6)(
+        *[y.data_ptr() for y in ss])
+    return wptrs, sptrs
 
 
 def fused_decode_step(x: torch.Tensor, t: int, e_all: torch.Tensor,
                       weights, k_cache: torch.Tensor, v_cache: torch.Tensor,
                       num_heads: int, start: torch.Tensor = None,
-                      start_min: int = None):
+                      start_min: int = None, scales=None):
     """All-layers decode step. x: [B, d] (embedded + positioned) in the
     model dtype; t: int position; e_all: [L, max_seq, dh] float32;
     weights: dict of stacked [L, ...] arrays (``WEIGHT_KEYS``, model
@@ -248,23 +317,29 @@ def fused_decode_step(x: torch.Tensor, t: int, e_all: torch.Tensor,
     The wrapper does not read ``start`` back (that would sync the host
     every step): the caller guarantees both bounds.
 
+    scales: optional {key: [L, d_out] f32} of ``MATRIX_KEYS``, from
+    ``quantize_stream_weights``: the six matrices of ``weights`` are then
+    int8 (weight-only int8); int8 weights without it raise.
+
     CPU tensors run the plain version. CUDA tensors launch kernel B
     (dh = 64, d <= 1024, FFN <= 4096, contiguous inputs) or raise.
-    ``launches`` counts its CUDA launches: three per layer."""
+    ``launches`` counts its CUDA launches with model-dtype weights,
+    ``int8_launches`` those with int8 weights: three per layer."""
     nl, b, s, d, dh, f = _check(x, t, e_all, weights, k_cache, v_cache,
-                                num_heads, start)
+                                num_heads, start, scales)
     lo = _start_min(start, start_min, t)
     if x.device.type == "cpu":
         return fused_decode_step_plain(x, t, e_all, weights, k_cache,
-                                       v_cache, num_heads, start, start_min)
-    wptrs = _kernel_inputs("B", x, dh, d, f, weights,
-                           [x, e_all, k_cache, v_cache]
-                           + ([] if start is None else [start]))
+                                       v_cache, num_heads, start, start_min,
+                                       scales)
+    wptrs, sptrs = _kernel_inputs("B", x, dh, d, f, weights, scales,
+                                  [x, e_all, k_cache, v_cache]
+                                  + ([] if start is None else [start]))
     lib = cuda_build.load("fused_decode")
     fn = lib.mg_decode_step
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
-                   + [ctypes.POINTER(ctypes.c_void_p)]
+                   + [ctypes.POINTER(ctypes.c_void_p)] * 2
                    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     xbuf = x.to(torch.float32, copy=True)  # the kernel overwrites it
@@ -274,53 +349,59 @@ def fused_decode_step(x: torch.Tensor, t: int, e_all: torch.Tensor,
     part = torch.empty(b * num_heads, nsplit, dh + 2, dtype=torch.float32,
                        device=x.device)
     rc = fn(int(x.dtype == torch.bfloat16), nl, xbuf.data_ptr(),
-            qbuf.data_ptr(), part.data_ptr(), wptrs, k_cache.data_ptr(),
-            v_cache.data_ptr(), e_all.data_ptr(),
+            qbuf.data_ptr(), part.data_ptr(), wptrs, sptrs,
+            k_cache.data_ptr(), v_cache.data_ptr(), e_all.data_ptr(),
             start.data_ptr() if start is not None else None, b, s, d,
             num_heads, f, t, e_all.shape[1], split0,
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode step kernel failed: CUDA error {rc}")
-    fused_decode_step.launches += 3 * nl
+    if scales is None:
+        fused_decode_step.launches += 3 * nl
+    else:
+        fused_decode_step.int8_launches += 3 * nl
     return xbuf.to(x.dtype), k_cache, v_cache
 
 
 fused_decode_step.launches = 0
+fused_decode_step.int8_launches = 0
 
 
 def fused_decode_chunk(x: torch.Tensor, t: int, e_all: torch.Tensor,
                        weights, k_cache: torch.Tensor,
-                       v_cache: torch.Tensor, num_heads: int):
+                       v_cache: torch.Tensor, num_heads: int, scales=None):
     """All-layers chunk-verify forward. x: [B, C, d] (embedded +
     positioned, position t + c in row c) in the model dtype, 2 <= C <=
     128; t: int, t + C <= the cache length and max_seq; the other
-    arguments as ``fused_decode_step``. Returns (out [B, C, d], k_cache,
-    v_cache), the caches written in place at rows [t, t+C).
+    arguments (``scales`` too) as ``fused_decode_step``. Returns (out
+    [B, C, d], k_cache, v_cache), the caches written in place at rows
+    [t, t+C).
 
     CPU tensors run the plain version. CUDA tensors launch kernel E
     (dh = 64, d <= 1024, FFN <= 4096, contiguous inputs) or raise; the
-    wrapper never reads a tensor back. ``launches`` counts its CUDA
-    launches: three per layer."""
+    wrapper never reads a tensor back. ``launches`` and
+    ``int8_launches`` count its CUDA launches as ``fused_decode_step``'s
+    do: three per layer."""
     if x.dim() != 3:
         raise ValueError(f"x must be [B, C, d]; got {tuple(x.shape)}")
     b, c, _ = x.shape
     if not 2 <= c <= MAX_CHUNK:
         raise ValueError(f"chunk C={c} outside [2, {MAX_CHUNK}]")
     nl, b, s, d, dh, f = _check(x[:, 0], t, e_all, weights, k_cache,
-                                v_cache, num_heads, None)
+                                v_cache, num_heads, None, scales)
     if t + c > min(s, e_all.shape[1]):
         raise ValueError(f"rows [{t}, {t + c}) pass the cache ({s}) or the "
                          f"relative table ({e_all.shape[1]})")
     if x.device.type == "cpu":
         return fused_decode_chunk_plain(x, t, e_all, weights, k_cache,
-                                        v_cache, num_heads)
-    wptrs = _kernel_inputs("E", x, dh, d, f, weights,
-                           [e_all, k_cache, v_cache])
+                                        v_cache, num_heads, scales)
+    wptrs, sptrs = _kernel_inputs("E", x, dh, d, f, weights, scales,
+                                  [e_all, k_cache, v_cache])
     lib = cuda_build.load("fused_decode")
     fn = lib.mg_decode_chunk
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
-                   + [ctypes.POINTER(ctypes.c_void_p)]
+                   + [ctypes.POINTER(ctypes.c_void_p)] * 2
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     # the kernel overwrites its input rows
@@ -330,13 +411,18 @@ def fused_decode_chunk(x: torch.Tensor, t: int, e_all: torch.Tensor,
     part = torch.empty(b * c * num_heads, nsplit, dh + 2,
                        dtype=torch.float32, device=x.device)
     rc = fn(int(x.dtype == torch.bfloat16), nl, xbuf.data_ptr(),
-            qbuf.data_ptr(), part.data_ptr(), wptrs, k_cache.data_ptr(),
-            v_cache.data_ptr(), e_all.data_ptr(), b, c, s, d, num_heads, f,
-            t, e_all.shape[1], torch.cuda.current_stream(x.device).cuda_stream)
+            qbuf.data_ptr(), part.data_ptr(), wptrs, sptrs,
+            k_cache.data_ptr(), v_cache.data_ptr(), e_all.data_ptr(), b, c,
+            s, d, num_heads, f, t, e_all.shape[1],
+            torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"chunk-verify kernel failed: CUDA error {rc}")
-    fused_decode_chunk.launches += 3 * nl
+    if scales is None:
+        fused_decode_chunk.launches += 3 * nl
+    else:
+        fused_decode_chunk.int8_launches += 3 * nl
     return xbuf.view(b, c, d).to(x.dtype), k_cache, v_cache
 
 
 fused_decode_chunk.launches = 0
+fused_decode_chunk.int8_launches = 0
