@@ -126,7 +126,25 @@ Phases (the first failure raises and the exit code is non-zero):
    unquantized kernels, their plain versions and bounds (the flagship
    and the d 1024 rung); decode tokens/s int8 against unquantized at
    both widths (B 8, a 16-token prompt, 512 tokens, cache 1024);
-12. one JSON line of kernels, the card's line, and the final JSON line.
+12. sequence-parallel attention (kernel G, one round of the ring per
+   launch) on a virtual mesh of n shards of the card: kernel G against
+   its plain tile at B 8, H 4, dh 64, max_seq 2048, Lloc 512 (L 2048,
+   sp 4), 256 (sp 8), 128 (L 512, sp 4) and a ragged 25 (L 100, sp 4),
+   every (shard, round) pair, causal and not, with and without key
+   padding, f32 (TF32 off) and bf16; the whole ring through kernel G
+   against the plain ring, and in f32 against kernel A's single-device
+   output at L 2048; the full-width MusicTransformer with
+   ``attention_impl="ring_pallas"`` on ``make_mesh(sp=4, devices=[cuda]
+   * 4)`` against the same weights with ``"auto"``: one f32 forward at
+   B 8, L 2048 (exactly 24 kernel-G and 0 kernel-A launches) and one f32
+   train step, dropout 0 (kernel G forward, plain-ring backward) against
+   the single-device step through kernels A and C; kernel G's time per
+   launch and per ring pass beside its bound, its plain version, SDPA
+   over the whole sequence and kernel A at L 2048; a bf16 train step on
+   the virtual ring against a single-device step (no claim: one card).
+   The NCCL ring of a process group needs several GPUs and is not run
+   here;
+13. one JSON line of kernels, the card's line, and the final JSON line.
 
 Imports nothing of JAX or of ``musicgeneration_tpu``. Needs one CUDA card.
 """
@@ -186,9 +204,17 @@ from musicgeneration_tpu_torch.ops.fused_decode import (  # noqa: E402
     fused_decode_step_plain)
 from musicgeneration_tpu_torch.ops.fused_gru_decode import (  # noqa: E402
     fused_gru_step, fused_gru_step_plain, pack_gru_weights)
+from musicgeneration_tpu_torch.ops.relative_attention import (  # noqa: E402
+    NEG_INF)
+from musicgeneration_tpu_torch.ops.ring_attention import (  # noqa: E402
+    ring_tile, ring_tile_plain)
+from musicgeneration_tpu_torch.parallel import (  # noqa: E402
+    make_mesh, ring_relative_attention, ring_relative_attention_pallas)
+from musicgeneration_tpu_torch.parallel.ring_attention import (  # noqa: E402
+    to_shards)
 from musicgeneration_tpu_torch.tokenizers import midilike  # noqa: E402
 from musicgeneration_tpu_torch.train.trainer import (  # noqa: E402
-    create_train_state, make_optimizer, make_train_step)
+    TrainerConfig, create_train_state, make_optimizer, make_train_step)
 from musicgeneration_tpu_torch.utils.checkpoint import (  # noqa: E402
     list_checkpoints)
 from musicgeneration_tpu_torch.utils.config import apply_overrides  # noqa: E402
@@ -267,6 +293,19 @@ LOOP_MODES = (("T 1", SamplingParams(temperature=1.0)),
 D_RUNG = 1024
 TOL_INT8_REL = 3e-2
 RATE_PROMPT, RATE_CACHE, RATE_ROUNDS = 16, 1024, 3
+# ring attention (kernel G): the main shape is L 2048 = max_seq over sp 4
+# (Lloc 512), B 8, bf16; the check also takes sp 8, L 512 and a ragged
+# Lloc 25. Kernel G vs its plain tile: f32 max abs TOL_G; the f32 carry
+# (m, l, acc) within TOL_G relative, on the rows that have seen an
+# unmasked key (the kernel's contract); bf16 outputs within one bf16 ulp
+# of the plain output plus TOL_G_SUM: each rounds its own f32 quotient
+# once, and the two quotients differ by the f32 summation order (<= 1.7e-6
+# in f32 on the card), which is more than a bf16 ulp for outputs below
+# ~1e-4; and within one bf16 ulp alone where |out| >= 2^-8
+SP_RING, L_RING = 4, MAX_SEQ
+RING_CASES = ((4, MAX_SEQ), (8, MAX_SEQ), (4, 512), (4, 100))
+TOL_G, TOL_G_SUM = 1e-4, 1e-5
+RING_STEPS = 3  # timed train steps, each path
 # timing: 64 MB written between calls evicts the 50 MB L2
 FLUSH_BYTES = 64 << 20
 _SPIN_CYCLES_PER_MS = []
@@ -1757,8 +1796,16 @@ def train_parity(shards: str) -> None:
         if launches != ((0, 0) if plain else (N_LAYERS, N_LAYERS)):
             raise AssertionError(f"parity step launched A, C {launches}")
         results.append((state, m))
-    (sk, mk), (sp, mp) = results
-    lr = tx.lr(0)
+    step_parity(f"train-step parity f32 (B{B} L{L_TRAIN}, full width)",
+                results[0], results[1], tx.lr(0))
+
+
+def step_parity(label: str, kern: tuple, plain: tuple, lr: float) -> None:
+    """Two f32 train steps from the same weights and batch, held to the
+    train-step parity tolerances (PERF.md section 2): loss 1e-5 rel, grad
+    norm 1e-4 rel, Adam moments TOL_MOMENT of each tensor's max (+1e-6 of
+    the largest), parameters 2*lr + 1e-6."""
+    (sk, mk), (sp, mp) = kern, plain
     errs = {k: abs(mk[k] - mp[k]) / abs(mp[k])
             for k in ("loss", "grad_norm")}
     mom = {}
@@ -1772,7 +1819,7 @@ def train_parity(shards: str) -> None:
                zip(sk.model.parameters(), sp.model.parameters()))
     ok = (errs["loss"] <= 1e-5 and errs["grad_norm"] <= 1e-4
           and max(mom.values()) <= 1.0 and perr <= 2 * lr + 1e-6)
-    print(f"train-step parity f32 (B{B} L{L_TRAIN}, full width): loss "
+    print(f"{label}: loss "
           f"{mk['loss']:.6f} vs {mp['loss']:.6f} (rel {errs['loss']:.1e}, "
           f"tol 1e-5); grad_norm {mk['grad_norm']:.6f} vs "
           f"{mp['grad_norm']:.6f} (rel {errs['grad_norm']:.1e}, tol 1e-4); "
@@ -1938,6 +1985,8 @@ def kernel_group(name: str) -> str:
         return "kernel A (attention forward)"
     if "rel_attn_bwd" in name:
         return "kernel C (attention backward)"
+    if "ring_tile" in name:
+        return "kernel G (ring round)"
     if any(s in name for s in ("gemm", "nvjet", "cutlass", "xmma")):
         return "GEMMs (cuBLAS)"
     if "foreach" in name or "multi_tensor" in name:
@@ -2975,6 +3024,375 @@ def loop_paths(prime: np.ndarray) -> dict:
             "tok_s": {"step": run["step"], "loop": run["loop"]}}
 
 
+def ring_mesh(sp: int = SP_RING):
+    """A virtual mesh of ``sp`` shards on the card."""
+    return make_mesh(sp=sp, devices=[DEV] * sp)
+
+
+def merged_shards(x: torch.Tensor, sp: int) -> torch.Tensor:
+    """[B, H, L, dh] -> kernel G's [sp, B, L / sp, H * dh]."""
+    s = to_shards(x, ring_mesh(sp), 2)
+    return s.transpose(2, 3).reshape(sp, s.shape[1], s.shape[3], -1
+                                     ).contiguous()
+
+
+def ring_pad(gen, l: int) -> torch.Tensor:
+    """[B, l] key padding in the JAX ring tests' pattern: 20 % of keys
+    padded, keys 0-3 never (tests/test_ring_attention.py:85-86)."""
+    pad = (torch.rand(B, l, generator=gen) < 0.2).float()
+    pad[:, :4] = 0.0
+    return pad.to(DEV)
+
+
+def fresh_carry(sp: int, l_loc: int) -> list:
+    return [torch.full((sp, B, H, l_loc), NEG_INF, device=DEV),
+            torch.zeros(sp, B, H, l_loc, device=DEV),
+            torch.zeros(sp, B, H, l_loc, DH, device=DEV)]
+
+
+def bf16_ulps(a: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(max |a - ref| over one bf16 ulp of |ref| + TOL_G_SUM; max
+    |a - ref| in bf16 ulps of |ref| over the outputs with |ref| >= 2^-8,
+    where TOL_G_SUM is below a tenth of an ulp). Both must be <= 1."""
+    r = ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    d = (a.float() - r).abs()
+    big = r.abs() >= 2.0 ** -8
+    return ((d / (ulp + TOL_G_SUM)).max().item(),
+            (d[big] / ulp[big]).max().item() if bool(big.any()) else 0.0)
+
+
+def check_kernel_g() -> float:
+    """Kernel G against ring_tile_plain, round by round: both start each
+    round from the plain chain's carry. Returns the worst bf16 output
+    error (max abs)."""
+    gen = torch.Generator().manual_seed(21)
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = 0.0
+    for sp, l in RING_CASES:
+        l_loc = l // sp
+        for dtype in (f32, bf16):
+            for causal in (True, False):
+                for with_pad in (False, True):
+                    q, k, v = (torch.randn(B, H, l, DH, generator=gen)
+                               .to(DEV, dtype) for _ in range(3))
+                    e = torch.randn(MAX_SEQ, DH, generator=gen).to(DEV)
+                    pad = (to_shards(ring_pad(gen, l), ring_mesh(sp), 1)
+                           .contiguous() if with_pad else None)
+                    qm, km, vm = (merged_shards(x, sp) for x in (q, k, v))
+                    carry = fresh_carry(sp, l_loc)
+                    out_k, out_p = torch.empty_like(qm), torch.empty_like(qm)
+                    carry_err = 0.0
+                    for r in range(sp):
+                        last = r == sp - 1
+                        kc = [c.clone() for c in carry]
+                        ring_tile(qm, km, vm, pad, e, *kc, rank0=0, r=r,
+                                  n=sp, causal=causal,
+                                  out=out_k if last else None)
+                        ring_tile_plain(qm, km, vm, pad, e, *carry, rank0=0,
+                                        r=r, n=sp, causal=causal,
+                                        out=out_p if last else None)
+                        torch.cuda.synchronize()
+                        live = carry[0] > NEG_INF / 2  # rows in contract
+                        for a, ref in zip(kc, carry):
+                            sel = live if a.dim() == 4 else live[..., None]
+                            carry_err = max(carry_err, rel_err(
+                                torch.where(sel, a, 0.0),
+                                torch.where(sel, ref, 0.0)))
+                    err = (out_k.float() - out_p.float()).abs().max().item()
+                    if dtype == f32:
+                        ok, how = err <= TOL_G, f"tol {TOL_G:.0e}"
+                    else:
+                        frac, ulps = bf16_ulps(out_k, out_p)
+                        ok = frac <= 1.0 and ulps <= 1.0
+                        how = (f"{frac:.2f} of 1 ulp + {TOL_G_SUM:.0e}; "
+                               f"{ulps:.2f} ulp where |out| >= 2^-8")
+                        worst = max(worst, err)
+                    ok = ok and carry_err <= TOL_G and bool(
+                        torch.isfinite(out_k.float()).all())
+                    print(f"kernel G {str(dtype):15s} L={l:4d} sp={sp} "
+                          f"Lloc={l_loc:3d} causal={causal!s:5s} "
+                          f"key_pad={with_pad!s:5s} max_abs_err={err:.3e} "
+                          f"({how}) carry_rel_err={carry_err:.2e} "
+                          f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError("kernel G disagrees with its "
+                                             "plain tile")
+    return worst
+
+
+def check_ring_pass() -> None:
+    """The whole virtual ring (sp 4, L 2048) through kernel G against the
+    plain ring, f32 and bf16, and in f32 against kernel A on one
+    device."""
+    gen = torch.Generator().manual_seed(22)
+    mesh = ring_mesh()
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(B, H, L_RING, DH, generator=gen)
+                   .to(DEV, dtype) for _ in range(3))
+        e = torch.randn(MAX_SEQ, DH, generator=gen).to(DEV)
+        pad = ring_pad(gen, L_RING)
+        out = ring_relative_attention_pallas(q, k, v, e, mesh, key_pad=pad)
+        ref = ring_relative_attention(q, k, v, e, mesh, key_pad=pad)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if dtype == torch.float32:
+            ref_a = fused_relative_attention(q, k, v, e, pad)
+            err_a = (out - ref_a).abs().max().item()
+            ok = err <= TOL_G and err_a <= TOL_G
+            how = (f"vs plain ring {err:.3e}, vs kernel A {err_a:.3e} "
+                   f"(tol {TOL_G:.0e})")
+        else:
+            frac, ulps = bf16_ulps(out, ref)
+            ok = frac <= 1.0 and ulps <= 1.0
+            how = (f"vs plain ring {err:.3e} ({frac:.2f} of 1 ulp + "
+                   f"{TOL_G_SUM:.0e}; {ulps:.2f} ulp where |out| >= 2^-8)")
+        print(f"ring pass {str(dtype):15s} B{B} H{H} L{L_RING} sp "
+              f"{SP_RING}, key_pad: {how} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the kernel-G ring disagrees")
+
+
+def ring_model(impl: str, dtype, dropout: float = 0.0):
+    """The flagship at full width with seeded random weights (seed 0, as
+    ``flagship``), attention ``impl`` over a virtual mesh of SP_RING
+    shards of the card, or "auto" (kernel A, one device)."""
+    return mt.MusicTransformer(
+        vocab_size=VOCAB, num_layers=N_LAYERS, d_model=D_MODEL,
+        max_seq=MAX_SEQ, dtype=dtype, device=DEV, dropout_rate=dropout,
+        generator=torch.Generator().manual_seed(0), attention_impl=impl,
+        mesh=ring_mesh() if impl != "auto" else None)
+
+
+def ring_batch(seed: int):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(0, VOCAB - 1, (B, L_RING))).to(DEV)
+    return x, torch.roll(x, -1, 1)
+
+
+def ring_counts() -> tuple:
+    return (ring_tile.launches, fused_relative_attention.launches,
+            fused_relative_attention_bwd.launches)
+
+
+def zero_ring_counts() -> None:
+    torch.cuda.synchronize()
+    ring_tile.launches = 0
+    fused_relative_attention.launches = 0
+    fused_relative_attention_bwd.launches = 0
+
+
+def ring_paths() -> dict:
+    """The main path of kernel G: the full-width model with
+    ``attention_impl="ring_pallas"`` over sp 4, f32: one forward (exact
+    launch counts; logits against ``"auto"``), then one train step
+    (dropout 0) against the single-device step through kernels A and C.
+    Returns kernel G's launches by path."""
+    f32 = torch.float32
+    ring, auto = ring_model("ring_pallas", f32), ring_model("auto", f32)
+    x, y = ring_batch(23)
+    zero_ring_counts()
+    with torch.no_grad():
+        logits = ring(x)
+    torch.cuda.synchronize()
+    g, a, c = ring_counts()
+    want = N_LAYERS * SP_RING
+    with torch.no_grad():
+        ref = auto(x)
+    err = (logits - ref).abs().max().item()
+    ok = (g, a, c) == (want, 0, 0) and err <= 2e-4
+    print(f"ring model f32 B{B} L{L_RING} sp {SP_RING} (full width) "
+          f"forward: logits vs auto max_abs_err {err:.3e} (tol 2e-4); "
+          f"launches G {g} (want {want}), A {a}, C {c} (want 0) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the ring model's forward disagrees")
+    launches = {"ring_forward": g}
+
+    tcfg = TrainerConfig(vocab_size=VOCAB, pad_id=VOCAB - 1,
+                         d_model=D_MODEL)
+    results, counts = [], []
+    for model in (ring, auto):
+        tx = make_optimizer(tcfg)
+        state = create_train_state(model.requires_grad_(True), tx,
+                                   dropout_seed=0)
+        zero_ring_counts()
+        state, m = make_train_step(tx, tcfg)(state, x, y)
+        torch.cuda.synchronize()
+        counts.append(ring_counts())
+        results.append((state, m))
+    if counts != [(want, 0, 0), (0, N_LAYERS, N_LAYERS)]:
+        raise AssertionError(f"ring / single-device train steps launched "
+                             f"(G, A, C) {counts}")
+    print(f"ring train step launches (G, A, C): ring {counts[0]}, "
+          f"single device {counts[1]}")
+    step_parity(f"ring train-step parity f32 (B{B} L{L_RING}, sp "
+                f"{SP_RING} kernel G + plain-ring backward vs kernels A + C)",
+                results[0], results[1], tx.lr(0))
+    launches["ring_train_step"] = counts[0][0]
+    return launches
+
+
+def ring_bound(qm: torch.Tensor, sp: int, pad: bool) -> tuple:
+    """The least time of one causal ring pass (sp launches). A (shard,
+    round) whose block holds keys at or before its queries reads its q,
+    its K/V (and pad) block and the E rows of the distances it needs, and
+    reads and writes the carry; one whose block lies wholly after its
+    queries needs nothing, except in the last round, which reads l and
+    acc; the last round writes out. The operations are the causal (t, s)
+    pairs, each a bf16-input q.k product and two f32-operand products (q.E,
+    P.V) of depth dh. Returns (bytes ms, ops ms, the larger, its name)."""
+    s_, b, l_loc, d = qm.shape
+    el = qm.element_size()
+    h = d // DH
+    rows_of = b * l_loc           # one shard's rows of a [B, Lloc] tensor
+    carry = rows_of * h * (2 + DH) * 4
+    nbytes = ops_bf16 = ops_f32 = 0.0
+    t = torch.arange(sp * l_loc)
+    for r in range(sp):
+        pairs, need = 0, torch.zeros(sp * l_loc, dtype=torch.bool)
+        for i in range(sp):
+            src = (i - r) % sp
+            if src <= i:
+                dist_ = (t[i * l_loc:(i + 1) * l_loc, None]
+                         - t[None, src * l_loc:(src + 1) * l_loc])
+                pairs += int((dist_ >= 0).sum())
+                need[dist_[dist_ >= 0]] = True
+                nbytes += (3 * rows_of * d * el + 2 * carry
+                           + (rows_of * 4 if pad else 0))
+            elif r == sp - 1:
+                nbytes += rows_of * h * (1 + DH) * 4
+        nbytes += int(need.sum()) * DH * 4  # E rows
+        ops_bf16 += 2 * DH * pairs * b * h
+        ops_f32 += 2 * 2 * DH * pairs * b * h
+    nbytes += s_ * rows_of * d * el  # out
+    t_bytes = nbytes / HBM_BPS * 1e3
+    peak = PEAK_FLOPS[qm.dtype]
+    t_ops = ops_bf16 / peak * 1e3 + ops_f32 / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_bytes, t_ops) + ((t_bytes, "bytes") if t_bytes >= t_ops
+                               else (t_ops, "operations"))
+
+
+def time_kernel_g(launches: int, by_path: dict, err: float) -> dict:
+    """Kernel G at the main shape (B 8, H 4, L 2048 over sp 4, bf16,
+    causal, no key padding: a training crop): each round's launch and a
+    whole ring pass, its plain tile, its bound; SDPA over the whole
+    [B, H, 2048, dh] with the relative bias and the causal mask as
+    attn_mask (the same work as one pass), and kernel A at L 2048. The
+    row's times are per ring pass of SP_RING launches."""
+    dtype, sp = torch.bfloat16, SP_RING
+    gen = torch.Generator().manual_seed(24)
+    q, k, v = (torch.randn(B, H, L_RING, DH, generator=gen).to(DEV, dtype)
+               for _ in range(3))
+    e = torch.randn(MAX_SEQ, DH, generator=gen).to(DEV)
+    qm, km, vm = (merged_shards(x, sp) for x in (q, k, v))
+    carry = fresh_carry(sp, L_RING // sp)
+    out = torch.empty_like(qm)
+
+    def one_pass(tile):
+        for r in range(sp):
+            tile(qm, km, vm, None, e, *carry, rank0=0, r=r, n=sp,
+                 out=out if r == sp - 1 else None)
+
+    per_round = [device_ms(lambda r=r: ring_tile(
+        qm, km, vm, None, e, *carry, rank0=0, r=r, n=sp,
+        out=out if r == sp - 1 else None)) for r in range(sp)]
+    ms = device_ms(lambda: one_pass(ring_tile), iters=50)
+    plain_ms = device_ms(lambda: one_pass(ring_tile_plain), iters=5)
+    t_bytes, t_ops, bnd, by = ring_bound(qm, sp, False)
+    t = torch.arange(L_RING, device=DEV)
+    causal = t[None, :] > t[:, None]
+    idx = (MAX_SEQ - 1 - t[:, None] + t[None, :]).clamp(0, MAX_SEQ - 1)
+    srel = torch.einsum("bhld,lsd->bhls", q.float(), e[idx])
+    mask = (srel.masked_fill(causal, 0.0) / math.sqrt(DH)
+            + causal.float() * -1e9).to(dtype)
+    del srel
+    f = torch.nn.functional.scaled_dot_product_attention
+    library_ms = device_ms(lambda: f(q, k, v, attn_mask=mask), iters=20)
+    del mask
+    a_ms = device_ms(lambda: fused_relative_attention(q, k, v, e, None),
+                     iters=20)
+    print(f"kernel G bf16 B{B} H{H} L{L_RING} sp {sp} (Lloc "
+          f"{L_RING // sp}), causal: per launch by round "
+          + ", ".join(f"r{r} {x:.4f}" for r, x in enumerate(per_round))
+          + f" ms; one ring pass {ms:.4f} ms ({ms / sp:.4f} per launch), "
+          f"plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}; bytes "
+          f"{t_bytes:.4f}, operations {t_ops:.4f}: q.k at the bf16 peak, "
+          f"q.E and P.V at the f32 peak), SDPA (bias and mask as attn_mask) "
+          f"{library_ms:.4f} ms, kernel A at L {L_RING} {a_ms:.4f} ms, on "
+          f"{gpu_line()}")
+    return {"name": "ring_attention_round", "route": "cuda",
+            "source": "musicgeneration_tpu_torch/csrc/ring_attention.cu",
+            "replaces":
+                "musicgeneration_tpu/parallel/ring_attention_pallas.py:269",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": library_ms, "launches_by_path": by_path,
+            "per": f"ring pass of {sp} launches", "ms_per_round": per_round,
+            "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
+            "kernel_a_ms_l2048": a_ms}
+
+
+def time_ring_step() -> dict:
+    """Host time and peak memory of a bf16 train step (dropout 0.1, B 8,
+    L 2048, full width) on the virtual ring through kernel G
+    ("ring_pallas": kernel G forward, plain-ring backward recomputed), on
+    the plain ring ("ring": what ``cli.train sp=N`` runs) and on one
+    device (kernels A and C), interleaved. One card: no claim about
+    several."""
+    tcfg = TrainerConfig(vocab_size=VOCAB, pad_id=VOCAB - 1,
+                         d_model=D_MODEL)
+    impls = ("ring_pallas", "ring", "auto")
+    steps = {}
+    for impl in impls:
+        model = ring_model(impl, torch.bfloat16, dropout=0.1)
+        tx = make_optimizer(tcfg)
+        steps[impl] = (create_train_state(model, tx, dropout_seed=0),
+                       make_train_step(tx, tcfg))
+    x, y = ring_batch(25)
+    times = {impl: [] for impl in impls}
+    peak = {impl: 0.0 for impl in impls}
+    # a warm-up step each, then RING_STEPS each, in turns whose order
+    # reverses every round
+    turns = sum((impls[::1 - 2 * (i % 2)] for i in range(RING_STEPS)), ())
+    for i, impl in enumerate(impls + turns):
+        state, step = steps[impl]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, _ = step(state, x, y)
+        torch.cuda.synchronize()
+        if i >= len(impls):
+            times[impl].append((time.perf_counter() - t0) * 1e3)
+        peak[impl] = max(peak[impl],
+                         torch.cuda.max_memory_allocated() / 2 ** 30)
+    res = {impl: float(np.median(ts)) for impl, ts in times.items()}
+    print(f"train step bf16 B{B} L{L_RING} (full width, dropout 0.1), host "
+          f"clock, median of {RING_STEPS}: "
+          + ", ".join(f"{impl} {res[impl]:.2f} ms (peak {peak[impl]:.2f} "
+                      f"GiB, steps {', '.join(f'{t:.2f}' for t in times[impl])})"
+                      for impl in impls)
+          + f"; ring_pallas / ring {res['ring_pallas'] / res['ring']:.4f}; "
+          "one card, no claim")
+    res["peak_gib"] = peak
+    from torch.profiler import ProfilerActivity, profile
+
+    state, step = steps["ring_pallas"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, x, y)
+        torch.cuda.synchronize()
+    groups = {}
+    for dev_us, _, key in device_rows(prof):
+        groups[kernel_group(key)] = groups.get(kernel_group(key), 0.0) + dev_us
+    busy = sum(groups.values())
+    print(f"ring train step profile: device busy {busy / 1e3:.3f} ms; "
+          + ", ".join(f"{g} {us / 1e3:.3f} ms" for g, us in
+                      sorted(groups.items(), key=lambda kv: -kv[1])))
+    return res
+
+
 def main() -> int:
     print(gpu_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3005,6 +3423,8 @@ def main() -> int:
     err_int8 = check_int8_kernels()
     check_kernel_b_rung()
     err_f = check_kernel_f()
+    err_g = check_kernel_g()
+    check_ring_pass()
     e2e = end_to_end()
     loop = loop_paths(e2e["prime"])
     served = serving(e2e["prime"])
@@ -3018,6 +3438,7 @@ def main() -> int:
         train_parity(shards)
         tr = train_end_to_end(tmp, shards)
         step_t = time_train_step(shards)
+    ring_launches = ring_paths()
     row_a = time_kernel_a(e2e["A"] + tr["A"] + served["A"] + spec["A"],
                           err_a)
     row_a["launches_by_path"] = {"generate": e2e["A"], "train": tr["A"],
@@ -3048,6 +3469,8 @@ def main() -> int:
     for r, k in zip(q_rows, ("B", "B_ragged", "E")):
         r["launches_by_path"] = q_by_path[k]
     q_rates = int8_rates()
+    row_g = time_kernel_g(sum(ring_launches.values()), ring_launches, err_g)
+    ring_step = time_ring_step()
     profile_decode()
     for d, q in ((D_MODEL, "int8"), (D_RUNG, "none"), (D_RUNG, "int8")):
         profile_decode(d_model=d, quant=q)
@@ -3056,7 +3479,8 @@ def main() -> int:
     profile_rnn_decode()
     profile_spec(e2e["prime"], draft=False)
     profile_spec(e2e["prime"], draft=True)
-    rows = [row_a, row_b, row_c, row_br, row_d, row_e, row_f] + q_rows
+    rows = [row_a, row_b, row_c, row_br, row_d, row_e, row_f] + q_rows \
+        + [row_g]
     for r in rows:
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
@@ -3078,6 +3502,10 @@ def main() -> int:
           f"{loop['tok_s']['step']:.1f}, loop path {loop['tok_s']['loop']:.1f}"
           f"; under the profiler {loop_prof['busy_share'] * 100:.1f}% busy; "
           "chi2 " + ", ".join(f"{k} {v:.2f}" for k, v in loop["chi2"].items()))
+    print(f"ring train step bf16 B={B} L={L_RING} (host clock, median): "
+          f"virtual ring sp {SP_RING} {ring_step['ring_pallas']:.2f} ms "
+          f"through kernel G, {ring_step['ring']:.2f} ms plain, "
+          f"single device {ring_step['auto']:.2f} ms (one card, no claim)")
     print(gpu_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

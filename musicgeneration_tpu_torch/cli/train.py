@@ -15,6 +15,22 @@ causally only (``pad_in_input=False``): crops hold no pad id. Runs on
 
 Checkpoints (``ckpt_dir/step-<N>.pt``, utils/checkpoint.py) carry the
 model under the reference names; ``cli.generate`` reads the directory.
+
+Sequence parallelism: ``sp=N`` cuts every crop into N sequence shards,
+one per process, and runs attention as the ring (``attention_impl=
+"ring"``, ``parallel/``). Start one process per GPU with ``torchrun``:
+
+    torchrun --nproc-per-node 4 -m musicgeneration_tpu_torch.cli.train \
+        <shard_dir> sp=4 ...
+
+which sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT``; sp must equal the world size (dp is 1), each rank runs
+on ``cuda:LOCAL_RANK`` over NCCL (``--device cpu``: gloo), and seq_len
+must divide by sp. Rank r takes columns ``[r, r + 1) * seq_len / sp`` of
+every batch; rank 0 alone writes checkpoints, ``meta.json``, the metrics
+file and the profile, every rank prints its step lines, and every rank
+resumes from ``ckpt_dir``. Data parallelism (several processes at sp=1)
+is not ported yet and is refused.
 """
 
 from __future__ import annotations
@@ -61,6 +77,9 @@ class TrainCLIConfig(Config):
     metrics_path: Optional[str] = None
     profile_dir: Optional[str] = None
     profile_steps: int = 5        # traced steps [10, 10 + profile_steps)
+    # sp > 1 shards the sequence over one process per GPU and switches
+    # attention to the ring (parallel/)
+    sp: int = 1
 
 
 def _default_vocab(scheme: str) -> int:
@@ -103,9 +122,10 @@ def _lm_batch_fn(corpus, cfg: TrainCLIConfig):
 
 
 def build_model(cfg: TrainCLIConfig, scheme: str,
-                  model_kwargs: Dict[str, Any], device):
+                  model_kwargs: Dict[str, Any], device, mesh=None):
     """(model, trainer config) for ``cfg``; the model's initial weights
-    come from a CPU generator seeded with ``cfg.seed``."""
+    come from a CPU generator seeded with ``cfg.seed``. With a ``mesh``
+    attention runs as the ring over it."""
     from ..models.music_transformer import (MusicTransformer,
                                             music_transformer_defaults)
     from ..train.trainer import TrainerConfig
@@ -123,6 +143,8 @@ def build_model(cfg: TrainCLIConfig, scheme: str,
         if isinstance(kw.get(key), str):
             kw[key] = _DTYPES[kw[key]]
     vocab = kw.pop("vocab_size", _default_vocab(scheme))
+    if mesh is not None:  # not recorded in the checkpoint's model_kwargs
+        kw.update(attention_impl="ring", mesh=mesh)
     # crops are dense windows: the training model skips pad masking
     model = MusicTransformer(
         **{**music_transformer_defaults(vocab_size=vocab,
@@ -162,7 +184,60 @@ def _parse(argv):
     return args, apply_overrides(TrainCLIConfig(), plain), model_kwargs
 
 
+def init_mesh(cfg: TrainCLIConfig, device_arg: str):
+    """The sequence-parallel mesh ``cfg`` asks for, over a process group
+    made from the ``torchrun`` environment, or None for one process."""
+    from .. import resolve_device
+    from ..parallel.mesh import make_mesh
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if cfg.sp == 1 and world == 1:
+        return None
+    if cfg.sp != world:
+        raise SystemExit(
+            f"sp={cfg.sp} runs one process per sequence shard, but "
+            f"WORLD_SIZE is {world}: start it with torchrun --nproc-per-node "
+            f"{cfg.sp} (data parallelism is not ported yet: ROADMAP.md "
+            f"Queue A item 8)")
+    if cfg.seq_len % cfg.sp:
+        raise SystemExit(f"seq_len={cfg.seq_len} is not divisible by "
+                         f"sp={cfg.sp}")
+    rank = int(os.environ["RANK"])
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    device = resolve_device(device_arg)
+    if device.type == "cuda":
+        device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+    import torch.distributed as dist
+    dist.init_process_group(
+        "nccl" if device.type == "cuda" else "gloo",
+        init_method=(f"tcp://{os.environ.get('MASTER_ADDR', 'localhost')}:"
+                     f"{os.environ['MASTER_PORT']}"),
+        world_size=world, rank=rank)
+    return make_mesh(sp=cfg.sp, device=device)
+
+
+def _seq_shard(batch_at, mesh, seq_len: int):
+    """batch_at with each array cut to this rank's sequence columns."""
+    if mesh is None:
+        return batch_at
+    lo = mesh.rank * seq_len // mesh.size
+    hi = lo + seq_len // mesh.size
+    return lambda idx: tuple(a[:, lo:hi] for a in batch_at(idx))
+
+
 def main(argv=None) -> int:
+    args, cfg, model_kwargs = _parse(argv)
+    mesh = init_mesh(cfg, args.device)
+    try:
+        return _train(args, cfg, model_kwargs, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _train(args, cfg: TrainCLIConfig, model_kwargs, mesh) -> int:
     from .. import resolve_device
     from ..data.batching import slide_seq2seq_batch
     from ..data.pipeline import TokenCorpus
@@ -172,15 +247,15 @@ def main(argv=None) -> int:
                                  make_optimizer, make_train_step)
     from ..utils.checkpoint import Checkpointer, list_checkpoints
 
-    args, cfg, model_kwargs = _parse(argv)
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    rank = mesh.rank if mesh is not None else 0
     with open(os.path.join(args.data_dir, "manifest.json")) as f:
         scheme = json.load(f)["scheme"]
     limlen = cfg.seq_len + 1
     corpus = TokenCorpus(args.data_dir, limlen=limlen)
     print(f"corpus: {len(corpus)} sequences (scheme={scheme})")
-    model, tcfg = build_model(cfg, scheme, model_kwargs, device)
-    batch_at = _lm_batch_fn(corpus, cfg)
+    model, tcfg = build_model(cfg, scheme, model_kwargs, device, mesh)
+    batch_at = _seq_shard(_lm_batch_fn(corpus, cfg), mesh, cfg.seq_len)
 
     # step s consumes batch s, so starting the stream at the checkpoint's
     # next step replays exactly the uninterrupted batch sequence
@@ -198,7 +273,7 @@ def main(argv=None) -> int:
 
     tx = make_optimizer(tcfg)
     state = create_train_state(model, tx, dropout_seed=cfg.seed)
-    train_step = make_train_step(tx, tcfg)
+    train_step = make_train_step(tx, tcfg, mesh=mesh)
 
     eval_step = eval_batches = None
     if cfg.eval_dir:
@@ -209,16 +284,19 @@ def main(argv=None) -> int:
         def eval_batches():
             r = np.random.RandomState(0)
             for _ in range(4):
-                yield to_device(slide_seq2seq_batch(eval_seqs, cfg.batch_size,
-                                               cfg.seq_len, r), device)
+                batch = slide_seq2seq_batch(eval_seqs, cfg.batch_size,
+                                            cfg.seq_len, r)
+                yield to_device(_seq_shard(lambda _: batch, mesh,
+                                           cfg.seq_len)(0), device)
 
-        eval_step = make_eval_step(tcfg)
+        eval_step = make_eval_step(tcfg, mesh=mesh)
 
     loop_cfg = LoopConfig(
         total_steps=cfg.steps, ckpt_dir=cfg.ckpt_dir,
         ckpt_every=cfg.ckpt_every, log_every=cfg.log_every,
         eval_every=cfg.eval_every, metrics_path=cfg.metrics_path,
         profile_dir=cfg.profile_dir, profile_steps=cfg.profile_steps,
+        rank=rank,
         stream_meta={"data_seed": cfg.seed, "train_mode": cfg.train_mode,
                      "model": cfg.model})
     stream = prefetch_to_device(_indexed_stream(batch_at, start_step),

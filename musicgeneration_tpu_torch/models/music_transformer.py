@@ -23,6 +23,14 @@ the decode step and the speculative verify forward ``ops.fused_decode``
 and the verify forward where the JAX module takes its kernel, on
 weight-only int8 matrices (``quantize_stream_weights``).
 
+``attention_impl="ring"`` or ``"ring_pallas"`` with a ``mesh``
+(``parallel.make_mesh``) runs full-sequence attention sequence-parallel
+over the mesh's ``seq`` axis: the plain ring, or kernel G per round with
+the plain ring's backward (``parallel/``). On a virtual mesh the model
+takes the global ``[B, L]``; on a process group each rank gives its own
+``[B, L / n]`` shard and the positional rows are taken at its global
+offset.
+
 ``forward`` is the training forward: it runs under autograd, with
 dropout at the JAX module's three sites (after embedding + position,
 after attention, after the FFN) drawn from an explicit
@@ -47,8 +55,11 @@ from ..ops.fused_attention import fused_relative_attention
 from ..ops.fused_decode import (WEIGHT_KEYS, fused_decode_chunk,
                                 fused_decode_step, quantize_stream_weights)
 from ..ops.relative_attention import sinusoid_position_encoding
+from ..parallel.ring_attention import ring_relative_attention
+from ..parallel.ring_attention_pallas import ring_relative_attention_pallas
 
 Cache = Dict[str, torch.Tensor]
+ATTENTION_IMPLS = ("auto", "ring", "ring_pallas")
 
 
 def _linear(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -78,10 +89,13 @@ class RelativeGlobalAttentionBlock(nn.Module):
     (layers.py:42-133)."""
 
     def __init__(self, d_model: int, num_heads: int, max_seq: int,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None,
+                 attention_impl: str = "auto", mesh=None):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
+        self.attention_impl = attention_impl
+        self.mesh = mesh
         self.Wq = nn.Linear(d_model, d_model, device=device)
         self.Wk = nn.Linear(d_model, d_model, device=device)
         self.Wv = nn.Linear(d_model, d_model, device=device)
@@ -100,8 +114,15 @@ class RelativeGlobalAttentionBlock(nn.Module):
         q = self._heads(_linear(self.Wq, x, self.dtype))
         k = self._heads(_linear(self.Wk, x, self.dtype))
         v = self._heads(_linear(self.Wv, x, self.dtype))
-        out = fused_relative_attention(q, k, v, self.E.float(), key_pad,
-                                       causal=True)
+        if self.attention_impl == "auto":
+            out = fused_relative_attention(q, k, v, self.E.float(), key_pad,
+                                           causal=True)
+        else:
+            ring = (ring_relative_attention_pallas
+                    if self.attention_impl == "ring_pallas"
+                    else ring_relative_attention)
+            out = ring(q, k, v, self.E.float(), self.mesh, causal=True,
+                       key_pad=key_pad)
         b, h, l, dh = out.shape
         out = _linear(self.fc, out.transpose(1, 2).reshape(b, l, h * dh),
                       self.dtype)
@@ -112,11 +133,13 @@ class EncoderLayer(nn.Module):
     """RGA + FFN with post-LN (layers.py:136-161)."""
 
     def __init__(self, d_model: int, num_heads: int, max_seq: int,
-                 ffn_dim: int, dtype=torch.float32, device=None):
+                 ffn_dim: int, dtype=torch.float32, device=None,
+                 attention_impl: str = "auto", mesh=None):
         super().__init__()
         self.dtype = dtype
-        self.rga = RelativeGlobalAttentionBlock(d_model, num_heads, max_seq,
-                                                dtype=dtype, device=device)
+        self.rga = RelativeGlobalAttentionBlock(
+            d_model, num_heads, max_seq, dtype=dtype, device=device,
+            attention_impl=attention_impl, mesh=mesh)
         self.FFN_pre = nn.Linear(d_model, ffn_dim, device=device)
         self.FFN_suf = nn.Linear(ffn_dim, d_model, device=device)
         self.layernorm1 = nn.LayerNorm(d_model, eps=1e-6, device=device)
@@ -154,12 +177,13 @@ class _Decoder(nn.Module):
     """Holds the reference's ``Decoder.*`` parameters."""
 
     def __init__(self, vocab_size, num_layers, d_model, num_heads, max_seq,
-                 ffn_dim, dtype, device):
+                 ffn_dim, dtype, device, attention_impl, mesh):
         super().__init__()
         self.embedding = nn.Embedding(vocab_size, d_model, device=device)
         self.enc_layers = nn.ModuleList(
             EncoderLayer(d_model, num_heads, max_seq, ffn_dim, dtype=dtype,
-                         device=device)
+                         device=device, attention_impl=attention_impl,
+                         mesh=mesh)
             for _ in range(num_layers))
 
 
@@ -171,7 +195,10 @@ class MusicTransformer(nn.Module):
     inputs hold no pad id (dense crops): ``forward`` then masks causally
     only and the kernels take no key_pad; prefill and decode always mask
     pads. ``decode_quant``: "none" or "int8", weight-only int8 in the
-    decode step and the verify forward (``decode_weights``)."""
+    decode step and the verify forward (``decode_weights``).
+    ``attention_impl``: "auto" (kernel A, or its plain version on the
+    CPU), "ring" or "ring_pallas" (sequence-parallel over ``mesh``, which
+    they need); the JAX module's "xla" and "pallas" are not taken."""
 
     family = "music_transformer"
 
@@ -182,10 +209,16 @@ class MusicTransformer(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  dropout_rate: float = 0.1, pad_in_input: bool = True,
                  logits_dtype=torch.float32, remat: bool = False,
-                 decode_quant: str = "none"):
+                 decode_quant: str = "none", attention_impl: str = "auto",
+                 mesh=None):
         super().__init__()
         if decode_quant not in ("none", "int8"):
             raise ValueError(f"unknown decode_quant {decode_quant!r}")
+        if attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl {attention_impl!r} is not one of "
+                             f"{ATTENTION_IMPLS}")
+        if attention_impl != "auto" and mesh is None:
+            raise ValueError(f'attention_impl="{attention_impl}" needs mesh=')
         device = resolve_device(device)
         if d_model % head_dim:
             raise ValueError(f"d_model {d_model} not divisible by head_dim "
@@ -202,9 +235,11 @@ class MusicTransformer(nn.Module):
         self.logits_dtype = logits_dtype
         self.remat = remat
         self.decode_quant = decode_quant
+        self.attention_impl = attention_impl
+        self.mesh = mesh if attention_impl != "auto" else None
         self.Decoder = _Decoder(vocab_size, num_layers, d_model,
                                 self.num_heads, max_seq, self.ffn_dim,
-                                dtype, device)
+                                dtype, device, attention_impl, self.mesh)
         self.fc = nn.Linear(d_model, vocab_size, device=device)
         self.register_buffer(
             "pos_table",
@@ -255,9 +290,13 @@ class MusicTransformer(nn.Module):
         ``deterministic=False`` dropout draws its masks from
         ``generator`` (on the model's device); with ``remat`` the
         generator is rewound for each layer's recompute, so give each
-        forward a generator of its own."""
+        forward a generator of its own. On a process-group mesh x is
+        this rank's sequence shard, at global offset ``rank * L``."""
         key_pad = (x == self.pad_id).float() if self.pad_in_input else None
-        h = self._embed(x) + self.pos_table[:x.shape[1]].to(self.dtype)[None]
+        off = (self.mesh.rank * x.shape[1]
+               if self.mesh is not None and not self.mesh.virtual else 0)
+        h = self._embed(x) + self.pos_table[off:off + x.shape[1]].to(
+            self.dtype)[None]
         drop = None
         if not deterministic and self.dropout_rate > 0.0:
             def drop(y):

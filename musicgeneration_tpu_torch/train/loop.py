@@ -11,6 +11,11 @@ and the reference's failure handling:
   that completed. The step updates parameters in place, so a SIGINT that
   arrives during a step is held until the step has finished;
 - periodic eval on a held-out batch stream.
+
+In a sequence-parallel run (``rank`` set) every rank resumes from the
+checkpoint directory and prints its step lines, which carry its rank;
+rank 0 alone writes checkpoints, ``meta.json``, the metrics file and the
+profile.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ class LoopConfig:
     metrics_path: Optional[str] = None
     profile_dir: Optional[str] = None
     profile_steps: int = 0  # trace steps [10, 10+profile_steps)
+    rank: int = 0  # sequence-parallel rank; only rank 0 writes files
     # written to meta.json alongside every checkpoint, with the data
     # cursor (= next step; the cli streams are counter-indexed so the
     # cursor IS the step number) — lets a resume detect a seed change
@@ -89,8 +95,12 @@ def run_loop(
     start = 0
     if ckpt is not None:
         state, start = ckpt.restore_or(state)
-    log = MetricsLogger(path=cfg.metrics_path, every=cfg.log_every)
-    eval_log = MetricsLogger(path=cfg.metrics_path, every=1, prefix="eval")
+        if cfg.rank:
+            ckpt = None  # restored; rank 0 writes
+    path = cfg.metrics_path if not cfg.rank else None
+    extra = {"rank": cfg.rank} if cfg.rank else {}
+    log = MetricsLogger(path=path, every=cfg.log_every)
+    eval_log = MetricsLogger(path=path, every=1, prefix="eval")
     it = iter(batches)
     profiler = None
 
@@ -101,7 +111,7 @@ def run_loop(
     completed = start - 1
     try:
         for step in range(start, cfg.total_steps):
-            if cfg.profile_dir and cfg.profile_steps:
+            if cfg.profile_dir and cfg.profile_steps and not cfg.rank:
                 if step == 10 and profiler is None:
                     from ..utils.profiling import profile_trace
                     profiler = profile_trace(cfg.profile_dir)
@@ -117,7 +127,7 @@ def run_loop(
             with _interrupt_after():
                 state, metrics = step_fn(state, *batch)
                 completed = step
-            log.write(step, metrics, tokens=tokens_per_batch)
+            log.write(step, metrics, tokens=tokens_per_batch, **extra)
             if ckpt is not None and ckpt.maybe_save(step, state):
                 ckpt.write_meta(data_cursor=step + 1,
                                 **(cfg.stream_meta or {}))
@@ -130,7 +140,8 @@ def run_loop(
                         agg[k] = agg.get(k, 0.0) + float(v)
                     n += 1
                 if n:
-                    eval_log.write(step, {k: v / n for k, v in agg.items()})
+                    eval_log.write(step, {k: v / n for k, v in agg.items()},
+                                   **extra)
     except KeyboardInterrupt:
         pass
     finally:

@@ -16,8 +16,11 @@ import torch
 
 def smooth_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                          vocab_size: int, label_smoothing: float = 0.1,
-                         ignore_index: Optional[int] = None) -> torch.Tensor:
-    """Label-smoothed CE, mean over non-ignored targets.
+                         ignore_index: Optional[int] = None,
+                         denom: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Label-smoothed CE, mean over non-ignored targets (with ``denom``:
+    their sum over ``denom``, e.g. a shard's sum over the global count).
 
     logits: [..., V]; targets: [...] int. q' = (1-eps) * onehot + eps/V,
     in the gather form: the [N, V] one-hot is never built. A target
@@ -33,20 +36,27 @@ def smooth_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     if ignore_index is not None:
         keep = (targets != ignore_index).float()
         ce = ce * keep
-        denom = keep.sum().clamp_min(1.0)
-    else:
+        if denom is None:
+            denom = keep.sum().clamp_min(1.0)
+    elif denom is None:
         denom = float(targets.numel())
     return ce.sum() / denom
 
 
 def token_accuracy(logits: torch.Tensor, targets: torch.Tensor,
-                   ignore_index: Optional[int] = None) -> torch.Tensor:
-    """Argmax accuracy over non-ignored tokens (metrics.py:40-52)."""
+                   ignore_index: Optional[int] = None,
+                   denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Argmax accuracy over non-ignored tokens (metrics.py:40-52); with
+    ``denom`` the hits are summed and divided by it."""
     hit = (logits.argmax(-1) == targets).float()
     if ignore_index is not None:
         keep = (targets != ignore_index).float()
-        return (hit * keep).sum() / keep.sum().clamp_min(1.0)
-    return hit.mean()
+        hit = hit * keep
+        if denom is None:
+            denom = keep.sum().clamp_min(1.0)
+    elif denom is None:
+        return hit.mean()
+    return hit.sum() / denom
 
 
 def CategoricalAccuracy(ignore_index: Optional[int] = None):

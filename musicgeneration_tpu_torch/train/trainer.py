@@ -21,6 +21,14 @@ the Noam schedule, mirrored on torch tensors:
 PyTorch runs eagerly: the step updates the model's parameters and the
 Adam moments in place, and reads the loss and the gradient norm to the
 host once per step (the non-finite guard and the clip decide there).
+
+Over a process-group mesh (``parallel.make_mesh``; each rank holds one
+sequence shard of every row) each rank's loss is its local sum over the
+GLOBAL count of kept targets, the gradients are all-reduced (summed)
+before the global-norm clip and the metrics are summed, so every rank
+takes the step one device would take on the global batch. Each rank folds
+its rank into its dropout stream. On a virtual mesh one process holds the
+global batch and the step is the single-device step.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .objective import smooth_cross_entropy, token_accuracy
 from .schedule import noam_schedule
@@ -135,35 +144,59 @@ def create_train_state(model: torch.nn.Module, tx: Optimizer,
 
 
 def dropout_generator(seed: int, step: int, micro: int,
-                      device) -> torch.Generator:
+                      device, rank: int = 0) -> torch.Generator:
     """The dropout stream of one micro-batch, a pure function of (seed,
     step, micro) as the JAX step's ``fold_in(dropout_rng, step)``: a
     resumed run draws the masks the uninterrupted run would. Four words
-    of entropy, so it never aliases the CLI's three-word batch stream."""
-    w = np.random.SeedSequence([int(seed), _DROPOUT_TAG, int(step),
-                                int(micro)]).generate_state(2, np.uint32)
+    of entropy, so it never aliases the CLI's three-word batch stream;
+    a sequence-parallel rank > 0 adds its rank as a fifth."""
+    words = [int(seed), _DROPOUT_TAG, int(step), int(micro)]
+    w = np.random.SeedSequence(words + ([int(rank)] if rank else [])
+                               ).generate_state(2, np.uint32)
     gen = torch.Generator(device=device)
     gen.manual_seed(((int(w[0]) << 32) | int(w[1])) & ((1 << 63) - 1))
     return gen
 
 
+def _group(mesh) -> Optional[dist.ProcessGroup]:
+    return mesh.group if mesh is not None and not mesh.virtual else None
+
+
+def _objective(logits, y, cfg: TrainerConfig, group):
+    """(loss, accuracy) of one (shard of a) batch: over a process group,
+    the local sums over the global count of kept targets."""
+    denom = None
+    if group is not None:
+        keep = (y != cfg.pad_id) if cfg.pad_id is not None \
+            else torch.ones_like(y, dtype=torch.bool)
+        denom = keep.sum().float()
+        dist.all_reduce(denom, group=group)
+        denom = denom.clamp_min(1.0)
+    loss = smooth_cross_entropy(logits, y, cfg.vocab_size,
+                                cfg.label_smoothing, cfg.pad_id, denom)
+    return loss, token_accuracy(logits, y, cfg.pad_id, denom)
+
+
 def make_train_step(tx: Optimizer, cfg: TrainerConfig,
-                    loss_fn: Optional[Callable] = None) -> Callable:
+                    loss_fn: Optional[Callable] = None,
+                    mesh=None) -> Callable:
     """Returns ``train_step(state, x, y, guard=False) -> (state,
     metrics)``.
 
     x, y: [accum * B, L] int tensors on the model's device, split into
-    ``accum_steps`` micro-batches. ``loss_fn(model, x, y, generator) ->
-    (loss, accuracy)`` replaces the default objective. With ``guard`` a
-    non-finite loss leaves parameters and optimizer state untouched
-    (``train.loop._guarded``); the step counter moves on either way.
-    Metrics are host floats."""
+    ``accum_steps`` micro-batches (on a process-group ``mesh``, this
+    rank's sequence shard of them). ``loss_fn(model, x, y, generator) ->
+    (loss, accuracy)`` replaces the default objective (over a process
+    group it must return this rank's share of the global mean). With
+    ``guard`` a non-finite loss leaves parameters and optimizer state
+    untouched (``train.loop._guarded``); the step counter moves on either
+    way. Metrics are host floats."""
+    group = _group(mesh)
+    rank = mesh.rank if group is not None else 0
 
     def default_loss(model, x, y, generator):
         logits = model(x, deterministic=False, generator=generator)
-        loss = smooth_cross_entropy(logits, y, cfg.vocab_size,
-                                    cfg.label_smoothing, cfg.pad_id)
-        return loss, token_accuracy(logits, y, cfg.pad_id)
+        return _objective(logits, y, cfg, group)
 
     loss_of = loss_fn or default_loss
 
@@ -179,13 +212,21 @@ def make_train_step(tx: Optimizer, cfg: TrainerConfig,
         loss = acc = 0.0
         for i in range(a):
             gen = dropout_generator(state.dropout_seed, state.step, i,
-                                    x.device)
+                                    x.device, rank)
             l_i, acc_i = loss_of(model, xs[i], ys[i], gen)
             l_i.backward()  # sums into .grad across micro-batches
             loss = loss + l_i.detach()
             acc = acc + acc_i.detach()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
+        if group is not None:
+            # one all-reduce of every gradient and of the two metrics
+            flat = torch.cat([g.reshape(-1) for g in grads]
+                             + [torch.stack([loss, acc]).float()])
+            dist.all_reduce(flat, group=group)
+            grads = [f.view_as(g) for f, g in zip(
+                torch.split(flat[:-2], [g.numel() for g in grads]), grads)]
+            loss, acc = flat[-2], flat[-1]
         if a > 1:
             torch._foreach_div_(grads, a)
             loss, acc = loss / a, acc / a
@@ -207,17 +248,18 @@ def make_train_step(tx: Optimizer, cfg: TrainerConfig,
     return train_step
 
 
-def make_eval_step(cfg: TrainerConfig) -> Callable:
+def make_eval_step(cfg: TrainerConfig, mesh=None) -> Callable:
     """Returns ``eval_step(model, x, y) -> {"loss", "accuracy"}``
-    (deterministic forward, no autograd)."""
+    (deterministic forward, no autograd; over a process-group ``mesh``
+    the metrics of the global batch on every rank)."""
+    group = _group(mesh)
 
     @torch.no_grad()
     def eval_step(model, x, y) -> Dict[str, torch.Tensor]:
         logits = model(x, deterministic=True)
-        return {
-            "loss": smooth_cross_entropy(logits, y, cfg.vocab_size,
-                                         cfg.label_smoothing, cfg.pad_id),
-            "accuracy": token_accuracy(logits, y, cfg.pad_id),
-        }
+        stats = torch.stack(_objective(logits, y, cfg, group))
+        if group is not None:
+            dist.all_reduce(stats, group=group)
+        return {"loss": stats[0], "accuracy": stats[1]}
 
     return eval_step
