@@ -9,11 +9,19 @@ Phases (the first failure raises and the exit code is non-zero):
 1. the card's name and power limit, torch and CUDA versions;
 2. build the hand-written kernels from ``musicgeneration_tpu_torch/csrc``
    (one ``nvcc`` per source, started together; kernels B and E share
-   ``fused_decode.cu``) and print each kernel's ptxas line;
+   ``fused_decode.cu``) and, beside them, kernels A and G once more with
+   their bf16 mode sent to the earlier CUDA-core body (timed as
+   ``earlier_ms``), print each kernel's ptxas line, and count in
+   ``cuobjdump -sass`` the tensor-core instructions (HMMA/HGMMA) and
+   asynchronous copies (LDGSTS/UTMALDG) of kernels A's and G's entry
+   functions (a bf16 one without either fails);
 3. kernel A (relative attention, prefill) against its plain PyTorch
    version at B8 H4 L512 dh64 max_seq 2048, f32 (TF32 off) and bf16,
-   with and without key padding, non-causal, and at L 100 (a ragged
-   tile, as short prompts give);
+   with and without key padding, non-causal, at L 100 (a ragged tile, as
+   short prompts give), at L 1 (a one-token prompt), 17 and 2048, causal,
+   with and without key padding, at the training shape (max_seq 512),
+   and with the first 3 keys padded, causal (those 3 rows, out of
+   contract, printed; the rest held to the tolerance);
 4. kernel B (fused decode step) against its plain version at the
    flagship width (6 layers, d 256, B 8, cache 1024) for several t,
    f32 and bf16, and at B 1 and B 3; then kernel C (relative attention
@@ -129,7 +137,8 @@ Phases (the first failure raises and the exit code is non-zero):
 12. sequence-parallel attention (kernel G, one round of the ring per
    launch) on a virtual mesh of n shards of the card: kernel G against
    its plain tile at B 8, H 4, dh 64, max_seq 2048, Lloc 512 (L 2048,
-   sp 4), 256 (sp 8), 128 (L 512, sp 4) and a ragged 25 (L 100, sp 4),
+   sp 4), 256 (sp 8), 128 (L 512, sp 4) and the ragged 25 (L 100, sp 4)
+   and 17 (L 68, sp 4),
    every (shard, round) pair, causal and not, with and without key
    padding, f32 (TF32 off) and bf16; the whole ring through kernel G
    against the plain ring, and in f32 against kernel A's single-device
@@ -139,9 +148,11 @@ Phases (the first failure raises and the exit code is non-zero):
    B 8, L 2048 (exactly 24 kernel-G and 0 kernel-A launches) and one f32
    train step, dropout 0 (kernel G forward, plain-ring backward) against
    the single-device step through kernels A and C; kernel G's time per
-   launch and per ring pass beside its bound, its plain version, SDPA
-   over the whole sequence and kernel A at L 2048; a bf16 train step on
-   the virtual ring against a single-device step (no claim: one card).
+   launch and per ring pass beside its bound (bytes against five bf16
+   tensor-core products, and the earlier f32-peak figure), its plain
+   version, its earlier CUDA-core body, SDPA over the whole sequence and kernel A at L 2048; a bf16
+   train step on the virtual ring against a single-device step (no
+   claim: one card).
    The NCCL ring of a process group needs several GPUs and is not run
    here;
 13. one JSON line of kernels, the card's line, and the final JSON line.
@@ -152,7 +163,9 @@ Imports nothing of JAX or of ``musicgeneration_tpu``. Needs one CUDA card.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -233,6 +246,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # running (kernel) vs final (plain) max and rounds every intermediate,
 # so an output may differ by a few bf16 ulps
 TOL_A = {torch.float32: 1e-4, torch.bfloat16: 3.2e-2}
+LEFT_PAD = 3  # kernel A's check: keys padded at the start of a row
 TOL_B = {torch.float32: 1e-4, torch.bfloat16: 1.25e-1}
 # kernel C, max |kernel - plain| / max |plain| for each of dq, dk, dv, dE
 # (dE sums B*H*L^2 terms, so its error is stated relative to its size):
@@ -294,24 +308,69 @@ D_RUNG = 1024
 TOL_INT8_REL = 3e-2
 RATE_PROMPT, RATE_CACHE, RATE_ROUNDS = 16, 1024, 3
 # ring attention (kernel G): the main shape is L 2048 = max_seq over sp 4
-# (Lloc 512), B 8, bf16; the check also takes sp 8, L 512 and a ragged
-# Lloc 25. Kernel G vs its plain tile: f32 max abs TOL_G; the f32 carry
-# (m, l, acc) within TOL_G relative, on the rows that have seen an
+# (Lloc 512), B 8, bf16; the check also takes sp 8, L 512 and the ragged
+# Lloc 25 and 17. Kernel G vs its plain tile: f32 max abs TOL_G; the f32
+# carry (m, l, acc) within TOL_G relative, on the rows that have seen an
 # unmasked key (the kernel's contract); bf16 outputs within one bf16 ulp
 # of the plain output plus TOL_G_SUM: each rounds its own f32 quotient
 # once, and the two quotients differ by the f32 summation order (<= 1.7e-6
-# in f32 on the card), which is more than a bf16 ulp for outputs below
-# ~1e-4; and within one bf16 ulp alone where |out| >= 2^-8
+# in f32 on the card) and, in bf16, by the split products' ~2^-17 of each
+# product, which is more than a bf16 ulp for outputs below ~1e-4; and
+# within one bf16 ulp alone where |out| >= 2^-8
 SP_RING, L_RING = 4, MAX_SEQ
-RING_CASES = ((4, MAX_SEQ), (8, MAX_SEQ), (4, 512), (4, 100))
+RING_CASES = ((4, MAX_SEQ), (8, MAX_SEQ), (4, 512), (4, 100), (4, 68))
 TOL_G, TOL_G_SUM = 1e-4, 1e-5
+# kernels A and G before their tensor-core bodies: their bf16 mode ran
+# the CUDA-core body that is now the f32 mode's. Each source is built a
+# second time behind a C entry point of the same name and signature that
+# sends bf16 to that body, so the wrapper times it on the same inputs
+# (earlier_ms)
+EARLIER_SHIMS = {
+    "relative_attention": """
+#define mg_rel_attn_fwd mg_rel_attn_fwd_tc
+#include "relative_attention.cu"
+#undef mg_rel_attn_fwd
+extern "C" int mg_rel_attn_fwd(int is_bf16, const void* q, const void* k,
+                               const void* v, const void* e,
+                               const void* key_pad, void* out, void* lse,
+                               int B, int H, int L, int max_seq, int causal,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch<__nv_bfloat16, false>(q, k, v, e, key_pad, out, lse, B, H,
+                                        L, max_seq, causal, s);
+  return launch<float>(q, k, v, e, key_pad, out, lse, B, H, L, max_seq,
+                       causal, s);
+}
+""",
+    "ring_attention": """
+#define mg_ring_tile mg_ring_tile_tc
+#include "ring_attention.cu"
+#undef mg_ring_tile
+extern "C" int mg_ring_tile(int is_bf16, const void* q, const void* k,
+                            const void* v, const void* pad, const void* e,
+                            void* m, void* l, void* acc, void* out, int S,
+                            int B, int H, int Lloc, int max_seq, int rank0,
+                            int r, int n, int nkv, int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch<__nv_bfloat16, false>(q, k, v, pad, e, m, l, acc, out, S,
+                                        B, H, Lloc, max_seq, rank0, r, n,
+                                        nkv, causal, s);
+  return launch<float>(q, k, v, pad, e, m, l, acc, out, S, B, H, Lloc,
+                       max_seq, rank0, r, n, nkv, causal, s);
+}
+"""}
+EARLIER_LIBS = {}  # name -> built library of EARLIER_SHIMS
 RING_STEPS = 3  # timed train steps, each path
 # timing: 64 MB written between calls evicts the 50 MB L2
 FLUSH_BYTES = 64 << 20
 _SPIN_CYCLES_PER_MS = []
 
 
+@functools.lru_cache(maxsize=None)
 def gpu_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -385,21 +444,68 @@ def device_ms(fn, iters: int = 100, flush=None) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
+def start_earlier_builds() -> dict:
+    """Start one ``nvcc`` for each of ``EARLIER_SHIMS``, with the port's
+    flags, into the build directory; ``finish_earlier_builds`` waits."""
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name, text in EARLIER_SHIMS.items():
+        src = cuda_build.BUILD_DIR / f"earlier_{name}.cu"
+        src.write_text(text)
+        so = src.with_suffix(".so")
+        procs[name] = (so, subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+             str(cuda_build.CSRC), "-o", str(so), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def finish_earlier_builds(procs: dict) -> dict:
+    """Wait for the earlier bodies' builds; raise with nvcc's output if
+    one failed. Returns the path of each library."""
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the earlier {name}:\n{log}")
+    return {name: so for name, (so, _) in procs.items()}
+
+
+@contextlib.contextmanager
+def earlier_body(name: str):
+    """Inside the block the wrapper of kernel ``name`` launches its
+    earlier bf16 body (``EARLIER_SHIMS``)."""
+    lib = cuda_build.load(name)
+    cuda_build._LIBS[name] = ctypes.CDLL(str(EARLIER_LIBS[name]))
+    try:
+        yield
+    finally:
+        cuda_build._LIBS[name] = lib
+
+
 def bound(nbytes: float, flops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attn_inputs(dtype, gen, with_pad: bool, l: int = L_PREFILL):
+def attn_inputs(dtype, gen, with_pad: bool, l: int = L_PREFILL,
+                max_seq: int = MAX_SEQ):
     shape = (B, H, l, DH)
     q, k, v = (torch.randn(shape, generator=gen).to(DEV, dtype)
                for _ in range(3))
-    e = torch.randn(MAX_SEQ, DH, generator=gen).to(DEV)
+    e = torch.randn(max_seq, DH, generator=gen).to(DEV)
     pad = None
-    if with_pad:  # a bucket tail, as the main path's 500 tokens of 512
+    if with_pad == "all":  # no row has an unmasked key: with the -1e9
+        # masks every logit is -1e9 and each row the mean of V
+        pad = torch.ones(B, l, device=DEV)
+    elif with_pad == "left":  # keys 0 .. LEFT_PAD - 1 padded: under
+        # causal, rows 0 .. LEFT_PAD - 1 reach no unmasked key
+        pad = torch.zeros(B, l, device=DEV)
+        pad[:, :LEFT_PAD] = 1.0
+    elif with_pad:  # a bucket tail, as the main path's 500 tokens of 512;
+        # key 0 is never padded (a prompt has at least one token)
         pad = torch.zeros(B, l)
-        pad[:, l - (L_PREFILL - PROMPT):] = 1.0
+        pad[:, max(1, l - (L_PREFILL - PROMPT)):] = 1.0
         pad = pad.to(DEV)
     return q, k, v, e, pad
 
@@ -408,25 +514,47 @@ def check_kernel_a() -> float:
     gen = torch.Generator().manual_seed(1)
     worst = 0.0
     f32, bf16 = torch.float32, torch.bfloat16
-    # (dtype, key_pad, causal, L); the main path is bf16, causal, key_pad
-    for dtype, with_pad, causal, l in (
-            (f32, False, True, L_PREFILL), (f32, True, True, L_PREFILL),
-            (bf16, False, True, L_PREFILL), (bf16, True, True, L_PREFILL),
-            (f32, True, False, L_PREFILL), (f32, True, True, 100),
-            (bf16, True, True, 100)):
-        q, k, v, e, pad = attn_inputs(dtype, gen, with_pad, l)
+    # (dtype, key_pad, causal, L, max_seq); the main path is bf16, causal,
+    # key_pad; L 1 is a one-token admission prompt, L 17 and 100 ragged
+    # tiles, L 2048 max_seq, max_seq 512 the training shape, and every key
+    # padded, non-causal: rows with no unmasked key over all 8 key tiles.
+    # Under causal the kernel skips later key tiles, as the TPU kernel
+    # does, so a row whose reachable keys are all padded differs from the
+    # plain version by design (the csrc note): with the first keys padded
+    # ("left") the other rows are held to the tolerance and those rows'
+    # error is printed
+    cases = [(f32, False, True, L_PREFILL, MAX_SEQ),
+             (f32, True, True, L_PREFILL, MAX_SEQ),
+             (bf16, False, True, L_PREFILL, MAX_SEQ),
+             (bf16, True, True, L_PREFILL, MAX_SEQ),
+             (f32, True, False, L_PREFILL, MAX_SEQ),
+             (f32, True, True, 100, MAX_SEQ), (bf16, True, True, 100, MAX_SEQ)]
+    cases += [(dtype, with_pad, True, l, MAX_SEQ) for l in (1, 17, MAX_SEQ)
+              for dtype in (f32, bf16) for with_pad in (False, True)]
+    cases += [(dtype, False, True, L_TRAIN, L_TRAIN) for dtype in (f32, bf16)]
+    cases += [(dtype, "all", False, L_PREFILL, MAX_SEQ)
+              for dtype in (f32, bf16)]
+    cases += [(dtype, "left", True, L_PREFILL, MAX_SEQ)
+              for dtype in (f32, bf16)]
+    for dtype, with_pad, causal, l, max_seq in cases:
+        q, k, v, e, pad = attn_inputs(dtype, gen, with_pad, l, max_seq)
         out, lse = fused_relative_attention(q, k, v, e, pad, causal,
                                             return_lse=True)
         ref, ref_lse = fused_relative_attention_plain(q, k, v, e, pad, causal,
                                                       return_lse=True)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        lse_err = (lse - ref_lse).abs().max().item()
+        diff = (out.float() - ref.float()).abs()
+        rows = LEFT_PAD if with_pad == "left" else 0  # out of contract
+        err = diff[:, :, rows:].max().item()
+        lse_err = (lse - ref_lse)[:, :, rows:].abs().max().item()
         ok = err <= TOL_A[dtype] and lse_err <= 1e-3
-        print(f"kernel A {str(dtype):15s} L={l:4d} key_pad={with_pad!s:5s} "
-              f"causal={causal!s:5s} max_abs_err={err:.3e} "
-              f"lse_err={lse_err:.3e} tol={TOL_A[dtype]:.1e} "
-              f"{'ok' if ok else 'FAIL'}")
+        print(f"kernel A {str(dtype):15s} L={l:4d} max_seq={max_seq:4d} "
+              f"key_pad={with_pad!s:5s} causal={causal!s:5s} "
+              f"max_abs_err={err:.3e} lse_err={lse_err:.3e} "
+              f"tol={TOL_A[dtype]:.1e} {'ok' if ok else 'FAIL'}"
+              + (f"; rows 0-{rows - 1}, every reachable key padded (out of "
+                 f"contract): max_abs_err={diff[:, :, :rows].max().item():.3e}"
+                 if rows else ""))
         if not ok:
             raise AssertionError("kernel A disagrees with its plain version")
         if dtype == bf16:
@@ -839,7 +967,8 @@ def end_to_end() -> dict:
                                                  PROMPT - 1), iters=5)
     tok_s = B * STEPS / (total_s - prefill_ms / 1e3)
     print(f"generate bf16: {total_s:.3f} s; prefill {prefill_ms:.3f} ms; "
-          f"decode {tok_s:.1f} tokens/s (B={B}, {STEPS} steps, host clock)")
+          f"decode {tok_s:.1f} tokens/s (B={B}, {STEPS} steps, host clock)",
+          f"on {gpu_line()}")
 
     # greedy f32: the kernel path against the plain path, on the card
     model32 = flagship(torch.float32)
@@ -891,7 +1020,7 @@ def profile_decode(steps: int = 32, warm: int = 3, d_model: int = D_MODEL,
           f"(decode_step + argmax), wall "
           f"{wall_us / steps:.1f} us/step under the profiler, device busy "
           f"{busy_us / steps:.1f} us/step ({100 * busy_us / wall_us:.1f}% "
-          f"of wall)")
+          f"of wall)", f"on {gpu_line()}")
     for dev_us, count, key in sorted(rows, reverse=True)[:10]:
         print(f"  {dev_us / steps:8.2f} us/step {count // steps:4d}x/step "
               f"{key[:90]}")
@@ -944,7 +1073,7 @@ def serve_file_mode(tmp: str, pth: str, prime_mid: str) -> dict:
     summary = next(x for x in out.splitlines() if x.startswith("generated"))
     print(f"cli.serve bf16 file mode ({N_SERVE} requests, slots {SLOTS}, "
           f"seg {SEG}, depth {DEPTH}) in {secs:.3f} s (load, warm, serve, "
-          f"write): {summary}")
+          f"write): {summary}", f"on {gpu_line()}")
     stat = {k: int(re.search(rf"(\d+) {k}", summary).group(1))
             for k in ("decode steps", "admission calls", "compactions",
                       "reprimes")}
@@ -1121,7 +1250,7 @@ def profile_serving() -> None:
     print(f"serving profile: one segment ({SEG} steps x {SLOTS} slots, "
           f"per-row sampling), wall {wall_us / SEG:.1f} us/step under the "
           f"profiler, device busy {busy_us / SEG:.1f} us/step "
-          f"({100 * busy_us / wall_us:.1f}% of wall)")
+          f"({100 * busy_us / wall_us:.1f}% of wall)", f"on {gpu_line()}")
     for dev_us, count, key in sorted(rows, reverse=True)[:10]:
         print(f"  {dev_us / SEG:8.2f} us/step {count / SEG:5.1f}x/step "
               f"{key[:90]}")
@@ -1266,7 +1395,7 @@ def spec_rates(prime: np.ndarray) -> dict:
                  f"{stats[k]['mean_accepted']:.3f}/{SPEC_CHUNK - 1}")
         print(f"B=1 bf16 greedy {k}: {med:.1f} tokens/s median of "
               f"{SPEC_ROUNDS} interleaved runs [{min(r):.1f}-{max(r):.1f}] "
-              f"(prefill included, host clock){extra}")
+              f"(prefill included, host clock){extra}", f"on {gpu_line()}")
         out[k] = {"tok_s": med, "tok_s_range": [min(r), max(r)],
                   **({} if stats[k] is None else
                      {"iterations": stats[k]["iterations"],
@@ -1467,7 +1596,8 @@ def rnn_decode_rate(family: str, prime: np.ndarray) -> float:
     rate = B * RNN_STEPS / (t_all - t_prompt)
     print(f"generate {family} bf16: prompt {prompt.shape[1]} tokens "
           f"{t_prompt:.3f} s, {RNN_STEPS} steps {t_all - t_prompt:.3f} s: "
-          f"decode {rate:.1f} tokens/s (B={B}, host clock)")
+          f"decode {rate:.1f} tokens/s (B={B}, host clock)",
+          f"on {gpu_line()}")
     return rate
 
 
@@ -1545,7 +1675,8 @@ def rnn_serve_file_mode(family: str, tmp: str, pth: str,
     expect = RNN_LAYERS * (stat["decode steps"] + stat["prefill steps"])
     print(f"cli.serve {family} bf16 file mode ({N_SERVE} requests, slots "
           f"{SLOTS}, seg {SEG}, depth {DEPTH}, boost {RNN_BOOST}) in "
-          f"{secs:.3f} s (load, warm, serve, write): {summary}")
+          f"{secs:.3f} s (load, warm, serve, write): {summary}",
+          f"on {gpu_line()}")
     print(f"  {len(written)} MIDI files read back as {min(n_events)}-"
           f"{max(n_events)} events; kernel D launches {n} ({RNN_LAYERS} x "
           f"({stat['decode steps']} decode + {stat['prefill steps']} "
@@ -1647,7 +1778,7 @@ def profile_rnn_decode(steps: int = 32, warm: int = 3) -> None:
     print(f"event_rnn decode profile: {steps} steps (decode_step + argmax, "
           f"B={B}, bf16), wall {wall_us / steps:.1f} us/step under the "
           f"profiler, device busy {busy_us / steps:.1f} us/step "
-          f"({100 * busy_us / wall_us:.1f}% of wall)")
+          f"({100 * busy_us / wall_us:.1f}% of wall)", f"on {gpu_line()}")
     for dev_us, count, key in sorted(rows, reverse=True)[:10]:
         print(f"  {dev_us / steps:8.2f} us/step {count / steps:4.1f}x/step "
               f"{key[:90]}")
@@ -1691,7 +1822,8 @@ def time_kernel_d(launches: int, err: float) -> dict:
             res[(family, b)] = (warm, cold, bnd, by, x, h, w)
             print(f"kernel D bf16 {family} in={in_dim} B={b}: warm "
                   f"{warm:.5f} ms, L2 flushed {cold:.5f} ms; bound "
-                  f"{bnd:.5f} ms ({by}, weights from device memory)")
+                  f"{bnd:.5f} ms ({by}, weights from device memory)",
+                  f"on {gpu_line()}")
     warm, cold, bnd, by, x, h, w = res[("event_rnn", B)]
     plain_ms = device_ms(lambda: fused_gru_step_plain(x, h, w), iters=20)
     library = {}
@@ -1707,7 +1839,7 @@ def time_kernel_d(launches: int, err: float) -> dict:
             library[name] = None
     print(f"torch.nn.GRU (cuDNN) one step, in={EVENT_DIM} B={B} L="
           f"{RNN_LAYERS}: bf16 {library['bf16']} ms, f32 {library['f32']} "
-          f"ms (warm)")
+          f"ms (warm)", f"on {gpu_line()}")
     return {"name": "fused_gru_step", "route": "cuda",
             "source": "musicgeneration_tpu_torch/csrc/fused_gru_decode.cu",
             "replaces": "musicgeneration_tpu/ops/pallas_gru_decode.py:108",
@@ -1970,7 +2102,7 @@ def time_train_step(shards: str) -> dict:
     n = PROFILE_STEPS
     print(f"train profile: {n} steps, wall {wall_us / n / 1e3:.3f} ms/step "
           f"under the profiler, device busy {busy / n / 1e3:.3f} ms/step "
-          f"({100 * busy / wall_us:.1f}% of wall)")
+          f"({100 * busy / wall_us:.1f}% of wall)", f"on {gpu_line()}")
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g:34s} {us / n / 1e3:8.3f} ms/step "
               f"({100 * us / busy:5.1f}% of device time)")
@@ -2048,6 +2180,9 @@ def time_kernel_a(launches: int, err: float) -> dict:
     q, k, v, e, pad = attn_inputs(dtype, torch.Generator().manual_seed(3),
                                   True)
     ms = device_ms(lambda: fused_relative_attention(q, k, v, e, pad))
+    with earlier_body("relative_attention"):
+        earlier_ms = device_ms(
+            lambda: fused_relative_attention(q, k, v, e, pad))
     plain_ms = device_ms(
         lambda: fused_relative_attention_plain(q, k, v, e, pad), iters=5)
     # yardstick: SDPA with the relative bias and both masks materialized
@@ -2067,12 +2202,16 @@ def time_kernel_a(launches: int, err: float) -> dict:
               + bh * l * DH * 2 + bh * l * 4)
     flops = 3 * 2 * DH * bh * l * (l + 1) / 2
     bound_ms, by = bound(nbytes, flops, dtype)
+    print(f"kernel A bf16 B{B} H{H} L{L_PREFILL} key_pad, causal: {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
+          f"SDPA (bias and masks as attn_mask) {library_ms:.4f} ms; earlier "
+          f"(CUDA-core) body {earlier_ms:.4f} ms, on {gpu_line()}")
     return {"name": "relative_attention_fwd", "route": "cuda",
             "source": "musicgeneration_tpu_torch/csrc/relative_attention.cu",
             "replaces": "musicgeneration_tpu/ops/pallas_attention.py:345",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "earlier_ms": earlier_ms}
 
 
 def time_kernel_b(launches: int, err: float) -> dict:
@@ -2149,7 +2288,8 @@ def time_kernel_b_ragged(launches: int, err: float) -> dict:
     print(f"ragged kernel B bf16 B{B} t={t}, live window {LIVE} rows "
           f"(min(start) {smin}): start_min 0 {ms0:.4f} ms, start_min "
           f"{smin} {ms:.4f} ms; bound {bound_ms:.5f} ms ({by}) for this "
-          f"live window, {full_ms:.5f} ms for the full prefix [0, t]")
+          f"live window, {full_ms:.5f} ms for the full prefix [0, t]",
+          f"on {gpu_line()}")
     return {"name": "fused_decode_step_ragged", "route": "cuda",
             "source": "musicgeneration_tpu_torch/csrc/fused_decode.cu",
             "replaces": "musicgeneration_tpu/ops/pallas_decode.py:1171",
@@ -2200,7 +2340,7 @@ def time_kernel_e(launches: int, err: float) -> dict:
         res[b] = (ms, plain_ms, step_ms, bnd, by)
         print(f"kernel E bf16 B={b} C={c} t={t}: {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {bnd:.5f} ms ({by}); one kernel-B "
-              f"step at B={b} t={t}: {step_ms:.4f} ms")
+              f"step at B={b} t={t}: {step_ms:.4f} ms", f"on {gpu_line()}")
     ms, plain_ms, step_ms, bnd, by = res[1]
     return {"name": "fused_decode_chunk", "route": "cuda",
             "source": "musicgeneration_tpu_torch/csrc/fused_decode.cu",
@@ -2520,7 +2660,7 @@ def time_int8(err: dict, launches: dict) -> list:
         print(f"kernel B bf16 d={d} B={B} t={t}: int8 {ms:.4f} ms (bound "
               f"{bnd:.5f} ms, {by}; plain int8 {plain_ms:.4f} ms), "
               f"unquantized {full_ms:.4f} ms (bound {full_bnd:.5f} ms); "
-              f"int8 / unquantized {ms / full_ms:.3f}")
+              f"int8 / unquantized {ms / full_ms:.3f}", f"on {gpu_line()}")
         step_ms[d] = (ms, plain_ms, bnd, by, full_ms, full_bnd)
     ms, plain_ms, bnd, by, full_ms, full_bnd = step_ms[D_MODEL]
     rung = step_ms[D_RUNG]
@@ -2552,7 +2692,8 @@ def time_int8(err: dict, launches: dict) -> list:
     bnd, by = decode_bound(start.cpu().numpy(), t, int8=True)
     print(f"ragged kernel B bf16 B={B} t={t}, live window {LIVE}: int8 "
           f"{ms:.4f} ms (bound {bnd:.5f} ms, {by}; plain int8 {plain_ms:.4f} "
-          f"ms, host gaps included), unquantized {full_ms:.4f} ms")
+          f"ms, host gaps included), unquantized {full_ms:.4f} ms",
+          f"on {gpu_line()}")
     rows.append({
         "name": "fused_decode_step_ragged_int8", "route": "cuda",
         "source": "musicgeneration_tpu_torch/csrc/fused_decode.cu",
@@ -2576,7 +2717,8 @@ def time_int8(err: dict, launches: dict) -> list:
         res[b] = (ms, plain_ms, bnd, by, full_ms)
         print(f"kernel E bf16 B={b} C={SPEC_CHUNK} t={T_TIMED}: int8 "
               f"{ms:.4f} ms (bound {bnd:.5f} ms, {by}; plain int8 "
-              f"{plain_ms:.4f} ms), unquantized {full_ms:.4f} ms")
+              f"{plain_ms:.4f} ms), unquantized {full_ms:.4f} ms",
+              f"on {gpu_line()}")
     ms, plain_ms, bnd, by, full_ms = res[1]
     rows.append({
         "name": "fused_decode_chunk_int8", "route": "cuda",
@@ -2618,7 +2760,7 @@ def int8_rates() -> dict:
             print(f"decode d={d} bf16 {q}: {out[d][q]:.1f} tokens/s median "
                   f"of {RATE_ROUNDS} interleaved runs [{min(r):.1f}-"
                   f"{max(r):.1f}] (B={B}, prompt {RATE_PROMPT}, {STEPS} "
-                  "tokens, cache 1024, host clock)")
+                  "tokens, cache 1024, host clock)", f"on {gpu_line()}")
         print(f"decode d={d}: int8 / unquantized "
               f"{out[d]['int8'] / out[d]['none']:.3f}")
     return out
@@ -2918,7 +3060,8 @@ def loop_generate(prime: np.ndarray) -> dict:
         out[kind] = float(np.median(r))
         print(f"B={B} bf16 sampled {kind} path: {out[kind]:.1f} tokens/s "
               f"median of {LOOP_ROUNDS} interleaved runs [{min(r):.1f}-"
-              f"{max(r):.1f}] (prefill included, host clock)")
+              f"{max(r):.1f}] (prefill included, host clock)",
+              f"on {gpu_line()}")
     print(f"loop / step: {out['loop'] / out['step']:.2f}x")
     return out
 
@@ -3000,7 +3143,7 @@ def time_kernel_f(launches: int, by_path: dict, err: float) -> dict:
         res[b] = (ms, plain_ms, bnd, by)
         print(f"kernel F bf16 B={b} C={c} t0={t0}: {ms:.4f} ms per launch "
               f"({1e3 * ms / c:.1f} us per step), plain {plain_ms:.4f} ms, "
-              f"bound {bnd:.5f} ms ({by})")
+              f"bound {bnd:.5f} ms ({by})", f"on {gpu_line()}")
     ms, plain_ms, bnd, by = res[B]
     return {"name": "fused_decode_loop", "route": "cuda",
             "source": "musicgeneration_tpu_torch/csrc/fused_decode.cu",
@@ -3242,13 +3385,17 @@ def ring_bound(qm: torch.Tensor, sp: int, pad: bool) -> tuple:
     queries needs nothing, except in the last round, which reads l and
     acc; the last round writes out. The operations are the causal (t, s)
     pairs, each a bf16-input q.k product and two f32-operand products (q.E,
-    P.V) of depth dh. Returns (bytes ms, ops ms, the larger, its name)."""
+    P.V) of depth dh. On the tensor cores each f32 operand is a hi + lo
+    bf16 pair, so the work is five bf16 products at the bf16 peak; the
+    f32-peak figure (q.k at the bf16 peak, q.E and P.V at the f32 peak) is
+    the bound earlier records used. Returns (bytes ms, tensor-core ops ms,
+    the larger, its name, the f32-peak bound ms)."""
     s_, b, l_loc, d = qm.shape
     el = qm.element_size()
     h = d // DH
     rows_of = b * l_loc           # one shard's rows of a [B, Lloc] tensor
     carry = rows_of * h * (2 + DH) * 4
-    nbytes = ops_bf16 = ops_f32 = 0.0
+    nbytes = ops_qk = ops_f32 = 0.0
     t = torch.arange(sp * l_loc)
     for r in range(sp):
         pairs, need = 0, torch.zeros(sp * l_loc, dtype=torch.bool)
@@ -3264,14 +3411,16 @@ def ring_bound(qm: torch.Tensor, sp: int, pad: bool) -> tuple:
             elif r == sp - 1:
                 nbytes += rows_of * h * (1 + DH) * 4
         nbytes += int(need.sum()) * DH * 4  # E rows
-        ops_bf16 += 2 * DH * pairs * b * h
+        ops_qk += 2 * DH * pairs * b * h
         ops_f32 += 2 * 2 * DH * pairs * b * h
     nbytes += s_ * rows_of * d * el  # out
     t_bytes = nbytes / HBM_BPS * 1e3
-    peak = PEAK_FLOPS[qm.dtype]
-    t_ops = ops_bf16 / peak * 1e3 + ops_f32 / PEAK_FLOPS[torch.float32] * 1e3
-    return (t_bytes, t_ops) + ((t_bytes, "bytes") if t_bytes >= t_ops
-                               else (t_ops, "operations"))
+    bf16 = PEAK_FLOPS[torch.bfloat16]
+    t_ops = (ops_qk + 2 * ops_f32) / bf16 * 1e3
+    t_f32_peak = (ops_qk / bf16 + ops_f32 / PEAK_FLOPS[torch.float32]) * 1e3
+    bnd, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
+    return t_bytes, t_ops, bnd, by, max(t_bytes, t_f32_peak)
 
 
 def time_kernel_g(launches: int, by_path: dict, err: float) -> dict:
@@ -3299,8 +3448,10 @@ def time_kernel_g(launches: int, by_path: dict, err: float) -> dict:
         qm, km, vm, None, e, *carry, rank0=0, r=r, n=sp,
         out=out if r == sp - 1 else None)) for r in range(sp)]
     ms = device_ms(lambda: one_pass(ring_tile), iters=50)
+    with earlier_body("ring_attention"):
+        earlier_ms = device_ms(lambda: one_pass(ring_tile), iters=20)
     plain_ms = device_ms(lambda: one_pass(ring_tile_plain), iters=5)
-    t_bytes, t_ops, bnd, by = ring_bound(qm, sp, False)
+    t_bytes, t_ops, bnd, by, bnd_f32 = ring_bound(qm, sp, False)
     t = torch.arange(L_RING, device=DEV)
     causal = t[None, :] > t[:, None]
     idx = (MAX_SEQ - 1 - t[:, None] + t[None, :]).clamp(0, MAX_SEQ - 1)
@@ -3318,10 +3469,11 @@ def time_kernel_g(launches: int, by_path: dict, err: float) -> dict:
           + ", ".join(f"r{r} {x:.4f}" for r, x in enumerate(per_round))
           + f" ms; one ring pass {ms:.4f} ms ({ms / sp:.4f} per launch), "
           f"plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}; bytes "
-          f"{t_bytes:.4f}, operations {t_ops:.4f}: q.k at the bf16 peak, "
-          f"q.E and P.V at the f32 peak), SDPA (bias and mask as attn_mask) "
-          f"{library_ms:.4f} ms, kernel A at L {L_RING} {a_ms:.4f} ms, on "
-          f"{gpu_line()}")
+          f"{t_bytes:.4f}, operations {t_ops:.4f}: five bf16 products at "
+          f"the bf16 peak; f32-peak bound {bnd_f32:.4f}), SDPA (bias and "
+          f"mask as attn_mask) {library_ms:.4f} ms, kernel A at L {L_RING} "
+          f"{a_ms:.4f} ms; earlier (CUDA-core) body {earlier_ms:.4f} ms a "
+          f"pass, on {gpu_line()}")
     return {"name": "ring_attention_round", "route": "cuda",
             "source": "musicgeneration_tpu_torch/csrc/ring_attention.cu",
             "replaces":
@@ -3331,6 +3483,8 @@ def time_kernel_g(launches: int, by_path: dict, err: float) -> dict:
             "library_ms": library_ms, "launches_by_path": by_path,
             "per": f"ring pass of {sp} launches", "ms_per_round": per_round,
             "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
+            "bound_f32_peak_ms": bnd_f32,
+            "earlier_ms": earlier_ms,
             "kernel_a_ms_l2048": a_ms}
 
 
@@ -3374,7 +3528,7 @@ def time_ring_step() -> dict:
                       f"GiB, steps {', '.join(f'{t:.2f}' for t in times[impl])})"
                       for impl in impls)
           + f"; ring_pallas / ring {res['ring_pallas'] / res['ring']:.4f}; "
-          "one card, no claim")
+          "one card, no claim", f"on {gpu_line()}")
     res["peak_gib"] = peak
     from torch.profiler import ProfilerActivity, profile
 
@@ -3389,8 +3543,42 @@ def time_ring_step() -> dict:
     busy = sum(groups.values())
     print(f"ring train step profile: device busy {busy / 1e3:.3f} ms; "
           + ", ".join(f"{g} {us / 1e3:.3f} ms" for g, us in
-                      sorted(groups.items(), key=lambda kv: -kv[1])))
+                      sorted(groups.items(), key=lambda kv: -kv[1])),
+          f"on {gpu_line()}")
     return res
+
+
+def tensor_core_sass() -> None:
+    """Count, in each entry function of the libraries of kernels A and G,
+    the tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma) and
+    the asynchronous global-to-shared copies (LDGSTS for cp.async, UTMALDG
+    for TMA) in ``cuobjdump -sass`` of the built library. Raises if a bf16
+    entry function has no tensor-core instruction or no asynchronous
+    copy."""
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    for lib, bf16_entry in (("relative_attention", "rel_attn_fwd_tc_kernel"),
+                            ("ring_attention", "ring_tile_tc_kernel")):
+        sass = subprocess.run([tool, "-sass", str(cuda_build._lib_path(lib))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts, entry = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                name = re.search(r"\d([a-z_]+_kernel)", m.group(1))
+                entry = name.group(1) if name else m.group(1)
+                counts[entry] = [0, 0]
+            elif entry is not None:
+                counts[entry][0] += bool(re.search(r"\bHG?MMA\b", line))
+                counts[entry][1] += bool(re.search(r"\b(LDGSTS|UTMALDG)\b",
+                                                   line))
+        for entry, (mma, cp) in counts.items():
+            print(f"  sass {lib} {entry}: {mma} HMMA/HGMMA, {cp} "
+                  f"LDGSTS/UTMALDG")
+        mma, cp = counts.get(bf16_entry, (0, 0))
+        if mma == 0 or cp == 0:
+            raise AssertionError(f"{bf16_entry} has {mma} tensor-core "
+                                 f"instructions and {cp} asynchronous copies")
 
 
 def main() -> int:
@@ -3401,7 +3589,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
+    earlier = start_earlier_builds()
     secs = cuda_build.build()
+    EARLIER_LIBS.update(finish_earlier_builds(earlier))
     print(f"built kernels in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{n} {s:.1f} s" for n, s in secs.items()))
     for name, log in cuda_build.BUILD_LOGS.items():
@@ -3412,6 +3602,7 @@ def main() -> int:
                 fn = " " + entry.group(1) if entry else ""
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  ptxas {name}{fn}: {line.strip()}")
+    tensor_core_sass()
 
     err_a = check_kernel_a()
     err_b = check_kernel_b()
@@ -3486,26 +3677,29 @@ def main() -> int:
                else f"{r['library_ms']:.4f}")
         print(f"{r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms,"
               f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
-              f"{lib} ms, launches {r['launches']}")
+              f"{lib} ms, launches {r['launches']}", f"on {gpu_line()}")
     print(f"end to end: prefill {e2e['prefill_ms']:.3f} ms, decode "
           f"{e2e['tok_s']:.1f} tokens/s; train step {step_t['step_ms']:.3f} "
-          f"ms ({step_t['tok_s']:.0f} tokens/s)")
+          f"ms ({step_t['tok_s']:.0f} tokens/s)", f"on {gpu_line()}")
     for family in ("event_rnn", "performance_rnn"):
         print(f"{family}: decode {rnn['tok_s'][family]:.1f} tokens/s (B={B}, "
-              f"bf16); serving: {rnn['serve'][family]}")
+              f"bf16); serving: {rnn['serve'][family]}", f"on {gpu_line()}")
     print("speculative B=1 bf16 greedy, tokens/s (median): " + ", ".join(
-        f"{k} {r['tok_s']:.1f}" for k, r in spec["rates"].items()))
+        f"{k} {r['tok_s']:.1f}" for k, r in spec["rates"].items()),
+        f"on {gpu_line()}")
     print("decode B=8 bf16 sampled, int8 / unquantized tokens/s (median): "
           + ", ".join(f"d {d} {r['int8']:.1f} / {r['none']:.1f}"
-                      for d, r in q_rates.items()))
+                      for d, r in q_rates.items()), f"on {gpu_line()}")
     print(f"decode loop B={B} bf16 sampled, tokens/s (median): step path "
           f"{loop['tok_s']['step']:.1f}, loop path {loop['tok_s']['loop']:.1f}"
           f"; under the profiler {loop_prof['busy_share'] * 100:.1f}% busy; "
-          "chi2 " + ", ".join(f"{k} {v:.2f}" for k, v in loop["chi2"].items()))
+          "chi2 " + ", ".join(f"{k} {v:.2f}" for k, v in loop["chi2"].items()),
+          f"on {gpu_line()}")
     print(f"ring train step bf16 B={B} L={L_RING} (host clock, median): "
           f"virtual ring sp {SP_RING} {ring_step['ring_pallas']:.2f} ms "
           f"through kernel G, {ring_step['ring']:.2f} ms plain, "
-          f"single device {ring_step['auto']:.2f} ms (one card, no claim)")
+          f"single device {ring_step['auto']:.2f} ms (one card, no claim)",
+          f"on {gpu_line()}")
     print(gpu_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

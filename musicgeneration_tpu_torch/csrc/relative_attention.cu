@@ -14,25 +14,47 @@
 // starting at -1e9, an online softmax in f32, P rounded to the V dtype
 // before PV, O stored in the q dtype and the LSE in f32.
 //
-// Design for this card. One block of 256 threads owns a 64-query tile of
-// one (batch, head) and walks the causal KV tiles only. The TPU needed a
-// shear (log2(BQ) lane rolls) to align Q.E^T with the keys, because lanes
-// do not gather cheaply there; here the alignment is index arithmetic:
-// the block stages the band of BQ+BK E rows its (query tile, key tile)
-// touches, base = max_seq - BQ - t0 + s0, and each thread's 4x4 (t, s)
-// micro-tile reads band rows (63 - tl) + sl, seven distinct rows per
-// depth step. Q, K, V, the E band and P live in shared memory (~98 KB).
+// Under causal, both bodies skip the key tiles that start after a query
+// tile's last row, as the TPU kernel does. That is exact for every row
+// with at least one unmasked key among the keys it reaches (s <= t): a
+// skipped logit then adds e^(-1e9 + ...) = 0. A row whose reachable keys
+// are all padded is out of contract, as in kernel G: every logit of the
+// plain version is -1e9 and it averages V over all L keys, the kernel
+// over the key tiles it walked. Key 0 padded under causal gives such rows
+// (the model's key_pad with pad_in_input and an input that starts with
+// the pad id, up to its first other token); the main paths' prompts and
+// cli.train's crops never do.
 //
 // What bounds it: at the prefill shape (B8 H4 L512 dh64, bf16) the
 // causal work is ~1.6 GFLOP (QK, QE and PV) against ~8.9 MB of traffic
 // (q, k, v, out, the E table, the LSE): bytes bound it at ~2.6 us on an
-// H100 SXM, with the tensor-core time (~1.6 us) close behind. This first
-// version multiplies on the CUDA cores in f32 (FMA), which is exact for
-// bf16 products and keeps f32 inputs in full f32, and is far from that
-// bound; mma/wgmma and TMA are for a later version.
+// H100 SXM, with the tensor-core time (~1.6 us) close behind.
+//
+// Two bodies; the dtype chooses one in `launch`, with no fallback between
+// them.
+// * bf16 (the model's dtype on every main path): `rel_attn_fwd_tc_kernel`
+//   runs the tensor-core tile of rel_attn_tile.cuh (mma.sync m16n8k16,
+//   bf16 operands and f32 accumulation, exactly the TPU kernel's
+//   products): one block of 128 threads owns a 64-query tile, the carry in
+//   registers, and walks the causal key tiles with cp.async loads in
+//   flight and a sliding three-slot E ring (the csrc note there).
+// * f32 (the parity mode: train-step parity and the greedy f32 checks):
+//   `rel_attn_fwd_kernel`, on the CUDA cores in f32 (FMA), which keeps f32
+//   inputs in full f32 (TF32 would not meet the 1e-4 check). One block of
+//   256 threads owns a 64-query tile of one (batch, head) and walks the
+//   causal KV tiles only. The TPU needed a shear (log2(BQ) lane rolls) to
+//   align Q.E^T with the keys, because lanes do not gather cheaply there;
+//   here the alignment is index arithmetic: the block stages the band of
+//   BQ+BK E rows its (query tile, key tile) touches, base = max_seq - BQ -
+//   t0 + s0, and each thread's 4x4 (t, s) micro-tile reads band rows
+//   (63 - tl) + sl, seven distinct rows per depth step. Q, K, V, the E
+//   band and P live in shared memory (~98 KB).
 #include <math.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "rel_attn_tile.cuh"
 
 namespace {
 
@@ -200,17 +222,94 @@ rel_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+// The bf16 body: the tensor-core tile with its carry in registers.
+__global__ void __launch_bounds__(mg::tc::NT, 2)
+rel_attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const float* __restrict__ e,
+                       const float* __restrict__ key_pad,
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int H, int L, int max_seq,
+                       int causal, float scale) {
+  namespace tc = mg::tc;
+  extern __shared__ __align__(128) char tc_smem[];
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  // heaviest query tiles (most causal KV tiles) are scheduled first
+  const int t0 = (gridDim.x - 1 - blockIdx.x) * tc::BQ;
+  const size_t off = (size_t)bh * L * DH;
+  tc::TileArgs a;
+  a.q = q + off + (size_t)t0 * DH;
+  a.k = k + off;
+  a.v = v + off;
+  a.ld = DH;
+  a.nq = min(tc::BQ, L - t0);
+  a.nkeys = L;
+  a.pad = key_pad ? key_pad + (size_t)b * L : nullptr;
+  a.e = e;
+  a.max_seq = max_seq;
+  a.ebase = max_seq - tc::BQ - t0;
+  a.t0 = t0;
+  a.s0 = 0;
+  a.causal = causal;
+  a.scale = scale;
+  const int n_tiles = (L + tc::BK - 1) / tc::BK;
+  const int n_kv =
+      causal ? min(n_tiles, (t0 + tc::BQ - 1) / tc::BK + 1) : n_tiles;
+
+  tc::Carry c;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    c.m[h] = NEG_INF;
+    c.l[h] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    c.o[j][0] = c.o[j][1] = c.o[j][2] = c.o[j][3] = 0.f;
+  tc::attend<false>(a, n_kv, tc_smem, c);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = t0 + 16 * warp + g + 8 * h;
+    if (t >= L) continue;  // rows past L write nothing
+    const float lc = fmaxf(c.l[h], 1e-30f);
+    __nv_bfloat16* orow = out + off + (size_t)t * DH + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+          tc::pack_bf16(c.o[j][2 * h] / lc, c.o[j][2 * h + 1] / lc);
+    if (t4 == 0) lse[(size_t)bh * L + t] = c.m[h] + logf(lc);
+  }
+}
+
+// TC picks the body: the tensor-core tile (bf16 only) or the CUDA-core
+// one. By default the dtype picks it; both bodies take the same arguments.
+template <typename T, bool TC = std::is_same<T, __nv_bfloat16>::value>
 int launch(const void* q, const void* k, const void* v, const void* e,
            const void* key_pad, void* out, void* lse, int B, int H, int L,
            int max_seq, int causal, cudaStream_t stream) {
-  const size_t smem = SMEM_FLOATS * sizeof(float);
+  static_assert(!TC || std::is_same<T, __nv_bfloat16>::value,
+                "the tensor-core body takes bf16");
+  void (*kernel)(const T*, const T*, const T*, const float*, const float*,
+                 T*, float*, int, int, int, int, float);
+  int threads, smem;
+  if constexpr (TC) {
+    kernel = rel_attn_fwd_tc_kernel;
+    threads = mg::tc::NT;
+    smem = mg::tc::Smem<false>::BYTES;
+  } else {
+    kernel = rel_attn_fwd_kernel<T>;
+    threads = NT;
+    smem = SMEM_FLOATS * sizeof(float);
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      rel_attn_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((L + BQ - 1) / BQ, B * H);
-  rel_attn_fwd_kernel<T><<<grid, NT, smem, stream>>>(
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(e),
       static_cast<const float*>(key_pad), static_cast<T*>(out),

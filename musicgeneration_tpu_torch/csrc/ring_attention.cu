@@ -21,15 +21,6 @@
 // from -1e9, out = acc / max(l, 1e-30) in the q dtype after the last
 // round. The carry is read and written in place in device memory.
 //
-// Design for this card. One block of 256 threads owns a 64-query tile of
-// one (shard, batch, head) and walks the 64-key tiles of the block its
-// shard holds, as kernel A does: Q, K, V, a band of the 128 E rows the
-// (query tile, key tile) pair touches (base = max_seq - 64 - tq + sk,
-// each 4x4 micro-tile reading seven band rows per depth step) and P live
-// in shared memory (~98 KB). E rows past the table stage as zero, which
-// is srel's zero for s > t. The shear the TPU needed to align q.E with
-// the keys is index arithmetic here.
-//
 // Under causal, key tiles that start after the query tile's last row are
 // skipped, so a round whose block lies wholly after the shard's queries
 // (src > i) reads nothing but the carry. That is exact whenever a row has
@@ -41,15 +32,36 @@
 //
 // What bounds it: at the main shape (B 8, H 4, L 2048 over 4 shards of
 // Lloc 512, bf16) one ring pass does ~67M causal (t, s) pairs of three
-// 64-deep products, two of them (QE, PV) with f32 operands: ~17 GFLOP at
-// the card's 67 TFLOP/s f32 rate, ~0.26 ms, against ~59 MB moved per
-// launch (q, k, v, the f32 acc carry read and written, out): ~18 us per
-// launch. So the f32 arithmetic bounds it. This first version multiplies
-// on the CUDA cores in f32 (FMA), which is that arithmetic; tensor-core
-// products (TF32 or split bf16) and TMA are for a later version.
+// 64-deep products. On the tensor cores with the split below that is five
+// bf16 products, ~43 us at 989 TFLOP/s, against ~51 us of bytes a pass
+// (q, k, v, the E rows, the f32 carry read and written, out): bytes bound
+// it.
+//
+// Two bodies; the dtype chooses one in `launch`, with no fallback between
+// them. Both take the grid (Lloc / 64, B * H, S), one block per 64-query
+// tile of one (shard, batch, head), and walk the 64-key tiles of the
+// block the shard holds.
+// * bf16: `ring_tile_tc_kernel` runs the tensor-core tile of
+//   rel_attn_tile.cuh with its split products: q.k in bf16 (exact), E and
+//   P as hi + lo bf16 pairs, q.E = q.E_hi + q.E_lo and P.V = P_hi.V +
+//   P_lo.V into one f32 accumulator, so the ring kernel's f32 E and P
+//   lose ~2^-17 of each product. The carry is read from device memory
+//   into registers and written back; a block whose key tiles are all
+//   skipped writes nothing but, in the last round, out.
+// * f32 (the parity mode): `ring_tile_kernel` on the CUDA cores in f32
+//   (FMA), which is the ring kernel's arithmetic. One block of 256 threads
+//   keeps Q, K, V, a band of the 128 E rows the (query tile, key tile)
+//   pair touches (base = max_seq - 64 - tq + sk, each 4x4 micro-tile
+//   reading seven band rows per depth step) and P in shared memory (~98
+//   KB). E rows past the table stage as zero, which is srel's zero for
+//   s > t. The shear the TPU needed to align q.E with the keys is index
+//   arithmetic here.
 #include <math.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "rel_attn_tile.cuh"
 
 namespace {
 
@@ -240,23 +252,138 @@ ring_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+// The bf16 body: the tensor-core tile with split products, its carry read
+// from and written back to device memory.
+__global__ void __launch_bounds__(mg::tc::NT, 2)
+ring_tile_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const float* __restrict__ pad,
+                    const float* __restrict__ e, float* __restrict__ m_c,
+                    float* __restrict__ l_c, float* __restrict__ acc_c,
+                    __nv_bfloat16* __restrict__ out, int B, int H, int Lloc,
+                    int max_seq, int rank0, int r, int n, int nkv,
+                    int causal, float scale) {
+  namespace tc = mg::tc;
+  extern __shared__ __align__(128) char tc_smem[];
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int shard = blockIdx.z;
+  const int my = rank0 + shard;
+  const int src = ((my - r) % n + n) % n;
+  const int t0 = my * Lloc, s0 = src * Lloc;
+  const int kvb = nkv == 1 ? 0 : src;
+  const int d = H * DH;
+  const int qt0 = blockIdx.x * tc::BQ;  // first local query row of the tile
+  const int tq = t0 + qt0;              // its global row
+  const size_t crow = (((size_t)shard * B + b) * H + h) * Lloc;  // carry row 0
+
+  const int n_tiles = (Lloc + tc::BK - 1) / tc::BK;
+  int n_kv = n_tiles;
+  if (causal) {
+    // last real query row of the tile; tiles starting after it are skipped
+    const int t_last = t0 + min(qt0 + tc::BQ, Lloc) - 1;
+    n_kv = t_last < s0 ? 0 : min(n_tiles, (t_last - s0) / tc::BK + 1);
+  }
+  if (n_kv == 0 && !out) return;  // the carry stays as it is
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  tc::Carry c;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int tl = qt0 + 16 * warp + g + 8 * i;
+    const bool in = tl < Lloc;
+    c.m[i] = in ? m_c[crow + tl] : NEG_INF;
+    c.l[i] = in ? l_c[crow + tl] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 a2 =
+          in ? *reinterpret_cast<const float2*>(acc_c + (crow + tl) * DH
+                                                + 8 * j + 2 * t4)
+             : make_float2(0.f, 0.f);
+      c.o[j][2 * i] = a2.x;
+      c.o[j][2 * i + 1] = a2.y;
+    }
+  }
+
+  tc::TileArgs a;
+  a.q = q + (((size_t)shard * B + b) * Lloc + qt0) * d + h * DH;
+  a.k = k + ((size_t)kvb * B + b) * Lloc * d + h * DH;
+  a.v = v + ((size_t)kvb * B + b) * Lloc * d + h * DH;
+  a.ld = d;
+  a.nq = min(tc::BQ, Lloc - qt0);
+  a.nkeys = Lloc;
+  a.pad = pad ? pad + ((size_t)kvb * B + b) * Lloc : nullptr;
+  a.e = e;
+  a.max_seq = max_seq;
+  a.ebase = max_seq - tc::BQ - tq + s0;
+  a.t0 = tq;
+  a.s0 = s0;
+  a.causal = causal;
+  a.scale = scale;
+  tc::attend<true>(a, n_kv, tc_smem, c);
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int tl = qt0 + 16 * warp + g + 8 * i;
+    if (tl >= Lloc) continue;
+    if (n_kv > 0) {
+      if (t4 == 0) {
+        m_c[crow + tl] = c.m[i];
+        l_c[crow + tl] = c.l[i];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2*>(acc_c + (crow + tl) * DH + 8 * j
+                                   + 2 * t4) =
+            make_float2(c.o[j][2 * i], c.o[j][2 * i + 1]);
+    }
+    if (out) {
+      const float lc = fmaxf(c.l[i], 1e-30f);
+      __nv_bfloat16* ob =
+          out + (((size_t)shard * B + b) * Lloc + tl) * d + h * DH + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(ob + 8 * j) =
+            tc::pack_bf16(c.o[j][2 * i] / lc, c.o[j][2 * i + 1] / lc);
+    }
+  }
+}
+
+// TC picks the body: the tensor-core tile (bf16 only) or the CUDA-core
+// one. By default the dtype picks it; both bodies take the same arguments.
+template <typename T, bool TC = std::is_same<T, __nv_bfloat16>::value>
 int launch(const void* q, const void* k, const void* v, const void* pad,
            const void* e, void* m, void* l, void* acc, void* out, int S,
            int B, int H, int Lloc, int max_seq, int rank0, int r, int n,
            int nkv, int causal, cudaStream_t stream) {
-  const size_t smem = SMEM_FLOATS * sizeof(float);
+  static_assert(!TC || std::is_same<T, __nv_bfloat16>::value,
+                "the tensor-core body takes bf16");
+  void (*kernel)(const T*, const T*, const T*, const float*, const float*,
+                 float*, float*, float*, T*, int, int, int, int, int, int,
+                 int, int, int, float);
+  int threads, smem;
+  if constexpr (TC) {
+    kernel = ring_tile_tc_kernel;
+    threads = mg::tc::NT;
+    smem = mg::tc::Smem<true>::BYTES;
+  } else {
+    kernel = ring_tile_kernel<T>;
+    threads = NT;
+    smem = SMEM_FLOATS * sizeof(float);
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      ring_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Lloc + BQ - 1) / BQ, B * H, S);
-  ring_tile_kernel<T><<<grid, NT, smem, stream>>>(
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(pad),
       static_cast<const float*>(e), static_cast<float*>(m),
-      static_cast<float*>(l), static_cast<float*>(acc), static_cast<T*>(out),
-      B, H, Lloc, max_seq, rank0, r, n, nkv, causal, 1.0f / sqrtf((float)DH));
+      static_cast<float*>(l), static_cast<float*>(acc),
+      static_cast<T*>(out), B, H, Lloc, max_seq, rank0, r, n, nkv, causal,
+      1.0f / sqrtf((float)DH));
   return (int)cudaGetLastError();
 }
 

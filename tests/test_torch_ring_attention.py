@@ -5,6 +5,8 @@ the JAX side on the 8 virtual CPU devices of ``tests/conftest.py``, the
 port's on n virtual shards of the CPU. Inputs are made with numpy from a
 seed; kernel G's plain tile stands in for the kernel on the CPU."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -265,3 +267,153 @@ def test_model_ring_matches_jax_forward_and_grads(impl, jax_ring_model):
         np.testing.assert_allclose(p.grad.numpy(), ref[name].numpy(),
                                    rtol=TOL_GRAD, atol=TOL_GRAD,
                                    err_msg=name)
+
+
+# --------------------------------------------------------------------------
+# kernel G's bf16 body (csrc/rel_attn_tile.cuh with split products): its
+# arithmetic emulated in plain torch, E and P split into bf16 hi + lo and
+# each product in f32, held to chip_smoke.py's kernel-G criterion against
+# ring_tile_plain and to the JAX ring forward
+# --------------------------------------------------------------------------
+
+_TILE = 64
+
+
+def _split(x):
+    """f32 x as (hi, lo), both bf16 values in f32: hi = bf16(x),
+    lo = bf16(x - hi)."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def _split_ring_tile(q, k, v, pad, e, m, l, acc, *, rank0, r, n, causal,
+                     out=None):
+    """One round as kernel G's bf16 body computes it, per 64-query tile and
+    64-key tile with the causal skip of whole key tiles: q.k in f32 of the
+    inputs, q.E = q.E_hi + q.E_lo, P.V = P_hi.V + P_lo.V, the carry (m, l,
+    acc) updated in place and, with ``out``, out = acc / max(l, 1e-30) in
+    the q dtype. Layouts of ``ring_tile``."""
+    s_, b, l_loc, d = q.shape
+    h = m.shape[2]
+    dh = d // h
+    max_seq = e.shape[0]
+    e_hi, e_lo = _split(e)
+    heads = lambda x: x.view(x.shape[0], b, l_loc, h, dh).transpose(2, 3)
+    qh, kh, vh = heads(q).float(), heads(k).float(), heads(v).float()
+    for i in range(s_):
+        my = rank0 + i
+        src = (my - r) % n
+        t0, s0 = my * l_loc, src * l_loc
+        kb = 0 if k.shape[0] == 1 else src
+        for qt0 in range(0, l_loc, _TILE):
+            rows = slice(qt0, min(qt0 + _TILE, l_loc))
+            t = t0 + torch.arange(qt0, rows.stop)[:, None]
+            n_kv = -(-l_loc // _TILE)
+            if causal:
+                t_last = t0 + rows.stop - 1
+                n_kv = 0 if t_last < s0 else min(n_kv,
+                                                 (t_last - s0) // _TILE + 1)
+            for kt in range(n_kv):
+                keys = slice(kt * _TILE, min((kt + 1) * _TILE, l_loc))
+                s = s0 + torch.arange(keys.start, keys.stop)[None, :]
+                qf = qh[i, :, :, rows]
+                idx = max_seq - 1 - (t - s)
+                inside = (idx >= 0) & (idx < max_seq)
+                idx = idx.clamp(0, max_seq - 1)
+                srel = sum((qf[..., None, :] * (part[idx] * inside[..., None])
+                            ).sum(-1) for part in (e_hi, e_lo))
+                x = (qf @ kh[kb, :, :, keys].transpose(-1, -2) + srel) \
+                    * (1.0 / math.sqrt(dh))
+                if causal:
+                    x = x + (s > t).float() * NEG_INF
+                if pad is not None:
+                    x = x + pad[kb][:, None, None, keys] * NEG_INF
+                mi, li, ai = m[i, :, :, rows], l[i, :, :, rows], \
+                    acc[i, :, :, rows]
+                m_new = torch.maximum(mi, x.amax(-1))
+                alpha = torch.exp(mi - m_new)
+                p = torch.exp(x - m_new[..., None])
+                p_hi, p_lo = _split(p)
+                vk = vh[kb, :, :, keys]
+                li.mul_(alpha).add_(p.sum(-1))
+                ai.mul_(alpha[..., None]).add_(p_hi @ vk + p_lo @ vk)
+                mi.copy_(m_new)
+    if out is not None:
+        res = acc / l.clamp_min(1e-30)[..., None]
+        out.copy_(res.transpose(2, 3).reshape(s_, b, l_loc, d))
+
+
+def _bf16_ulps(a, ref, tol_sum=1e-5):
+    """chip_smoke.py's kernel-G bf16 criterion: (max |a - ref| over one
+    bf16 ulp of |ref| + tol_sum; max |a - ref| in ulps where |ref| >=
+    2^-8). Both must be <= 1."""
+    r = ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    diff = (a.float() - r).abs()
+    big = r.abs() >= 2.0 ** -8
+    return ((diff / (ulp + tol_sum)).max().item(),
+            (diff[big] / ulp[big]).max().item() if bool(big.any()) else 0.0)
+
+
+def _rel(a, ref):
+    return (a - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("l_loc", [25, 64])
+def test_split_arithmetic_meets_kernel_g_criterion(l_loc, causal):
+    """bf16 q, k, v: each round starts both from the plain chain's carry;
+    the carries agree within 1e-4 relative on the rows in contract, the
+    out within one bf16 ulp + 1e-5 (one ulp where |out| >= 2^-8)."""
+    n = 4
+    q, k, v, e, pad, _ = _inputs(l=n * l_loc, h=3, max_seq=512, seed=l_loc)
+    qm, km, vm = (_merged(x, n).bfloat16() for x in (q, k, v))
+    pm = to_shards(torch.from_numpy(pad), _mesh(n), 1).contiguous()
+    et = torch.from_numpy(e)
+    b, h = q.shape[:2]
+    carry = [torch.full((n, b, h, l_loc), NEG_INF), torch.zeros(n, b, h, l_loc),
+             torch.zeros(n, b, h, l_loc, 64)]
+    out_s, out_p = torch.empty_like(qm), torch.empty_like(qm)
+    for r in range(n):
+        last = r == n - 1
+        mine = [c.clone() for c in carry]
+        _split_ring_tile(qm, km, vm, pm, et, *mine, rank0=0, r=r, n=n,
+                         causal=causal, out=out_s if last else None)
+        ring_tile_plain(qm, km, vm, pm, et, *carry, rank0=0, r=r, n=n,
+                        causal=causal, out=out_p if last else None)
+        live = carry[0] > NEG_INF / 2  # rows that have met an unmasked key
+        for a, ref in zip(mine, carry):
+            sel = live if a.dim() == 4 else live[..., None]
+            assert _rel(torch.where(sel, a, 0.0),
+                        torch.where(sel, ref, 0.0)) <= 1e-4
+    frac, ulps = _bf16_ulps(out_s, out_p)
+    assert frac <= 1.0 and ulps <= 1.0, (frac, ulps)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("l_loc", [25, 64])
+def test_split_arithmetic_matches_jax_ring(l_loc, causal):
+    """The whole ring through the split arithmetic (inputs rounded to bf16
+    values, carried in f32) against the JAX ring forward on the same
+    values, within the ring tests' tolerance."""
+    n = 4
+    q, k, v, e, pad, _ = _inputs(l=n * l_loc, h=3, max_seq=512, seed=l_loc)
+    q, k, v = (torch.from_numpy(x).bfloat16().float().numpy()
+               for x in (q, k, v))
+    ref = jring(*map(jnp.asarray, (q, k, v, e)), _jmesh(n), causal=causal,
+                key_pad=jnp.asarray(pad))
+    qm, km, vm = (_merged(x, n) for x in (q, k, v))
+    pm = to_shards(torch.from_numpy(pad), _mesh(n), 1).contiguous()
+    b, h, l, dh = q.shape
+    carry = [torch.full((n, b, h, l_loc), NEG_INF), torch.zeros(n, b, h, l_loc),
+             torch.zeros(n, b, h, l_loc, dh)]
+    out = torch.empty_like(qm)
+    for r in range(n):
+        _split_ring_tile(qm, km, vm, pm, torch.from_numpy(e), *carry, rank0=0,
+                         r=r, n=n, causal=causal,
+                         out=out if r == n - 1 else None)
+    got = out.view(n, b, l_loc, h, dh).permute(1, 3, 0, 2, 4).reshape(
+        b, h, l, dh)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=TOL,
+                               atol=TOL)
