@@ -9,12 +9,12 @@ Phases (the first failure raises and the exit code is non-zero):
 1. the card's name and power limit, torch and CUDA versions;
 2. build the hand-written kernels from ``musicgeneration_tpu_torch/csrc``
    (one ``nvcc`` per source, started together; kernels B and E share
-   ``fused_decode.cu``) and, beside them, kernels A and G once more with
-   their bf16 mode sent to the earlier CUDA-core body (timed as
+   ``fused_decode.cu``) and, beside them, kernels A, G and C once more
+   with their bf16 mode sent to the earlier CUDA-core body (timed as
    ``earlier_ms``), print each kernel's ptxas line, and count in
    ``cuobjdump -sass`` the tensor-core instructions (HMMA/HGMMA) and
-   asynchronous copies (LDGSTS/UTMALDG) of kernels A's and G's entry
-   functions (a bf16 one without either fails);
+   asynchronous copies (LDGSTS/UTMALDG) of kernels A's, G's and C's entry
+   functions (a bf16 one without either, or with bytes spilled, fails);
 3. kernel A (relative attention, prefill) against its plain PyTorch
    version at B8 H4 L512 dh64 max_seq 2048, f32 (TF32 off) and bf16,
    with and without key padding, non-causal, at L 100 (a ragged tile, as
@@ -27,7 +27,8 @@ Phases (the first failure raises and the exit code is non-zero):
    f32 and bf16, and at B 1 and B 3; then kernel C (relative attention
    backward) against its plain backward at B8 H4 L512 dh64, max_seq 512
    (training) and 2048, f32 (TF32 off) and bf16, causal and not, with
-   and without key padding, and at L 100; kernel E (the chunk-verify
+   and without key padding, and at L 100, 17 and 1, every call repeated
+   and held bit-equal to the first; kernel E (the chunk-verify
    forward) against its plain version at the flagship width, f32 and
    bf16, B 1, 4 and 8, C 2, 5, 8 and 64, t 1, across the 128-row split,
    755 and max_seq - C, the cache rows outside [t, t+C) unchanged; then
@@ -89,7 +90,9 @@ Phases (the first failure raises and the exit code is non-zero):
    bound and, where one PyTorch call computes the same function,
    ``F.scaled_dot_product_attention`` with the relative bias materialized
    as ``attn_mask`` (forward for kernel A, forward + backward for kernel
-   C); ragged kernel B at t 1023 with a live window of 256, under
+   C); kernels A, G and C beside their earlier CUDA-core bf16 bodies, and
+   kernel C's launches one by one under ``torch.profiler``; ragged
+   kernel B at t 1023 with a live window of 256, under
    ``start_min`` 0 and min(start); the bf16 train step over 25 warm
    steps (CUDA events) and a ``torch.profiler`` window over 5 of them;
    ``torch.profiler`` windows over 32 bf16 decode steps, over one
@@ -115,7 +118,8 @@ Phases (the first failure raises and the exit code is non-zero):
    new, eos, own sampling, ``init_seed``, PerformanceRNN control rows)
    with exact launches; kernel D's device time warm and with L2 flushed
    at B 8 and B 1, its plain version, its bound, ``torch.nn.GRU``
-   (cuDNN) over one step; a ``torch.profiler`` window over 32 decode
+   (cuDNN) over one step, warm and with L2 flushed as kernel D; a
+   ``torch.profiler`` window over 32 decode
    steps;
 11. weight-only int8 decode (``decode_quant="int8"``): the int8 modes of
    kernels B (non-ragged at t 755, ragged at t 1023 with ``start_min``)
@@ -320,7 +324,7 @@ RATE_PROMPT, RATE_CACHE, RATE_ROUNDS = 16, 1024, 3
 SP_RING, L_RING = 4, MAX_SEQ
 RING_CASES = ((4, MAX_SEQ), (8, MAX_SEQ), (4, 512), (4, 100), (4, 68))
 TOL_G, TOL_G_SUM = 1e-4, 1e-5
-# kernels A and G before their tensor-core bodies: their bf16 mode ran
+# kernels A, G and C before their tensor-core bodies: their bf16 mode ran
 # the CUDA-core body that is now the f32 mode's. Each source is built a
 # second time behind a C entry point of the same name and signature that
 # sends bf16 to that body, so the wrapper times it on the same inputs
@@ -361,6 +365,32 @@ extern "C" int mg_ring_tile(int is_bf16, const void* q, const void* k,
                        max_seq, rank0, r, n, nkv, causal, s);
 }
 """}
+EARLIER_SHIMS["relative_attention_bwd"] = """
+#define mg_rel_attn_bwd mg_rel_attn_bwd_tc
+#define mg_rel_attn_bwd_scratch mg_rel_attn_bwd_scratch_tc
+#include "relative_attention_bwd.cu"
+#undef mg_rel_attn_bwd
+#undef mg_rel_attn_bwd_scratch
+extern "C" long long mg_rel_attn_bwd_scratch(int is_bf16, int B, int H,
+                                             int L) {
+  return scratch<false>(B, H, L);
+}
+extern "C" int mg_rel_attn_bwd(int is_bf16, const void* q, const void* k,
+                               const void* v, const void* e, void* e_lp,
+                               const void* key_pad, const void* out,
+                               const void* dout, const void* lse, void* delta,
+                               void* dq, void* dk, void* dv, void* de,
+                               void* de_part, int B, int H, int L,
+                               int max_seq, int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch<__nv_bfloat16, false>(q, k, v, e, e_lp, key_pad, out, dout,
+                                        lse, delta, dq, dk, dv, de, de_part,
+                                        B, H, L, max_seq, causal, s);
+  return launch<float>(q, k, v, e, e_lp, key_pad, out, dout, lse, delta, dq,
+                       dk, dv, de, de_part, B, H, L, max_seq, causal, s);
+}
+"""
 EARLIER_LIBS = {}  # name -> built library of EARLIER_SHIMS
 RING_STEPS = 3  # timed train steps, each path
 # timing: 64 MB written between calls evicts the 50 MB L2
@@ -572,15 +602,21 @@ def check_kernel_c() -> float:
     """Kernel C against its plain backward on the same inputs (q, k, v,
     E, key_pad, kernel A's out and LSE, a random dO), at the training
     shape (B8 H4 L512, max_seq 512) and the flagship table (max_seq
-    2048), plus L 100. E rows no (t, s) pair touches must be exactly 0."""
+    2048), plus L 100, 17 and 1 (ragged tiles, a one-row tile), causal and
+    not, with and without key padding. Outputs must be finite, E rows no
+    (t, s) pair touches exactly 0, and a second call on the same inputs
+    bit-equal to the first. At L 1 dq, dk and dE are rounding noise
+    around 0 on both sides (below), held to TOL_C against the size of
+    the terms whose difference they are."""
     gen = torch.Generator().manual_seed(6)
     worst = 0.0
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [(ms, dtype, causal, with_pad, L_TRAIN)
              for ms in (L_TRAIN, MAX_SEQ) for dtype in (f32, bf16)
              for causal in (True, False) for with_pad in (False, True)]
-    cases += [(MAX_SEQ, dtype, causal, True, 100)
-              for dtype in (f32, bf16) for causal in (True, False)]
+    cases += [(MAX_SEQ, dtype, causal, with_pad, l) for l in (100, 17, 1)
+              for dtype in (f32, bf16) for causal in (True, False)
+              for with_pad in (False, True)]
     for ms, dtype, causal, with_pad, l in cases:
         q, k, v, _, pad = attn_inputs(dtype, gen, with_pad, l)
         e = torch.randn(ms, DH, generator=gen).to(DEV)
@@ -589,21 +625,38 @@ def check_kernel_c() -> float:
                                             return_lse=True)
         got = fused_relative_attention_bwd(q, k, v, e, pad, causal, out, lse,
                                            dout)
+        again = fused_relative_attention_bwd(q, k, v, e, pad, causal, out,
+                                             lse, dout)
         ref = fused_relative_attention_bwd_plain(q, k, v, e, pad, causal,
                                                  out, lse, dout)
         torch.cuda.synchronize()
         errs = [rel_err(a, r) for a, r in zip(got, ref)]
+        if l == 1:
+            # one key: p = 1 and dP = delta, so dq, dk and dE are 0 in
+            # exact arithmetic and both sides hold the f32 rounding of
+            # dP - delta; those three are held relative to the size of
+            # the terms that cancel, max |dO . v| * max |k| (|q| for dk
+            # and dE) / sqrt(dh)
+            dpm = ((dout.float() * v.float()).sum(-1).abs().max().item()
+                   / math.sqrt(DH))
+            cancel = [dpm * k.float().abs().max().item(),
+                      dpm * q.float().abs().max().item(), 0.0,
+                      dpm * q.float().abs().max().item()]
+            errs = [(a.float() - r.float()).abs().max().item()
+                    / max(r.float().abs().max().item(), c, 1e-30)
+                    for a, r, c in zip(got, ref, cancel)]
         abs_err = max((a.float() - r.float()).abs().max().item()
                       for a, r in zip(got, ref))
         untouched_zero = (got[3][:ms - l].abs().max().item() == 0.0
                           if ms > l else True)
-        ok = max(errs) <= TOL_C[dtype] and untouched_zero and all(
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok = max(errs) <= TOL_C[dtype] and untouched_zero and same and all(
             bool(torch.isfinite(a).all()) for a in got)
         print(f"kernel C {str(dtype):15s} max_seq={ms:4d} L={l:4d} "
               f"key_pad={with_pad!s:5s} causal={causal!s:5s} rel_err "
               f"dq={errs[0]:.2e} dk={errs[1]:.2e} dv={errs[2]:.2e} "
               f"de={errs[3]:.2e} max_abs_err={abs_err:.2e} "
-              f"untouched_de_zero={untouched_zero} "
+              f"untouched_de_zero={untouched_zero} bit_equal_rerun={same} "
               f"tol={TOL_C[dtype]:.0e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("kernel C disagrees with its plain version")
@@ -1803,7 +1856,8 @@ def time_kernel_d(launches: int, err: float) -> dict:
     PerformanceRNN's (in 512), H 512, 3 layers, B 8 and B 1: device time
     warm (weights in L2) and with L2 flushed before each call (weights
     from device memory, what the bound counts); its plain version;
-    torch.nn.GRU (cuDNN) over one time step, the same function."""
+    torch.nn.GRU (cuDNN) over one time step, the same function, also warm
+    and flushed (``ms`` and ``library_ms`` are both flushed)."""
     dtype = torch.bfloat16
     gen = torch.Generator().manual_seed(31)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEV)
@@ -1826,6 +1880,8 @@ def time_kernel_d(launches: int, err: float) -> dict:
                   f"on {gpu_line()}")
     warm, cold, bnd, by, x, h, w = res[("event_rnn", B)]
     plain_ms = device_ms(lambda: fused_gru_step_plain(x, h, w), iters=20)
+    # the yardstick in the same call, like with like: cuDNN warm and with
+    # L2 flushed before each call, as kernel D
     library = {}
     for name, ldt in (("bf16", dtype), ("f32", torch.float32)):
         gru = torch.nn.GRU(EVENT_DIM, RNN_HIDDEN, RNN_LAYERS).to(DEV, ldt)
@@ -1834,19 +1890,26 @@ def time_kernel_d(launches: int, err: float) -> dict:
         try:
             with torch.no_grad():
                 library[name] = device_ms(lambda: gru(xs, h0))
+                library[name + "_flushed"] = device_ms(lambda: gru(xs, h0),
+                                                       flush=flush)
         except RuntimeError as e:      # a yardstick only; never on the path
             print(f"torch.nn.GRU {name}: {e}")
-            library[name] = None
+            library[name] = library[name + "_flushed"] = None
     print(f"torch.nn.GRU (cuDNN) one step, in={EVENT_DIM} B={B} L="
-          f"{RNN_LAYERS}: bf16 {library['bf16']} ms, f32 {library['f32']} "
-          f"ms (warm)", f"on {gpu_line()}")
+          f"{RNN_LAYERS}: bf16 {library['bf16']} ms warm, "
+          f"{library['bf16_flushed']} ms L2 flushed; f32 {library['f32']} "
+          f"ms warm, {library['f32_flushed']} ms L2 flushed; kernel D bf16 "
+          f"{res[('event_rnn', B)][0]:.5f} ms warm, "
+          f"{res[('event_rnn', B)][1]:.5f} ms L2 flushed", f"on {gpu_line()}")
     return {"name": "fused_gru_step", "route": "cuda",
             "source": "musicgeneration_tpu_torch/csrc/fused_gru_decode.cu",
             "replaces": "musicgeneration_tpu/ops/pallas_gru_decode.py:108",
             "launches": launches, "max_abs_err": err, "ms": cold,
             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-            "library_ms": library["bf16"], "ms_warm": warm,
-            "library_ms_f32": library["f32"],
+            "library_ms": library["bf16_flushed"], "ms_warm": warm,
+            "library_ms_warm": library["bf16"],
+            "library_ms_f32": library["f32_flushed"],
+            "library_ms_f32_warm": library["f32"],
             "ms_b1": res[("event_rnn", 1)][1],
             "ms_b1_warm": res[("event_rnn", 1)][0],
             "bound_ms_b1": res[("event_rnn", 1)][2],
@@ -2137,8 +2200,14 @@ def time_kernel_c(launches: int, err: float) -> dict:
     dout = torch.randn(q.shape, generator=gen).to(DEV, dtype)
     out, lse = fused_relative_attention(q, k, v, e, None, True,
                                         return_lse=True)
-    ms = device_ms(lambda: fused_relative_attention_bwd(q, k, v, e, None,
-                                                        True, out, lse, dout))
+
+    def kernel_c():
+        return fused_relative_attention_bwd(q, k, v, e, None, True, out, lse,
+                                            dout)
+    ms = device_ms(kernel_c)
+    with earlier_body("relative_attention_bwd"):
+        earlier_ms = device_ms(kernel_c)
+    split = launch_split(kernel_c)
     plain_ms = device_ms(lambda: fused_relative_attention_bwd_plain(
         q, k, v, e, None, True, out, lse, dout), iters=5)
     # yardstick: SDPA forward + backward, the relative bias (and causal
@@ -2167,12 +2236,39 @@ def time_kernel_c(launches: int, err: float) -> dict:
     # q.k and q.E, dO.v, and the dV, dK, dQ (K and E legs) and dE sums
     flops = 8 * 2 * DH * bh * l * (l + 1) / 2
     bound_ms, by = bound(nbytes, flops, dtype)
+    print(f"kernel C bf16 B{B} H{H} L{L_TRAIN} causal, max_seq {L_TRAIN}: "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({by}), SDPA forward + backward {library_ms:.4f} ms; earlier "
+          f"(CUDA-core) body {earlier_ms:.4f} ms; per call under the "
+          "profiler: " + ", ".join(f"{k} {us:.1f} us" for k, us in
+                                   split.items()), f"on {gpu_line()}")
     return {"name": "relative_attention_bwd", "route": "cuda",
             "source": "musicgeneration_tpu_torch/csrc/relative_attention_bwd.cu",
             "replaces": "musicgeneration_tpu/ops/pallas_attention.py:755",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "earlier_ms": earlier_ms,
+            "us_per_launch": split}
+
+
+def launch_split(fn, calls: int = 20) -> dict:
+    """Device us per call of each CUDA kernel ``fn`` launches, under
+    torch.profiler over ``calls`` calls (the kernels' names shortened)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for dev_us, _, key in sorted(device_rows(prof), reverse=True):
+        name = re.search(r"(rel_attn_\w+)", key)
+        name = name.group(1) if name else key[:40]
+        split[name] = split.get(name, 0.0) + dev_us / calls
+    return split
 
 
 def time_kernel_a(launches: int, err: float) -> dict:
@@ -3548,16 +3644,40 @@ def time_ring_step() -> dict:
     return res
 
 
+# the bf16 (tensor-core) entry functions of each library
+TC_ENTRIES = {"relative_attention": ("rel_attn_fwd_tc_kernel",),
+              "ring_attention": ("ring_tile_tc_kernel",),
+              "relative_attention_bwd": ("rel_attn_bwd_tc_kernel",)}
+
+
+def ptxas_lines() -> dict:
+    """Print ptxas's registers, shared memory and spills of every entry
+    function built by this process; return the spill lines of each by
+    (library, entry function)."""
+    spills = {}
+    for name, log in cuda_build.BUILD_LOGS.items():
+        fn = ""
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = re.search(r"'\S*?\d([a-z_]+_kernel)", line)
+                fn = entry.group(1) if entry else ""
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"  ptxas {name} {fn}: {line.strip()}")
+            if "spill" in line:
+                spills.setdefault((name, fn), []).append(line)
+    return spills
+
+
 def tensor_core_sass() -> None:
-    """Count, in each entry function of the libraries of kernels A and G,
-    the tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma) and
-    the asynchronous global-to-shared copies (LDGSTS for cp.async, UTMALDG
-    for TMA) in ``cuobjdump -sass`` of the built library. Raises if a bf16
-    entry function has no tensor-core instruction or no asynchronous
-    copy."""
+    """Count, in each entry function of the libraries of kernels A, G and
+    C, the tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma)
+    and the asynchronous global-to-shared copies (LDGSTS for cp.async,
+    UTMALDG for TMA) in ``cuobjdump -sass`` of the built library. Raises if
+    a bf16 entry function has no tensor-core instruction or no
+    asynchronous copy, or if ptxas spilled in one."""
+    spills = ptxas_lines()
     tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
-    for lib, bf16_entry in (("relative_attention", "rel_attn_fwd_tc_kernel"),
-                            ("ring_attention", "ring_tile_tc_kernel")):
+    for lib, bf16_entries in TC_ENTRIES.items():
         sass = subprocess.run([tool, "-sass", str(cuda_build._lib_path(lib))],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -3575,10 +3695,16 @@ def tensor_core_sass() -> None:
         for entry, (mma, cp) in counts.items():
             print(f"  sass {lib} {entry}: {mma} HMMA/HGMMA, {cp} "
                   f"LDGSTS/UTMALDG")
-        mma, cp = counts.get(bf16_entry, (0, 0))
-        if mma == 0 or cp == 0:
-            raise AssertionError(f"{bf16_entry} has {mma} tensor-core "
-                                 f"instructions and {cp} asynchronous copies")
+        for bf16_entry in bf16_entries:
+            mma, cp = counts.get(bf16_entry, (0, 0))
+            if mma == 0 or cp == 0:
+                raise AssertionError(f"{bf16_entry} has {mma} tensor-core "
+                                     f"instructions and {cp} asynchronous "
+                                     "copies")
+            spilled = [ln for ln in spills.get((lib, bf16_entry), [])
+                       if re.search(r"[1-9]\d* bytes spill", ln)]
+            if spilled:
+                raise AssertionError(f"{bf16_entry} spills: {spilled}")
 
 
 def main() -> int:
@@ -3594,14 +3720,6 @@ def main() -> int:
     EARLIER_LIBS.update(finish_earlier_builds(earlier))
     print(f"built kernels in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{n} {s:.1f} s" for n, s in secs.items()))
-    for name, log in cuda_build.BUILD_LOGS.items():
-        fn = ""
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                entry = re.search(r"'\S*?\d([a-z_]+_kernel)", line)
-                fn = " " + entry.group(1) if entry else ""
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  ptxas {name}{fn}: {line.strip()}")
     tensor_core_sass()
 
     err_a = check_kernel_a()

@@ -1,9 +1,11 @@
 // One tile of relative global attention on Hopper's tensor cores: 64
 // queries against the 64-key tiles of one key block, bf16 operands and f32
 // accumulation. Kernel A (csrc/relative_attention.cu) and kernel G
-// (csrc/ring_attention.cu) run their bf16 mode through `attend` below;
-// their f32 modes keep their own CUDA-core bodies (f32 operands, TF32
-// would lose the 1e-4 the parity checks hold them to).
+// (csrc/ring_attention.cu) run their bf16 mode through `attend` below,
+// and kernel C's bf16 backward (csrc/relative_attention_bwd.cu) takes its
+// logits from the same `tile_logits`; their f32 modes keep their own
+// CUDA-core bodies (f32 operands, TF32 would lose the 1e-4 the parity
+// checks hold them to).
 //
 // For each 64-key tile (keys s0 + 64 kt ..):
 //
@@ -246,58 +248,84 @@ __device__ __forceinline__ void e_store(const EStage& st, char* smem,
   }
 }
 
-// 64 rows of 64 bf16 from `src` (rows `ld` apart, rows >= n zero) into a
-// swizzled tile at `dst`, asynchronously: 4 chunks of 16 B a thread.
+// Rows row0 .. row0 + 63 of 64 bf16 from `src` (rows `ld` apart; rows
+// outside [0, n) zero) into a swizzled tile at `dst`, asynchronously: 4
+// chunks of 16 B a thread.
 __device__ __forceinline__ void tile_load(char* dst,
                                           const __nv_bfloat16* src, int ld,
                                           int row0, int n) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int idx = threadIdx.x + NT * i, r = idx >> 3, ch = idx & 7;
-    const bool in = row0 + r < n;
+    const bool in = row0 + r >= 0 && row0 + r < n;
     cp_async16(smem_u32(dst + swz(r, ch)),
                src + (size_t)(in ? row0 + r : 0) * ld + ch * 8, in);
   }
 }
 
-// Key tile kt of the block (buffer kt & 1): q.k, the relative term, the
-// masks, the online-softmax update and P.V into the carry.
-template <bool kSplit>
-__device__ __forceinline__ void tile_step(const TileArgs& a, int kt,
-                                          char* smem,
-                                          const uint32_t (&qf)[4][4],
-                                          Carry& c) {
-  using S = Smem<kSplit>;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const char* kbuf = smem + S::K + (kt & 1) * TILE_BYTES;
-  const char* vbuf = smem + S::V + (kt & 1) * TILE_BYTES;
-  float* slab = reinterpret_cast<float*>(smem + S::SLAB + warp * SLAB_BYTES);
+// A fragments of rows row0 .. row0 + 15 of a swizzled 64 x 64 tile, one
+// per k16 step of its 64 columns.
+__device__ __forceinline__ void a_frags(uint32_t (&f)[4][4], const char* tile,
+                                        int row0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    ldsm_x4(f[kk], smem_u32(tile + swz(row0 + (lane & 7)
+                                           + 8 * ((lane >> 3) & 1),
+                                       2 * kk + (lane >> 4))));
+}
 
-  // q.k: n8-tile j holds keys 8j..8j+7; one ldmatrix.x4 gives two k16-steps
-  float s[8][4];
+// acc[j] = A . tile[8j + n, :]^T over the 64 columns, A given as a_frags
+// gives it: rows of the stored tile are the n index (q.k's B operand, K
+// as stored). One ldmatrix.x4 gives two k16 steps.
+__device__ __forceinline__ void mma_nt(float (&acc)[8][4],
+                                       const uint32_t (&af)[4][4],
+                                       const char* tile) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 #pragma unroll
     for (int kk2 = 0; kk2 < 2; ++kk2) {
       uint32_t b[4];
-      ldsm_x4(b, smem_u32(kbuf + swz(8 * j + (lane & 7),
+      ldsm_x4(b, smem_u32(tile + swz(8 * j + (lane & 7),
                                      4 * kk2 + (lane >> 3))));
-      mma(s[j], qf[2 * kk2], b[0], b[1]);
-      mma(s[j], qf[2 * kk2 + 1], b[2], b[3]);
+      mma(acc[j], af[2 * kk2], b[0], b[1]);
+      mma(acc[j], af[2 * kk2 + 1], b[2], b[3]);
     }
   }
+}
+
+// The logits of one 64 x 64 tile for the warp's 16 query rows, in the S
+// fragment layout (s[j][2h + b]: row g + 8h, key 8j + 2 t4 + b): q.k
+// against the key tile at `kbuf`, the relative term from band rows 0-63 in
+// the E ring slot at `e0` and 64-127 at `e1` (kSplit: their lo halves 3
+// slots further on), the scale, then the causal mask where the tile
+// crosses the diagonal and the key mask where a key is padded or past the
+// block (keys kcol0 .. kcol0 + 63 of the block; -1e9 and -inf). `slab` is
+// the warp's private Gq slab. Kernels A and G (tile_step) and kernel C's
+// backward (csrc/relative_attention_bwd.cu) all take their logits from
+// here, so C's p = e^(x - lse) starts from the very logits behind A's LSE.
+template <bool kSplit>
+__device__ __forceinline__ void tile_logits(const TileArgs& a, int kcol0,
+                                            const char* kbuf, const char* e0,
+                                            const char* e1, float* slab,
+                                            const uint32_t (&qf)[4][4],
+                                            float (&s)[8][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  // q.k: n8-tile j holds keys 8j..8j+7
+  mma_nt(s, qf, kbuf);
 
   // Gq = Q . E^T over the warp's window of band rows wb .. wb + 79, to
-  // the slab; band rows 0-63 are ring chunk kt, 64-127 chunk kt + 1
+  // the slab
   __syncwarp();  // this warp's reads of the previous tile's slab are done
   const int wb = 48 - 16 * warp;
 #pragma unroll
   for (int jj = 0; jj < N_GQ; ++jj) {
     const int br = wb + 8 * jj;
-    const char* ehi =
-        smem + S::E + ((kt + (br >> 6)) % 3) * TILE_BYTES;
+    const char* ehi = (br >> 6) ? e1 : e0;
     const int row = (br & 63) + (lane & 7);
     float gq[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -333,7 +361,6 @@ __device__ __forceinline__ void tile_step(const TileArgs& a, int kt,
   // logits: scale, then the causal mask where the tile crosses the
   // diagonal, then the key mask where a key is padded or past the block
   // (-1e9 and -inf); both conditions are the same for the whole block
-  const int kcol0 = kt * BK;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -360,6 +387,25 @@ __device__ __forceinline__ void tile_step(const TileArgs& a, int kt,
         s[j][2 + b] += add;
       }
   }
+}
+
+// Key tile kt of the block (buffer kt & 1): the logits, the online-softmax
+// update and P.V into the carry.
+template <bool kSplit>
+__device__ __forceinline__ void tile_step(const TileArgs& a, int kt,
+                                          char* smem,
+                                          const uint32_t (&qf)[4][4],
+                                          Carry& c) {
+  using S = Smem<kSplit>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const char* vbuf = smem + S::V + (kt & 1) * TILE_BYTES;
+  float s[8][4];
+  tile_logits<kSplit>(a, kt * BK, smem + S::K + (kt & 1) * TILE_BYTES,
+                      smem + S::E + (kt % 3) * TILE_BYTES,
+                      smem + S::E + ((kt + 1) % 3) * TILE_BYTES,
+                      reinterpret_cast<float*>(smem + S::SLAB
+                                               + warp * SLAB_BYTES),
+                      qf, s);
   // online softmax in f32, row by row (g, then g + 8); e^x as
   // 2^(x log2 e) on the SFU
 #pragma unroll
@@ -434,7 +480,7 @@ __device__ __forceinline__ void attend(const TileArgs& a, int n_kv,
                                        char* smem, Carry& c) {
   using S = Smem<kSplit>;
   if (n_kv <= 0) return;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warp = threadIdx.x >> 5;
 
   // Q and key tile 0 in flight while E chunks 0 and 1 are staged
   tile_load(smem + S::SLAB, a.q, a.ld, 0, a.nq);
@@ -450,12 +496,7 @@ __device__ __forceinline__ void attend(const TileArgs& a, int n_kv,
   __syncthreads();
   // the warp's 16 query rows as A fragments, one per k16-step
   uint32_t qf[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    ldsm_x4(qf[kk], smem_u32(smem + S::SLAB
-                             + swz(16 * warp + (lane & 7)
-                                       + 8 * ((lane >> 3) & 1),
-                                   2 * kk + (lane >> 4))));
+  a_frags(qf, smem + S::SLAB, 16 * warp);
   __syncthreads();  // Q's area becomes the slabs
 
   for (int kt = 0; kt < n_kv; ++kt) {

@@ -30,7 +30,6 @@ from . import cuda_build
 from .relative_attention import NEG_INF
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_TILE = 64  # kernel C's query / key tile
 
 
 def _band(e: torch.Tensor, l: int, dtype) -> torch.Tensor:
@@ -165,8 +164,9 @@ def fused_relative_attention_bwd(q, k, v, e, key_pad, causal: bool, out,
     """Gradients (dq, dk, dv, de) of ``fused_relative_attention``.
 
     CPU tensors run ``fused_relative_attention_bwd_plain``. CUDA tensors
-    launch kernel C (dh = 64, contiguous inputs; one call runs its three
-    CUDA kernels) or raise."""
+    launch kernel C (dh = 64, contiguous inputs; one call runs its CUDA
+    kernels: delta and E's rounding, dQ/dK/dV with dE partials, the dE
+    reduction) or raise."""
     _check(q, k, v, e, key_pad)
     b, h, l, _ = q.shape
     if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype \
@@ -179,21 +179,27 @@ def fused_relative_attention_bwd(q, k, v, e, key_pad, causal: bool, out,
                                                   out, lse, dout)
     _cuda_inputs("kernel C", [q, k, v, e, key_pad, out, lse, dout])
     max_seq = e.shape[0]
-    n = -(-l // _TILE)
-    # delta = rowsum(dO * O) in f32, outside the kernels as in the JAX _bwd
-    delta = (dout.float() * out.float()).sum(-1)
+    bf16 = int(q.dtype == torch.bfloat16)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     de = torch.empty(max_seq, q.shape[-1], dtype=torch.float32,
                      device=q.device)
-    de_part = torch.empty(b * h * n * (n + 1) * _TILE * 64,
-                          dtype=torch.float32, device=q.device)
+    # scratch: delta = rowsum(dO * O) in f32 and, in bf16, E in the q
+    # dtype (the JAX _bwd makes both outside its kernels; kernel C's first
+    # launch does), and the dE partial windows
+    delta = torch.empty(b, h, l, dtype=torch.float32, device=q.device)
+    e_lp = torch.empty_like(e, dtype=q.dtype) if bf16 else None
     lib = cuda_build.load("relative_attention_bwd")
+    scratch = lib.mg_rel_attn_bwd_scratch
+    scratch.restype = ctypes.c_longlong
+    scratch.argtypes = [ctypes.c_int] * 4
+    de_part = torch.empty(scratch(bf16, b, h, l), dtype=torch.float32,
+                          device=q.device)
     fn = lib.mg_rel_attn_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 13 \
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 15 \
         + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    rc = fn(int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), e.data_ptr(), _ptr(key_pad), dout.data_ptr(),
+    rc = fn(bf16, q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(),
+            _ptr(e_lp), _ptr(key_pad), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), de.data_ptr(), de_part.data_ptr(), b, h, l,
             max_seq, int(causal),

@@ -11,6 +11,7 @@ rows of the table are exercised; E rows no (t, s) pair reaches must get
 exactly zero gradient."""
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +21,8 @@ import torch
 
 from musicgeneration_tpu.ops import pallas_attention as jpa
 from musicgeneration_tpu_torch.ops import fused_attention as tfa
+from musicgeneration_tpu_torch.ops.relative_attention import NEG_INF
+from tests.test_torch_relative_attention import _largest_block, _stage
 
 TOL = 2e-4
 
@@ -138,3 +141,241 @@ def test_wrapper_rejects_bad_inputs(bad):
     with pytest.raises(ValueError):
         tfa.fused_relative_attention_bwd(q, k, v, e, None, True, out, lse,
                                          dout)
+
+
+# --------------------------------------------------------------------------
+# kernel C's tensor-core body (csrc/relative_attention_bwd.cu), its index
+# arithmetic emulated in plain torch at f32: one grid of dq and dkv blocks,
+# the logits of the shared tile (csrc/rel_attn_tile.cuh: each warp's 80-row
+# E window from the three-slot ring, the skewed Gq read), the dq blocks'
+# skewed write of g into each warp's zeroed [16 x 80] slab, their dQ E leg,
+# their dE low/high carry across key tiles into partial windows of qt + 1
+# chunks, the dkv blocks' ring indexed by query tile, the causal skips,
+# rows and keys past L, and the reduction's fixed order
+# --------------------------------------------------------------------------
+
+_BQ = _BK = 64
+_GROUPS = 8  # (b, h) groups of the dE reduction
+
+
+def _rows(x, r0, n=64):
+    """Rows r0 .. r0 + n - 1 of x [..., L, d], rows past L zero."""
+    out = x.new_zeros(*x.shape[:-2], n, x.shape[-1])
+    m = max(0, min(n, x.shape[-2] - r0))
+    out[..., :m, :] = x[..., r0:r0 + m, :]
+    return out
+
+
+def _window(e0, e1, w):
+    """Warp w's 80 band rows 48 - 16 w .. from the ring slots of band rows
+    0-63 (e0) and 64-127 (e1), 8 rows at a time as the kernel reads them."""
+    wb = 48 - 16 * w
+    return torch.cat([(e1 if (wb + 8 * j) >> 6 else e0)
+                      [(wb + 8 * j) & 63:((wb + 8 * j) & 63) + 8]
+                      for j in range(10)])
+
+
+def _tile_logits(qt, kt, e0, e1, t0, s0, nkeys, pad, causal, scale):
+    """tile_logits: q.k, each warp's Gq slab read back skewed
+    (srel[r, sl] = slab[r, 15 - r + sl]), the scale, the causal mask, the
+    key mask (-1e9 padded, -inf past the block)."""
+    b, h = qt.shape[:2]
+    s = qt @ kt.transpose(-1, -2)
+    srel = torch.empty_like(s)
+    r = torch.arange(16)[:, None]
+    col = (15 - r + torch.arange(_BK)[None, :]).expand(b, h, 16, _BK)
+    for w in range(4):
+        slab = qt[:, :, 16 * w:16 * w + 16] @ _window(e0, e1, w).T
+        srel[:, :, 16 * w:16 * w + 16] = torch.gather(slab, 3, col)
+    x = (s + srel) * scale
+    t = t0 + torch.arange(_BQ)[:, None]
+    sk = s0 + torch.arange(_BK)[None, :]
+    if causal:
+        x = x + (sk > t).float() * NEG_INF
+    if pad is not None:
+        x = x + _rows(pad[:, :, None], s0)[:, None, None, :, 0] * NEG_INF
+    return x.masked_fill((torch.arange(_BK) >= nkeys).expand_as(x),
+                         -math.inf)
+
+
+def _row_stats(lse, delta, t0):
+    """lse (+inf past L: p = 0) and delta of a query tile's rows."""
+    lse_t = _rows(lse[..., None], t0)[..., 0]
+    lse_t[..., max(0, lse.shape[-1] - t0):] = math.inf
+    return lse_t[..., None], _rows(delta[..., None], t0)
+
+
+def _dq_block(qt, grads, q, k, v, e, pad, causal, lse, delta, dout,
+              scale):
+    """The dq block of query tile qt: dQ rows and the tile's dE partial
+    window, chunks 0 .. qt of 64 x 64 rows at chunk qt (qt + 1) / 2 of
+    the (b, h)'s windows, laid out flat as the kernel lays them out."""
+    dq, part = grads["dq"], grads["part"]
+    b, h, l, dh = q.shape
+    max_seq = e.shape[0]
+    n = -(-l // _BK)
+    t0 = qt * _BQ
+    qs, dos = _rows(q, t0), _rows(dout, t0)
+    lse_t, dl_t = _row_stats(lse, delta, t0)
+    n_kv = min(n, qt + 1) if causal else n
+    ebase = max_seq - _BQ - t0
+    ring = [_stage(e, ebase), _stage(e, ebase + _BK), None]
+    dqa = torch.zeros(b, h, _BQ, dh)
+    de_lo = torch.zeros(b, h, 4, 16, dh)
+    de_hi = torch.zeros(b, h, 4, 16, dh)
+    for kt in range(n_kv):
+        s0 = kt * _BK
+        ks, vs = _rows(k, s0), _rows(v, s0)
+        e0, e1 = ring[kt % 3], ring[(kt + 1) % 3]
+        x = _tile_logits(qs, ks, e0, e1, t0, s0, l - s0, pad, causal, scale)
+        g = torch.exp(x - lse_t) * (dos @ vs.transpose(-1, -2) - dl_t)
+        dqa += g @ ks
+        slabs = []
+        for w in range(4):
+            slab = torch.zeros(b, h, 16, 80)
+            for r in range(16):
+                slab[:, :, r, 15 - r:15 - r + _BK] = g[:, :, 16 * w + r]
+            dqa[:, :, 16 * w:16 * w + 16] += slab @ _window(e0, e1, w)
+            slabs.append(slab)
+        if kt <= qt:                      # chunks past qt: past the table
+            for w in range(4):
+                for kk in range(4):
+                    qk = qs[:, :, 16 * kk:16 * kk + 16]
+                    if kk >= 3 - w:
+                        c0 = 16 * (w + kk - 3)
+                        de_lo[:, :, w] += (slabs[kk][..., c0:c0 + 16]
+                                           .transpose(-1, -2) @ qk)
+                    if kt < qt and kk <= 3 - w:
+                        c0 = 16 * (w + kk + 1)
+                        de_hi[:, :, w] += (slabs[kk][..., c0:c0 + 16]
+                                           .transpose(-1, -2) @ qk)
+            part[:, :, qt * (qt + 1) // 2 + kt] = de_lo.reshape(b, h, _BK,
+                                                                dh)
+            de_lo, de_hi = de_hi, torch.zeros_like(de_hi)
+        if kt + 1 < n_kv:
+            ring[(kt + 2) % 3] = _stage(e, ebase + (kt + 2) * _BK)
+    m = min(_BQ, l - t0)                  # rows past L write nothing
+    dq[:, :, t0:t0 + m] = (dqa * scale)[:, :, :m]
+
+
+def _dkv_block(kt, grads, q, k, v, e, pad, causal, lse, delta, dout,
+               scale):
+    """The dkv block of key tile kt: the query tiles from the diagonal on
+    (causal), the band sliding down by 64 rows a query tile, chunk hh of
+    query tile qt's band in ring slot (hh + 2 qt) % 3."""
+    dk, dv = grads["dk"], grads["dv"]
+    b, h, l, dh = q.shape
+    max_seq = e.shape[0]
+    n = -(-l // _BK)
+    s0 = kt * _BK
+    ks, vs = _rows(k, s0), _rows(v, s0)
+    qt0 = kt if causal else 0
+    ebase = max_seq - _BQ + s0
+    ring = [None] * 3
+    ring[(2 * qt0) % 3] = _stage(e, ebase - qt0 * _BQ)
+    ring[(1 + 2 * qt0) % 3] = _stage(e, ebase - qt0 * _BQ + _BK)
+    dka = torch.zeros(b, h, _BK, dh)
+    dva = torch.zeros(b, h, _BK, dh)
+    for qt in range(qt0, n):
+        t0 = qt * _BQ
+        qs, dos = _rows(q, t0), _rows(dout, t0)
+        lse_t, dl_t = _row_stats(lse, delta, t0)
+        x = _tile_logits(qs, ks, ring[(2 * qt) % 3], ring[(1 + 2 * qt) % 3],
+                         t0, s0, l - s0, pad, causal, scale)
+        p = torch.exp(x - lse_t)
+        g = p * (dos @ vs.transpose(-1, -2) - dl_t)
+        dva += p.transpose(-1, -2) @ dos
+        dka += g.transpose(-1, -2) @ qs
+        if qt + 1 < n:
+            ring[(2 * qt + 2) % 3] = _stage(e, ebase - (qt + 1) * _BQ)
+    m = min(_BK, l - s0)
+    dk[:, :, s0:s0 + m] = (dka * scale)[:, :, :m]
+    dv[:, :, s0:s0 + m] = dva[:, :, :m]
+
+
+def _de_reduce(part, max_seq, n, scale):
+    """dE row r = max_seq - 64 (m + 1) + i: chunk qt - m of every (b, h)'s
+    window of query tile qt >= m, summed per group of (b, h) (bh, then
+    qt), the groups in order."""
+    bh = part.shape[0] * part.shape[1]
+    part = part.reshape(bh, -1, _BK, part.shape[-1])
+    de = torch.zeros(max_seq, part.shape[-1])
+    for r in range(max_seq):
+        m = (max_seq - 1 - r) // _BK
+        i = r - (max_seq - _BK * (m + 1))
+        groups = []
+        for grp in range(_GROUPS):
+            acc = torch.zeros(part.shape[-1])
+            for j in range(grp, bh, _GROUPS):
+                for qt in range(m, n):
+                    acc = acc + part[j, qt * (qt + 1) // 2 + qt - m, i]
+            groups.append(acc)
+        de[r] = sum(groups[1:], groups[0]) * scale
+    return de
+
+
+def _tc_backward(q, k, v, e, pad, causal, out, lse, dout):
+    """(dq, dk, dv, de) of kernel C's bf16 body, walked as its launches
+    walk it, in f32: delta, then one grid of dq and dkv blocks (blockIdx.y
+    = 2 j + role: the dq block of query tile n - 1 - j, the dkv block of
+    key tile j), then the dE reduction."""
+    b, h, l, dh = q.shape
+    scale = 1.0 / math.sqrt(dh)
+    delta = (dout * out).sum(-1)
+    n = -(-l // _BK)
+    grads = {"dq": torch.full_like(q, math.nan),
+             "dk": torch.full_like(k, math.nan),
+             "dv": torch.full_like(v, math.nan),
+             "part": torch.full((b, h, n * (n + 1) // 2, _BK, dh), math.nan)}
+    args = (grads, q, k, v, e, pad, causal, lse, delta, dout, scale)
+    for y in range(2 * n):
+        if y & 1:
+            _dkv_block(y >> 1, *args)
+        else:
+            _dq_block(n - 1 - (y >> 1), *args)
+    # every output row and every window chunk is written
+    assert not any(torch.isnan(x).any() for x in grads.values())
+    de = _de_reduce(grads["part"], e.shape[0], n, scale)
+    return grads["dq"], grads["dk"], grads["dv"], de
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("with_pad", [False, True])
+@pytest.mark.parametrize("l", [1, 17, 100, 130])
+def test_tc_backward_index_arithmetic_matches_plain_and_jax(l, with_pad,
+                                                            causal):
+    """The emulated walk at ragged L (one row, L not a multiple of 16 or
+    64, a last tile past L), max_seq 200 (E rows outside the table, rows
+    no pair touches) against ``fused_relative_attention_bwd_plain`` and
+    ``jax.vjp`` of the JAX Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(l + 7 * with_pad + 3 * causal)
+    b, h, dh, max_seq = 2, 2, 64, 200
+    q, k, v, dout = (rng.standard_normal((b, h, l, dh)).astype(np.float32)
+                     for _ in range(4))
+    e = rng.standard_normal((max_seq, dh)).astype(np.float32)
+    pad = None
+    if with_pad:  # a bucket tail and one interior key; key 0 stays
+        pad = np.zeros((b, l), np.float32)
+        pad[:, max(1, l - 12):] = 1.0
+        pad[1, l // 2] = float(l > 2)
+    tq, tk, tv, te, tdo = map(torch.from_numpy, (q, k, v, e, dout))
+    tpad = None if pad is None else torch.from_numpy(pad)
+    out, lse = tfa._forward_plain(tq, tk, tv, te, tpad, causal)
+    got = _tc_backward(tq, tk, tv, te, tpad, causal, out, lse, tdo)
+    ref = tfa.fused_relative_attention_bwd_plain(tq, tk, tv, te, tpad,
+                                                 causal, out, lse, tdo)
+    blk = _largest_block(l)
+    jpad = None if pad is None else jnp.asarray(pad)
+
+    def f(q_, k_, v_, e_):
+        return jpa.fused_relative_attention(q_, k_, v_, e_, jpad, blk, blk,
+                                            causal, True)
+
+    _, vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v, e)))
+    jgrads = vjp(jnp.asarray(dout))
+    for what, g, r, j in zip(("dq", "dk", "dv", "de"), got, ref, jgrads):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=TOL, atol=TOL,
+                                   err_msg=what)
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), rtol=TOL,
+                                   atol=TOL, err_msg=what)
+    assert np.all(got[3].numpy()[:max_seq - l] == 0.0)
