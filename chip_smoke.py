@@ -251,6 +251,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # so an output may differ by a few bf16 ulps
 TOL_A = {torch.float32: 1e-4, torch.bfloat16: 3.2e-2}
 LEFT_PAD = 3  # kernel A's check: keys padded at the start of a row
+# serving windows that begin with pad ids: more than one 64-row query tile
+PAD_HEAD = 70
 TOL_B = {torch.float32: 1e-4, torch.bfloat16: 1.25e-1}
 # kernel C, max |kernel - plain| / max |plain| for each of dq, dk, dv, dE
 # (dE sums B*H*L^2 terms, so its error is stated relative to its size):
@@ -310,6 +312,17 @@ LOOP_MODES = (("T 1", SamplingParams(temperature=1.0)),
 # sampled tokens, cache 1024), interleaved, median of 3
 D_RUNG = 1024
 TOL_INT8_REL = 3e-2
+# kernels B and E in bf16 at other widths the wrapper takes, (d, FFN,
+# layers, max_seq, t): the `--spec` draft (d 128, FFN 64: the tail's CTAs
+# 4-7 own no FFN column); d 576 (9 heads: the tail's 8 CTAs own 72
+# columns each, up to 3 heads); an FFN of 100, not a multiple of 8; d 960
+# with FFN 4096, the tail's largest shared memory (120 columns a CTA);
+# and a 16384-row table at t 9000 (71 split records a row)
+DECODE_WIDTHS = ((DRAFT_D, DRAFT_D // 2, DRAFT_LAYERS, MAX_SEQ, T_TIMED),
+                 (576, 288, 2, MAX_SEQ, T_TIMED),
+                 (D_MODEL, 100, 2, MAX_SEQ, T_TIMED),
+                 (960, 4096, 1, MAX_SEQ, T_TIMED),
+                 (DRAFT_D, DRAFT_D // 2, DRAFT_LAYERS, 16384, 9000))
 RATE_PROMPT, RATE_CACHE, RATE_ROUNDS = 16, 1024, 3
 # ring attention (kernel G): the main shape is L 2048 = max_seq over sp 4
 # (Lloc 512), B 8, bf16; the check also takes sp 8, L 512 and the ragged
@@ -389,6 +402,36 @@ extern "C" int mg_rel_attn_bwd(int is_bf16, const void* q, const void* k,
                                         B, H, L, max_seq, causal, s);
   return launch<float>(q, k, v, e, e_lp, key_pad, out, dout, lse, delta, dq,
                        dk, dv, de, de_part, B, H, L, max_seq, causal, s);
+}
+"""
+# kernels B and E: the bf16 body before the tensor-core design of
+# decode_tc.cuh (unquantized and int8)
+EARLIER_SHIMS["fused_decode"] = """
+#define mg_decode_step mg_decode_step_tc
+#define mg_decode_chunk mg_decode_chunk_tc
+#include "fused_decode.cu"
+#undef mg_decode_step
+#undef mg_decode_chunk
+extern "C" int mg_decode_step(int is_bf16, int num_layers, void* x,
+                              void* qbuf, void* part, const void* const* w,
+                              const void* const* sc, void* kc, void* vc,
+                              const void* e, const void* start, int B, int S,
+                              int d, int H, int f, int t, int max_seq,
+                              int split0, void* stream) {
+  return launch<false>(false, is_bf16, num_layers, x, qbuf, part, w, sc, kc,
+                       vc, e, start, B, 1, S, d, H, f, t, max_seq, split0,
+                       stream);
+}
+extern "C" int mg_decode_chunk(int is_bf16, int num_layers, void* x,
+                               void* qbuf, void* part, const void* const* w,
+                               const void* const* sc, void* kc, void* vc,
+                               const void* e, int B, int C, int S, int d,
+                               int H, int f, int t, int max_seq,
+                               void* stream) {
+  if (C < 2 || C > MAX_CHUNK) return (int)cudaErrorInvalidValue;
+  return launch<false>(true, is_bf16, num_layers, x, qbuf, part, w, sc, kc,
+                       vc, e, nullptr, B, C, S, d, H, f, t, max_seq, 0,
+                       stream);
 }
 """
 EARLIER_LIBS = {}  # name -> built library of EARLIER_SHIMS
@@ -548,11 +591,10 @@ def check_kernel_a() -> float:
     # key_pad; L 1 is a one-token admission prompt, L 17 and 100 ragged
     # tiles, L 2048 max_seq, max_seq 512 the training shape, and every key
     # padded, non-causal: rows with no unmasked key over all 8 key tiles.
-    # Under causal the kernel skips later key tiles, as the TPU kernel
-    # does, so a row whose reachable keys are all padded differs from the
-    # plain version by design (the csrc note): with the first keys padded
-    # ("left") the other rows are held to the tolerance and those rows'
-    # error is printed
+    # With the first keys padded ("left"), causal, rows 0 .. LEFT_PAD - 1
+    # reach no unmasked key: the kernel's extended walk past the causal
+    # tiles (the csrc note) must give them the plain version's average over
+    # the single-mask keys, held to the same tolerance as every other row
     cases = [(f32, False, True, L_PREFILL, MAX_SEQ),
              (f32, True, True, L_PREFILL, MAX_SEQ),
              (bf16, False, True, L_PREFILL, MAX_SEQ),
@@ -574,17 +616,16 @@ def check_kernel_a() -> float:
                                                       return_lse=True)
         torch.cuda.synchronize()
         diff = (out.float() - ref.float()).abs()
-        rows = LEFT_PAD if with_pad == "left" else 0  # out of contract
-        err = diff[:, :, rows:].max().item()
-        lse_err = (lse - ref_lse)[:, :, rows:].abs().max().item()
+        err = diff.max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
         ok = err <= TOL_A[dtype] and lse_err <= 1e-3
         print(f"kernel A {str(dtype):15s} L={l:4d} max_seq={max_seq:4d} "
               f"key_pad={with_pad!s:5s} causal={causal!s:5s} "
               f"max_abs_err={err:.3e} lse_err={lse_err:.3e} "
               f"tol={TOL_A[dtype]:.1e} {'ok' if ok else 'FAIL'}"
-              + (f"; rows 0-{rows - 1}, every reachable key padded (out of "
-                 f"contract): max_abs_err={diff[:, :, :rows].max().item():.3e}"
-                 if rows else ""))
+              + (f"; rows 0-{LEFT_PAD - 1} (every reachable key padded): "
+                 f"max_abs_err={diff[:, :, :LEFT_PAD].max().item():.3e}"
+                 if with_pad == "left" else ""))
         if not ok:
             raise AssertionError("kernel A disagrees with its plain version")
         if dtype == bf16:
@@ -663,6 +704,36 @@ def check_kernel_c() -> float:
         if dtype == bf16:
             worst = max(worst, abs_err)
     return worst
+
+
+def observe_kernel_c_left_pad() -> dict:
+    """Kernel C on the rows kernel A's extended walk changed: keys 0 ..
+    LEFT_PAD - 1 padded, causal (L 512, max_seq 2048), against its plain
+    backward from the same forward. Observed and printed, not held: the
+    backward walks the causal key tiles only, and a row whose reachable
+    keys are all padded now has the plain LSE over every single-mask key
+    (ROADMAP Queue C). Returns the relative errors."""
+    gen = torch.Generator().manual_seed(27)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, e, pad = attn_inputs(dtype, gen, "left")
+        dout = torch.randn(q.shape, generator=gen).to(DEV, dtype)
+        o, lse = fused_relative_attention(q, k, v, e, pad, True,
+                                          return_lse=True)
+        got = fused_relative_attention_bwd(q, k, v, e, pad, True, o, lse,
+                                           dout)
+        ref = fused_relative_attention_bwd_plain(q, k, v, e, pad, True, o,
+                                                 lse, dout)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, r) for a, r in zip(got, ref)]
+        rows = [rel_err(got[0][:, :, :LEFT_PAD], ref[0][:, :, :LEFT_PAD]),
+                rel_err(got[0][:, :, LEFT_PAD:], ref[0][:, :, LEFT_PAD:])]
+        print(f"kernel C {str(dtype):15s} key_pad=left (observed, not held): "
+              f"rel_err dq={errs[0]:.2e} dk={errs[1]:.2e} dv={errs[2]:.2e} "
+              f"de={errs[3]:.2e}; dq rows 0-{LEFT_PAD - 1} {rows[0]:.2e}, "
+              f"rows {LEFT_PAD}- {rows[1]:.2e} (TOL_C {TOL_C[dtype]:.0e})")
+        out[str(dtype)] = errs
+    return out
 
 
 def flagship(dtype, seed: int = 0, quant: str = "none",
@@ -1041,18 +1112,27 @@ def end_to_end() -> dict:
 
 
 def profile_decode(steps: int = 32, warm: int = 3, d_model: int = D_MODEL,
-                   quant: str = "none") -> None:
+                   quant: str = "none", prompt_len: int = L_PREFILL,
+                   earlier: bool = False) -> None:
     """Where a bf16 decode step's time goes (the flagship, or the d 1024
-    rung; unquantized or int8): device time by kernel and the device's
-    busy share of the wall time, under torch.profiler."""
+    rung; unquantized or int8; with ``earlier``, kernel B's earlier
+    CUDA-core body): device time by kernel and the device's busy share of
+    the wall time, under torch.profiler, over the steps at t = prompt_len
+    + warm ... Kernels B's three launches a layer overlap (programmatic
+    dependent launch: each starts while its predecessor runs and waits
+    for it), so their times here include that wait and their sum can pass
+    the wall time; ``time_kernel_b`` gives the step's time."""
+    if earlier:
+        with earlier_body("fused_decode"):
+            return profile_decode(steps, warm, d_model, quant, prompt_len)
     from torch.profiler import ProfilerActivity, profile
 
     model = flagship(torch.bfloat16, quant=quant, d_model=d_model)
-    prompt = torch.randint(0, VOCAB - 1, (B, L_PREFILL), device=DEV,
+    prompt = torch.randint(0, VOCAB - 1, (B, prompt_len), device=DEV,
                            generator=torch.Generator(DEV).manual_seed(5))
-    logits, cache = model.prefill(prompt, L_PREFILL + warm + steps)
+    logits, cache = model.prefill(prompt, prompt_len + warm + steps)
     stacked = model.decode_weights()
-    t = L_PREFILL
+    t = prompt_len
     for _ in range(warm):
         logits, cache = model.decode_step(logits.argmax(-1), cache, t,
                                           stacked)
@@ -1069,8 +1149,8 @@ def profile_decode(steps: int = 32, warm: int = 3, d_model: int = D_MODEL,
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = device_rows(prof)
     busy_us = sum(r[0] for r in rows)
-    print(f"decode profile d={d_model} {quant}: {steps} steps "
-          f"(decode_step + argmax), wall "
+    print(f"decode profile d={d_model} {quant}: {steps} steps at t "
+          f"{prompt_len + warm}-{t - 1} (decode_step + argmax), wall "
           f"{wall_us / steps:.1f} us/step under the profiler, device busy "
           f"{busy_us / steps:.1f} us/step ({100 * busy_us / wall_us:.1f}% "
           f"of wall)", f"on {gpu_line()}")
@@ -1153,30 +1233,36 @@ def serve_file_mode(tmp: str, pth: str, prime_mid: str) -> dict:
     return {"A": launches[0], "B": launches[1]}
 
 
-def serve_parity(prime: np.ndarray, quant: str = "none") -> None:
+def serve_parity(prime: np.ndarray, quant: str = "none",
+                 pad_head: int = 0) -> None:
     """Greedy f32 serving of 8 staggered requests (3 admitted later,
     mid-flight) through the kernels and through their plain versions:
-    the tokens must be equal. ``quant``: the model's decode_quant."""
+    the tokens must be equal. ``quant``: the model's decode_quant. With
+    ``pad_head`` every window begins with that many pad ids, which the
+    admission prefill masks: its first rows reach no unmasked key (kernel
+    A's extended walk)."""
     model32 = flagship(torch.float32, quant=quant)
     lens = (1, 3, 64, 200, 500, 17, 100, 33)
     news = (64, 128, 96, 64, 100, 80, 128, 72)
+    head = np.full(pad_head, model32.pad_id, dtype=prime.dtype)
+    prompts = [np.concatenate([head, prime[:p]]) for p in lens]
     outs = []
     for plain in (False, True):
         cb = ContinuousBatcher(model32, slots=SLOTS, seg_len=SEG,
                                depth=DEPTH,
                                sampling=SamplingParams(greedy=True))
         with plain_path() if plain else contextlib.nullcontext():
-            rids = [cb.submit(prime[:p], n) for p, n in zip(lens[:5],
-                                                            news[:5])]
+            rids = [cb.submit(x, n) for x, n in zip(prompts[:5], news[:5])]
             cb.step()
-            rids += [cb.submit(prime[:p], n) for p, n in zip(lens[5:],
-                                                             news[5:])]
+            rids += [cb.submit(x, n) for x, n in zip(prompts[5:], news[5:])]
             done = cb.run()
         outs.append([done[r] for r in rids])
     same = all(np.array_equal(a, b) for a, b in zip(*outs))
     print(f"serving greedy f32{' int8' if quant == 'int8' else ''}, "
-          f"{len(lens)} staggered requests: kernel path == plain path: "
-          f"{same}")
+          f"{len(lens)} staggered requests"
+          + (f", each window beginning with {pad_head} pad ids"
+             if pad_head else "")
+          + f": kernel path == plain path: {same}")
     if not same:
         raise AssertionError("served greedy tokens differ from the plain "
                              "path's")
@@ -1274,6 +1360,7 @@ def serving(prime: np.ndarray) -> dict:
         pth, prime_mid = write_inputs(model, tmp)
         counts = serve_file_mode(tmp, pth, prime_mid)
         serve_parity(prime)
+        serve_parity(prime, pad_head=PAD_HEAD)
         serve_http(tmp, pth, prime_mid)
     return counts
 
@@ -2310,22 +2397,78 @@ def time_kernel_a(launches: int, err: float) -> dict:
             "library_ms": library_ms, "earlier_ms": earlier_ms}
 
 
+def with_earlier(fn, name: str = "fused_decode", iters: int = 50) -> tuple:
+    """Device ms of ``fn`` through the current body and through the
+    earlier one (``EARLIER_SHIMS[name]``), in turns: current, earlier,
+    earlier, current. Returns (current, earlier), each the mean of two."""
+    times = []
+    for earlier in (False, True, True, False):
+        with (earlier_body(name) if earlier
+              else contextlib.nullcontext()):
+            times.append(device_ms(fn, iters=iters))
+    return (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+
+
 def time_kernel_b(launches: int, err: float) -> dict:
     model = flagship(torch.bfloat16)
     t = T_TIMED
     x, e_all, w_all, kc, vc = decode_inputs(model,
                                             torch.Generator().manual_seed(4))
-    ms = device_ms(lambda: fused_decode_step(x, t, e_all, w_all, kc, vc, H),
-                   iters=50)
+    ms, earlier_ms = with_earlier(
+        lambda: fused_decode_step(x, t, e_all, w_all, kc, vc, H))
     plain_ms = device_ms(lambda: fused_decode_step_plain(x, t, e_all, w_all,
                                                          kc, vc, H), iters=10)
     bound_ms, by = decode_bound(np.zeros(B, np.int64), t)
+    print(f"kernel B bf16 B{B} t={t}: {ms:.4f} ms, earlier (CUDA-core) body "
+          f"{earlier_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({by})", f"on {gpu_line()}")
     return {"name": "fused_decode_step", "route": "cuda",
             "source": "musicgeneration_tpu_torch/csrc/fused_decode.cu",
             "replaces": "musicgeneration_tpu/ops/pallas_decode.py:1171",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": None}
+            "library_ms": None, "earlier_ms": earlier_ms}
+
+
+def profile_kernel_b_call(calls: int = 20) -> dict:
+    """The call ``time_kernel_b`` times (bf16, B 8, t 755, a 1024-row
+    cache) under torch.profiler, for the tensor-core body and the earlier
+    one: every device kernel the call runs (the wrapper's copy and casts
+    included) with its device us per call, and the host us per call.
+    Returns {body: (device us per call, host us per call)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = flagship(torch.bfloat16)
+    x, e_all, w_all, kc, vc = decode_inputs(model,
+                                            torch.Generator().manual_seed(4))
+
+    def call():
+        return fused_decode_step(x, T_TIMED, e_all, w_all, kc, vc, H)
+
+    out = {}
+    for body in ("tensor-core", "earlier"):
+        with (earlier_body("fused_decode") if body == "earlier"
+              else contextlib.nullcontext()):
+            call()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    call()
+                torch.cuda.synchronize()
+                host_us = (time.perf_counter() - t0) * 1e6 / calls
+        rows = device_rows(prof)
+        dev_us = sum(r[0] for r in rows) / calls
+        print(f"kernel B call profile ({body} body, bf16 B{B} t={T_TIMED}, "
+              f"cache 1024): {dev_us:.1f} device us per call, "
+              f"{host_us:.1f} host us per call under the profiler",
+              f"on {gpu_line()}")
+        for us, count, key in sorted(rows, reverse=True):
+            print(f"  {us / calls:8.2f} us/call {count / calls:5.1f}x/call "
+                  f"{key[:90]}")
+        out[body] = (dev_us, host_us)
+    return out
 
 
 def weight_bytes(d: int, int8: bool) -> int:
@@ -2376,23 +2519,23 @@ def time_kernel_b_ragged(launches: int, err: float) -> dict:
                                  start_min=floor)
 
     ms0 = device_ms(lambda: step(0), iters=50)
-    ms = device_ms(lambda: step(smin), iters=50)
+    ms, earlier_ms = with_earlier(lambda: step(smin))
     plain_ms = device_ms(lambda: fused_decode_step_plain(
         x, t, e_all, w_all, kc, vc, H, start=start, start_min=smin), iters=10)
     bound_ms, by = decode_bound(start.cpu().numpy(), t)
     full_ms, _ = decode_bound(np.zeros(B, np.int64), t)
     print(f"ragged kernel B bf16 B{B} t={t}, live window {LIVE} rows "
           f"(min(start) {smin}): start_min 0 {ms0:.4f} ms, start_min "
-          f"{smin} {ms:.4f} ms; bound {bound_ms:.5f} ms ({by}) for this "
-          f"live window, {full_ms:.5f} ms for the full prefix [0, t]",
-          f"on {gpu_line()}")
+          f"{smin} {ms:.4f} ms (earlier body {earlier_ms:.4f} ms); bound "
+          f"{bound_ms:.5f} ms ({by}) for this live window, {full_ms:.5f} ms "
+          f"for the full prefix [0, t]", f"on {gpu_line()}")
     return {"name": "fused_decode_step_ragged", "route": "cuda",
             "source": "musicgeneration_tpu_torch/csrc/fused_decode.cu",
             "replaces": "musicgeneration_tpu/ops/pallas_decode.py:1171",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": None, "ms_start_min_0": ms0,
-            "bound_ms_full_prefix": full_ms}
+            "bound_ms_full_prefix": full_ms, "earlier_ms": earlier_ms}
 
 
 def chunk_bound(b: int, c: int, t: int, int8: bool = False) -> tuple:
@@ -2425,19 +2568,20 @@ def time_kernel_e(launches: int, err: float) -> dict:
     for b in (1, B):
         x, e_all, w_all, kc, vc = chunk_inputs(model, stacked, gen, b, c,
                                                1024)
-        ms = device_ms(lambda: fused_decode_chunk(x, t, e_all, w_all, kc, vc,
-                                                  H), iters=50)
+        ms, earlier_ms = with_earlier(
+            lambda: fused_decode_chunk(x, t, e_all, w_all, kc, vc, H))
         plain_ms = device_ms(lambda: fused_decode_chunk_plain(
             x, t, e_all, w_all, kc, vc, H), iters=10)
         x1 = x[:, 0].contiguous()
         step_ms = device_ms(lambda: fused_decode_step(x1, t, e_all, w_all, kc,
                                                       vc, H), iters=50)
         bnd, by = chunk_bound(b, c, t)
-        res[b] = (ms, plain_ms, step_ms, bnd, by)
-        print(f"kernel E bf16 B={b} C={c} t={t}: {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bnd:.5f} ms ({by}); one kernel-B "
-              f"step at B={b} t={t}: {step_ms:.4f} ms", f"on {gpu_line()}")
-    ms, plain_ms, step_ms, bnd, by = res[1]
+        res[b] = (ms, plain_ms, step_ms, bnd, by, earlier_ms)
+        print(f"kernel E bf16 B={b} C={c} t={t}: {ms:.4f} ms (earlier body "
+              f"{earlier_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+              f"{bnd:.5f} ms ({by}); one kernel-B step at B={b} t={t}: "
+              f"{step_ms:.4f} ms", f"on {gpu_line()}")
+    ms, plain_ms, step_ms, bnd, by, earlier_ms = res[1]
     return {"name": "fused_decode_chunk", "route": "cuda",
             "source": "musicgeneration_tpu_torch/csrc/fused_decode.cu",
             "replaces": "musicgeneration_tpu/ops/pallas_decode.py:1487",
@@ -2445,7 +2589,8 @@ def time_kernel_e(launches: int, err: float) -> dict:
             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
             "library_ms": None, "ms_b8": res[B][0], "plain_ms_b8": res[B][1],
             "bound_ms_b8": res[B][3], "kernel_b_step_ms_b1": step_ms,
-            "kernel_b_step_ms_b8": res[B][2]}
+            "kernel_b_step_ms_b8": res[B][2], "earlier_ms": earlier_ms,
+            "earlier_ms_b8": res[B][5]}
 
 
 # ------------------------------------------------ weight-only int8 (B, E)
@@ -2609,6 +2754,78 @@ def check_kernel_b_rung() -> None:
         check_step_int8(model, gen, T_TIMED, False, "rung")
 
 
+def check_decode_widths() -> dict:
+    """Kernels B (B 8) and E (B 2, C SPEC_CHUNK) in bf16, unquantized and
+    int8, at each of ``DECODE_WIDTHS`` against their plain versions
+    (TOL_B; the written cache rows too, every other row untouched), and
+    one E call against C chained B steps bit for bit. Returns the worst
+    error of each kernel against its plain version."""
+    gen = torch.Generator(DEV).manual_seed(25)
+    worst = {"B": 0.0, "E": 0.0}
+    tol = TOL_B[torch.bfloat16]
+    for d, ffn, layers, max_seq, t in DECODE_WIDTHS:
+        for quant in ("none", "int8"):
+            model = mt.MusicTransformer(
+                vocab_size=VOCAB, num_layers=layers, d_model=d,
+                ffn_dim=ffn, max_seq=max_seq, dtype=torch.bfloat16,
+                device=DEV, generator=torch.Generator().manual_seed(d),
+                decode_quant=quant)
+            w_all, e_all = model.decode_weights()
+            w, kw = ((w_all["int8"][0], {"scales": w_all["int8"][1]})
+                     if quant == "int8" else (w_all, {}))
+            heads, c = model.num_heads, SPEC_CHUNK
+            cache_len = 1024 if t + c <= 1024 else max_seq
+            for kernel, b in (("B", B), ("E", 2)):
+                n = 1 if kernel == "B" else c
+                x, _, _, kc, vc = chunk_inputs(model, (w_all, e_all), gen, b,
+                                               n, cache_len)
+                kc0, vc0 = kc.clone(), vc.clone()
+                kc2, vc2 = kc.clone(), vc.clone()
+                if kernel == "B":
+                    x = x[:, 0].contiguous()
+                    out, kc, vc = fused_decode_step(x, t, e_all, w, kc, vc,
+                                                    heads, **kw)
+                    ref, kc2, vc2 = fused_decode_step_plain(
+                        x, t, e_all, w, kc2, vc2, heads, **kw)
+                else:
+                    out, kc, vc = fused_decode_chunk(x, t, e_all, w, kc, vc,
+                                                     heads, **kw)
+                    ref, kc2, vc2 = fused_decode_chunk_plain(
+                        x, t, e_all, w, kc2, vc2, heads, **kw)
+                    kb, vb, steps = kc0.clone(), vc0.clone(), []
+                    for i in range(c):
+                        o, kb, vb = fused_decode_step(
+                            x[:, i].contiguous(), t + i, e_all, w, kb, vb,
+                            heads, **kw)
+                        steps.append(o)
+                    chained = (torch.equal(out, torch.stack(steps, 1))
+                               and torch.equal(kc, kb)
+                               and torch.equal(vc, vb))
+                torch.cuda.synchronize()
+                err = max((out.float() - ref.float()).abs().max().item(),
+                          *((a[:, :, t:t + n].float()
+                             - a2[:, :, t:t + n].float()).abs().max().item()
+                            for a, a2 in ((kc, kc2), (vc, vc2))))
+                same = all(untouched(a, a0, t, n) for a, a0 in (
+                    (kc, kc0), (vc, vc0), (kc2, kc0), (vc2, vc0)))
+                ok = (err <= tol and same
+                      and bool(torch.isfinite(out.float()).all())
+                      and (kernel == "B" or chained))
+                worst[kernel] = max(worst[kernel], err)
+                extra = (f"; == {c} chained kernel-B steps bit for bit: "
+                         f"{chained}" if kernel == "E" else "")
+                print(f"kernel {kernel} bf16 {quant:4s} d={d} H={heads} "
+                      f"FFN={ffn} L={layers} max_seq={max_seq} B={b} "
+                      f"C={n} t={t}: max_abs_err {err:.3e} tol {tol:.1e}; "
+                      f"other rows untouched: {same}{extra} "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"kernel {kernel} at d {d}, FFN "
+                                         f"{ffn}, max_seq {max_seq} ({quant})"
+                                         " disagrees")
+    return worst
+
+
 def int8_paths(prime: np.ndarray) -> dict:
     """Greedy f32 on an int8 flagship, the kernel path against the plain
     path: ``decode.generate`` (64 tokens x 8, the bucketed prime) and
@@ -2744,21 +2961,31 @@ def time_int8(err: dict, launches: dict) -> list:
         x, e_all, w_all, kc, vc = decode_inputs(model, gen)
         qw, sc = w_all["int8"]
         heads, t = model.num_heads, T_TIMED
-        full_ms, ms = pair(
-            lambda: fused_decode_step(x, t, e_all, w_all, kc, vc, heads),
-            lambda: fused_decode_step(x, t, e_all, qw, kc, vc, heads,
-                                      scales=sc))
+        def full_fn():
+            return fused_decode_step(x, t, e_all, w_all, kc, vc, heads)
+
+        def int8_fn():
+            return fused_decode_step(x, t, e_all, qw, kc, vc, heads,
+                                     scales=sc)
+
+        full_ms, ms = pair(full_fn, int8_fn)
+        _, earlier_full = with_earlier(full_fn)
+        _, earlier_int8 = with_earlier(int8_fn)
         plain_ms = device_ms(lambda: fused_decode_step_plain(
             x, t, e_all, qw, kc, vc, heads, scales=sc), iters=10)
         zeros = np.zeros(B, np.int64)
         bnd, by = decode_bound(zeros, t, d, int8=True)
         full_bnd, _ = decode_bound(zeros, t, d)
         print(f"kernel B bf16 d={d} B={B} t={t}: int8 {ms:.4f} ms (bound "
-              f"{bnd:.5f} ms, {by}; plain int8 {plain_ms:.4f} ms), "
-              f"unquantized {full_ms:.4f} ms (bound {full_bnd:.5f} ms); "
-              f"int8 / unquantized {ms / full_ms:.3f}", f"on {gpu_line()}")
-        step_ms[d] = (ms, plain_ms, bnd, by, full_ms, full_bnd)
-    ms, plain_ms, bnd, by, full_ms, full_bnd = step_ms[D_MODEL]
+              f"{bnd:.5f} ms, {by}; plain int8 {plain_ms:.4f} ms; earlier "
+              f"body {earlier_int8:.4f} ms), unquantized {full_ms:.4f} ms "
+              f"(bound {full_bnd:.5f} ms; earlier body {earlier_full:.4f} "
+              f"ms); int8 / unquantized {ms / full_ms:.3f}",
+              f"on {gpu_line()}")
+        step_ms[d] = (ms, plain_ms, bnd, by, full_ms, full_bnd, earlier_int8,
+                      earlier_full)
+    ms, plain_ms, bnd, by, full_ms, full_bnd, earlier_int8, _ = \
+        step_ms[D_MODEL]
     rung = step_ms[D_RUNG]
     rows.append({
         "name": "fused_decode_step_int8", "route": "cuda",
@@ -2769,7 +2996,8 @@ def time_int8(err: dict, launches: dict) -> list:
         "library_ms": None, "unquantized_ms": full_ms,
         "d1024_ms": rung[0], "d1024_plain_ms": rung[1],
         "d1024_bound_ms": rung[2], "d1024_unquantized_ms": rung[4],
-        "d1024_unquantized_bound_ms": rung[5]})
+        "d1024_unquantized_bound_ms": rung[5], "earlier_ms": earlier_int8,
+        "d1024_earlier_ms": rung[6], "d1024_unquantized_earlier_ms": rung[7]})
 
     model = flagship(torch.bfloat16, quant="int8")
     x, e_all, w_all, kc, vc = decode_inputs(model, gen)
@@ -2781,6 +3009,9 @@ def time_int8(err: dict, launches: dict) -> list:
     kw = {"start": start, "start_min": int(start.min())}
     full_ms, ms = pair(
         lambda: fused_decode_step(x, t, e_all, w_all, kc, vc, H, **kw),
+        lambda: fused_decode_step(x, t, e_all, qw, kc, vc, H, scales=sc,
+                                  **kw))
+    _, earlier_int8 = with_earlier(
         lambda: fused_decode_step(x, t, e_all, qw, kc, vc, H, scales=sc,
                                   **kw))
     plain_ms = device_ms(lambda: fused_decode_step_plain(
@@ -2796,7 +3027,8 @@ def time_int8(err: dict, launches: dict) -> list:
         "replaces": "musicgeneration_tpu/ops/pallas_decode.py:1278",
         "launches": launches["B_ragged"], "max_abs_err": err["B_ragged"],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-        "library_ms": None, "unquantized_ms": full_ms})
+        "library_ms": None, "unquantized_ms": full_ms,
+        "earlier_ms": earlier_int8})
 
     dgen = torch.Generator(DEV).manual_seed(26)
     res = {}
@@ -2807,15 +3039,18 @@ def time_int8(err: dict, launches: dict) -> list:
             lambda: fused_decode_chunk(x, T_TIMED, e_all, w_all, kc, vc, H),
             lambda: fused_decode_chunk(x, T_TIMED, e_all, qw, kc, vc, H,
                                        scales=sc))
+        _, earlier_int8 = with_earlier(
+            lambda: fused_decode_chunk(x, T_TIMED, e_all, qw, kc, vc, H,
+                                       scales=sc))
         plain_ms = device_ms(lambda: fused_decode_chunk_plain(
             x, T_TIMED, e_all, qw, kc, vc, H, scales=sc), iters=10)
         bnd, by = chunk_bound(b, SPEC_CHUNK, T_TIMED, int8=True)
-        res[b] = (ms, plain_ms, bnd, by, full_ms)
+        res[b] = (ms, plain_ms, bnd, by, full_ms, earlier_int8)
         print(f"kernel E bf16 B={b} C={SPEC_CHUNK} t={T_TIMED}: int8 "
               f"{ms:.4f} ms (bound {bnd:.5f} ms, {by}; plain int8 "
-              f"{plain_ms:.4f} ms), unquantized {full_ms:.4f} ms",
-              f"on {gpu_line()}")
-    ms, plain_ms, bnd, by, full_ms = res[1]
+              f"{plain_ms:.4f} ms; earlier body {earlier_int8:.4f} ms), "
+              f"unquantized {full_ms:.4f} ms", f"on {gpu_line()}")
+    ms, plain_ms, bnd, by, full_ms, earlier_int8 = res[1]
     rows.append({
         "name": "fused_decode_chunk_int8", "route": "cuda",
         "source": "musicgeneration_tpu_torch/csrc/fused_decode.cu",
@@ -2824,7 +3059,8 @@ def time_int8(err: dict, launches: dict) -> list:
         "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
         "library_ms": None, "unquantized_ms": full_ms, "ms_b8": res[B][0],
         "plain_ms_b8": res[B][1], "bound_ms_b8": res[B][2],
-        "unquantized_ms_b8": res[B][4]})
+        "unquantized_ms_b8": res[B][4], "earlier_ms": earlier_int8,
+        "earlier_ms_b8": res[B][5]})
     return rows
 
 
@@ -3275,11 +3511,16 @@ def merged_shards(x: torch.Tensor, sp: int) -> torch.Tensor:
                                      ).contiguous()
 
 
-def ring_pad(gen, l: int) -> torch.Tensor:
+def ring_pad(gen, l: int, left: bool = False) -> torch.Tensor:
     """[B, l] key padding in the JAX ring tests' pattern: 20 % of keys
-    padded, keys 0-3 never (tests/test_ring_attention.py:85-86)."""
+    padded, keys 0-3 never (tests/test_ring_attention.py:85-86). With
+    ``left`` keys 0 .. LEFT_PAD - 1 are padded instead, so under causal
+    rows 0 .. LEFT_PAD - 1 reach no unmasked key (kernel A's "left"
+    case)."""
     pad = (torch.rand(B, l, generator=gen) < 0.2).float()
     pad[:, :4] = 0.0
+    if left:
+        pad[:, :LEFT_PAD] = 1.0
     return pad.to(DEV)
 
 
@@ -3304,74 +3545,77 @@ def bf16_ulps(a: torch.Tensor, ref: torch.Tensor) -> tuple:
 
 def check_kernel_g() -> float:
     """Kernel G against ring_tile_plain, round by round: both start each
-    round from the plain chain's carry. Returns the worst bf16 output
+    round from the plain chain's carry, which is compared on every row
+    (a row that has met no unmasked key yet included: the extended walk
+    gives it the plain carry). Every case also runs with keys 0 ..
+    LEFT_PAD - 1 padded ("left"), causal. Returns the worst bf16 output
     error (max abs)."""
     gen = torch.Generator().manual_seed(21)
     f32, bf16 = torch.float32, torch.bfloat16
     worst = 0.0
+    pads = [(causal, with_pad) for causal in (True, False)
+            for with_pad in (False, True)] + [(True, "left")]
     for sp, l in RING_CASES:
         l_loc = l // sp
         for dtype in (f32, bf16):
-            for causal in (True, False):
-                for with_pad in (False, True):
-                    q, k, v = (torch.randn(B, H, l, DH, generator=gen)
-                               .to(DEV, dtype) for _ in range(3))
-                    e = torch.randn(MAX_SEQ, DH, generator=gen).to(DEV)
-                    pad = (to_shards(ring_pad(gen, l), ring_mesh(sp), 1)
-                           .contiguous() if with_pad else None)
-                    qm, km, vm = (merged_shards(x, sp) for x in (q, k, v))
-                    carry = fresh_carry(sp, l_loc)
-                    out_k, out_p = torch.empty_like(qm), torch.empty_like(qm)
-                    carry_err = 0.0
-                    for r in range(sp):
-                        last = r == sp - 1
-                        kc = [c.clone() for c in carry]
-                        ring_tile(qm, km, vm, pad, e, *kc, rank0=0, r=r,
-                                  n=sp, causal=causal,
-                                  out=out_k if last else None)
-                        ring_tile_plain(qm, km, vm, pad, e, *carry, rank0=0,
-                                        r=r, n=sp, causal=causal,
-                                        out=out_p if last else None)
-                        torch.cuda.synchronize()
-                        live = carry[0] > NEG_INF / 2  # rows in contract
-                        for a, ref in zip(kc, carry):
-                            sel = live if a.dim() == 4 else live[..., None]
-                            carry_err = max(carry_err, rel_err(
-                                torch.where(sel, a, 0.0),
-                                torch.where(sel, ref, 0.0)))
-                    err = (out_k.float() - out_p.float()).abs().max().item()
-                    if dtype == f32:
-                        ok, how = err <= TOL_G, f"tol {TOL_G:.0e}"
-                    else:
-                        frac, ulps = bf16_ulps(out_k, out_p)
-                        ok = frac <= 1.0 and ulps <= 1.0
-                        how = (f"{frac:.2f} of 1 ulp + {TOL_G_SUM:.0e}; "
-                               f"{ulps:.2f} ulp where |out| >= 2^-8")
-                        worst = max(worst, err)
-                    ok = ok and carry_err <= TOL_G and bool(
-                        torch.isfinite(out_k.float()).all())
-                    print(f"kernel G {str(dtype):15s} L={l:4d} sp={sp} "
-                          f"Lloc={l_loc:3d} causal={causal!s:5s} "
-                          f"key_pad={with_pad!s:5s} max_abs_err={err:.3e} "
-                          f"({how}) carry_rel_err={carry_err:.2e} "
-                          f"{'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        raise AssertionError("kernel G disagrees with its "
-                                             "plain tile")
+            for causal, with_pad in pads:
+                q, k, v = (torch.randn(B, H, l, DH, generator=gen)
+                           .to(DEV, dtype) for _ in range(3))
+                e = torch.randn(MAX_SEQ, DH, generator=gen).to(DEV)
+                pad = (to_shards(ring_pad(gen, l, with_pad == "left"),
+                                 ring_mesh(sp), 1).contiguous()
+                       if with_pad else None)
+                qm, km, vm = (merged_shards(x, sp) for x in (q, k, v))
+                carry = fresh_carry(sp, l_loc)
+                out_k, out_p = torch.empty_like(qm), torch.empty_like(qm)
+                carry_err = 0.0
+                for r in range(sp):
+                    last = r == sp - 1
+                    kc = [c.clone() for c in carry]
+                    ring_tile(qm, km, vm, pad, e, *kc, rank0=0, r=r,
+                              n=sp, causal=causal,
+                              out=out_k if last else None)
+                    ring_tile_plain(qm, km, vm, pad, e, *carry, rank0=0,
+                                    r=r, n=sp, causal=causal,
+                                    out=out_p if last else None)
+                    torch.cuda.synchronize()
+                    for a, ref in zip(kc, carry):
+                        carry_err = max(carry_err, rel_err(a, ref))
+                err = (out_k.float() - out_p.float()).abs().max().item()
+                if dtype == f32:
+                    ok, how = err <= TOL_G, f"tol {TOL_G:.0e}"
+                else:
+                    frac, ulps = bf16_ulps(out_k, out_p)
+                    ok = frac <= 1.0 and ulps <= 1.0
+                    how = (f"{frac:.2f} of 1 ulp + {TOL_G_SUM:.0e}; "
+                           f"{ulps:.2f} ulp where |out| >= 2^-8")
+                    worst = max(worst, err)
+                ok = ok and carry_err <= TOL_G and bool(
+                    torch.isfinite(out_k.float()).all())
+                print(f"kernel G {str(dtype):15s} L={l:4d} sp={sp} "
+                      f"Lloc={l_loc:3d} causal={causal!s:5s} "
+                      f"key_pad={with_pad!s:5s} max_abs_err={err:.3e} "
+                      f"({how}) carry_rel_err={carry_err:.2e} "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("kernel G disagrees with its "
+                                         "plain tile")
     return worst
 
 
 def check_ring_pass() -> None:
     """The whole virtual ring (sp 4, L 2048) through kernel G against the
-    plain ring, f32 and bf16, and in f32 against kernel A on one
-    device."""
+    plain ring, f32 and bf16, and in f32 against kernel A on one device;
+    with the JAX tests' padding and with keys 0 .. LEFT_PAD - 1 padded
+    (rows 0 .. LEFT_PAD - 1 reach no unmasked key)."""
     gen = torch.Generator().manual_seed(22)
     mesh = ring_mesh()
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, left in ((torch.float32, False), (torch.bfloat16, False),
+                        (torch.float32, True), (torch.bfloat16, True)):
         q, k, v = (torch.randn(B, H, L_RING, DH, generator=gen)
                    .to(DEV, dtype) for _ in range(3))
         e = torch.randn(MAX_SEQ, DH, generator=gen).to(DEV)
-        pad = ring_pad(gen, L_RING)
+        pad = ring_pad(gen, L_RING, left)
         out = ring_relative_attention_pallas(q, k, v, e, mesh, key_pad=pad)
         ref = ring_relative_attention(q, k, v, e, mesh, key_pad=pad)
         torch.cuda.synchronize()
@@ -3388,7 +3632,8 @@ def check_ring_pass() -> None:
             how = (f"vs plain ring {err:.3e} ({frac:.2f} of 1 ulp + "
                    f"{TOL_G_SUM:.0e}; {ulps:.2f} ulp where |out| >= 2^-8)")
         print(f"ring pass {str(dtype):15s} B{B} H{H} L{L_RING} sp "
-              f"{SP_RING}, key_pad: {how} {'ok' if ok else 'FAIL'}")
+              f"{SP_RING}, key_pad{' left' if left else ''}: {how} "
+              f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("the kernel-G ring disagrees")
 
@@ -3644,10 +3889,23 @@ def time_ring_step() -> dict:
     return res
 
 
-# the bf16 (tensor-core) entry functions of each library
+# the bf16 (tensor-core) entry functions of each library; "_int8": the
+# instantiation for int8 weights
 TC_ENTRIES = {"relative_attention": ("rel_attn_fwd_tc_kernel",),
               "ring_attention": ("ring_tile_tc_kernel",),
-              "relative_attention_bwd": ("rel_attn_bwd_tc_kernel",)}
+              "relative_attention_bwd": ("rel_attn_bwd_tc_kernel",),
+              "fused_decode": ("qkv_tc_kernel", "qkv_tc_kernel_int8",
+                               "attn_tc_kernel", "tail_tc_kernel",
+                               "tail_tc_kernel_int8")}
+
+
+def entry_name(mangled: str) -> str:
+    """An entry function's short name from its mangled one, "_int8" added
+    for a kernel instantiated on int8 weights (template argument `a`)."""
+    m = re.search(r"\d([a-z_]+_kernel)(IaE)?", mangled)
+    if not m:
+        return mangled
+    return m.group(1) + ("_int8" if m.group(2) else "")
 
 
 def ptxas_lines() -> dict:
@@ -3659,8 +3917,8 @@ def ptxas_lines() -> dict:
         fn = ""
         for line in log.splitlines():
             if "Compiling entry function" in line:
-                entry = re.search(r"'\S*?\d([a-z_]+_kernel)", line)
-                fn = entry.group(1) if entry else ""
+                entry = re.search(r"'(\S+)'", line)
+                fn = entry_name(entry.group(1)) if entry else ""
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  ptxas {name} {fn}: {line.strip()}")
             if "spill" in line:
@@ -3669,8 +3927,8 @@ def ptxas_lines() -> dict:
 
 
 def tensor_core_sass() -> None:
-    """Count, in each entry function of the libraries of kernels A, G and
-    C, the tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma)
+    """Count, in each entry function of the libraries of kernels A, G, C,
+    B and E, the tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma)
     and the asynchronous global-to-shared copies (LDGSTS for cp.async,
     UTMALDG for TMA) in ``cuobjdump -sass`` of the built library. Raises if
     a bf16 entry function has no tensor-core instruction or no
@@ -3685,8 +3943,7 @@ def tensor_core_sass() -> None:
         for line in sass.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
-                name = re.search(r"\d([a-z_]+_kernel)", m.group(1))
-                entry = name.group(1) if name else m.group(1)
+                entry = entry_name(m.group(1))
                 counts[entry] = [0, 0]
             elif entry is not None:
                 counts[entry][0] += bool(re.search(r"\bHG?MMA\b", line))
@@ -3726,11 +3983,13 @@ def main() -> int:
     err_b = check_kernel_b()
     err_br = check_kernel_b_ragged()
     err_c = check_kernel_c()
+    observe_kernel_c_left_pad()
     err_d = check_kernel_d()
     err_e = check_kernel_e()
     check_chunk_vs_steps()
     err_int8 = check_int8_kernels()
     check_kernel_b_rung()
+    err_w = check_decode_widths()
     err_f = check_kernel_f()
     err_g = check_kernel_g()
     check_ring_pass()
@@ -3754,7 +4013,7 @@ def main() -> int:
                                  "serve": served["A"],
                                  "speculative": spec["A"]}
     row_b = time_kernel_b(e2e["B"] + served["B"] + spec["B"],
-                          max(err_b, err_br))
+                          max(err_b, err_br, err_w["B"]))
     row_b["launches_by_path"] = {"generate": e2e["B"], "serve": served["B"],
                                  "speculative": spec["B"]}
     row_c = time_kernel_c(tr["C"], err_c)
@@ -3763,7 +4022,7 @@ def main() -> int:
     row_br["launches_by_path"] = {"serve": served["B"]}
     row_d = time_kernel_d(sum(rnn["launches"].values()), err_d)
     row_d["launches_by_path"] = rnn["launches"]
-    row_e = time_kernel_e(spec["E"], err_e)
+    row_e = time_kernel_e(spec["E"], max(err_e, err_w["E"]))
     row_e["launches_by_path"] = {f"speculative_{k}": r["E"]
                                  for k, r in spec["runs"].items()}
     row_f = time_kernel_f(loop["F"], loop["by_path"], err_f)
@@ -3780,7 +4039,12 @@ def main() -> int:
     q_rates = int8_rates()
     row_g = time_kernel_g(sum(ring_launches.values()), ring_launches, err_g)
     ring_step = time_ring_step()
-    profile_decode()
+    profile_kernel_b_call()
+    # kernel B's step at time_kernel_b's t and at an earlier one, both
+    # bodies (the earlier body's tail slows as t grows: PERF.md section 7)
+    for earlier in (True, False):
+        profile_decode(earlier=earlier)
+        profile_decode(prompt_len=T_TIMED - 3, earlier=earlier)
     for d, q in ((D_MODEL, "int8"), (D_RUNG, "none"), (D_RUNG, "int8")):
         profile_decode(d_model=d, quant=q)
     loop_prof = profile_loop(e2e["prime"])

@@ -36,6 +36,12 @@
 // bytes: dot_column loads the int8 weights in groups before using them.
 //
 // Design for this card: three launches per layer on the current stream.
+// In bf16 (unquantized and int8) they are the tensor-core kernels of
+// decode_tc.cuh, which has its own design note: a column-spread qkv, one
+// split tile of attention for B and E with the queries as the M rows of
+// mma.sync, and the tail as a thread-block cluster. f32 runs the CUDA-core
+// kernels below, which were also the bf16 body before (launch<false>
+// still reaches them, so the two bodies can be timed on the same inputs).
 //  1. qkv_kernel: x W + b for q, k, v. Each block owns 32 output columns
 //     of 8 rows; its 8 warps split the input dimension and reduce
 //     through shared memory. k and v go straight into the cache — the
@@ -101,6 +107,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "decode_tc.cuh"
 
 namespace {
 
@@ -514,21 +521,140 @@ int launch_layers(bool chunk, int num_layers, float* x, float* qbuf,
   return 0;
 }
 
-template <typename T>
+// The bf16 body on the tensor cores (csrc/decode_tc.cuh): the same three
+// launches a layer, for kernel B (C = 1) and kernel E alike. W: bf16, or
+// int8_t with the six scale tables sc. The tail is a cluster launch of
+// tail_nc(d) CTAs per 16 rows; a refused launch returns its CUDA error.
+template <typename W>
+int launch_layers_tc(int num_layers, float* x, float* qbuf, float* part,
+                     const void* const* w, const void* const* sc, void* kc,
+                     void* vc, const float* e, const int* start, int B, int C,
+                     int S, int d, int H, int f, int t, int max_seq,
+                     int split0, cudaStream_t stream) {
+  namespace dtc = mg::dtc;
+  using bf16 = __nv_bfloat16;
+  const size_t stride[16] = {(size_t)d * d, (size_t)d, (size_t)d * d,
+                             (size_t)d,     (size_t)d * d, (size_t)d,
+                             (size_t)d * d, (size_t)d, (size_t)d,
+                             (size_t)d,     (size_t)d * f, (size_t)f,
+                             (size_t)f * d, (size_t)d, (size_t)d,
+                             (size_t)d};
+  const size_t sstride[6] = {(size_t)d, (size_t)d, (size_t)d,
+                             (size_t)d, (size_t)f, (size_t)d};
+  constexpr bool quant = std::is_same<W, int8_t>::value;
+  const size_t cache_stride = (size_t)B * S * d;
+  const int R = B * C;
+  const int mtiles = (R + dtc::MR - 1) / dtc::MR;
+  const int nsplit = (t + C + ATT_CHUNK - 1) / ATT_CHUNK - split0;
+  const int qkv_smem = dtc::qkv_smem<W>(d);
+  const int tail_nc = dtc::tail_nc(d), tail_ns = dtc::tail_slots<W>(d, f);
+  const dtc::TailLayout tl(
+      d, f, tail_nc, tail_ns,
+      dtc::Stream<W>::slot_bytes(dtc::tail_width(d, f, tail_nc)));
+  const float scale = 1.0f / sqrtf((float)DH);
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(dtc::qkv_tc_kernel<W>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  qkv_smem)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(dtc::attn_tc_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  dtc::AttnSmem::BYTES)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(dtc::tail_tc_kernel<W>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  tl.bytes)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(
+           dtc::tail_tc_kernel<W>,
+           cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) != cudaSuccess)
+    return (int)err;
+  // every launch may start while the previous kernel runs (programmatic
+  // dependent launch: each kernel waits for its predecessor's writes,
+  // decode_tc.cuh); the tail is a cluster of tail_nc CTAs per 16 rows
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[0].val.programmaticStreamSerializationAllowed = 1;
+  attrs[1].id = cudaLaunchAttributeClusterDimension;
+  attrs[1].val.clusterDim.x = tail_nc;
+  attrs[1].val.clusterDim.y = 1;
+  attrs[1].val.clusterDim.z = 1;
+  auto config = [&](dim3 grid, int smem, int nattrs) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(dtc::NT);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attrs;
+    cfg.numAttrs = nattrs;
+    return cfg;
+  };
+  const cudaLaunchConfig_t qkv_cfg =
+      config(dim3(3 * d / dtc::QKV_COLS, mtiles), qkv_smem, 1);
+  const cudaLaunchConfig_t attn_cfg =
+      config(dim3(B * H, nsplit), dtc::AttnSmem::BYTES, 1);
+  const cudaLaunchConfig_t tail_cfg = config(dim3(tail_nc, mtiles), tl.bytes, 2);
+  for (int li = 0; li < num_layers; ++li) {
+    const bf16* p[16];
+    const W* m[16] = {};
+    for (int i = 0; i < 16; ++i)
+      p[i] = static_cast<const bf16*>(w[i]) + li * stride[i];
+    for (int i : {0, 2, 4, 6, 10, 12})
+      m[i] = static_cast<const W*>(w[i]) + li * stride[i];
+    const float* s[6] = {};
+    if (quant)
+      for (int i = 0; i < 6; ++i)
+        s[i] = static_cast<const float*>(sc[i]) + li * sstride[i];
+    bf16* kl = static_cast<bf16*>(kc) + li * cache_stride;
+    bf16* vl = static_cast<bf16*>(vc) + li * cache_stride;
+    const float* el = e + (size_t)li * max_seq * DH;
+
+    err = cudaLaunchKernelEx(&qkv_cfg, dtc::qkv_tc_kernel<W>, (const float*)x,
+                             m[0], p[1], m[2], p[3], m[4], p[5], s[0], s[1],
+                             s[2], qbuf, kl, vl, R, C, S, d, t);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaLaunchKernelEx(&attn_cfg, dtc::attn_tc_kernel,
+                             (const float*)qbuf, (const bf16*)kl,
+                             (const bf16*)vl, el, start, part, H, C, S, d, t,
+                             max_seq, split0, scale);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaLaunchKernelEx(&tail_cfg, dtc::tail_tc_kernel<W>,
+                             (const float*)part, x, m[6], p[7], p[8], p[9],
+                             m[10], p[11], m[12], p[13], p[14], p[15], s[3],
+                             s[4], s[5], R, H, d, f, nsplit, tail_ns, 1e-6f);
+    if (err != cudaSuccess) return (int)err;
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// TC picks kernel B's and E's bf16 body: the tensor-core design of
+// decode_tc.cuh, or (TC = false) the CUDA-core body before it, kept so
+// that the two can be timed on the same inputs. f32 always runs the
+// CUDA-core body.
+template <typename T, bool TC>
 int launch_typed(bool chunk, int num_layers, float* x, float* qbuf,
                  float* part, const void* const* w, const void* const* sc,
                  void* kc, void* vc, const float* e, const int* start, int B,
                  int C, int S, int d, int H, int f, int t, int max_seq,
                  int split0, cudaStream_t stream) {
-  if (sc != nullptr)
-    return launch_layers<T, int8_t>(chunk, num_layers, x, qbuf, part, w, sc,
-                                    kc, vc, e, start, B, C, S, d, H, f, t,
-                                    max_seq, split0, stream);
-  return launch_layers<T, T>(chunk, num_layers, x, qbuf, part, w, sc, kc, vc,
-                             e, start, B, C, S, d, H, f, t, max_seq, split0,
-                             stream);
+  if constexpr (TC && std::is_same<T, __nv_bfloat16>::value) {
+    if (sc != nullptr)
+      return launch_layers_tc<int8_t>(num_layers, x, qbuf, part, w, sc, kc,
+                                      vc, e, start, B, C, S, d, H, f, t,
+                                      max_seq, split0, stream);
+    return launch_layers_tc<T>(num_layers, x, qbuf, part, w, sc, kc, vc, e,
+                               start, B, C, S, d, H, f, t, max_seq, split0,
+                               stream);
+  } else {
+    if (sc != nullptr)
+      return launch_layers<T, int8_t>(chunk, num_layers, x, qbuf, part, w,
+                                      sc, kc, vc, e, start, B, C, S, d, H, f,
+                                      t, max_seq, split0, stream);
+    return launch_layers<T, T>(chunk, num_layers, x, qbuf, part, w, sc, kc,
+                               vc, e, start, B, C, S, d, H, f, t, max_seq,
+                               split0, stream);
+  }
 }
 
+template <bool TC = true>
 int launch(bool chunk, int is_bf16, int num_layers, void* x, void* qbuf,
            void* part, const void* const* w, const void* const* sc, void* kc,
            void* vc, const void* e, const void* start, int B, int C, int S,
@@ -541,11 +667,12 @@ int launch(bool chunk, int is_bf16, int num_layers, void* x, void* qbuf,
   const float* ef = static_cast<const float*>(e);
   const int* st = static_cast<const int*>(start);
   if (is_bf16)
-    return launch_typed<__nv_bfloat16>(chunk, num_layers, xf, qf, pf, w, sc,
-                                       kc, vc, ef, st, B, C, S, d, H, f, t,
-                                       max_seq, split0, s);
-  return launch_typed<float>(chunk, num_layers, xf, qf, pf, w, sc, kc, vc,
-                             ef, st, B, C, S, d, H, f, t, max_seq, split0, s);
+    return launch_typed<__nv_bfloat16, TC>(chunk, num_layers, xf, qf, pf, w,
+                                           sc, kc, vc, ef, st, B, C, S, d, H,
+                                           f, t, max_seq, split0, s);
+  return launch_typed<float, false>(chunk, num_layers, xf, qf, pf, w, sc, kc,
+                                    vc, ef, st, B, C, S, d, H, f, t, max_seq,
+                                    split0, s);
 }
 
 }  // namespace

@@ -472,12 +472,33 @@ __device__ __forceinline__ void tile_step(const TileArgs& a, int kt,
   }
 }
 
+// The extended walk's vote, on every thread of the block: true when a
+// real query row of the tile (row < nq) has met no unmasked key yet, its
+// running max still at the -1e9 floor (a real logit is far above -1e9 / 2;
+// a masked one is -1e9 + x, which rounds to -1e9 for |x| < 32). Such a
+// row's plain result averages V over every key whose logit carries a
+// single -1e9, including the keys after it, so the causal skip is not
+// exact for it: the block then walks the remaining key tiles too. For
+// every other row those tiles add e^(-1e9 + x - m) = 0 with alpha =
+// e^0 = 1, so their bits do not change.
+__device__ __forceinline__ bool unmet_rows(const Carry& c, int nq) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  bool unmet = false;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    unmet |= 16 * warp + (lane >> 2) + 8 * h < nq && c.m[h] < 0.5f * NEG_INF;
+  return __syncthreads_or(unmet) != 0;
+}
+
 // The block's walk over key tiles 0 .. n_kv - 1 of its key block, the
 // carry `c` in registers (every thread of the block calls it with the same
-// n_kv). `smem` holds Smem<kSplit>::BYTES.
+// n_kv and n_ext). After tile n_kv - 1, if a row has met no unmasked key
+// (`unmet_rows`), it goes on through tiles n_kv .. n_ext - 1 (the extended
+// walk), staging the key tile and E chunk that the last tile did not
+// prefetch. `smem` holds Smem<kSplit>::BYTES.
 template <bool kSplit>
 __device__ __forceinline__ void attend(const TileArgs& a, int n_kv,
-                                       char* smem, Carry& c) {
+                                       int n_ext, char* smem, Carry& c) {
   using S = Smem<kSplit>;
   if (n_kv <= 0) return;
   const int warp = threadIdx.x >> 5;
@@ -499,8 +520,9 @@ __device__ __forceinline__ void attend(const TileArgs& a, int n_kv,
   a_frags(qf, smem + S::SLAB, 16 * warp);
   __syncthreads();  // Q's area becomes the slabs
 
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const bool more = kt + 1 < n_kv;
+  int n_end = n_kv;
+  for (int kt = 0; kt < n_end; ++kt) {
+    const bool more = kt + 1 < n_end;
     if (more) {  // key tile kt + 1 and E chunk kt + 2, during this tile
       tile_load(smem + S::K + ((kt + 1) & 1) * TILE_BYTES, a.k, a.ld,
                 (kt + 1) * BK, a.nkeys);
@@ -517,6 +539,18 @@ __device__ __forceinline__ void attend(const TileArgs& a, int n_kv,
       cp_async_wait_all();
     }
     __syncthreads();
+    if (kt + 1 == n_end && n_end < n_ext && unmet_rows(c, a.nq)) {
+      n_end = n_ext;  // the extended walk: stage what tile kt skipped
+      tile_load(smem + S::K + ((kt + 1) & 1) * TILE_BYTES, a.k, a.ld,
+                (kt + 1) * BK, a.nkeys);
+      tile_load(smem + S::V + ((kt + 1) & 1) * TILE_BYTES, a.v, a.ld,
+                (kt + 1) * BK, a.nkeys);
+      cp_async_commit();
+      e_load(st, a.e, a.max_seq, a.ebase + (kt + 2) * BK);
+      e_store<kSplit>(st, smem, (kt + 2) % 3);
+      cp_async_wait_all();
+      __syncthreads();
+    }
   }
 }
 

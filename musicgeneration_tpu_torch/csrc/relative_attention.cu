@@ -18,12 +18,19 @@
 // tile's last row, as the TPU kernel does. That is exact for every row
 // with at least one unmasked key among the keys it reaches (s <= t): a
 // skipped logit then adds e^(-1e9 + ...) = 0. A row whose reachable keys
-// are all padded is out of contract, as in kernel G: every logit of the
-// plain version is -1e9 and it averages V over all L keys, the kernel
-// over the key tiles it walked. Key 0 padded under causal gives such rows
-// (the model's key_pad with pad_in_input and an input that starts with
-// the pad id, up to its first other token); the main paths' prompts and
-// cli.train's crops never do.
+// are all padded is not: the plain version's logits are -1e9 on those
+// keys and on every later unpadded key (one mask each) and -2e9 on later
+// padded keys, so it averages V over the single-mask keys, later ones
+// included. Key 0 padded under causal gives such rows (the model's
+// key_pad with pad_in_input and an input that starts with the pad id, up
+// to its first other token). So after the causal walk the block votes
+// (__syncthreads_or): if a real row of its query tile still has its
+// running max at the -1e9 floor, it walks the remaining key tiles too,
+// with the same masked body. Every other row's bits are unchanged by
+// those tiles (alpha = e^0 = 1, p = 0), and a block without such rows
+// pays the vote alone. (The JAX Pallas kernel skips the same tiles, so
+// its answer for such rows depends on its block size; the port holds
+// itself to the plain version, which is the definition.)
 //
 // What bounds it: at the prefill shape (B8 H4 L512 dh64, bf16) the
 // causal work is ~1.6 GFLOP (QK, QE and PV) against ~8.9 MB of traffic
@@ -113,7 +120,8 @@ rel_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // band row of micro-tile element (i, j) is rbase + 3 - i + j
   const int rbase = 60 - 4 * ty + 4 * tx;
 
-  for (int kt = 0; kt < n_kv; ++kt) {
+  int n_end = n_kv;  // n_tiles after a vote for the extended walk
+  for (int kt = 0; kt < n_end; ++kt) {
     const int s0 = kt * BK;
     const int ebase = max_seq - BQ - t0 + s0;
     __syncthreads();  // previous tile's Ks/Vs/Es/Ps fully consumed
@@ -208,6 +216,13 @@ rel_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
     }
+    if (kt + 1 == n_kv && n_kv < n_tiles) {  // the extended walk's vote
+      bool unmet = false;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        unmet |= t0 + ty * 4 + i < L && m[i] < 0.5f * NEG_INF;
+      if (__syncthreads_or(unmet)) n_end = n_tiles;
+    }
   }
 
 #pragma unroll
@@ -267,7 +282,7 @@ rel_attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int j = 0; j < 8; ++j)
     c.o[j][0] = c.o[j][1] = c.o[j][2] = c.o[j][3] = 0.f;
-  tc::attend<false>(a, n_kv, tc_smem, c);
+  tc::attend<false>(a, n_kv, n_tiles, tc_smem, c);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;

@@ -23,12 +23,17 @@
 //
 // Under causal, key tiles that start after the query tile's last row are
 // skipped, so a round whose block lies wholly after the shard's queries
-// (src > i) reads nothing but the carry. That is exact whenever a row has
-// at least one unmasked key among the keys seen so far: a skipped logit
-// is below m - 1e9 + |x| and its e^(logit - m) is 0 in f32. A row whose
-// every key so far is masked is out of contract (its carry may differ
-// from the plain version's until its first unmasked key wipes it out with
-// e^(m - m') = 0); JAX's pad pattern never leaves a row so at the end.
+// (src > i) reads nothing but the carry's m. That is exact whenever a row
+// has at least one unmasked key among the keys seen so far: a skipped
+// logit is below m - 1e9 + |x| and its e^(logit - m) is 0 in f32. A row
+// whose every key so far is masked is not: the plain ring walks every
+// round, and such a row's carry averages V over every key whose logit
+// carries a single -1e9 (a later unpadded key too) until its first
+// unmasked key wipes it out with e^(m - m') = 0. So a block whose carry,
+// after the causal tiles of its round (none when src > i), still holds a
+// real row at the -1e9 floor walks the remaining key tiles of the round
+// with the same masked body (a __syncthreads_or vote); other rows' bits
+// are unchanged by them, as in kernel A.
 //
 // What bounds it: at the main shape (B 8, H 4, L 2048 over 4 shards of
 // Lloc 512, bf16) one ring pass does ~67M causal (t, s) pairs of three
@@ -135,7 +140,18 @@ ring_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // band row of micro-tile element (i, j) is rbase + 3 - i + j
   const int rbase = 60 - 4 * ty + 4 * tx;
 
-  for (int kt = 0; kt < n_kv; ++kt) {
+  // the extended walk's vote: a real row whose carry has met no unmasked
+  // key (its m at the -1e9 floor) after the causal tiles
+  auto unmet = [&]() {
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      any |= qt0 + ty * 4 + i < Lloc && m[i] < 0.5f * NEG_INF;
+    return __syncthreads_or(any) != 0;
+  };
+  int n_end = n_kv;
+  if (n_kv == 0 && causal && unmet()) n_end = n_tiles;
+  for (int kt = 0; kt < n_end; ++kt) {
     const int sk = kt * BK;         // first local key of the tile
     const int ebase = max_seq - BQ - tq + s0 + sk;
     __syncthreads();  // previous tile's Ks/Vs/Es/Ps fully consumed
@@ -230,6 +246,7 @@ ring_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
     }
+    if (kt + 1 == n_kv && n_kv < n_tiles && unmet()) n_end = n_tiles;
   }
 
 #pragma unroll
@@ -285,7 +302,6 @@ ring_tile_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int t_last = t0 + min(qt0 + tc::BQ, Lloc) - 1;
     n_kv = t_last < s0 ? 0 : min(n_tiles, (t_last - s0) / tc::BK + 1);
   }
-  if (n_kv == 0 && !out) return;  // the carry stays as it is
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -293,8 +309,17 @@ ring_tile_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int tl = qt0 + 16 * warp + g + 8 * i;
+    c.m[i] = tl < Lloc ? m_c[crow + tl] : NEG_INF;
+  }
+  const int nq = min(tc::BQ, Lloc - qt0);
+  // a round with no causal tile reads the carry's m alone, unless a row of
+  // it has met no unmasked key (the extended walk)
+  const bool extend_all = n_kv == 0 && causal && tc::unmet_rows(c, nq);
+  if (n_kv == 0 && !extend_all && !out) return;  // the carry stays as it is
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int tl = qt0 + 16 * warp + g + 8 * i;
     const bool in = tl < Lloc;
-    c.m[i] = in ? m_c[crow + tl] : NEG_INF;
     c.l[i] = in ? l_c[crow + tl] : 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -312,7 +337,7 @@ ring_tile_tc_kernel(const __nv_bfloat16* __restrict__ q,
   a.k = k + ((size_t)kvb * B + b) * Lloc * d + h * DH;
   a.v = v + ((size_t)kvb * B + b) * Lloc * d + h * DH;
   a.ld = d;
-  a.nq = min(tc::BQ, Lloc - qt0);
+  a.nq = nq;
   a.nkeys = Lloc;
   a.pad = pad ? pad + ((size_t)kvb * B + b) * Lloc : nullptr;
   a.e = e;
@@ -322,13 +347,15 @@ ring_tile_tc_kernel(const __nv_bfloat16* __restrict__ q,
   a.s0 = s0;
   a.causal = causal;
   a.scale = scale;
-  tc::attend<true>(a, n_kv, tc_smem, c);
+  // the causal tiles and, after a vote, the extended walk
+  const int n_end = extend_all ? n_tiles : n_kv;
+  tc::attend<true>(a, n_end, causal ? n_tiles : n_end, tc_smem, c);
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int tl = qt0 + 16 * warp + g + 8 * i;
     if (tl >= Lloc) continue;
-    if (n_kv > 0) {
+    if (n_end > 0) {
       if (t4 == 0) {
         m_c[crow + tl] = c.m[i];
         l_c[crow + tl] = c.l[i];

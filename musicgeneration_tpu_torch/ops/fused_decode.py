@@ -36,6 +36,15 @@ TPU took int8 only in its weight-streaming mode (d_model a multiple of
 Both write the new K/V rows into the caches IN PLACE (rows [t, t+C))
 and return the same cache tensors; the JAX kernels returned the rows and
 their callers wrote them with ``dynamic_update_slice``.
+
+On the card both run three launches a layer over R = B * C rows. In
+bf16 (unquantized and int8) they run on the tensor cores
+(``csrc/decode_tc.cuh``): the qkv projection spread over column blocks,
+one split tile of attention shared by B and E (the queries as the M rows
+of ``mma.sync``), and the tail as one thread-block cluster per 16 rows
+whose CTAs own column slices of the weights; in f32 they run the
+CUDA-core body of ``csrc/fused_decode.cu``. Kernel E equals C chained
+kernel-B steps bit for bit in both.
 """
 
 from __future__ import annotations

@@ -187,8 +187,9 @@ def ring_tile(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors run ``ring_tile_plain``. CUDA tensors launch kernel G
     (dh = 64, contiguous tensors) or raise. Under ``causal`` the kernel
-    skips key tiles after a query tile's last row; that is exact for
-    every row that has at least one unmasked key so far (csrc note)."""
+    skips key tiles after a query tile's last row unless a row of the
+    tile has met no unmasked key so far; it then walks them too, so every
+    row's carry is the plain version's (csrc note)."""
     _check(q, k, v, pad, e, m, l, acc, out, rank0, r, n)
     if q.device.type == "cpu":
         ring_tile_plain(q, k, v, pad, e, m, l, acc, rank0=rank0, r=r, n=n,
