@@ -2,33 +2,36 @@
 the decode loop), speculative decoding, serving and training paths on
 one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--loop-phases]
 
 Phases (the first failure raises and the exit code is non-zero):
 
 1. the card's name and power limit, torch and CUDA versions;
 2. build the hand-written kernels from ``musicgeneration_tpu_torch/csrc``
-   (one ``nvcc`` per source, started together; kernels B and E share
-   ``fused_decode.cu``) and, beside them, kernels A, G and C once more
-   with their bf16 mode sent to the earlier CUDA-core body (timed as
+   (one ``nvcc`` per source, started together; kernels B, E and F share
+   ``fused_decode.cu``) and, beside them, kernels A, G, C, B/E/F and D
+   once more with their bf16 mode sent to the earlier body (timed as
    ``earlier_ms``), print each kernel's ptxas line, and count in
    ``cuobjdump -sass`` the tensor-core instructions (HMMA/HGMMA) and
-   asynchronous copies (LDGSTS/UTMALDG) of kernels A's, G's and C's entry
-   functions (a bf16 one without either, or with bytes spilled, fails);
+   asynchronous copies (LDGSTS/UTMALDG/UBLKCP) of every entry function: a bf16
+   tensor-core entry of kernels A, G, C, B, E and D without either, kernel
+   F's cluster entry without asynchronous copies, or any of them with
+   bytes spilled, fails;
 3. kernel A (relative attention, prefill) against its plain PyTorch
    version at B8 H4 L512 dh64 max_seq 2048, f32 (TF32 off) and bf16,
    with and without key padding, non-causal, at L 100 (a ragged tile, as
    short prompts give), at L 1 (a one-token prompt), 17 and 2048, causal,
    with and without key padding, at the training shape (max_seq 512),
-   and with the first 3 keys padded, causal (those 3 rows, out of
-   contract, printed; the rest held to the tolerance);
+   and with the first 3 keys padded, causal (every row held to the
+   tolerance, the 3 rows that reach no unmasked key too);
 4. kernel B (fused decode step) against its plain version at the
    flagship width (6 layers, d 256, B 8, cache 1024) for several t,
    f32 and bf16, and at B 1 and B 3; then kernel C (relative attention
    backward) against its plain backward at B8 H4 L512 dh64, max_seq 512
    (training) and 2048, f32 (TF32 off) and bf16, causal and not, with
-   and without key padding, and at L 100, 17 and 1, every call repeated
-   and held bit-equal to the first; kernel E (the chunk-verify
+   and without key padding, and at L 100, 17 and 1, and at L 512 with
+   the first 3 keys padded, causal (the extended walk), every call
+   repeated and held bit-equal to the first; kernel E (the chunk-verify
    forward) against its plain version at the flagship width, f32 and
    bf16, B 1, 4 and 8, C 2, 5, 8 and 64, t 1, across the 128-row split,
    755 and max_seq - C, the cache rows outside [t, t+C) unchanged; then
@@ -37,8 +40,9 @@ Phases (the first failure raises and the exit code is non-zero):
    per launch) against its plain version, greedy in f32 and bf16 at B 1
    and 8, C 1, 7 and 32, t0 1, 127, 128, 755 and 2047 - C (a bf16 row may
    part only at a near tie, which is printed), and sampled in f32 with
-   fixed seeds (T 1; T 0.9 top-k 20; top-p 0.9), the cache rows outside
-   [t0, t0+C) unchanged;
+   fixed seeds (T 1; T 0.9 top-k 20; top-p 0.9), and greedy in bf16 at
+   the d 1024 rung (B 1 and 8, C 7, t0 755), whose widths send bf16 to
+   the one-block body, the cache rows outside [t0, t0+C) unchanged;
 5. end to end at full width (vocab 309, 6 layers, d 256, max_seq 2048,
    seeded random weights) through the user's entry point: the weights
    saved as a .pth, a prime MIDI written, ``cli.generate`` run on them
@@ -90,7 +94,8 @@ Phases (the first failure raises and the exit code is non-zero):
    bound and, where one PyTorch call computes the same function,
    ``F.scaled_dot_product_attention`` with the relative bias materialized
    as ``attn_mask`` (forward for kernel A, forward + backward for kernel
-   C); kernels A, G and C beside their earlier CUDA-core bf16 bodies, and
+   C); kernels A, G, C, B, E, D and F beside their earlier bf16 bodies
+   (D and F in turns, current and earlier), and
    kernel C's launches one by one under ``torch.profiler``; ragged
    kernel B at t 1023 with a live window of 256, under
    ``start_min`` 0 and min(start); the bf16 train step over 25 warm
@@ -101,7 +106,9 @@ Phases (the first failure raises and the exit code is non-zero):
    share); kernel E at C 8, t 755, B 1 and B 8 beside its plain version,
    its bound and one kernel-B step; kernel F at C 32, t0 755, B 8 and
    B 1 beside its plain version and its bound, and a ``torch.profiler``
-   window over the loop path's 16 chunks;
+   window over the loop path's 16 chunks; with ``--loop-phases`` only,
+   kernel F's time per step by phase (sampler, products, attention,
+   cluster barriers, head) from a build with phase clocks;
 10. the GRU families (EventMelodyRNN 308/32/512/3, PerformanceRNN with 24
    controls; seeded random weights saved in the reference formats, a
    bare state dict and a session dict): kernel D (the stacked-GRU step)
@@ -117,7 +124,8 @@ Phases (the first failure raises and the exit code is non-zero):
    64, depth 2, boost 8) on 24 requests (prompts of 1-500 tokens, 64-768
    new, eos, own sampling, ``init_seed``, PerformanceRNN control rows)
    with exact launches; kernel D's device time warm and with L2 flushed
-   at B 8 and B 1, its plain version, its bound, ``torch.nn.GRU``
+   at B 8 and B 1, beside its earlier CUDA-core body in turns, its plain
+   version, its bound, ``torch.nn.GRU``
    (cuDNN) over one step, warm and with L2 flushed as kernel D; a
    ``torch.profiler`` window over 32 decode
    steps;
@@ -212,7 +220,8 @@ from musicgeneration_tpu_torch.ops import gru as gru_mod  # noqa: E402
 from musicgeneration_tpu_torch.ops import cuda_build  # noqa: E402
 from musicgeneration_tpu_torch.ops.decode_loop import (  # noqa: E402
     fused_decode_loop, fused_decode_loop_plain, gumbel, inv_temperature,
-    loop_bits, loop_sample, loop_sample_kernel, sample_mask)
+    loop_bits, loop_sample, loop_sample_kernel, loop_takes_cluster,
+    pack_loop_matrices, sample_mask)
 from musicgeneration_tpu_torch.ops.fused_attention import (  # noqa: E402
     fused_relative_attention, fused_relative_attention_bwd,
     fused_relative_attention_bwd_plain, fused_relative_attention_plain)
@@ -405,13 +414,40 @@ extern "C" int mg_rel_attn_bwd(int is_bf16, const void* q, const void* k,
 }
 """
 # kernels B and E: the bf16 body before the tensor-core design of
-# decode_tc.cuh (unquantized and int8)
+# decode_tc.cuh (unquantized and int8); kernel F: the bf16 body before the
+# cluster design (one block a batch row, now the f32 mode's)
 EARLIER_SHIMS["fused_decode"] = """
 #define mg_decode_step mg_decode_step_tc
 #define mg_decode_chunk mg_decode_chunk_tc
+#define mg_decode_loop mg_decode_loop_tc
 #include "fused_decode.cu"
 #undef mg_decode_step
 #undef mg_decode_chunk
+#undef mg_decode_loop
+extern "C" int mg_decode_loop(int is_bf16, int num_layers, void* logits,
+                              void* tokens, int tok_stride, const void* seed,
+                              const void* const* w, const void* const* packed,
+                              const void* embed,
+                              const void* pos, const void* fc_w,
+                              const void* fc_b, void* kc, void* vc,
+                              const void* e, int B, int C, int S, int d,
+                              int H, int f, int V, int t0, int max_seq,
+                              float scale, float inv_temp, int greedy,
+                              int top_k, int use_p, float top_p,
+                              void* stream) {
+  const LoopSampling sp{inv_temp, greedy, top_k, use_p, top_p};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C < 1 || H > LOOP_WARPS || d % 8 || f % 8 || f > 8 * LOOP_THREADS)
+    return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return decode_loop<__nv_bfloat16, false>(
+        num_layers, logits, tokens, tok_stride, seed, w, nullptr, embed, pos,
+        fc_w, fc_b, kc, vc, e, B, C, S, d, H, f, V, t0, max_seq, scale, sp,
+        s);
+  return decode_loop<float>(num_layers, logits, tokens, tok_stride, seed, w,
+                            nullptr, embed, pos, fc_w, fc_b, kc, vc, e, B, C,
+                            S, d, H, f, V, t0, max_seq, scale, sp, s);
+}
 extern "C" int mg_decode_step(int is_bf16, int num_layers, void* x,
                               void* qbuf, void* part, const void* const* w,
                               const void* const* sc, void* kc, void* vc,
@@ -434,7 +470,49 @@ extern "C" int mg_decode_chunk(int is_bf16, int num_layers, void* x,
                        stream);
 }
 """
-EARLIER_LIBS = {}  # name -> built library of EARLIER_SHIMS
+# kernel D: the bf16 body before the tensor-core design (the CUDA-core
+# body, now the f32 mode's, with its staging loads batched)
+EARLIER_SHIMS["fused_gru_decode"] = """
+#define mg_gru_step mg_gru_step_tc
+#include "fused_gru_decode.cu"
+#undef mg_gru_step
+extern "C" int mg_gru_step(int is_bf16, int num_layers, const void* x,
+                           int in, const void* h, void* hout,
+                           const void* const* wih, const void* const* whh,
+                           const void* const* bih, const void* const* bhh,
+                           int B, int H, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_step<__nv_bfloat16, false>(num_layers, x, in, h, hout, wih,
+                                             whh, bih, bhh, B, H, s);
+  return launch_step<float>(num_layers, x, in, h, hout, wih, whh, bih, bhh,
+                            B, H, s);
+}
+"""
+# kernel F's bf16 body with its phase clocks (MG_LOOP_TRACE): thread 0 of
+# CTA 0 of batch row 0 adds the clock64 cycles of each phase; built and
+# run only with --loop-phases (profile_loop_phases)
+TRACE_SHIM = """
+#define MG_LOOP_TRACE
+#include "fused_decode.cu"
+extern "C" int mg_loop_trace(void* out, int reset) {
+  if (reset) {
+    unsigned long long zero[LC_PHASES] = {};
+    return (int)cudaMemcpyToSymbol(mg_loop_phase_cycles, zero, sizeof(zero));
+  }
+  return (int)cudaMemcpyFromSymbol(out, mg_loop_phase_cycles,
+                                   sizeof(unsigned long long) * LC_PHASES);
+}
+"""
+LOOP_PHASES = ("sampler and embedding", "q, k, v products", "barrier: q, k, v",
+               "scores", "maxima and barrier", "softmax and PV",
+               "barrier: (l, PV)", "merge, fc", "barrier: z (LN1)",
+               "LN1, FFN1", "barrier: hidden", "FFN2", "barrier: z (LN2)",
+               "LN2", "head", "barrier: logits",
+               # waits inside the phases above
+               "of which waiting for weight slots",
+               "of which waiting for staged rows")
+EARLIER_LIBS = {}  # name -> built library of EARLIER_SHIMS (and the trace)
 RING_STEPS = 3  # timed train steps, each path
 # timing: 64 MB written between calls evicts the 50 MB L2
 FLUSH_BYTES = 64 << 20
@@ -517,12 +595,16 @@ def device_ms(fn, iters: int = 100, flush=None) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
-def start_earlier_builds() -> dict:
-    """Start one ``nvcc`` for each of ``EARLIER_SHIMS``, with the port's
-    flags, into the build directory; ``finish_earlier_builds`` waits."""
+def start_earlier_builds(loop_phases: bool = False) -> dict:
+    """Start one ``nvcc`` for each of ``EARLIER_SHIMS`` (and, with
+    ``loop_phases``, the trace build of kernel F), with the port's flags,
+    into the build directory; ``finish_earlier_builds`` waits."""
     os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
     procs = {}
-    for name, text in EARLIER_SHIMS.items():
+    shims = dict(EARLIER_SHIMS)
+    if loop_phases:
+        shims["fused_decode_trace"] = TRACE_SHIM
+    for name, text in shims.items():
         src = cuda_build.BUILD_DIR / f"earlier_{name}.cu"
         src.write_text(text)
         so = src.with_suffix(".so")
@@ -706,15 +788,14 @@ def check_kernel_c() -> float:
     return worst
 
 
-def observe_kernel_c_left_pad() -> dict:
-    """Kernel C on the rows kernel A's extended walk changed: keys 0 ..
-    LEFT_PAD - 1 padded, causal (L 512, max_seq 2048), against its plain
-    backward from the same forward. Observed and printed, not held: the
-    backward walks the causal key tiles only, and a row whose reachable
-    keys are all padded now has the plain LSE over every single-mask key
-    (ROADMAP Queue C). Returns the relative errors."""
+def check_kernel_c_left_pad() -> None:
+    """Kernel C on the rows kernel A's extended walk serves: keys 0 ..
+    LEFT_PAD - 1 padded, causal (L 512, max_seq 2048), f32 and bf16,
+    against its plain backward from the same forward: dq, dk, dv and dE
+    within TOL_C (the extended walk: flagged query tiles' dq blocks past
+    the diagonal, dkv blocks before it), a second call bit-equal to the
+    first."""
     gen = torch.Generator().manual_seed(27)
-    out = {}
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, e, pad = attn_inputs(dtype, gen, "left")
         dout = torch.randn(q.shape, generator=gen).to(DEV, dtype)
@@ -722,18 +803,24 @@ def observe_kernel_c_left_pad() -> dict:
                                           return_lse=True)
         got = fused_relative_attention_bwd(q, k, v, e, pad, True, o, lse,
                                            dout)
+        again = fused_relative_attention_bwd(q, k, v, e, pad, True, o, lse,
+                                             dout)
         ref = fused_relative_attention_bwd_plain(q, k, v, e, pad, True, o,
                                                  lse, dout)
         torch.cuda.synchronize()
         errs = [rel_err(a, r) for a, r in zip(got, ref)]
-        rows = [rel_err(got[0][:, :, :LEFT_PAD], ref[0][:, :, :LEFT_PAD]),
-                rel_err(got[0][:, :, LEFT_PAD:], ref[0][:, :, LEFT_PAD:])]
-        print(f"kernel C {str(dtype):15s} key_pad=left (observed, not held): "
-              f"rel_err dq={errs[0]:.2e} dk={errs[1]:.2e} dv={errs[2]:.2e} "
-              f"de={errs[3]:.2e}; dq rows 0-{LEFT_PAD - 1} {rows[0]:.2e}, "
-              f"rows {LEFT_PAD}- {rows[1]:.2e} (TOL_C {TOL_C[dtype]:.0e})")
-        out[str(dtype)] = errs
-    return out
+        rows = rel_err(got[0][:, :, :LEFT_PAD], ref[0][:, :, :LEFT_PAD])
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok = max(errs) <= TOL_C[dtype] and same and all(
+            bool(torch.isfinite(a).all()) for a in got)
+        print(f"kernel C {str(dtype):15s} key_pad=left causal: rel_err "
+              f"dq={errs[0]:.2e} dk={errs[1]:.2e} dv={errs[2]:.2e} "
+              f"de={errs[3]:.2e} (dq rows 0-{LEFT_PAD - 1} {rows:.2e}) "
+              f"bit_equal_rerun={same} tol={TOL_C[dtype]:.0e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("kernel C disagrees with its plain version "
+                                 "on left-padded rows")
 
 
 def flagship(dtype, seed: int = 0, quant: str = "none",
@@ -1942,7 +2029,8 @@ def time_kernel_d(launches: int, err: float) -> dict:
     """Kernel D in bf16 at EventMelodyRNN's shape (in 308) and
     PerformanceRNN's (in 512), H 512, 3 layers, B 8 and B 1: device time
     warm (weights in L2) and with L2 flushed before each call (weights
-    from device memory, what the bound counts); its plain version;
+    from device memory, what the bound counts), each beside its earlier
+    CUDA-core body in turns; its plain version;
     torch.nn.GRU (cuDNN) over one time step, the same function, also warm
     and flushed (``ms`` and ``library_ms`` are both flushed)."""
     dtype = torch.bfloat16
@@ -1957,15 +2045,17 @@ def time_kernel_d(launches: int, err: float) -> dict:
 
             def step():
                 return fused_gru_step(x, h, w)
-            warm = device_ms(step)
-            cold = device_ms(step, flush=flush)
+            warm, e_warm = with_earlier(step, "fused_gru_decode", iters=100)
+            cold, e_cold = with_earlier(step, "fused_gru_decode", iters=100,
+                                        flush=flush)
             bnd, by = gru_bound(b, in_dim, dtype)
-            res[(family, b)] = (warm, cold, bnd, by, x, h, w)
+            res[(family, b)] = (warm, cold, bnd, by, x, h, w, e_warm, e_cold)
             print(f"kernel D bf16 {family} in={in_dim} B={b}: warm "
-                  f"{warm:.5f} ms, L2 flushed {cold:.5f} ms; bound "
-                  f"{bnd:.5f} ms ({by}, weights from device memory)",
-                  f"on {gpu_line()}")
-    warm, cold, bnd, by, x, h, w = res[("event_rnn", B)]
+                  f"{warm:.5f} ms, L2 flushed {cold:.5f} ms (earlier "
+                  f"CUDA-core body, in turns: warm {e_warm:.5f} ms, flushed "
+                  f"{e_cold:.5f} ms); bound {bnd:.5f} ms ({by}, weights "
+                  f"from device memory)", f"on {gpu_line()}")
+    warm, cold, bnd, by, x, h, w, e_warm, e_cold = res[("event_rnn", B)]
     plain_ms = device_ms(lambda: fused_gru_step_plain(x, h, w), iters=20)
     # the yardstick in the same call, like with like: cuDNN warm and with
     # L2 flushed before each call, as kernel D
@@ -1994,6 +2084,9 @@ def time_kernel_d(launches: int, err: float) -> dict:
             "launches": launches, "max_abs_err": err, "ms": cold,
             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
             "library_ms": library["bf16_flushed"], "ms_warm": warm,
+            "earlier_ms": e_cold, "earlier_ms_warm": e_warm,
+            "earlier_ms_b1": res[("event_rnn", 1)][8],
+            "earlier_ms_performance_rnn": res[("performance_rnn", B)][8],
             "library_ms_warm": library["bf16"],
             "library_ms_f32": library["f32_flushed"],
             "library_ms_f32_warm": library["f32"],
@@ -2397,7 +2490,8 @@ def time_kernel_a(launches: int, err: float) -> dict:
             "library_ms": library_ms, "earlier_ms": earlier_ms}
 
 
-def with_earlier(fn, name: str = "fused_decode", iters: int = 50) -> tuple:
+def with_earlier(fn, name: str = "fused_decode", iters: int = 50,
+                 flush=None) -> tuple:
     """Device ms of ``fn`` through the current body and through the
     earlier one (``EARLIER_SHIMS[name]``), in turns: current, earlier,
     earlier, current. Returns (current, earlier), each the mean of two."""
@@ -2405,7 +2499,7 @@ def with_earlier(fn, name: str = "fused_decode", iters: int = 50) -> tuple:
     for earlier in (False, True, True, False):
         with (earlier_body(name) if earlier
               else contextlib.nullcontext()):
-            times.append(device_ms(fn, iters=iters))
+            times.append(device_ms(fn, iters=iters, flush=flush))
     return (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
 
 
@@ -3101,18 +3195,32 @@ def int8_rates() -> dict:
 # ---------------------------------------------------------------- kernel F
 
 def loop_inputs(model, stacked, lw, gen, b: int, cache_len: int = MAX_SEQ):
-    """Kernel F's inputs at the flagship width, drawn on the card: carried
+    """Kernel F's inputs at the model's width, drawn on the card: carried
     logits [b, V] f32, filled caches [L, b, cache_len, d] in the model
-    dtype, the stacked and loop weights, one seed."""
-    shape = (N_LAYERS, b, cache_len, D_MODEL)
+    dtype, the stacked and loop weights, the matrices the cluster body
+    reads (``pack_loop_matrices``, where the widths take it), one seed."""
+    shape = (model.num_layers, b, cache_len, model.d_model)
     embed, pos, fc_w, fc_b = lw
+    cluster = loop_takes_cluster(model.d_model,
+                                 stacked[0]["ffn1_w"].shape[-1], VOCAB,
+                                 cache_len, model.num_heads, model.dtype)
     return {"logits": torch.randn(b, VOCAB, generator=gen, device=DEV) * 2,
             "kc": torch.randn(shape, generator=gen, device=DEV).to(model.dtype),
             "vc": torch.randn(shape, generator=gen, device=DEV).to(model.dtype),
             "seed": torch.randint(0, 1 << 31, (1,), generator=gen,
                                   device=DEV),
             "embed": embed, "pos": pos, "fc_w": fc_w, "fc_b": fc_b,
-            "w_all": stacked[0], "e_all": stacked[1]}
+            "w_all": stacked[0], "e_all": stacked[1],
+            "heads": model.num_heads,
+            "packed": pack_loop_matrices(stacked[0]) if cluster else None}
+
+
+def loop_args(inp, t0: int, c: int) -> tuple:
+    """The positional arguments of one kernel F call on ``inp``'s own
+    logits and caches (pass ``packed=inp["packed"]`` beside them)."""
+    return (inp["logits"], t0, inp["seed"], inp["embed"], inp["pos"],
+            inp["e_all"], inp["w_all"], inp["fc_w"], inp["fc_b"], inp["kc"],
+            inp["vc"], inp["heads"], c)
 
 
 def loop_call(fn, inp, t0: int, c: int, sp: SamplingParams):
@@ -3122,8 +3230,8 @@ def loop_call(fn, inp, t0: int, c: int, sp: SamplingParams):
                       inp["vc"].clone())
     toks, logits = fn(logits, t0, inp["seed"], inp["embed"], inp["pos"],
                       inp["e_all"], inp["w_all"], inp["fc_w"], inp["fc_b"],
-                      kc, vc, H, c, sp.temperature, sp.greedy, sp.top_k,
-                      sp.top_p)
+                      kc, vc, inp["heads"], c, sp.temperature, sp.greedy,
+                      sp.top_k, sp.top_p, packed=inp["packed"])
     return toks, logits, kc, vc
 
 
@@ -3188,30 +3296,42 @@ def check_kernel_f() -> float:
     """Kernel F against its plain version at the flagship width (caches of
     max_seq rows): greedy, f32 and bf16, B 1 and 8, C 1, 7, 32, t0 1,
     127, 128, 755, 2047 - C; then sampled f32 (T 1; T 0.9 top-k 20;
-    top-p 0.9) at B 8, C 32, t0 1 and 755 with fixed seeds."""
+    top-p 0.9) at B 8, C 32, t0 1 and 755 with fixed seeds. Then bf16 at
+    the d 1024 rung (16 heads, FFN 512), past the cluster body's widths,
+    so the one-block body runs it: greedy, B 1 and 8, C 7, t0 755."""
     gen = torch.Generator(DEV).manual_seed(17)
     greedy = SamplingParams(greedy=True)
     worst = 0.0
+    runs = []
     for dtype in (torch.float32, torch.bfloat16):
-        model = flagship(dtype)
-        stacked, lw = model.decode_weights(), model.loop_weights()
         cases = [(greedy, "greedy", b, c, t0) for b in (1, B)
                  for c in LOOP_CHUNKS
                  for t0 in (1, 127, 128, T_TIMED, MAX_SEQ - 1 - c)]
         if dtype == torch.float32:
             cases += [(sp, name, B, LOOP_CHUNK, t0) for name, sp in LOOP_MODES
                       for t0 in (1, T_TIMED)]
+        runs.append((flagship(dtype), True, cases))
+    runs.append((flagship(torch.bfloat16, d_model=D_RUNG), False,
+                 [(greedy, "greedy", b, 7, T_TIMED) for b in (1, B)]))
+    for model, cluster, cases in runs:
+        dtype = model.dtype
+        stacked, lw = model.decode_weights(), model.loop_weights()
         for sp, name, b, c, t0 in cases:
             inp = loop_inputs(model, stacked, lw, gen, b)
+            if (inp["packed"] is not None) != (
+                    cluster and dtype == torch.bfloat16):
+                raise AssertionError(f"kernel F at d {model.d_model} in "
+                                     f"{dtype} chose the other body")
             kern = loop_call(fused_decode_loop, inp, t0, c, sp)
             plain = loop_call(fused_decode_loop_plain, inp, t0, c, sp)
             torch.cuda.synchronize()
             err, parted = loop_agreement(inp, kern, plain, t0, c, dtype, sp)
             ok = err <= TOL_B[dtype] and bool(torch.isfinite(kern[1]).all())
-            print(f"kernel F {str(dtype):15s} {name:14s} B={b} C={c:2d} "
-                  f"t0={t0:4d}: tokens equal in {b - parted}/{b} rows, "
-                  f"max_abs_err={err:.3e} tol={TOL_B[dtype]:.1e}; rows "
-                  f"outside [t0, t0+C) untouched {'ok' if ok else 'FAIL'}")
+            print(f"kernel F {str(dtype):15s} d={model.d_model:4d} "
+                  f"{name:14s} B={b} C={c:2d} t0={t0:4d}: tokens equal in "
+                  f"{b - parted}/{b} rows, max_abs_err={err:.3e} "
+                  f"tol={TOL_B[dtype]:.1e}; rows outside [t0, t0+C) "
+                  f"untouched {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError("kernel F disagrees with its plain "
                                      "version")
@@ -3456,9 +3576,9 @@ def loop_bound(b: int, c: int, t0: int) -> tuple:
 
 def time_kernel_f(launches: int, by_path: dict, err: float) -> dict:
     """Kernel F in bf16 at the main path's shape (C 32, t0 755, sampled
-    T 1, the flagship width) at B 8 and B 1: device time, its plain
-    version, its bound. No single PyTorch call computes C decode steps
-    (library null)."""
+    T 1, the flagship width) at B 8 and B 1: device time beside its
+    earlier one-block-a-row body in turns, its plain version, its bound.
+    No single PyTorch call computes C decode steps (library null)."""
     model = flagship(torch.bfloat16)
     stacked, lw = model.decode_weights(), model.loop_weights()
     gen = torch.Generator(DEV).manual_seed(18)
@@ -3466,25 +3586,76 @@ def time_kernel_f(launches: int, by_path: dict, err: float) -> dict:
     res = {}
     for b in (B, 1):
         inp = loop_inputs(model, stacked, lw, gen, b, 1024)
-        args = (inp["logits"], t0, inp["seed"], inp["embed"], inp["pos"],
-                inp["e_all"], inp["w_all"], inp["fc_w"], inp["fc_b"],
-                inp["kc"], inp["vc"], H, c)
-        ms = device_ms(lambda: fused_decode_loop(*args), iters=10)
+        args = loop_args(inp, t0, c)
+        ms, earlier_ms = with_earlier(
+            lambda: fused_decode_loop(*args, packed=inp["packed"]), iters=10)
         plain_ms = device_ms(lambda: fused_decode_loop_plain(*args), iters=2)
         bnd, by = loop_bound(b, c, t0)
-        res[b] = (ms, plain_ms, bnd, by)
+        res[b] = (ms, plain_ms, bnd, by, earlier_ms)
         print(f"kernel F bf16 B={b} C={c} t0={t0}: {ms:.4f} ms per launch "
-              f"({1e3 * ms / c:.1f} us per step), plain {plain_ms:.4f} ms, "
-              f"bound {bnd:.5f} ms ({by})", f"on {gpu_line()}")
-    ms, plain_ms, bnd, by = res[B]
+              f"({1e3 * ms / c:.1f} us per step); earlier (one block a row) "
+              f"body, in turns, {earlier_ms:.4f} ms ({1e3 * earlier_ms / c:.1f}"
+              f" us per step); plain {plain_ms:.4f} ms, bound {bnd:.5f} ms "
+              f"({by})", f"on {gpu_line()}")
+    ms, plain_ms, bnd, by, earlier_ms = res[B]
     return {"name": "fused_decode_loop", "route": "cuda",
             "source": "musicgeneration_tpu_torch/csrc/fused_decode.cu",
             "replaces": "musicgeneration_tpu/ops/pallas_decode_loop.py:377",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
             "library_ms": None, "launches_by_path": by_path,
-            "ms_b1": res[1][0], "plain_ms_b1": res[1][1],
+            "earlier_ms": earlier_ms, "ms_b1": res[1][0],
+            "earlier_ms_b1": res[1][4], "plain_ms_b1": res[1][1],
             "bound_ms_b1": res[1][2]}
+
+
+def profile_loop_phases() -> dict:
+    """Kernel F's bf16 body at time_kernel_f's shape (B 8, C 32, t0 755,
+    sampled T 1) through the phase-time build: the device us per step of
+    each phase on CTA 0 of batch row 0 (a barrier's time is the wait for
+    the slowest CTA), from clock64 cycles at the clock ``torch.cuda._sleep``
+    measures."""
+    model = flagship(torch.bfloat16)
+    stacked, lw = model.decode_weights(), model.loop_weights()
+    gen = torch.Generator(DEV).manual_seed(18)
+    t0, c = T_TIMED, LOOP_CHUNK
+    inp = loop_inputs(model, stacked, lw, gen, B, 1024)
+    args, packed = loop_args(inp, t0, c), inp["packed"]
+    lib = cuda_build.load("fused_decode")
+    traced = ctypes.CDLL(str(EARLIER_LIBS["fused_decode_trace"]))
+    trace = traced.mg_loop_trace
+    trace.restype = ctypes.c_int
+    trace.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    cuda_build._LIBS["fused_decode"] = traced
+    try:
+        fused_decode_loop(*args, packed=packed)  # warm
+        torch.cuda.synchronize()
+        calls = 5
+        if trace(None, 1) != 0:
+            raise RuntimeError("mg_loop_trace reset failed")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fused_decode_loop(*args, packed=packed)
+        end.record()
+        torch.cuda.synchronize()
+        cycles = (ctypes.c_ulonglong * len(LOOP_PHASES))()
+        if trace(cycles, 0) != 0:
+            raise RuntimeError("mg_loop_trace read failed")
+    finally:
+        cuda_build._LIBS["fused_decode"] = lib
+    per_ms = spin_cycles_per_ms()
+    us = {name: 1e3 * cycles[i] / per_ms / (calls * c)
+          for i, name in enumerate(LOOP_PHASES)}
+    total = sum(v for k, v in us.items() if not k.startswith("of which"))
+    wall = 1e3 * start.elapsed_time(end) / (calls * c)
+    print(f"kernel F bf16 phases, B={B} C={c} t0={t0}, us per step on CTA 0 "
+          f"of row 0 ({total:.1f} us traced, {wall:.1f} us per step by "
+          "events, the trace build): " + ", ".join(
+              f"{k} {v:.2f} ({100 * v / total:.0f}%)" for k, v in us.items()),
+          f"on {gpu_line()}")
+    return {"us_per_step": us, "traced_us": total, "event_us": wall}
 
 
 def loop_paths(prime: np.ndarray) -> dict:
@@ -3894,9 +4065,15 @@ def time_ring_step() -> dict:
 TC_ENTRIES = {"relative_attention": ("rel_attn_fwd_tc_kernel",),
               "ring_attention": ("ring_tile_tc_kernel",),
               "relative_attention_bwd": ("rel_attn_bwd_tc_kernel",),
+              "fused_gru_decode": ("gru_layer_tc_kernel",),
               "fused_decode": ("qkv_tc_kernel", "qkv_tc_kernel_int8",
                                "attn_tc_kernel", "tail_tc_kernel",
                                "tail_tc_kernel_int8")}
+
+
+# bf16 entry functions held to the asynchronous-copy and spill gates only
+# (kernel F's cluster body runs its GEMVs on the CUDA cores)
+ASYNC_ENTRIES = {"fused_decode": ("decode_loop_cluster_kernel",)}
 
 
 def entry_name(mangled: str) -> str:
@@ -3928,14 +4105,16 @@ def ptxas_lines() -> dict:
 
 def tensor_core_sass() -> None:
     """Count, in each entry function of the libraries of kernels A, G, C,
-    B and E, the tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma)
-    and the asynchronous global-to-shared copies (LDGSTS for cp.async,
-    UTMALDG for TMA) in ``cuobjdump -sass`` of the built library. Raises if
-    a bf16 entry function has no tensor-core instruction or no
+    B, E, D and F, the tensor-core instructions (HMMA for mma.sync, HGMMA
+    for wgmma) and the asynchronous global-to-shared copies (LDGSTS for
+    cp.async, UTMALDG for TMA) in ``cuobjdump -sass`` of the built
+    library. Raises if a bf16 entry function of ``TC_ENTRIES`` has no
+    tensor-core instruction, if one of it or of ``ASYNC_ENTRIES`` has no
     asynchronous copy, or if ptxas spilled in one."""
     spills = ptxas_lines()
     tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
-    for lib, bf16_entries in TC_ENTRIES.items():
+    for lib in sorted(set(TC_ENTRIES) | set(ASYNC_ENTRIES)):
+        bf16_entries = TC_ENTRIES.get(lib, ())
         sass = subprocess.run([tool, "-sass", str(cuda_build._lib_path(lib))],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -3947,14 +4126,14 @@ def tensor_core_sass() -> None:
                 counts[entry] = [0, 0]
             elif entry is not None:
                 counts[entry][0] += bool(re.search(r"\bHG?MMA\b", line))
-                counts[entry][1] += bool(re.search(r"\b(LDGSTS|UTMALDG)\b",
-                                                   line))
+                counts[entry][1] += bool(re.search(
+                    r"\b(LDGSTS|UTMALDG|UBLKCP)\b", line))
         for entry, (mma, cp) in counts.items():
             print(f"  sass {lib} {entry}: {mma} HMMA/HGMMA, {cp} "
-                  f"LDGSTS/UTMALDG")
-        for bf16_entry in bf16_entries:
+                  f"LDGSTS/UTMALDG/UBLKCP")
+        for bf16_entry in bf16_entries + ASYNC_ENTRIES.get(lib, ()):
             mma, cp = counts.get(bf16_entry, (0, 0))
-            if mma == 0 or cp == 0:
+            if (mma == 0 and bf16_entry in bf16_entries) or cp == 0:
                 raise AssertionError(f"{bf16_entry} has {mma} tensor-core "
                                      f"instructions and {cp} asynchronous "
                                      "copies")
@@ -3964,7 +4143,10 @@ def tensor_core_sass() -> None:
                 raise AssertionError(f"{bf16_entry} spills: {spilled}")
 
 
-def main() -> int:
+def main(argv: list) -> int:
+    """Every phase; ``--loop-phases`` also builds kernel F's trace shim and
+    prints its phase times (profile_loop_phases)."""
+    loop_phases = "--loop-phases" in argv
     print(gpu_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
@@ -3972,7 +4154,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    earlier = start_earlier_builds()
+    earlier = start_earlier_builds(loop_phases)
     secs = cuda_build.build()
     EARLIER_LIBS.update(finish_earlier_builds(earlier))
     print(f"built kernels in {time.perf_counter() - t0:.1f} s: "
@@ -3983,7 +4165,7 @@ def main() -> int:
     err_b = check_kernel_b()
     err_br = check_kernel_b_ragged()
     err_c = check_kernel_c()
-    observe_kernel_c_left_pad()
+    check_kernel_c_left_pad()
     err_d = check_kernel_d()
     err_e = check_kernel_e()
     check_chunk_vs_steps()
@@ -4048,6 +4230,8 @@ def main() -> int:
     for d, q in ((D_MODEL, "int8"), (D_RUNG, "none"), (D_RUNG, "int8")):
         profile_decode(d_model=d, quant=q)
     loop_prof = profile_loop(e2e["prime"])
+    if loop_phases:
+        row_f["us_per_step_by_phase"] = profile_loop_phases()["us_per_step"]
     profile_serving()
     profile_rnn_decode()
     profile_spec(e2e["prime"], draft=False)
@@ -4091,4 +4275,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

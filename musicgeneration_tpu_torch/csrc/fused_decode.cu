@@ -726,25 +726,69 @@ extern "C" int mg_decode_chunk(int is_bf16, int num_layers, void* x,
 // PLACE at row t, and runs the head (rounded to the model dtype, carried
 // as f32). There is no host work between the steps of a launch.
 //
-// Design for this card: one block of 512 threads per batch row. Rows are
-// independent (row b's step i reads only row b's cache), so no grid-wide
-// barrier is needed; a later step reads the K/V rows an earlier one wrote
-// after a __syncthreads (the same block, the same SM; the caches are
-// read through plain, coherent loads, never the read-only path). The
-// ~4 MB of bf16 weights stay L2-resident across the B blocks and the C
-// steps. Products of the stacked weights ([in, out]) give each thread 8
-// adjacent output columns (16-byte loads) over a slice of the input,
-// summed through shared memory; the head ([V, d], the nn.Linear weight)
-// is one warp per vocabulary row. Attention scores the live prefix
-// [0, t] of all heads into shared memory (one warp per prefix row, its
-// K row and E row read once for all heads), takes the softmax with one
-// warp per head (a global max, as the plain version, so P rounds where
-// it does) and sums PV with 8 columns per thread.
-// What bounds it: a row's step streams its weights (~4 MB) and its K/V
-// prefix through one SM, whose L2 bandwidth (~64 B/clock) sets ~100 us
-// per step at the flagship's shapes; the card's bytes bound for a whole
-// launch is far lower. Splitting a row across SMs (a cluster) and tensor
-// cores are the levers for a later PR.
+// Design for this card. Rows are independent (row b's step i reads only
+// row b's cache), so no grid-wide barrier is needed and one launch runs
+// every step of the chunk. Two bodies; the dtype and the widths choose.
+// * bf16 (the main path), where the widths fit (d a multiple of 64 and
+//   two weight slots of d x d / 8 in 227 KB, so d <= 576 at the flagship's
+//   vocabulary and cache): `decode_loop_cluster_kernel`, one thread-block
+//   cluster of LC_NC = 8 CTAs (256 threads each) per batch row, so that a
+//   step's bytes (~4 MB of weights, the K/V prefix, the E rows) stream
+//   through 8 SMs instead of one. CTA r owns d / 8 columns of q, k, v, fc
+//   and FFN2, an 8-aligned slice of FFN1's columns and ceil(V / 8) rows
+//   of the head. The six matrices come repacked (pack_loop_matrices, once
+//   with the weights) so that each CTA's slice of a layer's matrix is
+//   contiguous, and each slice arrives as
+//   one bulk copy (cp.async.bulk, completing on an mbarrier) in a ring of
+//   up to 3 shared-memory slots (stage i of the 6 L + 1 a step in slot i
+//   % ns), so the next products' weights are in flight during this one,
+//   the attention and the cluster barriers; the layer's bias slices and
+//   layer-norm parameters come by cp.async beside its first product. A
+//   product's column sums run on the CUDA cores (a GEMV: N is one row).
+//   Rows go to every CTA through distributed shared memory: q and row t's
+//   k and v (row t also to the caches), the fc and FFN2 outputs plus
+//   their residuals (each CTA then takes both layer norms over the whole
+//   row, in one fixed order), the FFN hidden layer, and the head's
+//   logits, from which every CTA draws the same token. Attention: CTA r
+//   scores its slice of the live prefix [0, t] for every head. Its K, V
+//   and E rows below t, which no kernel of this step writes, come by three
+//   bulk copies issued at the layer's start into what shared memory is
+//   left (rows past that capacity from L2; row t's k and v from the
+//   gathered rows), so they land during the q, k, v products. The CTAs'
+//   per-head maxima are exchanged first, so p = e^(x - M) takes the
+//   global max M and rounds to bf16 where the plain version rounds it;
+//   then each CTA's (l, PV) sums go to every CTA, which merges them in
+//   rank order. Six cluster barriers a layer and one a step (after the
+//   head) order the exchanges; barrier.cluster's release/acquire also
+//   orders the caches' row t, written by several CTAs, before any CTA
+//   reads it in a later step (through ld.global.cg, past L1, or a bulk
+//   copy after a proxy fence). Clusters of 16 CTAs (non-portable) were
+//   measured too: slower at B 8, where not all 8 clusters fit on the card
+//   at once, 6 % faster at B 1 (PERF.md); the cluster stays 8 at every B.
+// * f32 (the parity mode: f32 and sampled tokens must equal the plain
+//   version's), and bf16 at the widths the cluster body does not take
+//   (d 640-1024 at the flagship's vocabulary): `decode_loop_kernel`, one
+//   block of 512 threads per batch row, which was the bf16 body at every
+//   width before the cluster body (chip_smoke.py's earlier-body shim sends
+//   bf16 there at every width, so the two can be timed on the same
+//   inputs): a
+//   later step reads the K/V rows an earlier one wrote after a
+//   __syncthreads (the same block, the same SM; the caches are read
+//   through plain, coherent loads, never the read-only path). Products of
+//   the stacked weights ([in, out]) give each thread 8 adjacent output
+//   columns (16-byte loads) over a slice of the input, summed through
+//   shared memory; the head ([V, d]) is one warp per vocabulary row.
+//   Attention scores the live prefix [0, t] of all heads into shared
+//   memory (one warp per prefix row), takes the softmax with one warp per
+//   head (a global max, as the plain version) and sums PV with 8 columns
+//   per thread.
+// What bounds it: the bytes a launch must move (the weights, embedding
+// and head once, each row's prefix, E, the chunk's K/V rows) take ~13 us
+// at B 8, C 32 on the card. A step of the cluster body is a chain of
+// dependent phases (the sampler; per layer 4 products, the attention, 6
+// cluster barriers and 2 layer norms; the head), each a barrier, a round
+// trip to L2 or one across the cluster, so the chain's latency, not the
+// bytes, sets the time (PERF.md has it by phase).
 //
 // The random stream: Philox4x32-10, key (seed lo, seed hi), counter
 // (v / 4, b, t, 0), word v % 4 (ops/decode_loop.py's layout).
@@ -794,8 +838,10 @@ __device__ __forceinline__ int sort_key(float x) {
   return s ^ ((s >> 31) & 0x7fffffff);
 }
 
-// The block's largest value, the lowest index on ties (every thread
-// calls it and gets the index). red: LOOP_WARPS floats, redi as many ints.
+// The block's largest value, the lowest index on ties (every thread of a
+// block of NTH calls it and gets the index). red: NTH / 32 floats, redi as
+// many ints.
+template <int NTH = LOOP_THREADS>
 __device__ int block_argmax(float v, int i, float* red, int* redi) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -815,7 +861,7 @@ __device__ int block_argmax(float v, int i, float* red, int* redi) {
   __syncthreads();
   float bv = red[0];
   int bi = redi[0];
-  for (int w = 1; w < LOOP_WARPS; ++w)
+  for (int w = 1; w < NTH / 32; ++w)
     if (red[w] > bv || (red[w] == bv && redi[w] < bi)) {
       bv = red[w];
       bi = redi[w];
@@ -827,13 +873,14 @@ __device__ int block_argmax(float v, int i, float* red, int* redi) {
 // whose key is above T: 32 bisection steps with the overflow-safe
 // midpoint (pallas_decode_loop.py:89-105). mass: count (null) or the
 // probabilities.
+template <int NTH = LOOP_THREADS>
 __device__ int mask_search(const float* vals, const float* mass, int V,
                            float thr, float* red) {
   int lo = INT_MIN, hi = INT_MAX;
   for (int it = 0; it < 32; ++it) {
     const int mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1);
     float s = 0.f;
-    for (int v = threadIdx.x; v < V; v += LOOP_THREADS)
+    for (int v = threadIdx.x; v < V; v += NTH)
       if (sort_key(vals[v]) > mid) s += mass != nullptr ? mass[v] : 1.f;
     if (mg::block_sum(s, red) >= thr)
       lo = mid;
@@ -845,9 +892,10 @@ __device__ int mask_search(const float* vals, const float* mass, int V,
 
 // One draw of the sampler for batch row `row` at position t. vals: the
 // carried logits [V] in shared memory, each thread reading and writing
-// only its own entries v = tid + k * LOOP_THREADS; on return they hold
+// only its own entries v = tid + k * NTH; on return they hold
 // the scaled, masked values the draw was taken over (untouched when
 // greedy). probs: [V] shared scratch. Every thread gets the token.
+template <int NTH = LOOP_THREADS>
 __device__ int loop_sample(float* vals, float* probs, int V,
                            const LoopSampling& sp, uint2 key, uint32_t row,
                            uint32_t t, float* red, int* redi) {
@@ -855,39 +903,39 @@ __device__ int loop_sample(float* vals, float* probs, int V,
   if (sp.greedy) {
     float bv = -INFINITY;
     int bi = INT_MAX;
-    for (int v = tid; v < V; v += LOOP_THREADS)
+    for (int v = tid; v < V; v += NTH)
       if (vals[v] > bv) {
         bv = vals[v];
         bi = v;
       }
-    return block_argmax(bv, bi, red, redi);
+    return block_argmax<NTH>(bv, bi, red, redi);
   }
-  for (int v = tid; v < V; v += LOOP_THREADS) vals[v] *= sp.inv_temp;
+  for (int v = tid; v < V; v += NTH) vals[v] *= sp.inv_temp;
   if (sp.top_k > 0) {
-    const int tk = mask_search(vals, nullptr, V, (float)sp.top_k, red);
-    for (int v = tid; v < V; v += LOOP_THREADS)
+    const int tk = mask_search<NTH>(vals, nullptr, V, (float)sp.top_k, red);
+    for (int v = tid; v < V; v += NTH)
       if (sort_key(vals[v]) < tk) vals[v] = LOOP_NEG;
   }
   if (sp.use_p) {
     // excluded entries weigh exp(-1e30 - m) = 0, so the masses sum the
     // kept entries only
     float m = -INFINITY;
-    for (int v = tid; v < V; v += LOOP_THREADS) m = fmaxf(m, vals[v]);
+    for (int v = tid; v < V; v += NTH) m = fmaxf(m, vals[v]);
     m = mg::block_max(m, red);
     float s = 0.f;
-    for (int v = tid; v < V; v += LOOP_THREADS) {
+    for (int v = tid; v < V; v += NTH) {
       probs[v] = expf(vals[v] - m);
       s += probs[v];
     }
     s = mg::block_sum(s, red);
-    for (int v = tid; v < V; v += LOOP_THREADS) probs[v] = probs[v] / s;
-    const int tp = mask_search(vals, probs, V, sp.top_p, red);
-    for (int v = tid; v < V; v += LOOP_THREADS)
+    for (int v = tid; v < V; v += NTH) probs[v] = probs[v] / s;
+    const int tp = mask_search<NTH>(vals, probs, V, sp.top_p, red);
+    for (int v = tid; v < V; v += NTH)
       if (sort_key(vals[v]) < tp) vals[v] = LOOP_NEG;
   }
   float bv = -INFINITY;
   int bi = INT_MAX;
-  for (int g = tid; g * 4 < V; g += LOOP_THREADS) {
+  for (int g = tid; g * 4 < V; g += NTH) {
     const uint4 w = philox4x32_10(make_uint4(g, row, t, 0), key);
     const uint32_t word[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
@@ -901,7 +949,7 @@ __device__ int loop_sample(float* vals, float* probs, int V,
       }
     }
   }
-  return block_argmax(bv, bi, red, redi);
+  return block_argmax<NTH>(bv, bi, red, redi);
 }
 
 // out[o] = sum_i x[i] W[i * N + o] + bias[o], f32 (unrounded), for the
@@ -965,6 +1013,13 @@ struct LoopArgs {
   int tok_stride, num_layers, C, S, d, H, f, V, t0, max_seq;
   float scale;            // sqrt(d) in the model dtype
   LoopSampling sp;
+};
+
+// The six matrices of kernel F's bf16 body (wq, wk, wv, wfc, ffn1_w,
+// ffn2_w), repacked [L][nc][K][ncols] so that a CTA's column slice of a
+// layer's matrix is contiguous (ops/decode_loop.py's pack_loop_matrices).
+struct LcPacked {
+  const __nv_bfloat16* w[6];
 };
 
 // Shared memory of kernel F's block, in floats: the logits and the
@@ -1211,9 +1266,669 @@ loop_sample_kernel(const float* __restrict__ logits,
   if (threadIdx.x == 0) tokens[n] = tok;
 }
 
-template <typename T>
+// ------------------------------------------------- kernel F's bf16 body
+
+namespace cg = cooperative_groups;
+
+constexpr int LC_NC = 8;          // CTAs of a batch row's cluster
+constexpr int LC_THREADS = 256;   // threads of a CTA
+constexpr int LC_WARPS = LC_THREADS / 32;
+constexpr int LC_MAX_SLOTS = 3;   // weight slots of a CTA's ring
+constexpr int LC_LB = 4;          // prefix rows a warp loads before using any
+constexpr int LC_RED = 12 * LC_THREADS;  // floats of a product's partials
+
+// The phase-time build (compiled with MG_LOOP_TRACE, which only
+// chip_smoke.py's trace shim defines): thread 0 of rank 0 of batch row 0
+// adds the clock cycles of each phase to mg_loop_phase_cycles, and apart
+// from them, the cycles it waits for a weight slot and for the staged
+// prefix rows (parts of the phases that wait).
+enum {
+  LC_SAMPLE, LC_QKV, LC_BAR_QKV, LC_SCORES, LC_BAR_MAX, LC_PV, LC_BAR_PV,
+  LC_FC, LC_BAR_Z1, LC_FFN1, LC_BAR_HID, LC_FFN2, LC_BAR_Z2, LC_LN2,
+  LC_HEAD, LC_BAR_HEAD, LC_WAIT_WEIGHTS, LC_WAIT_ROWS, LC_PHASES
+};
+#ifdef MG_LOOP_TRACE
+__device__ unsigned long long mg_loop_phase_cycles[LC_PHASES];
+#define LC_MARK(ph)                                                  \
+  if (trace) {                                                       \
+    const long long now = clock64();                                 \
+    mg_loop_phase_cycles[ph] += (unsigned long long)(now - t_mark);  \
+    t_mark = now;                                                    \
+  }
+#define LC_WAIT(ph, bar, parity)                                     \
+  {                                                                  \
+    const long long w0 = clock64();                                  \
+    mbar_wait(bar, parity);                                          \
+    if (trace)                                                       \
+      mg_loop_phase_cycles[ph] += (unsigned long long)(clock64() - w0); \
+  }
+#else
+#define LC_MARK(ph)
+#define LC_WAIT(ph, bar, parity) mbar_wait(bar, parity)
+#endif
+
+// The widths of one CTA's share: d / nc columns (ds), an 8-aligned slice
+// of the FFN (fsl; the last CTAs' may be short or empty: fn), ceil(V / nc)
+// head rows (vsl).
+__host__ __device__ inline int lc_fsl(int f, int nc) {
+  return ((f + nc - 1) / nc + 7) / 8 * 8;
+}
+// Floats of the layer's vectors a CTA stages: the CTA's columns of the q,
+// k, v, fc and FFN2 biases and of the FFN1 bias, and both layer norms'
+// parameters over every column (bf16, rounded up to 16 bytes).
+__host__ __device__ inline int lc_nvec(int d, int f, int nc) {
+  return (5 * (d / nc) + lc_fsl(f, nc) + 4 * d + 7) / 8 * 8;
+}
+
+// Byte offsets of a cluster CTA's shared memory (ops/decode_loop.py's
+// loop_cluster_layout mirrors it): the logits and the sampler's
+// probabilities, the row's vectors (x, q, row t's k and v in bf16, the
+// attention output, out1, the gathered z, the gathered FFN hidden layer,
+// a product's outputs), a product's partials, the layer's vectors, the
+// weight slots' mbarriers, the exchange buffers other CTAs write (per-CTA
+// head maxima; per-CTA l and PV sums), the CTA's scores [H][sl], the
+// reductions' scratch, then the weight slots.
+struct LcLayout {
+  int lg, pr, x, q, kt, vt, att, o1, z, hid, y, red, vec, bar, gmax, gpart,
+      sc, misc;
+  int sl, slots, slot_bytes;
+  __host__ __device__ LcLayout(int d, int f, int V, int S, int H, int nc) {
+    const int Vp = (V + 3) & ~3;
+    const int ds = d / nc, fsl = lc_fsl(f, nc), vsl = (V + nc - 1) / nc;
+    sl = (S + nc - 1) / nc + 1;
+    int o = 0;
+    lg = o;    o += Vp * 4;
+    pr = o;    o += Vp * 4;
+    x = o;     o += d * 4;
+    q = o;     o += d * 4;
+    kt = o;    o += d * 2;
+    vt = o;    o += d * 2;
+    att = o;   o += d * 4;
+    o1 = o;    o += d * 4;
+    z = o;     o += d * 4;
+    hid = o;   o += ((f + 3) & ~3) * 4;
+    y = o;     o += (d > f ? d : f) * 4;
+    red = o;   o += LC_RED * 4;
+    vec = o;   o += lc_nvec(d, f, nc) * 2;
+    bar = o;   o += (LC_MAX_SLOTS + 1) * 8;  // the slots', then the rows'
+
+    gmax = o;  o += nc * H * 4;
+    gpart = o; o += nc * (H + d) * 4;
+    sc = o;    o += H * sl * 4;
+    misc = o;  o += 64 * 4;
+    slots = (o + 127) / 128 * 128;
+    int sb = d * ds;
+    sb = sb > d * fsl ? sb : d * fsl;
+    sb = sb > f * ds ? sb : f * ds;
+    sb = sb > vsl * d ? sb : vsl * d;
+    slot_bytes = (2 * sb + 127) / 128 * 128;
+  }
+};
+
+// The weight stream's bulk copies: one per stage into its slot,
+// completing on the slot's mbarrier (transaction bytes).
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "LC_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra LC_WAIT;\n"
+      "}\n" ::"r"(bar), "r"(parity)
+      : "memory");
+}
+
+// out[o] (o < ncols) = sum_i xin[i] w[i][o] in f32, for the K x ncols
+// bf16 slice staged at w ([K][ncols]): thread (cg, s) sums rows s, s +
+// ks, ... (at least 8 rows a thread where K allows) of 8 columns in
+// order, then 8 lanes an output add the ks partial sums (lane l8 takes s
+// = l8, l8 + 8, ...) and a lane tree (xor 1, 2, 4). Every thread calls
+// it; it ends with a barrier.
+__device__ void lc_matvec(const float* xin, const __nv_bfloat16* w, int K,
+                          int ncols, float* red, float* out) {
+  const int tid = threadIdx.x;
+  const int tpc = ncols / 8;
+  const int ks = ncols > 0 ? min(LC_THREADS / tpc, max(1, K / 8)) : 0;
+  const int ld = ncols + 4;  // partials' row stride: 8 lanes, 8 banks
+  if (tid < ks * tpc) {
+    const int cg = tid % tpc, s = tid / tpc;
+    float acc[8] = {};
+#pragma unroll 4
+    for (int i = s; i < K; i += ks) {
+      float wv[8];
+      mg::widen8(mg::load_raw8(w + (size_t)i * ncols + 8 * cg), wv);
+      const float xi = xin[i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j] = fmaf(xi, wv[j], acc[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; j += 4)
+      *reinterpret_cast<float4*>(red + s * ld + 8 * cg + j) =
+          make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
+  }
+  __syncthreads();
+  // 8 * ncols is a multiple of 64: a warp's lanes are all in or all out
+  for (int i = tid; i < 8 * ncols; i += LC_THREADS) {
+    const int o = i / 8, l8 = i % 8;
+    float sum = 0.f;
+    for (int s = l8; s < ks; s += 8) sum += red[s * ld + o];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+    if (l8 == 0) out[o] = sum;
+  }
+  __syncthreads();
+}
+
+// Kernel F's bf16 body: a thread-block cluster of nc CTAs per batch row
+// (grid (nc, B)), ns weight slots a CTA (the design note above). pk: the
+// six matrices repacked so that each CTA's column slice is contiguous
+// (ops/decode_loop.py's pack_loop_matrices).
+__global__ void __launch_bounds__(LC_THREADS, 1)
+decode_loop_cluster_kernel(const LoopArgs<__nv_bfloat16> a,
+                           const __grid_constant__ LcPacked pk, int ns,
+                           int cap) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(128) char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nc = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int V = a.V, d = a.d, f = a.f, H = a.H, S = a.S, L = a.num_layers;
+  const LcLayout lo(d, f, V, S, H, nc);
+  float* lg = reinterpret_cast<float*>(smem + lo.lg);   // carried logits
+  float* pr = reinterpret_cast<float*>(smem + lo.pr);
+  float* x = reinterpret_cast<float*>(smem + lo.x);     // layer input
+  float* q = reinterpret_cast<float*>(smem + lo.q);     // gathered q
+  bf16* ktb = reinterpret_cast<bf16*>(smem + lo.kt);    // gathered k row t
+  bf16* vtb = reinterpret_cast<bf16*>(smem + lo.vt);    // gathered v row t
+  float* att = reinterpret_cast<float*>(smem + lo.att);
+  float* o1 = reinterpret_cast<float*>(smem + lo.o1);
+  float* z = reinterpret_cast<float*>(smem + lo.z);     // gathered z
+  float* hid = reinterpret_cast<float*>(smem + lo.hid); // gathered hidden
+  float* y = reinterpret_cast<float*>(smem + lo.y);     // a product's outputs
+  float* red = reinterpret_cast<float*>(smem + lo.red);
+  bf16* vb = reinterpret_cast<bf16*>(smem + lo.vec);    // the layer's vectors
+  float* gmax = reinterpret_cast<float*>(smem + lo.gmax);    // [nc][H]
+  float* gpart = reinterpret_cast<float*>(smem + lo.gpart);  // [nc][H + d]
+  float* sc = reinterpret_cast<float*>(smem + lo.sc);        // [H][sl]
+  float* red16 = reinterpret_cast<float*>(smem + lo.misc);
+  int* redi16 = reinterpret_cast<int*>(red16 + 16);
+  const uint32_t bars = mg::tc::smem_u32(smem + lo.bar);
+  const uint32_t slots = mg::tc::smem_u32(smem + lo.slots);
+  // the staged prefix rows of the CTA's slice: K and V [cap][d] bf16, E
+  // [cap][64] f32, complete on the mbarrier after the slots'
+  char* stage_base = smem + lo.slots + (size_t)ns * lo.slot_bytes;
+  const bf16* kst = reinterpret_cast<const bf16*>(stage_base);
+  const bf16* vst = kst + (size_t)cap * d;
+  const float* est = reinterpret_cast<const float*>(vst + (size_t)cap * d);
+  const uint32_t rows_bar = bars + LC_MAX_SLOTS * 8;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.y, SL = lo.sl;
+  const float att_scale = 1.0f / sqrtf((float)DH);
+  // the CTA's columns of d, of f, and rows of the vocabulary
+  const int ds = d / nc, dc0 = rank * ds;
+  const int fsl = lc_fsl(f, nc), fc0 = rank * fsl;
+  const int fn = max(0, min(fsl, f - fc0));
+  const int vsl = (V + nc - 1) / nc, v0 = rank * vsl;
+  const int nv = max(0, min(vsl, V - v0));
+  // vb: [5][ds] (bq, bk, bv, bfc, b2), [fsl] b1, [4][d] ln1s, ln1b, ln2s,
+  // ln2b
+  const bf16* vb1 = vb + 5 * ds;
+  const bf16* vln = vb1 + fsl;
+  const unsigned long long seed = (unsigned long long)a.seed[0];
+  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
+#ifdef MG_LOOP_TRACE
+  const bool trace = tid == 0 && rank == 0 && b == 0;
+  long long t_mark = clock64();
+#endif
+
+  // The weight stream: stage i of a step (6 per layer: q, k, v, fc, FFN1,
+  // FFN2; then the head) is the CTA's slice of that matrix, one bulk copy
+  // (thread 0) into slot i % ns, complete when the slot's mbarrier
+  // finishes its phase (i / ns) & 1.
+  const int per_step = 6 * L + 1, total = a.C * per_step;
+  auto issue = [&](int i) {
+    if (tid != 0 || i >= total) return;
+    const int j = i % per_step;
+    const bf16* src;
+    int bytes;
+    if (j == 6 * L) {  // the head: vocabulary rows v0 .. v0 + nv - 1
+      src = a.fc_w + (size_t)v0 * d;
+      bytes = nv * d * 2;
+    } else {
+      const int li = j / 6, kind = j % 6;
+      const int K = kind == 5 ? f : d, ncols = kind == 4 ? fsl : ds;
+      src = pk.w[kind] + ((size_t)li * nc + rank) * K * ncols;
+      bytes = K * ncols * 2;
+    }
+    // the slot's previous reads (generic proxy) come before this write
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (bytes > 0)
+      bulk_load(slots + (i % ns) * lo.slot_bytes, src, bytes,
+                bars + (i % ns) * 8);
+    else  // an empty slice: complete the phase by an arrival alone
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                       bars + (i % ns) * 8) : "memory");
+  };
+  auto slot = [&](int i) {
+    LC_WAIT(LC_WAIT_WEIGHTS, bars + (i % ns) * 8, (i / ns) & 1);
+    return reinterpret_cast<const bf16*>(smem + lo.slots
+                                         + (size_t)(i % ns) * lo.slot_bytes);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < ns; ++i) mbar_init(bars + i * 8);
+    mbar_init(rows_bar);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int i = 0; i < ns; ++i) issue(i);
+  int stage = 0;
+  // the product of stage `stage` (K rows of ncols) on xin, into y; then the
+  // slot takes stage + ns
+  auto product = [&](const float* xin, int K, int ncols) {
+    __syncthreads();  // xin is complete
+    lc_matvec(xin, slot(stage), K, ncols, red, y);
+    issue(stage + ns);
+    ++stage;
+  };
+
+  for (int v = tid; v < V; v += LC_THREADS) lg[v] = a.logits[(size_t)b * V + v];
+  cluster.sync();  // every CTA has started: its shared memory takes stores
+  LC_MARK(LC_SAMPLE);
+
+  for (int i = 0; i < a.C; ++i) {
+    const int t = a.t0 + i;
+    // every CTA draws the same token from the same logits
+    const int tok =
+        loop_sample<LC_THREADS>(lg, pr, V, a.sp, key, b, t, red16, redi16);
+    if (rank == 0 && tid == 0) a.tokens[(size_t)b * a.tok_stride + i] = tok;
+    for (int c = tid; c < d; c += LC_THREADS)
+      x[c] = mg::round_to<bf16>(
+          mg::round_to<bf16>(mg::to_f(a.embed[(size_t)tok * d + c]) * a.scale)
+          + mg::to_f(a.pos[(size_t)t * d + c]));
+    // the CTA's rows of the live prefix [0, t]
+    const int n = t + 1, per = (n + nc - 1) / nc;
+    const int s_lo = min(n, rank * per), s_hi = min(n, s_lo + per);
+    const int nsl = s_hi - s_lo;
+    // rows [s_lo, s_st) come staged; row t (the last of the prefix) from
+    // the gathered row; the rest, past the staging's capacity, from L2
+    const int s_st = min(min(s_hi, t), s_lo + cap);
+    LC_MARK(LC_SAMPLE);
+
+    for (int li = 0; li < L; ++li) {
+      const size_t lw = (size_t)li * d;  // layer li's d-vectors
+      const bf16* kl = a.kc + (size_t)li * gridDim.y * S * d;
+      const bf16* vl = a.vc + (size_t)li * gridDim.y * S * d;
+      const float* el = a.e + (size_t)li * a.max_seq * DH;
+      // the slice's K, V and E rows below t, three bulk copies: they were
+      // written before this step (other CTAs' generic stores, ordered by
+      // the cluster barriers' release and acquire), so the async proxy
+      // reads them after a proxy fence; the previous layer's reads of the
+      // staging ended before the barrier that ended it
+      if (tid == 0) {
+        asm volatile("fence.proxy.async;\n" ::: "memory");
+        const int cnt = s_st - s_lo;
+        if (cnt > 0) {
+          asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                       ::"r"(rows_bar), "r"(cnt * (4 * d + 4 * DH)) : "memory");
+          const uint32_t dst = mg::tc::smem_u32(stage_base);
+          const size_t row0 = (size_t)b * S + s_lo;
+          auto copy = [&](uint32_t to, const void* from, int bytes) {
+            asm volatile(
+                "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+                "bytes [%0], [%1], %2, [%3];\n" ::"r"(to), "l"(from),
+                "r"(bytes), "r"(rows_bar) : "memory");
+          };
+          copy(dst, kl + row0 * d, cnt * d * 2);
+          copy(dst + cap * d * 2, vl + row0 * d, cnt * d * 2);
+          copy(dst + cap * d * 4, el + (size_t)(a.max_seq - 1 - t + s_lo) * DH,
+               cnt * DH * 4);
+        } else {
+          asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                       ::"r"(rows_bar) : "memory");
+        }
+      }
+      const uint32_t rows_parity = (uint32_t)(i * L + li) & 1;
+      // the layer's vectors into vb by cp.async (the previous layer's were
+      // last read before the barrier that ended it), waited for below
+      {
+        const int n16 = lc_nvec(d, f, nc) / 8;  // 16-byte chunks
+        for (int k = tid; k < n16; k += LC_THREADS) {
+          const int e = 8 * k;  // element of vb
+          const bf16* src;
+          bool in = true;
+          if (e < 5 * ds) {
+            const int which = e / ds, c = dc0 + e % ds;
+            src = (which == 0 ? a.w[1] : which == 1 ? a.w[3]
+                   : which == 2 ? a.w[5] : which == 3 ? a.w[7] : a.w[13])
+                  + lw + c;
+          } else if (e < 5 * ds + fsl) {
+            const int j = fc0 + e - 5 * ds;
+            in = j < f;
+            src = a.w[11] + (size_t)li * f + (in ? j : 0);
+          } else {
+            const int r = e - 5 * ds - fsl, which = r / d, c = r % d;
+            in = which < 4;
+            src = (which == 0 ? a.w[8] : which == 1 ? a.w[9]
+                   : which == 2 ? a.w[14] : a.w[15]) + lw + (in ? c : 0);
+          }
+          mg::tc::cp_async16(mg::tc::smem_u32(vb + e), src, in);
+        }
+        mg::tc::cp_async_commit();  // waited for after the first product
+      }
+      bf16* krow = a.kc + (size_t)li * gridDim.y * S * d + ((size_t)b * S + t) * d;
+      bf16* vrow = a.vc + (size_t)li * gridDim.y * S * d + ((size_t)b * S + t) * d;
+
+      // q, k, v over the CTA's columns (rounded), into every CTA; k and v
+      // into the caches' row t
+      for (int m = 0; m < 3; ++m) {
+        product(x, d, ds);
+        if (m == 0) {  // the vectors, in flight during the product
+          mg::tc::cp_async_wait_all();
+          __syncthreads();
+        }
+        for (int k = tid; k < nc * ds; k += LC_THREADS) {
+          const int peer = k / ds, c = dc0 + k % ds;
+          const float val =
+              mg::round_to<bf16>(y[k % ds] + mg::to_f(vb[m * ds + k % ds]));
+          if (m == 0) {
+            cluster.map_shared_rank(q, peer)[c] = val;
+          } else {
+            cluster.map_shared_rank(m == 1 ? ktb : vtb, peer)[c] = __float2bfloat16(val);
+            if (peer == 0) (m == 1 ? krow : vrow)[c] = __float2bfloat16(val);
+          }
+        }
+      }
+      LC_MARK(LC_QKV);
+      cluster.sync();  // q and row t's k and v in every CTA, row t in the caches
+      LC_MARK(LC_BAR_QKV);
+
+      // scores of the CTA's prefix rows, every head: (q.k_s + q.E[max_seq
+      // - 1 - t + s]) / 8, one warp a row, each lane 8 of the d dims (the
+      // 8 lanes of a head add by shuffles); staged rows from shared
+      // memory, row t's k from the gathered row, the others from the cache
+      // (L2: other CTAs wrote them)
+      LC_WAIT(LC_WAIT_ROWS, rows_bar, rows_parity);
+      for (int base = 0; base < d; base += 256) {
+        const int c0 = base + lane * 8;
+        const bool cin = c0 < d;
+        float qv[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) qv[j] = cin ? q[c0 + j] : 0.f;
+        for (int s0 = s_lo + warp; s0 < s_hi; s0 += LC_LB * LC_WARPS) {
+          uint4 kraw[LC_LB];
+          float4 ea[LC_LB], eb[LC_LB];
+#pragma unroll
+          for (int u = 0; u < LC_LB; ++u) {
+            const int s = s0 + u * LC_WARPS;
+            if (s < s_hi && cin) {
+              if (s < s_st) {
+                kraw[u] = *reinterpret_cast<const uint4*>(
+                    kst + (size_t)(s - s_lo) * d + c0);
+                const float* er = est + (s - s_lo) * DH + (c0 & (DH - 1));
+                ea[u] = *reinterpret_cast<const float4*>(er);
+                eb[u] = *reinterpret_cast<const float4*>(er + 4);
+              } else {
+                kraw[u] = s == t ? *reinterpret_cast<const uint4*>(ktb + c0)
+                                 : __ldcg(reinterpret_cast<const uint4*>(
+                                       kl + ((size_t)b * S + s) * d + c0));
+                const float* er = el + (size_t)(a.max_seq - 1 - t + s) * DH + (c0 & (DH - 1));
+                ea[u] = __ldg(reinterpret_cast<const float4*>(er));
+                eb[u] = __ldg(reinterpret_cast<const float4*>(er + 4));
+              }
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < LC_LB; ++u) {
+            const int s = s0 + u * LC_WARPS;
+            float qk = 0.f, qe = 0.f;
+            if (s < s_hi && cin) {
+              float kv[8];
+              mg::widen8(mg::Raw8<bf16>{kraw[u]}, kv);
+              const float ev[8] = {ea[u].x, ea[u].y, ea[u].z, ea[u].w,
+                                   eb[u].x, eb[u].y, eb[u].z, eb[u].w};
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                qk = fmaf(qv[j], kv[j], qk);
+                qe = fmaf(qv[j], ev[j], qe);
+              }
+            }
+#pragma unroll
+            for (int o = 4; o > 0; o >>= 1) {
+              qk += __shfl_xor_sync(0xffffffffu, qk, o);
+              qe += __shfl_xor_sync(0xffffffffu, qe, o);
+            }
+            if ((lane & 7) == 0 && cin && s < s_hi)
+              sc[(c0 / DH) * SL + s - s_lo] = (qk + qe) * att_scale;
+          }
+        }
+      }
+      __syncthreads();
+      LC_MARK(LC_SCORES);
+      // each head's maximum over the CTA's rows, to every CTA
+      for (int h = warp; h < H; h += LC_WARPS) {
+        float m = -INFINITY;
+        for (int s = lane; s < nsl; s += 32) m = fmaxf(m, sc[h * SL + s]);
+        m = mg::warp_max(m);
+        if (lane < nc) cluster.map_shared_rank(gmax, lane)[rank * H + h] = m;
+      }
+      cluster.sync();
+      LC_MARK(LC_BAR_MAX);
+      // p = e^(x - M) under the global max M (as the plain version, so P
+      // rounds where it does); the CTA's l (unrounded p) to every CTA, p
+      // rounded to bf16 for PV
+      for (int h = warp; h < H; h += LC_WARPS) {
+        float M = -INFINITY;
+        for (int r = 0; r < nc; ++r) M = fmaxf(M, gmax[r * H + h]);
+        float l = 0.f;
+        for (int s = lane; s < nsl; s += 32) {
+          const float pv = expf(sc[h * SL + s] - M);
+          l += pv;
+          sc[h * SL + s] = mg::round_to<bf16>(pv);
+        }
+        l = mg::warp_sum(l);
+        if (lane < nc) cluster.map_shared_rank(gpart, lane)[rank * (H + d) + h] = l;
+      }
+      __syncthreads();
+      // PV over the CTA's rows: 8 columns a thread, the rows split over G
+      // groups; row t's v from the gathered row
+      {
+        const int tpc = d / 8, G = LC_THREADS / tpc;
+        if (tid < G * tpc) {
+          const int g = tid / tpc, c0 = (tid % tpc) * 8;
+          const float* ph = sc + (c0 / DH) * SL;
+          float acc[8] = {};
+          for (int s0 = s_lo + g; s0 < s_hi; s0 += LC_LB * G) {
+            uint4 raw[LC_LB];
+#pragma unroll
+            for (int u = 0; u < LC_LB; ++u) {
+              const int s = s0 + u * G;
+              if (s < s_hi)
+                raw[u] = s < s_st ? *reinterpret_cast<const uint4*>(
+                                        vst + (size_t)(s - s_lo) * d + c0)
+                         : s == t ? *reinterpret_cast<const uint4*>(vtb + c0)
+                                  : __ldcg(reinterpret_cast<const uint4*>(
+                                        vl + ((size_t)b * S + s) * d + c0));
+            }
+#pragma unroll
+            for (int u = 0; u < LC_LB; ++u) {
+              const int s = s0 + u * G;
+              if (s >= s_hi) break;
+              float vv[8];
+              mg::widen8(mg::Raw8<bf16>{raw[u]}, vv);
+              const float pv = ph[s - s_lo];
+#pragma unroll
+              for (int j = 0; j < 8; ++j) acc[j] = fmaf(pv, vv[j], acc[j]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 8; j += 4)
+            *reinterpret_cast<float4*>(red + g * d + c0 + j) =
+                make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
+        }
+        __syncthreads();
+        for (int c = tid; c < d; c += LC_THREADS) {
+          float A = 0.f;
+          for (int g = 0; g < G; ++g) A += red[g * d + c];
+          for (int r = 0; r < nc; ++r)
+            cluster.map_shared_rank(gpart, r)[rank * (H + d) + H + c] = A;
+        }
+      }
+      LC_MARK(LC_PV);
+      cluster.sync();
+      LC_MARK(LC_BAR_PV);
+      // the attention output: the CTAs' (l, PV) merged in rank order
+      for (int c = tid; c < d; c += LC_THREADS) {
+        float A = 0.f, l = 0.f;
+        for (int r = 0; r < nc; ++r) {
+          A += gpart[r * (H + d) + H + c];
+          l += gpart[r * (H + d) + c / DH];
+        }
+        att[c] = mg::round_to<bf16>(A / fmaxf(l, 1e-30f));
+      }
+      // fc and the residual over the CTA's columns, into every CTA's z
+      product(att, d, ds);
+      for (int k = tid; k < nc * ds; k += LC_THREADS) {
+        const int c = dc0 + k % ds;
+        cluster.map_shared_rank(z, k / ds)[c] =
+            mg::round_to<bf16>(y[k % ds] + mg::to_f(vb[3 * ds + k % ds])) + x[c];
+      }
+      LC_MARK(LC_FC);
+      cluster.sync();
+      LC_MARK(LC_BAR_Z1);
+      layer_norm<bf16>(z, vln, vln + d, o1, d, 1e-6f, red16);  // out1
+      // the FFN hidden layer over the CTA's columns, into every CTA
+      product(o1, d, fsl);
+      for (int k = tid; k < nc * fn; k += LC_THREADS) {
+        const int j = fc0 + k % fn;
+        cluster.map_shared_rank(hid, k / fn)[j] =
+            fmaxf(mg::round_to<bf16>(y[k % fn] + mg::to_f(vb1[k % fn])), 0.f);
+      }
+      LC_MARK(LC_FFN1);
+      cluster.sync();
+      LC_MARK(LC_BAR_HID);
+      // the FFN output and the residual over the CTA's columns, into z
+      product(hid, f, ds);
+      for (int k = tid; k < nc * ds; k += LC_THREADS) {
+        const int c = dc0 + k % ds;
+        cluster.map_shared_rank(z, k / ds)[c] =
+            o1[c] + mg::round_to<bf16>(y[k % ds] + mg::to_f(vb[4 * ds + k % ds]));
+      }
+      LC_MARK(LC_FFN2);
+      cluster.sync();
+      LC_MARK(LC_BAR_Z2);
+      layer_norm<bf16>(z, vln + 2 * d, vln + 3 * d, x, d, 1e-6f, red16);  // output
+      __syncthreads();
+      LC_MARK(LC_LN2);
+    }
+
+    // the head over the CTA's vocabulary rows, one warp a row, into every
+    // CTA's logits (rounded to the model dtype)
+    {
+      const bf16* hw = slot(stage);
+      for (int r = warp; r < nv; r += LC_WARPS) {
+        float acc = 0.f;
+        for (int c = lane * 8; c < d; c += 256) {
+          float wv[8];
+          mg::widen8(mg::load_raw8(hw + (size_t)r * d + c), wv);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc = fmaf(x[c + j], wv[j], acc);
+        }
+        acc = mg::warp_sum(acc);
+        if (lane < nc)
+          cluster.map_shared_rank(lg, lane)[v0 + r] =
+              mg::round_to<bf16>(acc + mg::to_f(a.fc_b[v0 + r]));
+      }
+    }
+    __syncthreads();
+    issue(stage + ns);
+    ++stage;
+    LC_MARK(LC_HEAD);
+    cluster.sync();  // the logits in every CTA
+    LC_MARK(LC_BAR_HEAD);
+  }
+  if (rank == 0)
+    for (int v = tid; v < V; v += LC_THREADS) a.logits[(size_t)b * V + v] = lg[v];
+}
+
+// The cluster body's weight slots: as many as the shared memory takes
+// past the rest, at most LC_MAX_SLOTS (0 or 1: the widths do not fit).
+inline int loop_cluster_slots(int d, int f, int V, int S, int H) {
+  const LcLayout lo(d, f, V, S, H, LC_NC);
+  const int n = (232448 - lo.slots) / lo.slot_bytes;
+  return n < 0 ? 0 : (n < LC_MAX_SLOTS ? n : LC_MAX_SLOTS);
+}
+// The prefix rows a CTA stages (K, V, E): what the shared memory holds
+// past the slots.
+inline int loop_cluster_cap(int d, int f, int V, int S, int H) {
+  const LcLayout lo(d, f, V, S, H, LC_NC);
+  const int n = (232448 - lo.slots
+                 - loop_cluster_slots(d, f, V, S, H) * lo.slot_bytes)
+                / (4 * d + 4 * DH);
+  return n < 0 ? 0 : n;
+}
+// The bf16 widths the cluster body takes (ops/decode_loop.py's
+// loop_takes_cluster mirrors it): d a multiple of 8 * LC_NC and two
+// weight slots.
+inline bool loop_cluster_fits(int d, int f, int V, int S, int H) {
+  return d % (8 * LC_NC) == 0 && loop_cluster_slots(d, f, V, S, H) >= 2;
+}
+
+// One launch of the cluster body: grid (LC_NC, B), a cluster a batch row.
+int launch_loop_cluster(const LoopArgs<__nv_bfloat16>& a,
+                        const void* const* packed, int B,
+                        cudaStream_t stream) {
+  const int d = a.d, f = a.f, V = a.V, S = a.S, H = a.H;
+  if (packed == nullptr) return (int)cudaErrorInvalidValue;
+  const int ns = loop_cluster_slots(d, f, V, S, H);
+  LcPacked pk;
+  for (int i = 0; i < 6; ++i)
+    pk.w[i] = static_cast<const __nv_bfloat16*>(packed[i]);
+  const LcLayout lo(d, f, V, S, H, LC_NC);
+  const int cap = loop_cluster_cap(d, f, V, S, H);
+  const int smem = lo.slots + ns * lo.slot_bytes + cap * (4 * d + 4 * DH);
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_loop_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = LC_NC;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(LC_NC, B);
+  cfg.blockDim = dim3(LC_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, decode_loop_cluster_kernel, a, pk, ns, cap);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The body is chosen from the dtype and the widths: bf16 runs the cluster
+// kernel above where loop_cluster_fits, and every other launch the
+// one-block-a-row kernel. kCluster = false (the earlier-body shim only)
+// sends bf16 to the one-block kernel at every width, so that the two can
+// be timed on the same inputs.
+template <typename T, bool kCluster = std::is_same<T, __nv_bfloat16>::value>
 int decode_loop(int num_layers, void* logits, void* tokens, int tok_stride,
-                const void* seed, const void* const* w, const void* embed,
+                const void* seed, const void* const* w,
+                const void* const* packed, const void* embed,
                 const void* pos, const void* fc_w, const void* fc_b, void* kc,
                 void* vc, const void* e, int B, int C, int S, int d, int H,
                 int f, int V, int t0, int max_seq, float scale,
@@ -1242,6 +1957,10 @@ int decode_loop(int num_layers, void* logits, void* tokens, int tok_stride,
   a.max_seq = max_seq;
   a.scale = scale;
   a.sp = sp;
+  if constexpr (kCluster) {
+    if (loop_cluster_fits(d, f, V, S, H))
+      return launch_loop_cluster(a, packed, B, stream);
+  }
   const size_t smem = loop_smem(d, f, V, S, H);
   cudaError_t err = cudaFuncSetAttribute(
       decode_loop_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1256,8 +1975,10 @@ int decode_loop(int num_layers, void* logits, void* tokens, int tok_stride,
 // Kernel F. logits: [B, V] f32, the logits of position t0 - 1, overwritten
 // with the last step's; tokens: int64, row b's C tokens at tokens[b *
 // tok_stride + i]; seed: one int64 on the device; w: 16 pointers to the
-// stacked [L, ...] weights (WEIGHT_KEYS order, [in, out]); embed, fc_w:
-// [V, d]; pos: [>= t0 + C, d]; fc_b: [V], all in the model dtype; kc, vc:
+// stacked [L, ...] weights (WEIGHT_KEYS order, [in, out]); packed (read
+// by the cluster body only, where loop_cluster_fits; else may be null): 6
+// pointers to wq, wk, wv, wfc, ffn1_w and ffn2_w repacked [L][8][K][cols]
+// (ops/decode_loop.py's pack_loop_matrices); embed, fc_w: [V, d]; pos: [>= t0 + C, d]; fc_b: [V], all in the model dtype; kc, vc:
 // [L, B, S, d] caches, rows [t0, t0 + C) written in place; e: [L,
 // max_seq, 64] f32; scale: sqrt(d) in the model dtype. dh = 64, d <=
 // 1024 with d / 64 heads, f % 8 == 0, t0 + C <= min(S, max_seq) and the
@@ -1265,7 +1986,8 @@ int decode_loop(int num_layers, void* logits, void* tokens, int tok_stride,
 // non-zero CUDA error of the attribute call and the launch.
 extern "C" int mg_decode_loop(int is_bf16, int num_layers, void* logits,
                               void* tokens, int tok_stride, const void* seed,
-                              const void* const* w, const void* embed,
+                              const void* const* w,
+                              const void* const* packed, const void* embed,
                               const void* pos, const void* fc_w,
                               const void* fc_b, void* kc, void* vc,
                               const void* e, int B, int C, int S, int d,
@@ -1279,12 +2001,12 @@ extern "C" int mg_decode_loop(int is_bf16, int num_layers, void* logits,
     return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return decode_loop<__nv_bfloat16>(num_layers, logits, tokens, tok_stride,
-                                      seed, w, embed, pos, fc_w, fc_b, kc, vc,
-                                      e, B, C, S, d, H, f, V, t0, max_seq,
-                                      scale, sp, s);
+                                      seed, w, packed, embed, pos, fc_w, fc_b,
+                                      kc, vc, e, B, C, S, d, H, f, V, t0,
+                                      max_seq, scale, sp, s);
   return decode_loop<float>(num_layers, logits, tokens, tok_stride, seed, w,
-                            embed, pos, fc_w, fc_b, kc, vc, e, B, C, S, d, H,
-                            f, V, t0, max_seq, scale, sp, s);
+                            nullptr, embed, pos, fc_w, fc_b, kc, vc, e, B, C,
+                            S, d, H, f, V, t0, max_seq, scale, sp, s);
 }
 
 // Kernel F's sampler alone (for holding it against the plain one): row n

@@ -43,6 +43,21 @@
 //    order (deterministic: two calls give bit-equal results); E rows no
 //    (t, s) pair touches get exactly zero.
 //
+// The extended walk (causal). A row whose reachable keys (s <= t) are all
+// padded gets from kernel A the plain forward's result, an average over
+// every key whose logit carries a single -1e9, later keys included, and
+// an LSE at the -1e9 floor (csrc/relative_attention.cu). Its p = e^(x -
+// lse) is then not 0 past the diagonal, so the causal walk alone would
+// miss those pairs. The prep launch flags each (b*h, query tile) holding
+// such a row: a real row with lse < -5e8 (kernel A's `unmet_rows` test).
+// A flagged query tile's dq block walks every key tile; each dkv block,
+// after its causal query tiles, walks the flagged ones before its
+// diagonal. For s > t the E rows lie past the table (zero), as in the
+// plain version, so those pairs add to dQ through g.K alone, to dK and
+// dV, and to no dE window. For every other row they add p = e^(-1e9 + x
+// - lse) = 0 exactly, so its bits do not change; a block without flagged
+// tiles pays one flag load, issued before its walk.
+//
 // What bounds it: at the training shape (B8 H4 L512 dh64, bf16, causal)
 // the least traffic is q, k, v, O, dO, dQ, dK, dV, the E table, dE and
 // the LSE, ~17 MB (~5 us at 3.35 TB/s), and the causal work is about
@@ -208,8 +223,8 @@ rel_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dk,
-                        T* __restrict__ dv, int H, int L, int max_seq,
-                        int causal, float scale) {
+                        T* __restrict__ dv, const int* __restrict__ flags,
+                        int H, int L, int max_seq, int causal, float scale) {
   extern __shared__ float smem[];
   float* Ks = smem;                   // [BK][LD]
   float* Vs = Ks + BK * LD;           // [BK][LD]
@@ -241,8 +256,12 @@ rel_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4; ++j) dkr[i][j] = dvr[i][j] = 0.f;
 
-  // query tiles with t0 + BQ - 1 >= s0 see this key tile (BQ == BK)
-  for (int qt = causal ? kt : 0; qt < n_tiles; ++qt) {
+  // query tiles with t0 + BQ - 1 >= s0 see this key tile (BQ == BK); then,
+  // under causal, the extended walk: the flagged query tiles before it
+  const int* fl = flags + (size_t)bh * n_tiles;
+  for (int it = causal ? kt : 0; it < n_tiles + (causal ? kt : 0); ++it) {
+    const int qt = it < n_tiles ? it : it - n_tiles;
+    if (it >= n_tiles && !fl[qt]) continue;
     const int t0 = qt * BQ;
     __syncthreads();  // previous query tile fully consumed
     stage_rows(Qs, q + off, t0, BQ, L);
@@ -316,7 +335,8 @@ rel_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ dout,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta, T* __restrict__ dq,
-                       float* __restrict__ de_part, int H, int L,
+                       float* __restrict__ de_part,
+                       const int* __restrict__ flags, int H, int L,
                        int max_seq, int causal, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;                   // [BQ][LD]
@@ -364,7 +384,11 @@ rel_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4; ++j) der[a][j] = 0.f;
 
-  const int n_kv = causal ? min(n_tiles, qt + 1) : n_tiles;
+  // under causal, the causal key tiles, or every tile for a flagged query
+  // tile (the extended walk: its window chunks past qt lie past the table,
+  // where the reduction never reads)
+  const int n_kv = !causal || flags[(size_t)bh * n_tiles + qt]
+                       ? n_tiles : min(n_tiles, qt + 1);
   for (int kt = 0; kt < n_kv; ++kt) {
     const int s0 = kt * BK;
     __syncthreads();  // previous key tile fully consumed
@@ -554,6 +578,14 @@ __device__ __forceinline__ void grad_logits(float (&s)[8][4],
     }
 }
 
+// A flag of the extended walk, loaded where it is written in the code (a
+// volatile load stays ahead of the walk it is read after).
+__device__ __forceinline__ int ldg_flag(const int* p) {
+  int v;
+  asm volatile("ld.global.nc.b32 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return v;
+}
+
 // The arguments of the tensor-core kernel.
 struct BwdArgs {
   const bf16* q;
@@ -568,6 +600,7 @@ struct BwdArgs {
   bf16* dk;
   bf16* dv;
   float* de_part;
+  const int* flags;      // [B*H, n_tiles]: the extended walk's query tiles
   int H, L, max_seq, causal;
   float scale;
 };
@@ -596,7 +629,12 @@ __device__ __forceinline__ void dq_block(const BwdArgs& p, int qt, int bh,
   const int b = bh / p.H;
   const int n_tiles = (L + BK - 1) / BK;
   const int t0 = qt * BQ;
-  const int n_kv = p.causal ? min(n_tiles, qt + 1) : n_tiles;
+  // under causal the causal key tiles, or, for a query tile flagged by
+  // the prep launch, every key tile (the extended walk: past the diagonal
+  // the E chunks lie past the table and load as zeros, so those tiles add
+  // to dQ through g.K alone and write no dE window)
+  const int n_kv = !p.causal || p.flags[(size_t)bh * n_tiles + qt]
+                       ? n_tiles : min(n_tiles, qt + 1);
   const size_t off = (size_t)bh * L * DH;
   const bf16* kb = p.k + off;
   const bf16* vb = p.v + off;
@@ -774,6 +812,28 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& p, int kt, int bh,
   const size_t off = (size_t)bh * L * DH;
   const bf16* qb = p.q + off;
   const bf16* ob = p.dout + off;
+  // the extended walk (causal): after the causal query tiles, the tiles
+  // before the diagonal that the prep launch flagged. Their first 32 flags
+  // load now and are read after the causal walk; past 32 tiles, `next_ext`
+  // loads them then.
+  const int* fl = p.flags + (size_t)bh * n_tiles;
+  const int fpre = p.causal && lane < min(kt, 32) ? ldg_flag(fl + lane) : 0;
+  // the first flagged query tile >= from and < kt, or -1 (every thread of
+  // the block calls it with the same `from`)
+  auto next_ext = [&](int from) -> int {
+    if (from < 32) {
+      const unsigned m = __ballot_sync(0xffffffffu, fpre != 0) & (~0u << from);
+      if (m) return __ffs(m) - 1;
+      from = 32;
+    }
+    for (int w0 = from & ~31; w0 < kt; w0 += 32) {
+      const int q = w0 + lane;
+      const unsigned m =
+          __ballot_sync(0xffffffffu, q >= from && q < kt && fl[q] != 0);
+      if (m) return w0 + __ffs(m) - 1;
+    }
+    return -1;
+  };
 
   tc::TileArgs a;
   a.nkeys = L - s0;
@@ -782,18 +842,16 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& p, int kt, int bh,
   a.causal = p.causal;
   a.scale = p.scale;
   // query tile qt's band starts at E row max_seq - 64 - 64 qt + s0, 64
-  // rows lower than the previous tile's: its chunk hh (0, 1) is in ring
-  // slot (hh - qt) mod 3 = (hh + 2 qt) % 3
+  // rows lower than the previous tile's
   const int ebase = max_seq - BQ + s0;
 
   tc::tile_load(smem + S::K, p.k + off, DH, s0, L);
   tc::tile_load(smem + S::V, p.v + off, DH, s0, L);
   tc::tile_load(smem + S::Q, qb, DH, qt0 * BQ, L);
   tc::tile_load(smem + S::DO, ob, DH, qt0 * BQ, L);
-  tc::tile_load(smem + S::E + ((2 * qt0) % 3) * tc::TILE_BYTES, e, DH,
-                ebase - qt0 * BQ, max_seq);
-  tc::tile_load(smem + S::E + ((1 + 2 * qt0) % 3) * tc::TILE_BYTES, e, DH,
-                ebase - qt0 * BQ + BK, max_seq);
+  tc::tile_load(smem + S::E, e, DH, ebase - qt0 * BQ, max_seq);
+  tc::tile_load(smem + S::E + tc::TILE_BYTES, e, DH, ebase - qt0 * BQ + BK,
+                max_seq);
   tc::cp_async_commit();
   float dka[8][4], dva[8][4];
 #pragma unroll
@@ -805,16 +863,22 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& p, int kt, int bh,
 
   float* gq_slab =
       reinterpret_cast<float*>(smem + S::GQ + warp * tc::SLAB_BYTES);
-  for (int qt = qt0; qt < n_tiles; ++qt) {
-    const int buf = (qt - qt0) & 1;
-    const bool more = qt + 1 < n_tiles;
-    if (more) {  // query tile qt + 1 and its lower E chunk, during this one
+  // walk position i holds query tile qt, its E chunk hh in ring slot
+  // (hh + 2 i) % 3: consecutive tiles share a chunk, and the extended
+  // tiles' chunks all lie past the table (zeros)
+  int qt = qt0;
+  for (int i = 0; qt >= 0; ++i) {
+    const int buf = i & 1;
+    const int nxt = qt >= qt0 && qt + 1 < n_tiles
+                        ? qt + 1
+                        : (p.causal ? next_ext(qt >= qt0 ? 0 : qt + 1) : -1);
+    if (nxt >= 0) {  // the next tile and its lower E chunk, during this one
       tc::tile_load(smem + S::Q + (buf ^ 1) * tc::TILE_BYTES, qb, DH,
-                    (qt + 1) * BQ, L);
+                    nxt * BQ, L);
       tc::tile_load(smem + S::DO + (buf ^ 1) * tc::TILE_BYTES, ob, DH,
-                    (qt + 1) * BQ, L);
-      tc::tile_load(smem + S::E + ((2 * qt + 2) % 3) * tc::TILE_BYTES, e, DH,
-                    ebase - (qt + 1) * BQ, max_seq);
+                    nxt * BQ, L);
+      tc::tile_load(smem + S::E + ((2 * i + 2) % 3) * tc::TILE_BYTES, e, DH,
+                    ebase - nxt * BQ, max_seq);
       tc::cp_async_commit();
     }
     const int t0 = qt * BQ;
@@ -830,8 +894,8 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& p, int kt, int bh,
       tc::a_frags(qf, qbuf, 16 * warp);
       tc::tile_logits<false>(
           a, 0, smem + S::K,
-          smem + S::E + ((2 * qt) % 3) * tc::TILE_BYTES,
-          smem + S::E + ((1 + 2 * qt) % 3) * tc::TILE_BYTES, gq_slab, qf, s);
+          smem + S::E + ((2 * i) % 3) * tc::TILE_BYTES,
+          smem + S::E + ((1 + 2 * i) % 3) * tc::TILE_BYTES, gq_slab, qf, s);
     }
     {
       uint32_t of[4][4];
@@ -862,8 +926,18 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& p, int kt, int bh,
       mma_kn(dva, pa, obuf, 16 * kk);
       mma_kn(dka, ga, qbuf, 16 * kk);
     }
-    if (more) tc::cp_async_wait_all();
+    if (nxt >= 0) tc::cp_async_wait_all();
     __syncthreads();
+    if (nxt >= 0 && nxt < qt0 && qt >= qt0) {
+      // into the extended walk: the next tile's upper chunk, in the slot
+      // this tile's lower chunk held, lies past the table too (zeros)
+      tc::tile_load(smem + S::E + ((2 * i + 3) % 3) * tc::TILE_BYTES, e, DH,
+                    max_seq, max_seq);
+      tc::cp_async_commit();
+      tc::cp_async_wait_all();
+      __syncthreads();
+    }
+    qt = nxt;
   }
 
 #pragma unroll
@@ -899,14 +973,20 @@ rel_attn_bwd_tc_kernel(const BwdArgs p) {
 
 // delta[row] = dO[row] . O[row] in f32 (8 threads a row, 16-byte loads)
 // and, with e_lp, E in bf16: the two inputs the JAX wrapper prepares
-// outside its kernels, in one launch.
+// outside its kernels, in one launch. Under causal the launch also writes
+// the extended walk's flags: flags[bh * n_tiles + qt] = 1 when a real row
+// of query tile qt has its LSE at the -1e9 floor (every key it reaches is
+// padded; kernel A's `unmet_rows` test, on the LSE), else 0; one warp a
+// query tile.
 template <typename T>
 __global__ void __launch_bounds__(256)
 rel_attn_bwd_prep(const T* __restrict__ dout, const T* __restrict__ out,
                   float* __restrict__ delta, int rows,
                   const float* __restrict__ e, bf16* __restrict__ e_lp,
-                  int e_elems) {
+                  int e_elems, const float* __restrict__ lse,
+                  int* __restrict__ flags, int L, int n_flags) {
   const int row_blocks = (rows + 31) / 32;
+  const int e_blocks = (e_elems + 2047) / 2048;
   if ((int)blockIdx.x < row_blocks) {
     const int row = blockIdx.x * 32 + (threadIdx.x >> 3);
     const int c = (threadIdx.x & 7) * 8;
@@ -922,7 +1002,7 @@ rel_attn_bwd_prep(const T* __restrict__ dout, const T* __restrict__ out,
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     if (row < rows && (threadIdx.x & 7) == 0) delta[row] = acc;
-  } else {
+  } else if ((int)blockIdx.x < row_blocks + e_blocks) {
     const int i = ((blockIdx.x - row_blocks) * 256 + threadIdx.x) * 8;
     if (i < e_elems) {
       const float4 x0 = *reinterpret_cast<const float4*>(e + i);
@@ -930,6 +1010,21 @@ rel_attn_bwd_prep(const T* __restrict__ dout, const T* __restrict__ out,
       *reinterpret_cast<uint4*>(e_lp + i) = make_uint4(
           tc::pack_bf16(x0.x, x0.y), tc::pack_bf16(x0.z, x0.w),
           tc::pack_bf16(x1.x, x1.y), tc::pack_bf16(x1.z, x1.w));
+    }
+  } else {
+    const int lane = threadIdx.x & 31;
+    const int f = (blockIdx.x - row_blocks - e_blocks) * 8 + (threadIdx.x >> 5);
+    if (f < n_flags) {
+      const int n_tiles = (L + BQ - 1) / BQ;
+      const int bh = f / n_tiles, t0 = (f % n_tiles) * BQ;
+      bool unmet = false;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = t0 + lane + 32 * h;
+        unmet |= t < L && lse[(size_t)bh * L + t] < 0.5f * NEG_INF;
+      }
+      const unsigned any = __ballot_sync(0xffffffffu, unmet);
+      if (lane == 0) flags[f] = any != 0u;
     }
   }
 }
@@ -983,6 +1078,15 @@ rel_attn_bwd_de_reduce_tc(const float* __restrict__ de_part,
   }
 }
 
+// Floats of dE partial windows a call needs: the tensor-core body keeps
+// chunks 0 .. qt of query tile qt, the CUDA-core body n + 1 chunks.
+template <bool TC>
+long long windows(int B, int H, int L) {
+  const size_t n = (L + BQ - 1) / BQ;
+  return (long long)((size_t)B * H * (TC ? part_chunks(n) : n * (n + 1))
+                     * BK * DH);
+}
+
 // TC picks the body: the tensor-core kernel (bf16 only) or the CUDA-core
 // ones. By default the dtype picks it; both take the same arguments (`e`
 // in f32 for the CUDA-core body, `e_lp`, filled by the prep kernel, for
@@ -1001,11 +1105,17 @@ int launch(const void* q, const void* k, const void* v, const void* e,
   const int n_tiles = (L + BQ - 1) / BQ;
   const int rows = B * H * L;
   const int e_elems = TC ? max_seq * DH : 0;
-  rel_attn_bwd_prep<T><<<(rows + 31) / 32 + (e_elems + 2047) / 2048, 256, 0,
-                         stream>>>(
+  // the extended walk's flags: past the dE windows in the same scratch
+  int* flags = reinterpret_cast<int*>(static_cast<float*>(de_part)
+                                      + windows<TC>(B, H, L));
+  const int n_flags = causal ? B * H * n_tiles : 0;
+  rel_attn_bwd_prep<T><<<(rows + 31) / 32 + (e_elems + 2047) / 2048
+                             + (n_flags + 7) / 8,
+                         256, 0, stream>>>(
       static_cast<const T*>(dout), static_cast<const T*>(out),
       static_cast<float*>(delta), rows, static_cast<const float*>(e),
-      static_cast<bf16*>(e_lp), e_elems);
+      static_cast<bf16*>(e_lp), e_elems, static_cast<const float*>(lse),
+      flags, L, n_flags);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if constexpr (TC) {
@@ -1028,6 +1138,7 @@ int launch(const void* q, const void* k, const void* v, const void* e,
     a.dk = static_cast<bf16*>(dk);
     a.dv = static_cast<bf16*>(dv);
     a.de_part = static_cast<float*>(de_part);
+    a.flags = flags;
     a.H = H;
     a.L = L;
     a.max_seq = max_seq;
@@ -1058,8 +1169,8 @@ int launch(const void* q, const void* k, const void* v, const void* e,
         static_cast<const T*>(v), static_cast<const float*>(e),
         static_cast<const float*>(key_pad), static_cast<const T*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dk), static_cast<T*>(dv), H, L, max_seq, causal,
-        scale);
+        static_cast<T*>(dk), static_cast<T*>(dv), flags, H, L, max_seq,
+        causal, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     rel_attn_bwd_dq_kernel<T><<<grid, NT, smem_q, stream>>>(
@@ -1067,8 +1178,8 @@ int launch(const void* q, const void* k, const void* v, const void* e,
         static_cast<const T*>(v), static_cast<const float*>(e),
         static_cast<const float*>(key_pad), static_cast<const T*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dq), static_cast<float*>(de_part), H, L, max_seq,
-        causal, scale);
+        static_cast<T*>(dq), static_cast<float*>(de_part), flags, H, L,
+        max_seq, causal, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     rel_attn_bwd_de_reduce<<<(max_seq * DH + NT - 1) / NT, NT, 0, stream>>>(
@@ -1078,13 +1189,11 @@ int launch(const void* q, const void* k, const void* v, const void* e,
   }
 }
 
-// Floats of dE partial windows a call needs: the tensor-core body keeps
-// chunks 0 .. qt of query tile qt, the CUDA-core body n + 1 chunks.
+// Floats of the scratch a call needs: the dE partial windows, then one
+// int flag per (b*h, query tile) for the extended walk.
 template <bool TC>
 long long scratch(int B, int H, int L) {
-  const size_t n = (L + BQ - 1) / BQ;
-  return (long long)((size_t)B * H * (TC ? part_chunks(n) : n * (n + 1))
-                     * BK * DH);
+  return windows<TC>(B, H, L) + (long long)B * H * ((L + BQ - 1) / BQ);
 }
 
 }  // namespace

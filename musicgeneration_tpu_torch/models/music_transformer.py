@@ -50,7 +50,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
-from ..ops.decode_loop import fused_decode_loop
+from ..ops.decode_loop import (fused_decode_loop, loop_takes_cluster,
+                               pack_loop_matrices)
 from ..ops.fused_attention import fused_relative_attention
 from ..ops.fused_decode import (WEIGHT_KEYS, fused_decode_chunk,
                                 fused_decode_step, quantize_stream_weights)
@@ -479,6 +480,13 @@ class MusicTransformer(nn.Module):
         n_chunks = -(-steps // chunk)
         stacked = self.decode_weights(quant="none")
         embed, pos, fc_w, fc_b = self.loop_weights()
+        w = stacked[0]
+        # kernel F's cluster body reads six matrices repacked: once here
+        packed = (pack_loop_matrices(w) if cache["k"].is_cuda
+                  and loop_takes_cluster(
+                      self.d_model, w["ffn1_w"].shape[-1], fc_w.shape[0],
+                      cache["k"].shape[2], self.num_heads, self.dtype)
+                  else None)
         if greedy:
             seeds = torch.zeros(n_chunks, dtype=torch.long,
                                 device=self.device)
@@ -493,7 +501,7 @@ class MusicTransformer(nn.Module):
                 logits, t, seeds[i:i + 1], embed, pos, stacked[1],
                 stacked[0], fc_w, fc_b, cache["k"], cache["v"],
                 self.num_heads, c, temperature, greedy, top_k, top_p,
-                tokens=out[:, i * chunk:i * chunk + c])
+                tokens=out[:, i * chunk:i * chunk + c], packed=packed)
             t += c
         return out, cache
 

@@ -52,7 +52,13 @@ _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 NEG = -1e30  # what sample_mask gives an excluded entry
 SMEM_LIMIT = 232448  # dynamic shared memory one block may take (227 KB)
-LOOP_THREADS = 512   # threads of kernel F's block (one block per row)
+LOOP_THREADS = 512   # threads of kernel F's one-block body (one a batch row)
+# kernel F's cluster body (bf16): a cluster of LOOP_NC CTAs of 256 threads
+# per batch row, each with up to LOOP_MAX_SLOTS weight slots, LOOP_RED
+# floats of partial sums, and its prefix rows staged in what shared memory
+# is left
+LOOP_NC, LOOP_MAX_SLOTS, LOOP_RED = 8, 3, 12 * 256
+_PACKED_KEYS = ("wq", "wk", "wv", "wfc", "ffn1_w", "ffn2_w")
 
 
 # -- the sampler --------------------------------------------------------------
@@ -210,10 +216,12 @@ def fused_decode_loop_plain(logits, t0: int, seed, embed, pos, e_all,
                             num_heads: int, chunk: int,
                             temperature: float = 1.0, greedy: bool = False,
                             top_k: int = 0, top_p: float = 1.0,
-                            tokens: Optional[torch.Tensor] = None):
+                            tokens: Optional[torch.Tensor] = None,
+                            packed: Optional[list] = None):
     """Plain PyTorch version of kernel F (any device). ``chunk`` steps from
     the carried ``logits`` [B, V] f32 at positions t0..t0+chunk-1; the
-    other arguments as ``fused_decode_loop``. Writes the tokens into
+    other arguments as ``fused_decode_loop`` (``packed`` is not read: the
+    plain version reads the stacked weights). Writes the tokens into
     ``tokens`` [B, chunk] (allocated when None), the last logits into
     ``logits`` and the K/V rows [t0, t0+chunk) into the caches, all in
     place, and returns (tokens, logits)."""
@@ -241,29 +249,121 @@ def fused_decode_loop_plain(logits, t0: int, seed, embed, pos, e_all,
     return tokens, logits
 
 
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def loop_cluster_layout(d: int, f: int, vocab: int, cache_len: int,
+                        num_heads: int) -> Tuple[int, int]:
+    """(bytes before the weight slots, bytes of one slot) of a CTA of
+    kernel F's bf16 body (mirrors ``LcLayout`` in csrc/fused_decode.cu):
+    the logits and the sampler's probabilities [V rounded up to 4]; x, q,
+    row t's k and v (bf16), the attention output, out1, z, the FFN hidden
+    layer and a product's outputs; the partial sums; the other CTAs'
+    head maxima and (l, PV) sums; the CTA's scores [H, ceil(S / nc) +
+    1]; the reductions' scratch; the layer's vectors (bf16: five bias
+    slices of d / nc, one of the FFN slice, the two layer norms'
+    parameters over d); the mbarriers of the slots and of the staged
+    rows. A slot holds the largest weight slice:
+    d x d / nc, d x the FFN slice, FFN x d / nc, or the head's ceil(V /
+    nc) rows."""
+    nc = LOOP_NC
+    ds, fsl = d // nc, _round_up(-(-f // nc), 8)
+    vsl, sl = -(-vocab // nc), -(-cache_len // nc) + 1
+    rest = (8 * _round_up(vocab, 4) + 4 * 2 * d + 2 * 2 * d + 4 * 3 * d
+            + 4 * _round_up(f, 4) + 4 * max(d, f) + 4 * LOOP_RED
+            + 4 * nc * num_heads + 4 * nc * (num_heads + d)
+            + 4 * num_heads * sl + 256
+            + 2 * _round_up(5 * ds + fsl + 4 * d, 8)
+            + 8 * (LOOP_MAX_SLOTS + 1))
+    slot = 2 * max(d * ds, d * fsl, f * ds, vsl * d)
+    return _round_up(rest, 128), _round_up(slot, 128)
+
+
+def loop_cluster_slots(d: int, f: int, vocab: int, cache_len: int,
+                       num_heads: int) -> int:
+    """The weight slots a CTA of kernel F's bf16 body takes: as many as
+    its shared memory holds past the rest, at most LOOP_MAX_SLOTS."""
+    rest, slot = loop_cluster_layout(d, f, vocab, cache_len, num_heads)
+    return max(0, min(LOOP_MAX_SLOTS, (SMEM_LIMIT - rest) // slot))
+
+
+def loop_cluster_cap(d: int, f: int, vocab: int, cache_len: int,
+                     num_heads: int) -> int:
+    """The prefix rows (K and V in bf16, E in f32) a CTA of kernel F's bf16
+    body stages: what its shared memory holds past the slots."""
+    rest, slot = loop_cluster_layout(d, f, vocab, cache_len, num_heads)
+    ns = loop_cluster_slots(d, f, vocab, cache_len, num_heads)
+    return max(0, (SMEM_LIMIT - rest - ns * slot) // (4 * d + 256))
+
+
+def loop_takes_cluster(d: int, f: int, vocab: int, cache_len: int,
+                       num_heads: int, dtype=torch.bfloat16) -> bool:
+    """Whether kernel F runs its cluster body on these widths: bf16, d a
+    multiple of 8 * LOOP_NC and two weight slots past the rest of a CTA's
+    shared memory (mirrors ``loop_cluster_fits`` in csrc/fused_decode.cu).
+    Other widths, and f32, run the one-block-a-row body."""
+    return (dtype == torch.bfloat16 and d % (8 * LOOP_NC) == 0
+            and loop_cluster_slots(d, f, vocab, cache_len, num_heads) >= 2)
+
+
+def _packed_shape(key: str, w: torch.Tensor) -> Tuple[int, ...]:
+    n = w.shape[-1]
+    cols = _round_up(-(-n // LOOP_NC), 8) if key == "ffn1_w" else n // LOOP_NC
+    return (w.shape[0], LOOP_NC, w.shape[1], cols)
+
+
+def pack_loop_matrices(weights) -> list:
+    """The six matrices of kernel F's cluster body (wq, wk, wv, wfc, ffn1_w,
+    ffn2_w of ``fused_decode_step``'s stacked [L, K, N] weights) repacked
+    [L, nc, K, N / nc], so that each cluster CTA's column slice of a
+    layer's matrix is one contiguous bulk copy; ffn1_w's columns
+    zero-padded to nc 8-aligned slices first. New tensors; the weights are
+    not written. Build them once with the weights, as
+    ``MusicTransformer.decode_loop`` does, and pass them to every
+    ``fused_decode_loop`` call."""
+    out = []
+    for key in _PACKED_KEYS:
+        w = weights[key]
+        shape = _packed_shape(key, w)
+        if shape[1] * shape[3] != w.shape[-1]:
+            w = F.pad(w, (0, shape[1] * shape[3] - w.shape[-1]))
+        out.append(w.reshape(shape[0], shape[2], shape[1], shape[3])
+                   .permute(0, 2, 1, 3).contiguous())
+    return out
+
+
 def loop_smem_bytes(d: int, f: int, vocab: int, cache_len: int,
-                    num_heads: int) -> int:
-    """Dynamic shared memory of kernel F's block: the logits and the
-    sampler's probabilities [V rounded up to 4], five [max(d, f)]
-    activation buffers, the matvec / PV partials [8 x 512], the attention
-    scores [H, S + 1] and the reduction scratch (mirrors ``loop_smem`` in
+                    num_heads: int, dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory of one of kernel F's blocks. The cluster body
+    (``loop_takes_cluster``): a CTA's ``loop_cluster_layout``, its slots and
+    its staged rows. The one-block body: the logits and the sampler's
+    probabilities [V rounded up to 4], five [max(d, f)] activation
+    buffers, the matvec / PV partials [8 x 512], the attention scores
+    [H, S + 1] and the reduction scratch (mirrors ``loop_smem`` in
     csrc/fused_decode.cu)."""
+    if loop_takes_cluster(d, f, vocab, cache_len, num_heads, dtype):
+        rest, slot = loop_cluster_layout(d, f, vocab, cache_len, num_heads)
+        return (rest + loop_cluster_slots(d, f, vocab, cache_len, num_heads)
+                * slot + loop_cluster_cap(d, f, vocab, cache_len, num_heads)
+                * (4 * d + 256))
     w = max(d, f)
     return 4 * (2 * (-(-vocab // 4) * 4) + 5 * w + 8 * LOOP_THREADS
                 + num_heads * (cache_len + 1) + 64)
 
 
 def loop_kernel_limits(d: int, dh: int, f: int, vocab: int, cache_len: int,
-                       num_heads: int) -> None:
-    """Raise unless kernel F takes these widths: dh = 64, d <= 1024 (one
-    warp per head), FFN <= 4096 and a multiple of 8 (16-byte weight
-    loads), and its shared memory within one block's 227 KB. This limit
+                       num_heads: int, dtype=torch.bfloat16) -> None:
+    """Raise unless kernel F takes these widths in ``dtype``: dh = 64, d
+    <= 1024 (one warp per head), FFN <= 4096 and a multiple of 8 (16-byte
+    weight loads), and the shared memory of the body the widths choose
+    (``loop_takes_cluster``) within one block's 227 KB. This limit
     replaces the TPU's ``decode_loop_vmem_bytes``."""
     if dh != 64 or d > MAX_D or f > MAX_FFN or f % 8:
         raise ValueError(f"kernel F takes dh = 64, d <= {MAX_D} and FFN <= "
                          f"{MAX_FFN} (a multiple of 8); got dh={dh}, d={d}, "
                          f"FFN={f}")
-    smem = loop_smem_bytes(d, f, vocab, cache_len, num_heads)
+    smem = loop_smem_bytes(d, f, vocab, cache_len, num_heads, dtype)
     if smem > SMEM_LIMIT:
         raise ValueError(f"kernel F needs {smem} bytes of shared memory for "
                          f"vocab {vocab}, cache {cache_len}, d {d}, FFN {f}: "
@@ -316,7 +416,8 @@ def fused_decode_loop(logits: torch.Tensor, t0: int, seed: torch.Tensor,
                       v_cache: torch.Tensor, num_heads: int, chunk: int,
                       temperature: float = 1.0, greedy: bool = False,
                       top_k: int = 0, top_p: float = 1.0,
-                      tokens: Optional[torch.Tensor] = None):
+                      tokens: Optional[torch.Tensor] = None,
+                      packed: Optional[list] = None):
     """``chunk`` whole generation steps in one launch.
 
     logits: [B, V] f32, the logits of position t0 - 1 (carried: the last
@@ -326,12 +427,16 @@ def fused_decode_loop(logits: torch.Tensor, t0: int, seed: torch.Tensor,
     fc_w: [V, d] (the head's ``weight``), fc_b: [V], all in the model
     dtype; e_all, weights, k_cache, v_cache as ``fused_decode_step``;
     tokens: optional [B, chunk] int64 view (unit column stride) to write
-    the tokens into. Returns (tokens, logits); the caches get rows
-    [t0, t0+chunk) in place.
+    the tokens into; packed: ``pack_loop_matrices(weights)``, which the
+    cluster body reads (built once with the weights; needed where
+    ``loop_takes_cluster``, else not read). Returns (tokens, logits); the
+    caches get rows [t0, t0+chunk) in place.
 
     CPU tensors run the plain version. CUDA tensors launch kernel F (its
     limits in ``loop_kernel_limits``, 16-byte aligned contiguous tensors)
-    or raise. ``launches`` counts its CUDA launches: one per chunk."""
+    or raise: its cluster body, 8 CTAs a batch row, on the bf16 widths
+    ``loop_takes_cluster`` admits, else its one-block-a-row body.
+    ``launches`` counts its CUDA launches: one per chunk."""
     nl, b, s, d, dh, f, v = _check_loop(
         logits, t0, seed, embed, pos, e_all, weights, fc_w, fc_b, k_cache,
         v_cache, num_heads, chunk, tokens)
@@ -342,10 +447,22 @@ def fused_decode_loop(logits: torch.Tensor, t0: int, seed: torch.Tensor,
             top_p, tokens)
     if logits.device.type != "cuda":
         raise ValueError(f"unsupported device {logits.device}")
-    loop_kernel_limits(d, dh, f, v, s, num_heads)
+    loop_kernel_limits(d, dh, f, v, s, num_heads, k_cache.dtype)
     ws = [weights[k] for k in WEIGHT_KEYS]
+    cluster = loop_takes_cluster(d, f, v, s, num_heads, k_cache.dtype)
+    if cluster:
+        want = [_packed_shape(k, weights[k]) for k in _PACKED_KEYS]
+        if packed is None or [tuple(p.shape) for p in packed] != want or any(
+                p.dtype != k_cache.dtype or p.device != logits.device
+                for p in packed):
+            raise ValueError("kernel F's cluster body reads the matrices "
+                             "pack_loop_matrices(weights) gives: shapes "
+                             f"{want} in {k_cache.dtype} on the device")
+    else:
+        packed = []
     # the seed is read as one scalar: any element of a seeds tensor
-    dense = [logits, embed, pos, e_all, fc_w, fc_b, k_cache, v_cache] + ws
+    dense = ([logits, embed, pos, e_all, fc_w, fc_b, k_cache, v_cache] + ws
+             + list(packed))
     if not all(y.is_contiguous() and y.data_ptr() % 16 == 0 for y in dense):
         raise ValueError("kernel F takes contiguous, 16-byte aligned tensors")
     if tokens is None:
@@ -354,15 +471,18 @@ def fused_decode_loop(logits: torch.Tensor, t0: int, seed: torch.Tensor,
     fn = lib.mg_decode_loop
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.POINTER(ctypes.c_void_p)]
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.POINTER(ctypes.c_void_p)] * 2
                    + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                    + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_void_p])
     wptrs = (ctypes.c_void_p * 16)(*[w.data_ptr() for w in ws])
-    rc = fn(int(k_cache.dtype == torch.bfloat16), nl, logits.data_ptr(),
+    bf16 = k_cache.dtype == torch.bfloat16
+    pptrs = (ctypes.c_void_p * 6)(*[p.data_ptr() for p in packed]) \
+        if cluster else None
+    rc = fn(int(bf16), nl, logits.data_ptr(),
             tokens.data_ptr(), tokens.stride(0), seed.data_ptr(), wptrs,
-            embed.data_ptr(), pos.data_ptr(), fc_w.data_ptr(),
+            pptrs, embed.data_ptr(), pos.data_ptr(), fc_w.data_ptr(),
             fc_b.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             e_all.data_ptr(), b, chunk, s, d, num_heads, f, v, t0,
             e_all.shape[1], embed_scale(d, k_cache.dtype),

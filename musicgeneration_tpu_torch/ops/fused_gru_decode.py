@@ -30,12 +30,34 @@ import torch
 from . import cuda_build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_ROWS = 8            # the kernel's batch rows per block (GRU_ROWS)
+_ROWS = 8            # the f32 body's batch rows per block (GRU_ROWS)
 _SMEM_MAX = 232448   # shared memory a block can have on sm_90
+# the bf16 body (gru_layer_tc_kernel): a cluster of _NC CTAs splits K, a
+# block takes _NB batch rows; its shared memory (GruSmem) holds 6 weight
+# tiles of 16 rows and the x and h rows over one CTA's K range, and the
+# cluster's partial sums
+_NC, _NB, _UC, _TC_WARPS = 4, 32, 4, 6
 
 
 def _round8(n: int) -> int:
     return (n + 7) // 8 * 8
+
+
+def _kr(width: int) -> int:
+    """k16 steps of one CTA's K range (gru_kr)."""
+    return (-(-width // 16) + _NC - 1) // _NC
+
+
+def smem_bytes(dtype, in_dim: int, hidden: int) -> int:
+    """Dynamic shared memory of kernel D's blocks (mirrors ``gru_tc_smem``
+    and the f32 body's staging in csrc/fused_gru_decode.cu)."""
+    width = _round8(max(in_dim, hidden))
+    if dtype == torch.float32:
+        return 4 * _ROWS * (width + _round8(hidden))
+    ld_ih = 16 * _kr(width) + 8
+    ld_hh = 16 * _kr(_round8(hidden)) + 8
+    return (2 * (3 * 16 + _NB) * (ld_ih + ld_hh)
+            + 4 * _NC * _TC_WARPS * _UC * _NB)
 
 
 def pack_gru_weights(layers: Sequence[Tuple[torch.Tensor, ...]],
@@ -121,8 +143,9 @@ def fused_gru_step(x: torch.Tensor, h: torch.Tensor,
     new tensors (out is ``h_new[-1]``).
 
     CPU tensors run the plain version. CUDA tensors launch kernel D
-    (contiguous x, h and weights) or raise. ``launches`` counts its CUDA launches:
-    one per layer."""
+    (contiguous x, h and weights; bf16 on the tensor cores, f32 on the
+    CUDA cores) or raise. ``launches`` counts its CUDA launches: one per
+    layer."""
     nl, b, hidden = _check(x, h, weights)
     if x.device.type == "cpu":
         return fused_gru_step_plain(x, h, weights)
@@ -132,7 +155,7 @@ def fused_gru_step(x: torch.Tensor, h: torch.Tensor,
             w for key in ("w_ih", "w_hh", "b_ih", "b_hh")
             for w in weights[key]]):
         raise ValueError("kernel D takes contiguous x, h and weights")
-    smem = 4 * _ROWS * (_round8(max(x.shape[1], hidden)) + _round8(hidden))
+    smem = smem_bytes(h.dtype, x.shape[1], hidden)
     if smem > _SMEM_MAX:
         raise ValueError(f"kernel D stages {smem} bytes of shared memory at "
                          f"in={x.shape[1]}, H={hidden}; the card has "

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from musicgeneration_tpu.ops import pallas_attention as jpa
+from musicgeneration_tpu.ops import relative_attention as jrel
 from musicgeneration_tpu_torch.ops import fused_attention as tfa
 from musicgeneration_tpu_torch.ops.relative_attention import NEG_INF
 from tests.test_torch_relative_attention import _largest_block, _stage
@@ -150,8 +151,9 @@ def test_wrapper_rejects_bad_inputs(bad):
 # E window from the three-slot ring, the skewed Gq read), the dq blocks'
 # skewed write of g into each warp's zeroed [16 x 80] slab, their dQ E leg,
 # their dE low/high carry across key tiles into partial windows of qt + 1
-# chunks, the dkv blocks' ring indexed by query tile, the causal skips,
-# rows and keys past L, and the reduction's fixed order
+# chunks, the dkv blocks' ring indexed by walk position, the causal skips
+# and the extended walk past them (per (b, h) and query tile, as the prep
+# launch flags it), rows and keys past L, and the reduction's fixed order
 # --------------------------------------------------------------------------
 
 _BQ = _BK = 64
@@ -205,11 +207,20 @@ def _row_stats(lse, delta, t0):
     return lse_t[..., None], _rows(delta[..., None], t0)
 
 
+def _flags(lse, n):
+    """The prep launch's flags [B, H, n]: a real row of query tile qt whose
+    LSE sits at the -1e9 floor (below -5e8)."""
+    return torch.stack([(lse[..., qt * _BQ:(qt + 1) * _BQ] < 0.5 * NEG_INF)
+                        .any(-1) for qt in range(n)], -1)
+
+
 def _dq_block(qt, grads, q, k, v, e, pad, causal, lse, delta, dout,
-              scale):
+              scale, flags):
     """The dq block of query tile qt: dQ rows and the tile's dE partial
     window, chunks 0 .. qt of 64 x 64 rows at chunk qt (qt + 1) / 2 of
-    the (b, h)'s windows, laid out flat as the kernel lays them out."""
+    the (b, h)'s windows, laid out flat as the kernel lays them out. A
+    flagged (b, h) walks every key tile; the others stop at the diagonal
+    (their extended tiles are weighed by 0 here)."""
     dq, part = grads["dq"], grads["part"]
     b, h, l, dh = q.shape
     max_seq = e.shape[0]
@@ -217,7 +228,8 @@ def _dq_block(qt, grads, q, k, v, e, pad, causal, lse, delta, dout,
     t0 = qt * _BQ
     qs, dos = _rows(q, t0), _rows(dout, t0)
     lse_t, dl_t = _row_stats(lse, delta, t0)
-    n_kv = min(n, qt + 1) if causal else n
+    walks = flags[..., qt, None, None].float()
+    n_kv = n if not causal or bool(flags[..., qt].any()) else min(n, qt + 1)
     ebase = max_seq - _BQ - t0
     ring = [_stage(e, ebase), _stage(e, ebase + _BK), None]
     dqa = torch.zeros(b, h, _BQ, dh)
@@ -229,6 +241,8 @@ def _dq_block(qt, grads, q, k, v, e, pad, causal, lse, delta, dout,
         e0, e1 = ring[kt % 3], ring[(kt + 1) % 3]
         x = _tile_logits(qs, ks, e0, e1, t0, s0, l - s0, pad, causal, scale)
         g = torch.exp(x - lse_t) * (dos @ vs.transpose(-1, -2) - dl_t)
+        if causal and kt > qt:            # the extended walk
+            g = g * walks
         dqa += g @ ks
         slabs = []
         for w in range(4):
@@ -259,10 +273,13 @@ def _dq_block(qt, grads, q, k, v, e, pad, causal, lse, delta, dout,
 
 
 def _dkv_block(kt, grads, q, k, v, e, pad, causal, lse, delta, dout,
-               scale):
+               scale, flags):
     """The dkv block of key tile kt: the query tiles from the diagonal on
-    (causal), the band sliding down by 64 rows a query tile, chunk hh of
-    query tile qt's band in ring slot (hh + 2 qt) % 3."""
+    (causal), the band sliding down by 64 rows a query tile, then the
+    flagged query tiles before the diagonal (the extended walk; a (b, h)
+    that did not flag one weighs it by 0 here); walk position i's chunk hh
+    in ring slot (hh + 2 i) % 3, and on entering the extended walk the
+    upper chunk staged again (past the table: zeros)."""
     dk, dv = grads["dk"], grads["dv"]
     b, h, l, dh = q.shape
     max_seq = e.shape[0]
@@ -270,24 +287,31 @@ def _dkv_block(kt, grads, q, k, v, e, pad, causal, lse, delta, dout,
     s0 = kt * _BK
     ks, vs = _rows(k, s0), _rows(v, s0)
     qt0 = kt if causal else 0
+    walk = list(range(qt0, n))
+    if causal:
+        walk += [qt for qt in range(kt) if bool(flags[..., qt].any())]
     ebase = max_seq - _BQ + s0
-    ring = [None] * 3
-    ring[(2 * qt0) % 3] = _stage(e, ebase - qt0 * _BQ)
-    ring[(1 + 2 * qt0) % 3] = _stage(e, ebase - qt0 * _BQ + _BK)
+    ring = [_stage(e, ebase - qt0 * _BQ), _stage(e, ebase - qt0 * _BQ + _BK),
+            None]
     dka = torch.zeros(b, h, _BK, dh)
     dva = torch.zeros(b, h, _BK, dh)
-    for qt in range(qt0, n):
+    for i, qt in enumerate(walk):
         t0 = qt * _BQ
         qs, dos = _rows(q, t0), _rows(dout, t0)
         lse_t, dl_t = _row_stats(lse, delta, t0)
-        x = _tile_logits(qs, ks, ring[(2 * qt) % 3], ring[(1 + 2 * qt) % 3],
+        x = _tile_logits(qs, ks, ring[(2 * i) % 3], ring[(1 + 2 * i) % 3],
                          t0, s0, l - s0, pad, causal, scale)
         p = torch.exp(x - lse_t)
+        if qt < qt0:
+            p = p * flags[..., qt, None, None].float()
         g = p * (dos @ vs.transpose(-1, -2) - dl_t)
         dva += p.transpose(-1, -2) @ dos
         dka += g.transpose(-1, -2) @ qs
-        if qt + 1 < n:
-            ring[(2 * qt + 2) % 3] = _stage(e, ebase - (qt + 1) * _BQ)
+        if i + 1 < len(walk):
+            nxt = walk[i + 1]
+            ring[(2 * i + 2) % 3] = _stage(e, ebase - nxt * _BQ)
+            if nxt < qt0 <= qt:
+                ring[(2 * i + 3) % 3] = _stage(e, max_seq)
     m = min(_BK, l - s0)
     dk[:, :, s0:s0 + m] = (dka * scale)[:, :, :m]
     dv[:, :, s0:s0 + m] = dva[:, :, :m]
@@ -316,9 +340,15 @@ def _de_reduce(part, max_seq, n, scale):
 
 def _tc_backward(q, k, v, e, pad, causal, out, lse, dout):
     """(dq, dk, dv, de) of kernel C's bf16 body, walked as its launches
-    walk it, in f32: delta, then one grid of dq and dkv blocks (blockIdx.y
-    = 2 j + role: the dq block of query tile n - 1 - j, the dkv block of
-    key tile j), then the dE reduction."""
+    walk it, in f32: delta and the flags, then one grid of dq and dkv
+    blocks (blockIdx.y = 2 j + role: the dq block of query tile n - 1 - j,
+    the dkv block of key tile j), then the dE reduction."""
+    return _tc_backward_flags(q, k, v, e, pad, out, lse, dout,
+                              _flags(lse, -(-q.shape[2] // _BK)), causal)
+
+
+def _tc_backward_flags(q, k, v, e, pad, out, lse, dout, flags, causal=True):
+    """``_tc_backward`` with the extended walk's flags given."""
     b, h, l, dh = q.shape
     scale = 1.0 / math.sqrt(dh)
     delta = (dout * out).sum(-1)
@@ -327,7 +357,7 @@ def _tc_backward(q, k, v, e, pad, causal, out, lse, dout):
              "dk": torch.full_like(k, math.nan),
              "dv": torch.full_like(v, math.nan),
              "part": torch.full((b, h, n * (n + 1) // 2, _BK, dh), math.nan)}
-    args = (grads, q, k, v, e, pad, causal, lse, delta, dout, scale)
+    args = (grads, q, k, v, e, pad, causal, lse, delta, dout, scale, flags)
     for y in range(2 * n):
         if y & 1:
             _dkv_block(y >> 1, *args)
@@ -379,3 +409,59 @@ def test_tc_backward_index_arithmetic_matches_plain_and_jax(l, with_pad,
         np.testing.assert_allclose(g.numpy(), np.asarray(j), rtol=TOL,
                                    atol=TOL, err_msg=what)
     assert np.all(got[3].numpy()[:max_seq - l] == 0.0)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("l,left", [(100, 3), (200, 70), (130, 1)])
+def test_extended_walk_gives_left_padded_rows_the_plain_gradient(l, left,
+                                                                 dtype):
+    """Causal, keys 0 .. left - 1 padded in batch row 0 (rows 0 .. left - 1
+    reach no unmasked key; at left 70 a whole query tile and one row of
+    the next), batch row 1 unpadded: the emulated walk with the extended
+    tiles (dq blocks past the diagonal, dkv blocks before it, where the
+    prep launch's flag is set) equals the plain backward on every output,
+    f32 tolerance 2e-4 (summation order only), on inputs rounded to bf16
+    for "bf16" (the tile's operands). Against ``jax.vjp`` of the JAX
+    package's plain attention (``ops/relative_attention.py``), which
+    differentiates the softmax where the plain formula recomputes p from
+    the LSE, dQ agrees on the rows that meet an unmasked key."""
+    rng = np.random.default_rng(l + left)
+    b, h, dh, max_seq = 2, 2, 64, 256
+    q, k, v, dout = (rng.standard_normal((b, h, l, dh)).astype(np.float32)
+                     for _ in range(4))
+    e = rng.standard_normal((max_seq, dh)).astype(np.float32)
+    if dtype == "bf16":
+        q, k, v, dout, e = (torch.from_numpy(x).bfloat16().float().numpy()
+                            for x in (q, k, v, dout, e))
+    pad = np.zeros((b, l), np.float32)
+    pad[0, :left] = 1.0
+    tq, tk, tv, te, tdo, tpad = map(torch.from_numpy,
+                                    (q, k, v, e, dout, pad))
+    out, lse = tfa._forward_plain(tq, tk, tv, te, tpad, True)
+    assert bool((lse[0, :, :left] < 0.5 * NEG_INF).all())
+    got = _tc_backward(tq, tk, tv, te, tpad, True, out, lse, tdo)
+    ref = tfa.fused_relative_attention_bwd_plain(tq, tk, tv, te, tpad, True,
+                                                 out, lse, tdo)
+    for what, g, r in zip(("dq", "dk", "dv", "de"), got, ref):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=TOL, atol=TOL,
+                                   err_msg=what)
+    # the walk matters: the causal tiles alone miss the padded rows' pairs
+    n = -(-l // _BK)
+    no_walk = _tc_backward_flags(tq, tk, tv, te, tpad, out, lse, tdo,
+                                 torch.zeros(b, h, n, dtype=torch.bool))
+    assert (no_walk[0] - ref[0]).abs().max() > 1e-2
+    mask = np.triu(np.ones((l, l), np.float32), 1)[None, None] \
+        + pad[:, None, None, :]
+
+    def f(q_):
+        return jrel.relative_global_attention(q_, *map(jnp.asarray,
+                                                       (k, v, e)),
+                                              jnp.asarray(mask))
+
+    _, vjp = jax.vjp(f, jnp.asarray(q))
+    (jdq,) = vjp(jnp.asarray(dout))
+    np.testing.assert_allclose(got[0].numpy()[0, :, left:],
+                               np.asarray(jdq)[0, :, left:], rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(got[0].numpy()[1], np.asarray(jdq)[1],
+                               rtol=TOL, atol=TOL)

@@ -375,21 +375,57 @@ def test_fused_decode_loop_rejects_bad_inputs(bad):
         dl.fused_decode_loop(**kw)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("widths,ok", [
-    ((256, 64, 128, 309, 2048, 4), True),     # the flagship
-    ((128, 32, 64, 64, 64, 4), False),        # dh 32
-    ((2048, 64, 1024, 309, 1024, 32), False),  # d past one warp per head
-    ((256, 64, 100, 309, 1024, 4), False),    # FFN not a multiple of 8
-    ((256, 64, 128, 40000, 2048, 4), False),  # shared memory
+    ((256, 64, 128, 309, 2048, 4), (True, True)),     # the flagship
+    ((128, 32, 64, 64, 64, 4), (False, False)),       # dh 32
+    ((2048, 64, 1024, 309, 1024, 32), (False, False)),  # past a warp a head
+    ((256, 64, 100, 309, 1024, 4), (False, False)),   # FFN not a multiple of 8
+    ((256, 64, 128, 40000, 2048, 4), (False, False)),  # shared memory
+    # the bf16 cluster's weight slots (d x d / 8 bf16 each) do not fit:
+    # the one-block body takes it, as f32's
+    ((1024, 64, 512, 309, 1024, 16), (True, True)),
+    ((512, 64, 256, 309, 2048, 8), (True, True)),     # two slots
 ])
-def test_loop_kernel_limits(widths, ok):
-    """The CUDA kernel's limits (d, dh, FFN, V, S, H), checked before a
-    launch; the plain version on CPU tensors has none."""
-    if ok:
-        dl.loop_kernel_limits(*widths)
+def test_loop_kernel_limits(widths, ok, dtype):
+    """The CUDA kernel's limits (d, dh, FFN, V, S, H) in each dtype's
+    body, checked before a launch; the plain version on CPU tensors has
+    none. The bf16 body's shared memory mirrors csrc/fused_decode.cu's
+    LcLayout: at the flagship (cache 2048) 37,760 bytes, 3 weight slots of
+    19,968 and 105 staged prefix rows of 1,280."""
+    if ok[dtype == torch.bfloat16]:
+        dl.loop_kernel_limits(*widths, dtype)
     else:
         with pytest.raises(ValueError):
-            dl.loop_kernel_limits(*widths)
+            dl.loop_kernel_limits(*widths, dtype)
+    if widths == (256, 64, 128, 309, 2048, 4):
+        assert dl.loop_cluster_layout(*widths[:1], *widths[2:]) == (37760,
+                                                                    19968)
+        assert dl.loop_smem_bytes(*widths[:1], *widths[2:], dtype) == (
+            37760 + 3 * 19968 + 105 * (4 * 256 + 256)
+            if dtype == torch.bfloat16
+            else 4 * (2 * 312 + 5 * 256 + 8 * 512 + 4 * 2049 + 64))
+
+
+@pytest.mark.parametrize("widths,cluster", [
+    ((256, 128, 309, 2048, 4), True),     # the flagship
+    ((512, 256, 309, 2048, 8), True),
+    ((576, 288, 309, 2048, 9), True),     # the widest the slots take
+    ((640, 320, 309, 2048, 10), False),   # two slots do not fit
+    ((1024, 512, 309, 2048, 16), False),  # the d 1024 rung
+    ((768, 384, 309, 1024, 12), False),
+])
+def test_loop_body_chosen_from_the_widths(widths, cluster):
+    """bf16 runs kernel F's cluster body exactly where its two weight
+    slots fit (csrc/fused_decode.cu's loop_cluster_fits; d, 64 heads' worth
+    of columns, is always a multiple of the 8 x 8 it also needs), else the one-block body, whose shared memory
+    then sets the limit; f32 always runs the one-block body."""
+    d, f, v, s, h = widths
+    assert dl.loop_takes_cluster(*widths, torch.bfloat16) is cluster
+    assert not dl.loop_takes_cluster(*widths, torch.float32)
+    assert (dl.loop_smem_bytes(*widths, torch.bfloat16)
+            == dl.loop_smem_bytes(*widths, torch.float32)) is not cluster
+    dl.loop_kernel_limits(d, 64, f, v, s, h, torch.bfloat16)
 
 
 def test_cpu_tensors_run_plain_past_a_cuda_only_limit():
@@ -406,3 +442,167 @@ def test_cpu_tensors_run_plain_past_a_cuda_only_limit():
         max_len=16, steps=8, sampling=GREEDY))
     assert torch.equal(loop, step)
     assert dl.fused_decode_loop.launches == before
+
+
+# -- kernel F's bf16 body: the cluster split, emulated ----------------------------
+# csrc/fused_decode.cu's decode_loop_cluster_kernel: a cluster of LOOP_NC
+# CTAs per batch row; CTA r owns d / nc columns of q, k, v, fc and FFN2,
+# an FFN1 slice and a slice of the head's rows, and rows [r per, (r + 1)
+# per) of the live prefix (per = ceil((t + 1) / nc)). A product's column
+# sums over K (256 threads a CTA): thread (cg, s) adds rows s, s + ks, ...
+# in order (ks = min(256 / (ncols / 8), K / 8)), then 8 lanes an output
+# add the partials
+# s = l8, l8 + 8, ... and a lane tree (xor 1, 2, 4). Attention: each
+# CTA's maxima
+# exchanged first (the global max, as the plain version), p rounded to
+# the model dtype for PV, each CTA's (l, PV) merged in rank order.
+
+def _cluster_product(x, w, ncols):
+    """x [B, K] @ w [K, N] (f32 values) with the CTA's column sums in the
+    kernel's order, for column slices of ``ncols`` (a multiple of 8)."""
+    b, k = x.shape
+    ks = min(256 // (ncols // 8), max(1, k // 8))
+    part = torch.zeros(b, ks, w.shape[1])
+    for i0 in range(0, k, ks):                 # rows s + i0 of every thread
+        n = min(ks, k - i0)
+        part[:, :n] += x[:, i0:i0 + n, None] * w[i0:i0 + n]
+    lanes = torch.zeros(b, 8, w.shape[1])
+    for s in range(ks):                        # lane l8: s = l8, l8 + 8, ...
+        lanes[:, s % 8] += part[:, s]
+    pairs = [lanes[:, 2 * i] + lanes[:, 2 * i + 1] for i in range(4)]
+    return (pairs[0] + pairs[1]) + (pairs[2] + pairs[3])
+
+
+def _ln(z, scale, bias, eps=1e-6):
+    mu = z.mean(-1, keepdim=True)
+    var = ((z - mu) ** 2).mean(-1, keepdim=True)
+    return (z - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+
+
+def _cluster_loop(logits, t0, embed, pos, e_all, weights, fc_w, fc_b, kc, vc,
+                  heads, chunk, nc=dl.LOOP_NC):
+    """Greedy kernel F, bf16 body, emulated: (tokens, last logits); the
+    caches get rows [t0, t0 + chunk) in place."""
+    dt = kc.dtype
+
+    def rnd(y):
+        return y.to(dt).float()
+
+    b, d = logits.shape[0], embed.shape[1]
+    f = weights["ffn1_w"].shape[-1]
+    dh, max_seq = d // heads, e_all.shape[1]
+    ds, fsl = d // nc, -(-(-(-f // nc)) // 8) * 8
+    scale = dl.embed_scale(d, embed.dtype)
+    lg = logits.clone()
+    toks = torch.empty(b, chunk, dtype=torch.long)
+    for i in range(chunk):
+        t = t0 + i
+        tok = torch.argmax(lg, -1)
+        toks[:, i] = tok
+        x = rnd(rnd(embed[tok].float() * scale) + pos[t].float())
+        n = t + 1
+        per = -(-n // nc)
+        for li in range(kc.shape[0]):
+            w = {k: v[li].float() for k, v in weights.items()}
+            q = rnd(_cluster_product(x, w["wq"], ds) + w["bq"])
+            k_new = rnd(_cluster_product(x, w["wk"], ds) + w["bk"])
+            v_new = rnd(_cluster_product(x, w["wv"], ds) + w["bv"])
+            kc[li, :, t], vc[li, :, t] = k_new.to(dt), v_new.to(dt)
+            keys = kc[li, :, :n].float().view(b, n, heads, dh)
+            vals = vc[li, :, :n].float().view(b, n, heads, dh)
+            qh = q.view(b, heads, dh)
+            e_rows = e_all[li, max_seq - 1 - t:max_seq].float()
+            sc = (torch.einsum("bhd,bshd->bhs", qh, keys)
+                  + torch.einsum("bhd,sd->bhs", qh, e_rows)) / 8.0
+            slices = [(r * per, min(n, (r + 1) * per)) for r in range(nc)
+                      if r * per < n]
+            m = torch.stack([sc[..., lo:hi].amax(-1) for lo, hi in slices]
+                            ).amax(0)                       # the global max
+            acc = torch.zeros(b, heads, dh)
+            lsum = torch.zeros(b, heads)
+            for lo, hi in slices:                           # rank order
+                p = torch.exp(sc[..., lo:hi] - m[..., None])
+                lsum = lsum + p.sum(-1)
+                acc = acc + torch.einsum("bhs,bshd->bhd", rnd(p),
+                                         vals[:, lo:hi])
+            att = rnd((acc / lsum.clamp_min(1e-30)[..., None]).reshape(b, d))
+            z = rnd(_cluster_product(att, w["wfc"], ds) + w["bfc"]) + x
+            o1 = rnd(_ln(z, w["ln1_scale"], w["ln1_bias"]))
+            hid = torch.relu(rnd(_cluster_product(o1, w["ffn1_w"], fsl)
+                                 + w["ffn1_b"]))
+            z2 = o1 + rnd(_cluster_product(hid, w["ffn2_w"], ds)
+                          + w["ffn2_b"])
+            x = rnd(_ln(z2, w["ln2_scale"], w["ln2_bias"]))
+        lg = rnd(x @ fc_w.float().T + fc_b.float())
+    return toks, lg
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1.25e-1)])
+def test_cluster_split_matches_plain_and_jax_loop_kernel(dtype, tol):
+    """The emulated bf16 body's arithmetic (column-sliced products in the
+    kernel's order, prefix slices under a global max, (l, PV) merged in
+    rank order), greedy, 12 steps from a prompt of 6 at B 2, in f32 and
+    in bf16: tokens equal to ``fused_decode_loop_plain``'s and to the JAX
+    loop kernel's in interpret mode on the same weights (the JAX model
+    in the same dtype, as ``test_greedy_loop_matches_jax_loop_kernel``
+    runs it), the last logits within ``tol`` of the plain version's
+    (TOL_B: f32 differs in summation order only; in bf16 a sum that
+    differs in its last f32 bit can flip a rounding)."""
+    jm, params, tm = _pair()
+    sd = convert.state_dict_from_jax(params)
+    tm = convert.model_from_state_dict(sd, device="cpu", dtype=dtype)
+    prompt, steps = _prompt(), 12
+    logits, cache = tm.prefill(torch.from_numpy(prompt), 32)
+    stacked, (embed, pos, fc_w, fc_b) = tm.decode_weights(), tm.loop_weights()
+    caches = [{k: v.clone() for k, v in cache.items()} for _ in range(2)]
+    got, got_lg = _cluster_loop(
+        logits.float().clone(), prompt.shape[1], embed, pos, stacked[1],
+        stacked[0], fc_w, fc_b, caches[0]["k"], caches[0]["v"],
+        tm.num_heads, steps)
+    want, want_lg = dl.fused_decode_loop_plain(
+        logits.float().clone(), prompt.shape[1], torch.tensor([0]), embed,
+        pos, stacked[1], stacked[0], fc_w, fc_b, caches[1]["k"],
+        caches[1]["v"], tm.num_heads, steps, greedy=True)
+    assert torch.equal(got, want)
+    assert (got_lg - want_lg).abs().max() <= tol
+    for name in ("k", "v"):
+        assert (caches[0][name].float() - caches[1][name].float()
+                ).abs().max() <= tol
+    jmd = JMusicTransformer(vocab_size=VOCAB, num_layers=NL, d_model=D,
+                            max_seq=MAX_SEQ, decode_impl="fused",
+                            dropout_rate=0.0,
+                            dtype={torch.float32: jnp.float32,
+                                   torch.bfloat16: jnp.bfloat16}[dtype])
+    jtoks = np.asarray(jgenerate(
+        jmd, params, jnp.asarray(prompt, jnp.int32), jax.random.PRNGKey(2),
+        JDecodeParams(max_len=32, steps=steps, sampling=JSampling(greedy=True),
+                      use_loop_kernel=True)))
+    np.testing.assert_array_equal(got.numpy(), jtoks)
+
+
+def test_pack_loop_matrices_gives_each_cta_its_columns():
+    """``pack_loop_matrices``: CTA r's slice of layer l's matrix is
+    packed[l, r], columns r cols .. of the stacked weights (FFN1 zero-
+    padded to nc 8-aligned slices: f 72 over 8 CTAs gives 16 columns a
+    slice, the last four empty); the weights are not written."""
+    rng = np.random.default_rng(3)
+    nl, d, f = 2, 128, 72
+    w = {k: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+         for k, shape in (("wq", (nl, d, d)), ("wk", (nl, d, d)),
+                          ("wv", (nl, d, d)), ("wfc", (nl, d, d)),
+                          ("ffn1_w", (nl, d, f)), ("ffn2_w", (nl, f, d)))}
+    before = {k: v.clone() for k, v in w.items()}
+    packed = dl.pack_loop_matrices(w)
+    nc = dl.LOOP_NC
+    for key, p in zip(("wq", "wk", "wv", "wfc", "ffn1_w", "ffn2_w"), packed):
+        cols = 16 if key == "ffn1_w" else d // nc
+        assert tuple(p.shape) == (nl, nc, w[key].shape[1], cols)
+        assert p.is_contiguous()
+        for li in range(nl):
+            for r in range(nc):
+                ref = w[key][li, :, r * cols:(r + 1) * cols]
+                got = p[li, r, :, :ref.shape[1]]
+                assert torch.equal(got, ref)
+                assert p[li, r, :, ref.shape[1]:].abs().sum() == 0
+    assert all(torch.equal(w[k], before[k]) for k in w)

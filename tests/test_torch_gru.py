@@ -208,3 +208,106 @@ def test_plain_version_is_what_the_cpu_wrapper_runs():
     assert fused_gru_step.launches == before      # no kernel on the CPU
     for u, v in zip(a, b):
         assert torch.equal(u, v)
+
+
+# --------------------------------------------------------------------------
+# kernel D's bf16 body (csrc/fused_gru_decode.cu, gru_layer_tc_kernel), its
+# reduction order emulated in plain torch: per (matrix, gate) tile, the
+# k16 steps of each CTA's K range summed in order (one warp's mma chain),
+# the GRU_NC CTAs' partial sums merged in rank order, then the bias, the
+# bf16 rounding of gi and gh and the f32 gate epilogue
+# --------------------------------------------------------------------------
+
+_NC = 4   # CTAs of a cluster: the K split
+
+
+def _k_split_sum(a, w):
+    """a [B, K] and packed w [3H, P] (bf16 values) -> [B, 3H] f32: CTA r
+    sums k16 steps r kr .. (r + 1) kr - 1 of ceil(P / 16) in order, the
+    CTAs' sums added in rank order."""
+    p = w.shape[1]
+    nk = -(-p // 16)
+    kr = -(-nk // _NC)
+    ap = torch.zeros(a.shape[0], 16 * nk)
+    ap[:, :a.shape[1]] = a.float()
+    wp = torch.zeros(w.shape[0], 16 * nk)
+    wp[:, :p] = w.float()
+    total = torch.zeros(w.shape[0], a.shape[0])
+    for r in range(_NC):
+        acc = torch.zeros(w.shape[0], a.shape[0])
+        for st in range(r * kr, min(nk, (r + 1) * kr)):
+            acc = acc + wp[:, 16 * st:16 * st + 16] @ ap[:, 16 * st:16 * st
+                                                         + 16].T
+        total = total + acc
+    return total.T
+
+
+def _tc_step(x, h, w):
+    """kernel D's bf16 step, emulated: (out, h_new) as fused_gru_step."""
+    hidden = h.shape[-1]
+    inp, new_h = x, []
+    for li in range(h.shape[0]):
+        gi = (_k_split_sum(inp, w["w_ih"][li]) + w["b_ih"][li]).bfloat16()
+        gh = (_k_split_sum(h[li], w["w_hh"][li]) + w["b_hh"][li]).bfloat16()
+        gi, gh = gi.float(), gh.float()
+        r = torch.sigmoid(gi[:, :hidden] + gh[:, :hidden])
+        z = torch.sigmoid(gi[:, hidden:2 * hidden] + gh[:, hidden:2 * hidden])
+        n = torch.tanh(gi[:, 2 * hidden:] + r * gh[:, 2 * hidden:])
+        inp = ((1 - z) * n + z * h[li].float()).bfloat16()
+        new_h.append(inp)
+    h_new = torch.stack(new_h)
+    return h_new[-1], h_new
+
+
+@pytest.mark.parametrize("b,in_dim,hidden,layers", [
+    (8, 308, 512, 3),    # EventMelodyRNN, the main path's batch
+    (1, 308, 512, 3),    # cli.generate's batch 1
+    (40, 512, 512, 3),   # PerformanceRNN's width, two 32-row blocks
+    (3, 13, 20, 2),      # H not a multiple of 16, an odd input width
+])
+def test_tc_reduction_order_matches_plain_and_pallas(b, in_dim, hidden,
+                                                     layers):
+    """The emulated bf16 body sits within TOL_D bf16 (3e-2 max abs:
+    one bf16 ulp of a value near 1 is 2^-7, and sums that differ in the
+    last f32 bit can flip gi's or gh's rounding) of
+    ``fused_gru_step_plain`` and of the JAX Pallas kernel in interpret
+    mode on the same bf16 inputs."""
+    rng = np.random.RandomState(b + in_dim)
+    x = rng.randn(b, in_dim) * 0.5
+    h = rng.randn(layers, b, hidden) * 0.5
+    params = _layers(rng, in_dim, hidden, layers)
+    jx, jh = jnp.asarray(x, jnp.bfloat16), jnp.asarray(h, jnp.bfloat16)
+    jp = [tuple(jnp.asarray(a, jnp.bfloat16) for a in lp) for lp in params]
+    p = _round_up(max(in_dim, hidden), 128)
+    w_ih = jnp.stack([jnp.pad(w, ((0, p - w.shape[0]), (0, 0)))
+                      for w, _, _, _ in jp])
+    _, k_h = jfused_gru_step(
+        jx, jh, w_ih, jnp.stack([w for _, w, _, _ in jp]),
+        jnp.stack([bi for _, _, bi, _ in jp]),
+        jnp.stack([bh for _, _, _, bh in jp]), interpret=True)
+    w = pack_gru_weights(
+        [tuple(t.bfloat16() for t in lp) for lp in _torch_layers(
+            [tuple(np.asarray(a, np.float32) for a in lp) for lp in jp])],
+        torch.bfloat16)
+    tx = torch.from_numpy(np.array(jx, np.float32)).bfloat16()
+    th = torch.from_numpy(np.array(jh, np.float32)).bfloat16()
+    out, h_new = _tc_step(tx, th, w)
+    ref_out, ref_h = fused_gru_step_plain(tx, th, w)
+    assert torch.equal(out, h_new[-1])
+    tol = 3e-2
+    assert (h_new.float() - ref_h.float()).abs().max() <= tol
+    np.testing.assert_allclose(h_new.float().numpy(),
+                               np.asarray(k_h, np.float32), atol=tol)
+
+
+def test_smem_bytes_mirrors_the_kernel_layout():
+    """The wrapper's shared-memory figure for each body (csrc/fused_gru_
+    decode.cu): bf16, GruSmem at H 512 (6 weight tiles of 16 rows and 32
+    x and h rows over a quarter of K = 8 k16 steps, rows 136 bf16 apart,
+    and the cluster's [4][6][4][32] f32 partials); f32, 8 staged rows of
+    x and h."""
+    from musicgeneration_tpu_torch.ops.fused_gru_decode import smem_bytes
+    assert smem_bytes(torch.bfloat16, 308, 512) == (2 * (48 + 32) * 272
+                                                    + 4 * 4 * 6 * 4 * 32)
+    assert smem_bytes(torch.bfloat16, 13, 20) == 2 * 80 * (24 + 24) + 12288
+    assert smem_bytes(torch.float32, 308, 512) == 4 * 8 * (512 + 512)
