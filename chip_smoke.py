@@ -167,7 +167,28 @@ Phases (the first failure raises and the exit code is non-zero):
    claim: one card).
    The NCCL ring of a process group needs several GPUs and is not run
    here;
-13. one JSON line of kernels, the card's line, and the final JSON line.
+13. the Compound Word (CP) transformer at the repo's defaults (4 layers,
+   d 256, 4 heads, FFN 128, max_seq 1024, 8 field heads over 347 ids;
+   seeded random weights): kernel A (causal, no key_pad, B 8, L 256 and
+   512, max_seq 1024), kernel B at 4 layers (t 700 and 1023 in a
+   1024-row cache, t 0, 700 and 767 in an aligned 768-row cache shorter
+   than the E table; plain, ragged and int8) and kernel C (L 512, max_seq
+   512, causal) against their plain versions, f32 and bf16 (run with the
+   other kernel checks); greedy f32 ``generate_cp`` (B 8, 64 rows after
+   256) and its int8 model, kernel path == plain path; greedy f32 serving
+   of 8 staggered requests, kernel path == plain path == each request's
+   dedicated ``generate_cp``; ``cli.generate`` on the saved model (bf16,
+   B 8, the prime cut to 512 rows, 512 sampled rows: exactly 4 kernel-A
+   and 12 kernel-B launches a row) and with ``--quant int8`` (128 rows:
+   12 int8 launches a row); ``cli.serve`` file mode (24 requests, exactly
+   4 A per admission and 12 ragged B per decode step); ``cli.tokenize
+   --scheme cp`` -> one f32 train step kernel vs plain (PERF.md section
+   2's limits) -> ``cli.train model=cp_transformer`` bf16 for 30 steps
+   (exactly 4 A and 4 C a step) -> ``cli.generate`` from the checkpoint
+   directory; kernels A, B and C timed at CP's shapes beside their plain
+   versions and bounds; prefill ms, decode rows/s, serving goodput and
+   the train step's time;
+14. one JSON line of kernels, the card's line, and the final JSON line.
 
 Imports nothing of JAX or of ``musicgeneration_tpu``. Needs one CUDA card.
 """
@@ -209,10 +230,15 @@ from musicgeneration_tpu_torch.cli.tokenize import (  # noqa: E402
 from musicgeneration_tpu_torch.data.pipeline import TokenCorpus  # noqa: E402
 from musicgeneration_tpu_torch.decode import (  # noqa: E402
     DecodeParams, SamplingParams, SpecParams, generate, generate_speculative)
+from musicgeneration_tpu_torch.decode.cp_generate import (  # noqa: E402
+    generate_cp, sample_row)
+from musicgeneration_tpu_torch.decode.serving_cp import (  # noqa: E402
+    CPContinuousBatcher)
 from musicgeneration_tpu_torch.decode.serving import (  # noqa: E402
     ContinuousBatcher)
 from musicgeneration_tpu_torch.decode.serving_rnn import (  # noqa: E402
     RNNContinuousBatcher)
+from musicgeneration_tpu_torch.models import cp_transformer as cp_mod  # noqa: E402
 from musicgeneration_tpu_torch.models import music_transformer as mt  # noqa: E402
 from musicgeneration_tpu_torch.models import (  # noqa: E402
     EventMelodyRNN, PerformanceRNN)
@@ -238,7 +264,7 @@ from musicgeneration_tpu_torch.parallel import (  # noqa: E402
     make_mesh, ring_relative_attention, ring_relative_attention_pallas)
 from musicgeneration_tpu_torch.parallel.ring_attention import (  # noqa: E402
     to_shards)
-from musicgeneration_tpu_torch.tokenizers import midilike  # noqa: E402
+from musicgeneration_tpu_torch.tokenizers import cp, midilike  # noqa: E402
 from musicgeneration_tpu_torch.train.trainer import (  # noqa: E402
     TrainerConfig, create_train_state, make_optimizer, make_train_step)
 from musicgeneration_tpu_torch.utils.checkpoint import (  # noqa: E402
@@ -333,6 +359,20 @@ DECODE_WIDTHS = ((DRAFT_D, DRAFT_D // 2, DRAFT_LAYERS, MAX_SEQ, T_TIMED),
                  (960, 4096, 1, MAX_SEQ, T_TIMED),
                  (DRAFT_D, DRAFT_D // 2, DRAFT_LAYERS, 16384, 9000))
 RATE_PROMPT, RATE_CACHE, RATE_ROUNDS = 16, 1024, 3
+# the Compound Word transformer at the repo's defaults
+# (cp_transformer_defaults: 4 layers, d 256, 4 heads, FFN 128, max_seq
+# 1024; 8 field heads over 347 ids): cli.generate B 8, the prime cut to
+# max_seq - 512 = 512 rows, 512 rows (128 with --quant int8); greedy
+# parity at a 256-row prompt, 64 rows; serving 24 requests of 64-320 new
+# rows; training at seq_len 512. Kernel B's CP cases (t, cache rows): a
+# 1024-row cache (the E table's length) and an aligned 768-row one,
+# shorter than the table, up to its last row
+CP_LAYERS, CP_MAX_SEQ, CP_PROMPT, CP_STEPS = 4, 1024, 512, 512
+CP_PARITY_PROMPT, CP_GREEDY, CP_INT8_STEPS = 256, 64, 128
+CP_SERVE_NEW = (64, 321)
+CP_PARITY_LENS = (1, 3, 64, 200, 500, 17, 100, 33)   # staggered serving
+CP_PARITY_NEWS = (64, 128, 96, 64, 100, 80, 128, 72)
+CP_B_CASES = ((700, 1024), (1023, 1024), (0, 768), (700, 768), (767, 768))
 # ring attention (kernel G): the main shape is L 2048 = max_seq over sp 4
 # (Lloc 512), B 8, bf16; the check also takes sp 8, L 512 and the ragged
 # Lloc 25 and 17. Kernel G vs its plain tile: f32 max abs TOL_G; the f32
@@ -833,11 +873,11 @@ def flagship(dtype, seed: int = 0, quant: str = "none",
         generator=torch.Generator().manual_seed(seed), decode_quant=quant)
 
 
-def decode_inputs(model, gen, b: int = B):
-    """x [b, d] and filled [L, b, 1024, d] caches in the model dtype; the
-    model's stacked weights (an int8 model's hold their "int8" pair)."""
+def decode_inputs(model, gen, b: int = B, cache_len: int = 1024):
+    """x [b, d] and filled [L, b, cache_len, d] caches in the model dtype;
+    the model's stacked weights (an int8 model's hold their "int8"
+    pair)."""
     w_all, e_all = model.decode_weights()
-    cache_len = 1024
     shape = (model.num_layers, b, cache_len, model.d_model)
     kc = torch.randn(shape, generator=gen).to(DEV, model.dtype)
     vc = torch.randn(shape, generator=gen).to(DEV, model.dtype)
@@ -1082,21 +1122,23 @@ def check_kernel_d() -> float:
 def plain_path():
     """Run the models through the plain versions of the kernels: A and C
     (attention), B and E (the MusicTransformer decode step and chunk
-    forward), F (the decode loop), D (the GRU step)."""
+    forward), B (the CP transformer's decode step), F (the decode loop),
+    D (the GRU step)."""
     saved = (mt.fused_relative_attention, mt.fused_decode_step,
              mt.fused_decode_chunk, mt.fused_decode_loop,
-             gru_mod.fused_gru_step)
+             gru_mod.fused_gru_step, cp_mod.fused_decode_step)
     mt.fused_relative_attention = fused_relative_attention_plain
     mt.fused_decode_step = fused_decode_step_plain
     mt.fused_decode_chunk = fused_decode_chunk_plain
     mt.fused_decode_loop = fused_decode_loop_plain
     gru_mod.fused_gru_step = fused_gru_step_plain
+    cp_mod.fused_decode_step = fused_decode_step_plain
     try:
         yield
     finally:
         (mt.fused_relative_attention, mt.fused_decode_step,
          mt.fused_decode_chunk, mt.fused_decode_loop,
-         gru_mod.fused_gru_step) = saved
+         gru_mod.fused_gru_step, cp_mod.fused_decode_step) = saved
 
 
 def write_inputs(model, tmp: str) -> tuple:
@@ -2157,7 +2199,7 @@ def train_parity(shards: str) -> None:
             for a in train_cli._lm_batch_fn(corpus, cfg)(0))
     results = []
     for plain in (False, True):
-        model, tcfg = train_cli.build_model(cfg, "midilike", kw, DEV)
+        model, tcfg, _ = train_cli.build_model(cfg, "midilike", kw, DEV)
         tx = make_optimizer(tcfg)
         state = create_train_state(model, tx, dropout_seed=cfg.seed)
         step = make_train_step(tx, tcfg)
@@ -2309,8 +2351,8 @@ def time_train_step(shards: str) -> dict:
 
     warm, timed = 5, 25
     cfg, batches = train_batches(warm + timed + PROFILE_STEPS, shards)
-    model, tcfg = train_cli.build_model(cfg, "midilike",
-                                          {"dtype": "bfloat16"}, DEV)
+    model, tcfg, _ = train_cli.build_model(cfg, "midilike",
+                                             {"dtype": "bfloat16"}, DEV)
     tx = make_optimizer(tcfg)
     state = create_train_state(model, tx, dropout_seed=cfg.seed)
     step = make_train_step(tx, tcfg)
@@ -2565,19 +2607,19 @@ def profile_kernel_b_call(calls: int = 20) -> dict:
     return out
 
 
-def weight_bytes(d: int, int8: bool) -> int:
-    """Bytes of the six layers' bf16 decode weights (FFN d / 2), or with
-    the six matrices in int8 plus their f32 scale tables (one per output
+def weight_bytes(d: int, int8: bool, layers: int = N_LAYERS) -> int:
+    """Bytes of the layers' bf16 decode weights (FFN d / 2), or with the
+    six matrices in int8 plus their f32 scale tables (one per output
     column)."""
     f = d // 2
     mats, vecs = 4 * d * d + 2 * d * f, 9 * d + f
     if int8:
-        return N_LAYERS * (mats + 2 * vecs + 4 * (5 * d + f))
-    return N_LAYERS * 2 * (mats + vecs)
+        return layers * (mats + 2 * vecs + 4 * (5 * d + f))
+    return layers * 2 * (mats + vecs)
 
 
 def decode_bound(starts: np.ndarray, t: int, d: int = D_MODEL,
-                 int8: bool = False) -> tuple:
+                 int8: bool = False, layers: int = N_LAYERS) -> tuple:
     """Least time of one bf16 decode step at position t whose rows attend
     [start_b, t]: weights (``weight_bytes``), the live K/V rows and the E
     rows they need read once, x read and written, the new K/V rows
@@ -2586,11 +2628,11 @@ def decode_bound(starts: np.ndarray, t: int, d: int = D_MODEL,
     f, heads = d // 2, d // DH
     live = int(np.sum(t + 1 - starts))          # (b, s) pairs attended
     e_rows = t + 1 - int(starts.min())
-    nbytes = (weight_bytes(d, int8) + 2 * N_LAYERS * live * d * 2
-              + N_LAYERS * e_rows * DH * 4 + 2 * len(starts) * d * 2
-              + 2 * N_LAYERS * len(starts) * d * 2)
-    flops = N_LAYERS * (2 * len(starts) * (4 * d * d + 2 * d * f)
-                        + 3 * 2 * heads * live * DH)
+    nbytes = (weight_bytes(d, int8, layers) + 2 * layers * live * d * 2
+              + layers * e_rows * DH * 4 + 2 * len(starts) * d * 2
+              + 2 * layers * len(starts) * d * 2)
+    flops = layers * (2 * len(starts) * (4 * d * d + 2 * d * f)
+                      + 3 * 2 * heads * live * DH)
     return bound(nbytes, flops, torch.bfloat16)
 
 
@@ -4062,6 +4104,554 @@ def time_ring_step() -> dict:
 
 # the bf16 (tensor-core) entry functions of each library; "_int8": the
 # instantiation for int8 weights
+# ---------------------------------------------------------------------------
+# the Compound Word (CP) transformer: kernels A, B (plain, ragged, int8) and
+# C at its shapes, and its generation, serving and training paths
+# ---------------------------------------------------------------------------
+
+def cp_model(dtype, seed: int = 0,
+             quant: str = "none") -> cp_mod.CPTransformer:
+    """The CP transformer at the repo's defaults (cp_transformer_defaults:
+    4 layers, d 256, 4 heads, FFN 128, max_seq 1024) with seeded random
+    weights."""
+    return cp_mod.CPTransformer(
+        **cp_mod.cp_transformer_defaults(max_seq=CP_MAX_SEQ), dtype=dtype,
+        device=DEV, generator=torch.Generator().manual_seed(seed),
+        decode_quant=quant)
+
+
+def cp_profile(label: str, fn, n: int) -> float:
+    """``n`` calls of ``fn`` under torch.profiler: the wall and device
+    busy time a call, the busy share and the heaviest kernels. Returns
+    the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    print(f"{label} profile: {n} calls, wall {wall_us / n:.1f} us a call "
+          f"under the profiler, device busy {busy / n:.1f} us "
+          f"({100 * busy / wall_us:.1f}% of wall)", f"on {gpu_line()}")
+    for dev_us, count, key in sorted(rows, reverse=True)[:6]:
+        print(f"  {dev_us / n:9.1f} us/call {count / n:6.1f}x/call "
+              f"{key[:80]}")
+    return busy / wall_us
+
+
+def check_cp_kernels() -> dict:
+    """Kernels A, B and C at the CP transformer's shapes against their
+    plain versions, with the stated tolerances: A causal without key_pad
+    at B 8, L 256 and 512, max_seq 1024 (prefill and admission); B at 4
+    layers, d 256, B 8, E tables of 1024 rows, t 700 and 1023 in a
+    1024-row cache and t 0, 700 and 767 in an aligned 768-row cache
+    (shorter than the table), plain, ragged (start_min = min(start)) and
+    int8 (also within TOL_INT8_REL of the unquantized kernel), every
+    cache row but t untouched; C at L 512, max_seq 512, causal, no
+    key_pad (the training shape). f32 (TF32 off) and bf16. Returns the
+    worst bf16 error of each."""
+    gen = torch.Generator().manual_seed(41)
+    worst = {"A": 0.0, "B": 0.0, "B_ragged": 0.0, "B_int8": 0.0, "C": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for l in (CP_PARITY_PROMPT, CP_PROMPT):
+            q, k, v, e, _ = attn_inputs(dtype, gen, False, l, CP_MAX_SEQ)
+            out, lse = fused_relative_attention(q, k, v, e, None, True,
+                                                return_lse=True)
+            ref, ref_lse = fused_relative_attention_plain(
+                q, k, v, e, None, True, return_lse=True)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            ok = err <= TOL_A[dtype] and lse_err <= 1e-3
+            print(f"CP kernel A {str(dtype):15s} B={B} L={l} max_seq="
+                  f"{CP_MAX_SEQ} causal, no key_pad: max_abs_err {err:.3e} "
+                  f"lse_err {lse_err:.3e} tol {TOL_A[dtype]:.1e} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("kernel A disagrees at CP's shape")
+            if dtype == torch.bfloat16:
+                worst["A"] = max(worst["A"], err)
+        model = cp_model(dtype, quant="int8")
+        for t, cache_len in CP_B_CASES:
+            for mode in ("B", "B_ragged", "B_int8"):
+                x, e_all, w_all, kc, vc = decode_inputs(model, gen,
+                                                        cache_len=cache_len)
+                kw, w = {}, w_all
+                if mode == "B_ragged":
+                    start = ragged_starts(gen, t).to(DEV)
+                    kw = {"start": start, "start_min": int(start.min())}
+                if mode == "B_int8":
+                    w, kw["scales"] = w_all["int8"]
+                kc2, vc2 = kc.clone(), vc.clone()
+                full, _, _ = fused_decode_step(x, t, e_all, w_all, kc.clone(),
+                                               vc.clone(), model.num_heads)
+                out, kc, vc = fused_decode_step(x, t, e_all, w, kc, vc,
+                                                model.num_heads, **kw)
+                ref, kc2, vc2 = fused_decode_step_plain(
+                    x, t, e_all, w, kc2, vc2, model.num_heads, **kw)
+                torch.cuda.synchronize()
+                err = max((out.float() - ref.float()).abs().max().item(),
+                          (kc[:, :, t].float() - kc2[:, :, t].float())
+                          .abs().max().item(),
+                          (vc[:, :, t].float() - vc2[:, :, t].float())
+                          .abs().max().item())
+                rel = rel_err(out, full) if mode == "B_int8" else 0.0
+                ok = (err <= TOL_B[dtype] and rel < TOL_INT8_REL
+                      and untouched(kc, kc2, t) and untouched(vc, vc2, t)
+                      and bool(torch.isfinite(out.float()).all()))
+                print(f"CP kernel {mode:8s} {str(dtype):15s} L={CP_LAYERS} "
+                      f"B={B} t={t:4d} cache={cache_len} E rows "
+                      f"{CP_MAX_SEQ}: max_abs_err {err:.3e} tol "
+                      f"{TOL_B[dtype]:.1e}"
+                      + (f", vs unquantized {rel:.2e} rel (< "
+                         f"{TOL_INT8_REL:.0e})" if mode == "B_int8" else "")
+                      + f" {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"kernel {mode} disagrees at CP's "
+                                         "shape")
+                if dtype == torch.bfloat16:
+                    worst[mode] = max(worst[mode], err)
+        q, k, v, _, _ = attn_inputs(dtype, gen, False, L_TRAIN)
+        e = torch.randn(L_TRAIN, DH, generator=gen).to(DEV)
+        dout = torch.randn(q.shape, generator=gen).to(DEV, dtype)
+        out, lse = fused_relative_attention(q, k, v, e, None, True,
+                                            return_lse=True)
+        got = fused_relative_attention_bwd(q, k, v, e, None, True, out, lse,
+                                           dout)
+        ref = fused_relative_attention_bwd_plain(q, k, v, e, None, True, out,
+                                                 lse, dout)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, r) for a, r in zip(got, ref)]
+        abs_err = max((a.float() - r.float()).abs().max().item()
+                      for a, r in zip(got, ref))
+        ok = max(errs) <= TOL_C[dtype] and all(
+            bool(torch.isfinite(a).all()) for a in got)
+        print(f"CP kernel C {str(dtype):15s} B={B} L={L_TRAIN} max_seq="
+              f"{L_TRAIN} causal, no key_pad: rel_err dq={errs[0]:.2e} "
+              f"dk={errs[1]:.2e} dv={errs[2]:.2e} de={errs[3]:.2e} tol "
+              f"{TOL_C[dtype]:.0e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("kernel C disagrees at CP's shape")
+        if dtype == torch.bfloat16:
+            worst["C"] = max(worst["C"], abs_err)
+    return worst
+
+
+def cp_prime(tmp: str) -> tuple:
+    """A prime MIDI of random MIDI-like events and its CP rows."""
+    path = os.path.join(tmp, "cp_prime.mid")
+    write_midi(np.random.default_rng(21).integers(0, VOCAB - 1, 3000), path)
+    rows = cp.extract_events(path)
+    if len(rows) < CP_PROMPT:
+        raise AssertionError(f"the CP prime has {len(rows)} rows, fewer than "
+                             f"{CP_PROMPT}")
+    return path, np.asarray(rows, np.int64)
+
+
+def cp_greedy_parity(rows: np.ndarray) -> None:
+    """Greedy f32 generate_cp (B 8, 64 rows after a 256-row prompt) and
+    the same on an int8 model: kernel path == plain path, row for row."""
+    prompt = np.tile(rows[None, :CP_PARITY_PROMPT], (B, 1, 1))
+    for quant in ("none", "int8"):
+        model32 = cp_model(torch.float32, quant=quant)
+        kern = generate_cp(model32, prompt, CP_GREEDY, greedy=True)
+        with plain_path():
+            plain = generate_cp(model32, prompt, CP_GREEDY, greedy=True)
+        same = torch.equal(kern, plain)
+        print(f"CP greedy f32{' int8' if quant == 'int8' else ''} "
+              f"generate_cp, {CP_GREEDY} rows x {B}: kernel path == plain "
+              f"path: {same}")
+        if not same:
+            first = (kern != plain).nonzero()[0].tolist()
+            raise AssertionError(f"CP greedy rows differ first at {first}")
+
+
+def cp_serve_parity(rows: np.ndarray) -> None:
+    """Greedy f32 serving of 8 staggered requests (3 admitted later) at
+    cli.serve's defaults: the kernel path's rows equal the plain path's,
+    and each request's rows equal its dedicated generate_cp run."""
+    model32 = cp_model(torch.float32)
+    lens, news = CP_PARITY_LENS, CP_PARITY_NEWS
+    prompts = [rows[:p] for p in lens]
+    outs = []
+    for plain in (False, True):
+        cb = CPContinuousBatcher(model32, slots=SLOTS, seg_len=SEG,
+                                 depth=DEPTH,
+                                 sampling=SamplingParams(greedy=True))
+        with plain_path() if plain else contextlib.nullcontext():
+            rids = [cb.submit(x, n) for x, n in zip(prompts[:5], news[:5])]
+            cb.step()
+            rids += [cb.submit(x, n) for x, n in zip(prompts[5:], news[5:])]
+            done = cb.run()
+        outs.append([done[r] for r in rids])
+    same = all(np.array_equal(a, b) for a, b in zip(*outs))
+    dedicated = all(np.array_equal(
+        o, generate_cp(model32, x[None], n, greedy=True)[0].cpu().numpy())
+        for o, x, n in zip(outs[0], prompts, news))
+    print(f"CP serving greedy f32, {len(lens)} staggered requests: kernel "
+          f"path == plain path: {same}; == dedicated generate_cp: "
+          f"{dedicated}")
+    if not (same and dedicated):
+        raise AssertionError("served CP rows differ")
+
+
+def cp_generate_cli(tmp: str, prime_mid: str, rows: np.ndarray) -> dict:
+    """cli.generate on a saved full-width CP model (bf16, B 8, the prime's
+    rows cut to max_seq - 512 = 512, 512 sampled rows) with exact
+    launches (4 kernel-A, 12 kernel-B per row), every MIDI read back;
+    then --quant int8 (128 rows: 12 int8 kernel-B launches per row, no
+    unquantized one); then the same generation timed through
+    generate_cp (prefill on the card, decode rows/s)."""
+    model = cp_model(torch.bfloat16)
+    pth = os.path.join(tmp, "cp.pth")
+    torch.save(model.state_dict(), pth)
+    counts = {}
+    for quant, steps in (("none", CP_STEPS), ("int8", CP_INT8_STEPS)):
+        out = os.path.join(tmp, f"cp-{quant}.mid")
+        reset_counts()
+        t0 = time.perf_counter()
+        with quiet(os.path.join(tmp, "cp_generate.log")):
+            rc = cli_main([pth, out, "--prime", prime_mid, "--prime-len",
+                           "1000", "--steps", str(steps), "--batch", str(B),
+                           "--dtype", "bfloat16", "--seed", "0", "--quant",
+                           quant])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = (fused_relative_attention.launches,
+               fused_decode_step.launches, fused_decode_step.int8_launches)
+        want = ((CP_LAYERS, 3 * CP_LAYERS * steps, 0) if quant == "none"
+                else (CP_LAYERS, 0, 3 * CP_LAYERS * steps))
+        n_rows = [len(cp.extract_events(os.path.join(
+            tmp, f"cp-{quant}-{i:03d}.mid"))) for i in range(B)]
+        print(f"cli.generate CP bf16 {quant}: B={B} prime "
+              f"{CP_MAX_SEQ - CP_STEPS} rows, {steps} rows in {secs:.3f} s "
+              f"(load, encode, generate, write); launches kernel A="
+              f"{got[0]} B={got[1]} B int8={got[2]} (expected {want}); "
+              f"{B} MIDI files re-read as {min(n_rows)}-{max(n_rows)} rows")
+        if rc != 0 or got != want:
+            raise AssertionError(f"cli.generate CP {quant}: rc {rc}, "
+                                 f"launches {got}, expected {want}")
+        counts[quant] = got
+    prompt = torch.from_numpy(np.tile(rows[None, :CP_MAX_SEQ - CP_STEPS],
+                                      (B, 1, 1))).to(DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate_cp(model, prompt, CP_STEPS, generator=gen)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    if out.shape != (B, CP_STEPS, 8) or not bool(
+            (out < torch.tensor(cp.field_dims(), device=DEV)).all()):
+        raise AssertionError(f"bad CP rows {tuple(out.shape)}")
+    prefill_ms = device_ms(lambda: model.prefill(prompt, CP_MAX_SEQ),
+                           iters=5)
+    rows_s = B * CP_STEPS / (total_s - prefill_ms / 1e3)
+    print(f"generate_cp bf16: {total_s:.3f} s; prefill (B {B}, "
+          f"{CP_MAX_SEQ - CP_STEPS} rows) {prefill_ms:.3f} ms; decode "
+          f"{rows_s:.1f} rows/s (B={B}, {CP_STEPS} rows, host clock)",
+          f"on {gpu_line()}")
+    # one row's step as generate_cp takes it (decode step, 8 draws, mask)
+    logits, cache = model.prefill(prompt, CP_MAX_SEQ)
+    stacked = model.decode_weights()
+    t = CP_MAX_SEQ - CP_STEPS
+
+    def row_step():
+        row = sample_row(logits, 1.0, False, gen)
+        model.decode_step(row, cache, t, stacked)
+    busy = cp_profile(f"CP decode row (bf16, B {B}, t {t})", row_step, 32)
+    return {"A": counts["none"][0] + counts["int8"][0],
+            "B": counts["none"][1], "B_int8": counts["int8"][2],
+            "prefill_ms": prefill_ms, "rows_s": rows_s, "pth": pth,
+            "decode_busy": busy}
+
+
+def cp_serve_cli(tmp: str, pth: str, prime_mid: str) -> dict:
+    """cli.serve in file mode with its defaults (8 slots, segments of 64,
+    depth 2), bf16, on 24 CP requests (prompts of 1-500 rows of the prime
+    MIDI and one bare bar-marker row, 64-320 new rows, four cut at the
+    end-of-piece family), every MIDI read back, with exact launches:
+    4 kernel-A per admission call, 12 ragged kernel-B per decode step."""
+    rng = np.random.default_rng(23)
+    reqs = []
+    for i in range(N_SERVE):
+        r = {"id": f"c{i:02d}", "prime": prime_mid,
+             "prime_len": SERVE_PROMPTS[i % len(SERVE_PROMPTS)],
+             "max_new": int(rng.integers(*CP_SERVE_NEW))}
+        if i < 4:
+            r["eos"] = cp.FAMILY_EOS
+        reqs.append(r)
+    del reqs[-1]["prime"], reqs[-1]["prime_len"]   # a bare bar-marker row
+    path = os.path.join(tmp, "cp_requests.jsonl")
+    with open(path, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in reqs)
+    outdir = os.path.join(tmp, "cp_served")
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_main([pth, path, outdir, "--dtype", "bfloat16", "--seed",
+                         "0"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = (fused_relative_attention.launches,
+                fused_decode_step.launches)
+    out = buf.getvalue()
+    summary = next(x for x in out.splitlines() if x.startswith("generated"))
+    stat = {k: int(re.search(rf"(\d+) {k}", summary).group(1))
+            for k in ("decode steps", "admission calls")}
+    goodput = float(re.search(r"\(([\d.]+) tok/s goodput\)",
+                              summary).group(1))
+    written = dict(re.findall(r"wrote .*/(c\d\d)\.mid \((\d+) tokens\)",
+                              out))
+    n_rows = [len(cp.extract_events(os.path.join(outdir, f"{r['id']}.mid")))
+              for r in reqs]
+    exact = all(int(written[r["id"]]) == r["max_new"] for r in reqs
+                if "eos" not in r)
+    print(f"cli.serve CP bf16 file mode ({N_SERVE} requests, slots {SLOTS}, "
+          f"seg {SEG}, depth {DEPTH}) in {secs:.3f} s (load, warm, serve, "
+          f"write): {summary}; goodput {goodput:.1f} rows/s; MIDI files "
+          f"re-read as {min(n_rows)}-{max(n_rows)} rows; launches kernel A="
+          f"{launches[0]} (4 x {stat['admission calls']} admission calls), "
+          f"kernel B={launches[1]} (12 x {stat['decode steps']} decode "
+          f"steps)", f"on {gpu_line()}")
+    ok = (rc == 0 and len(written) == N_SERVE and exact
+          and launches[0] == CP_LAYERS * stat["admission calls"]
+          and launches[1] == 3 * CP_LAYERS * stat["decode steps"])
+    if not ok:
+        raise AssertionError(f"cli.serve CP: rc {rc}, {len(written)} files, "
+                             f"launches {launches}, {stat}")
+    return {"A": launches[0], "B": launches[1], "goodput": goodput}
+
+
+def cp_write_corpus(tmp: str) -> str:
+    """Synthetic MIDI files (random MIDI-like events, the port's writer),
+    tokenized by ``cli.tokenize --scheme cp``; each holds more than
+    seq_len + 1 rows."""
+    midis = os.path.join(tmp, "cp_midis")
+    os.makedirs(midis)
+    rng = np.random.default_rng(13)
+    for i in range(N_MIDI):
+        write_midi(rng.integers(0, VOCAB - 1, 3000),
+                   os.path.join(midis, f"cp-{i:02d}.mid"))
+    shards = os.path.join(tmp, "cp_tok")
+    t0 = time.perf_counter()
+    with quiet(os.path.join(tmp, "tokenize.log")):
+        rc = tokenize_main([midis, shards, "--scheme", "cp", "--workers",
+                            "1"])
+    corpus = TokenCorpus(shards, limlen=(L_TRAIN + 1) * 8)
+    print(f"cli.tokenize --scheme cp: {N_MIDI} MIDI files -> {len(corpus)} "
+          f"sequences > {L_TRAIN} rows (shortest "
+          f"{corpus.lengths().min() // 8}) in {time.perf_counter() - t0:.1f} s")
+    if rc != 0 or len(corpus) != N_MIDI:
+        raise AssertionError("cli.tokenize --scheme cp lost files")
+    return shards
+
+
+def cp_train_cfg():
+    return apply_overrides(train_cli.TrainCLIConfig(),
+                           ["model=cp_transformer", f"batch_size={B}",
+                            f"seq_len={L_TRAIN}"])
+
+
+def cp_batches(n: int, shards: str) -> list:
+    corpus = TokenCorpus(shards, limlen=(L_TRAIN + 1) * 8)
+    at = train_cli._cp_batch_fn(corpus, cp_train_cfg())
+    return [tuple(torch.from_numpy(a).to(DEV) for a in at(i))
+            for i in range(n)]
+
+
+def cp_train(tmp: str, shards: str) -> dict:
+    """One f32 CP train step (dropout 0, B 8, seq_len 512) through kernels
+    A and C against one through their plain versions (PERF.md section 2's
+    limits); ``cli.train model=cp_transformer`` in bf16 at the defaults
+    (dropout 0.1) for 30 steps with exact launches (4 A and 4 C a step)
+    and every loss finite; ``cli.generate`` from its checkpoint directory
+    (256 rows after a 100-row prime: 4 A, 12 B a row); then 25 warm bf16
+    train steps timed with CUDA events."""
+    cfg = cp_train_cfg()
+    x, y = cp_batches(1, shards)[0]
+    results = []
+    for plain in (False, True):
+        model, tcfg, loss_fn = train_cli.build_model(
+            cfg, "cp", {"dtype": "float32", "dropout_rate": 0.0}, DEV)
+        tx = make_optimizer(tcfg)
+        state = create_train_state(model, tx, dropout_seed=cfg.seed)
+        step = make_train_step(tx, tcfg, loss_fn=loss_fn)
+        reset_counts()
+        fused_relative_attention_bwd.launches = 0
+        with plain_path() if plain else contextlib.nullcontext():
+            state, m = step(state, x, y)
+        torch.cuda.synchronize()
+        launches = (fused_relative_attention.launches,
+                    fused_relative_attention_bwd.launches)
+        if launches != ((0, 0) if plain else (CP_LAYERS, CP_LAYERS)):
+            raise AssertionError(f"CP parity step launched A, C {launches}")
+        results.append((state, m))
+    step_parity(f"CP train-step parity f32 (B{B} L{L_TRAIN}, full width)",
+                results[0], results[1], tx.lr(0))
+
+    run = os.path.join(tmp, "cp_run")
+    reset_counts()
+    fused_relative_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    with quiet(os.path.join(tmp, "cp_train.log")):
+        train_cli.main([shards, "model=cp_transformer",
+                        f"steps={TRAIN_STEPS}", f"batch_size={B}",
+                        f"seq_len={L_TRAIN}", "model.dtype=bfloat16",
+                        f"ckpt_dir={run}", f"ckpt_every={CKPT_EVERY}",
+                        "log_every=1", f"metrics_path={run}.jsonl"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = (fused_relative_attention.launches,
+                fused_relative_attention_bwd.launches)
+    ref = losses(run + ".jsonl")
+    finite = (sorted(ref) == list(range(TRAIN_STEPS))
+              and all(math.isfinite(v) for v in ref.values()))
+    print(f"cli.train model=cp_transformer bf16 B{B} L{L_TRAIN} "
+          f"{TRAIN_STEPS} steps in {secs:.1f} s (start-up included): loss "
+          f"{ref[0]:.4f} -> {ref[TRAIN_STEPS - 1]:.4f}, all finite: "
+          f"{finite}; launches kernel A={launches[0]} kernel C="
+          f"{launches[1]} (expected {CP_LAYERS * TRAIN_STEPS} each)")
+    if not finite or launches != (CP_LAYERS * TRAIN_STEPS,) * 2:
+        raise AssertionError(f"cli.train CP: finite {finite}, launches "
+                             f"{launches}")
+
+    out = os.path.join(tmp, "cp_trained.mid")
+    reset_counts()
+    with quiet(os.path.join(tmp, "cp_generate.log")):
+        cli_main([run, out, "--prime", os.path.join(tmp, "cp_midis",
+                                                    "cp-00.mid"),
+                  "--prime-len", "100", "--steps", str(GEN_STEPS),
+                  "--batch", "2", "--seed", "1"])
+    torch.cuda.synchronize()
+    gen_launches = (fused_relative_attention.launches,
+                    fused_decode_step.launches)
+    n_rows = [len(cp.extract_events(os.path.join(
+        tmp, f"cp_trained-{i:03d}.mid"))) for i in range(2)]
+    print(f"cli.generate from the CP checkpoint directory (step "
+          f"{list_checkpoints(run)[-1][0]}, the recorded bf16, prime 100 "
+          f"rows, {GEN_STEPS} rows, batch 2): launches kernel A="
+          f"{gen_launches[0]} B={gen_launches[1]}; MIDI files re-read as "
+          f"{n_rows} rows")
+    if gen_launches != (CP_LAYERS, 3 * CP_LAYERS * GEN_STEPS):
+        raise AssertionError(f"cli.generate CP launches {gen_launches}")
+
+    warm, timed = 5, 25
+    batches = cp_batches(warm + timed, shards)
+    model, tcfg, loss_fn = train_cli.build_model(cfg, "cp",
+                                                 {"dtype": "bfloat16"}, DEV)
+    tx = make_optimizer(tcfg)
+    state = create_train_state(model, tx, dropout_seed=cfg.seed)
+    step = make_train_step(tx, tcfg, loss_fn=loss_fn)
+    for xb, yb in batches[:warm]:
+        state, _ = step(state, xb, yb)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for xb, yb in batches[warm:]:
+        state, _ = step(state, xb, yb)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / timed
+    print(f"CP train step bf16 B{B} L{L_TRAIN} (full width, dropout 0.1): "
+          f"{ms:.3f} ms/step, {B * L_TRAIN / (ms / 1e3):.0f} rows/s over "
+          f"{timed} warm steps (CUDA events)", f"on {gpu_line()}")
+    xb, yb = batches[-1]
+    busy = cp_profile(f"CP train step (bf16, B {B}, L {L_TRAIN})",
+                      lambda: step(state, xb, yb), PROFILE_STEPS)
+    return {"A": launches[0], "C": launches[1], "A_generate": gen_launches[0],
+            "B_generate": gen_launches[1], "step_ms": ms, "train_busy": busy}
+
+
+def time_cp_kernels() -> dict:
+    """Kernels A, B and C at the CP main path's shapes, bf16, beside their
+    plain versions and bounds: A causal without key_pad at B 8, L 512,
+    max_seq 1024 (the prefill); B at 4 layers, B 8, t 767 (the middle of
+    the 512 generated rows) in a 1024-row cache; C at B 8, L 512, max_seq
+    512, causal, no key_pad (the train step)."""
+    dtype = torch.bfloat16
+    gen = torch.Generator().manual_seed(43)
+    bh, l = B * H, CP_PROMPT
+    q, k, v, e, _ = attn_inputs(dtype, gen, False, l, CP_MAX_SEQ)
+    a_ms = device_ms(lambda: fused_relative_attention(q, k, v, e, None))
+    a_plain = device_ms(
+        lambda: fused_relative_attention_plain(q, k, v, e, None), iters=5)
+    a_bound = bound(3 * bh * l * DH * 2 + l * DH * 4 + bh * l * DH * 2
+                    + bh * l * 4, 3 * 2 * DH * bh * l * (l + 1) / 2, dtype)
+
+    model = cp_model(dtype)
+    t = CP_MAX_SEQ - CP_STEPS + CP_STEPS // 2 - 1
+    x, e_all, w_all, kc, vc = decode_inputs(model, gen)
+    b_ms = device_ms(lambda: fused_decode_step(x, t, e_all, w_all, kc, vc,
+                                               model.num_heads), iters=50)
+    b_plain = device_ms(lambda: fused_decode_step_plain(
+        x, t, e_all, w_all, kc, vc, model.num_heads), iters=10)
+    b_bound = decode_bound(np.zeros(B, np.int64), t, layers=CP_LAYERS)
+
+    q, k, v, _, _ = attn_inputs(dtype, gen, False, L_TRAIN)
+    e = torch.randn(L_TRAIN, DH, generator=gen).to(DEV)
+    dout = torch.randn(q.shape, generator=gen).to(DEV, dtype)
+    out, lse = fused_relative_attention(q, k, v, e, None, True,
+                                        return_lse=True)
+    c_ms = device_ms(lambda: fused_relative_attention_bwd(
+        q, k, v, e, None, True, out, lse, dout))
+    c_plain = device_ms(lambda: fused_relative_attention_bwd_plain(
+        q, k, v, e, None, True, out, lse, dout), iters=5)
+    elems = bh * L_TRAIN * DH
+    c_bound = bound(8 * elems * 2 + bh * L_TRAIN * 4 + 2 * L_TRAIN * DH * 4,
+                    8 * 2 * DH * bh * L_TRAIN * (L_TRAIN + 1) / 2, dtype)
+    res = {"A": (a_ms, a_plain, a_bound,
+                 f"B{B} H{H} L{l} max_seq {CP_MAX_SEQ} causal, no key_pad"),
+           "B": (b_ms, b_plain, b_bound,
+                 f"{CP_LAYERS} layers, d {model.d_model}, B{B}, t {t}, "
+                 f"cache 1024"),
+           "C": (c_ms, c_plain, c_bound,
+                 f"B{B} H{H} L{L_TRAIN} max_seq {L_TRAIN} causal, no "
+                 "key_pad")}
+    for name, (ms, plain, (bnd, by), shape) in res.items():
+        print(f"CP kernel {name} bf16 {shape}: {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {bnd:.5f} ms ({by})",
+              f"on {gpu_line()}")
+    return {name: {"cp_shape": shape, "cp_ms": ms, "cp_plain_ms": plain,
+                   "cp_bound_ms": bnd, "cp_bound_by": by}
+            for name, (ms, plain, (bnd, by), shape) in res.items()}
+
+
+def cp_paths() -> dict:
+    """The CP transformer's phases: greedy parity (generate_cp f32 and
+    int8, serving f32), cli.generate, cli.serve, cli.tokenize -> cli.train
+    -> cli.generate, and the rates. Returns the launches of each path and
+    the rates."""
+    t0 = time.perf_counter()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        prime_mid, rows = cp_prime(tmp)
+        cp_greedy_parity(rows)
+        cp_serve_parity(rows)
+        gen = cp_generate_cli(tmp, prime_mid, rows)
+        served = cp_serve_cli(tmp, gen["pth"], prime_mid)
+        shards = cp_write_corpus(tmp)
+        tr = cp_train(tmp, shards)
+    print(f"CP phases: {time.perf_counter() - t0:.1f} s")
+    return {"A": {"cp_generate": gen["A"] + tr["A_generate"],
+                  "cp_serve": served["A"], "cp_train": tr["A"]},
+            "B": {"cp_generate": gen["B"] + tr["B_generate"],
+                  "cp_serve": served["B"]},
+            "B_int8": gen["B_int8"], "C": {"cp_train": tr["C"]},
+            "prefill_ms": gen["prefill_ms"], "rows_s": gen["rows_s"],
+            "goodput": served["goodput"], "step_ms": tr["step_ms"],
+            "decode_busy": gen["decode_busy"],
+            "train_busy": tr["train_busy"]}
+
+
 TC_ENTRIES = {"relative_attention": ("rel_attn_fwd_tc_kernel",),
               "ring_attention": ("ring_tile_tc_kernel",),
               "relative_attention_bwd": ("rel_attn_bwd_tc_kernel",),
@@ -4175,6 +4765,7 @@ def main(argv: list) -> int:
     err_f = check_kernel_f()
     err_g = check_kernel_g()
     check_ring_pass()
+    err_cp = check_cp_kernels()
     e2e = end_to_end()
     loop = loop_paths(e2e["prime"])
     served = serving(e2e["prime"])
@@ -4182,6 +4773,7 @@ def main(argv: list) -> int:
     q_paths = int8_paths(e2e["prime"])
     q_cli = int8_cli()
     rnn = rnn_paths(e2e["prime"])
+    cp_run = cp_paths()
     os.makedirs(OUT_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
         shards = write_corpus(tmp)
@@ -4189,19 +4781,26 @@ def main(argv: list) -> int:
         tr = train_end_to_end(tmp, shards)
         step_t = time_train_step(shards)
     ring_launches = ring_paths()
-    row_a = time_kernel_a(e2e["A"] + tr["A"] + served["A"] + spec["A"],
-                          err_a)
-    row_a["launches_by_path"] = {"generate": e2e["A"], "train": tr["A"],
-                                 "serve": served["A"],
-                                 "speculative": spec["A"]}
-    row_b = time_kernel_b(e2e["B"] + served["B"] + spec["B"],
-                          max(err_b, err_br, err_w["B"]))
-    row_b["launches_by_path"] = {"generate": e2e["B"], "serve": served["B"],
-                                 "speculative": spec["B"]}
-    row_c = time_kernel_c(tr["C"], err_c)
-    row_c["launches_by_path"] = {"train": tr["C"]}
-    row_br = time_kernel_b_ragged(served["B"], err_br)
-    row_br["launches_by_path"] = {"serve": served["B"]}
+    cp_times = time_cp_kernels()
+    by_a = {"generate": e2e["A"], "train": tr["A"], "serve": served["A"],
+            "speculative": spec["A"], **cp_run["A"]}
+    row_a = time_kernel_a(sum(by_a.values()), max(err_a, err_cp["A"]))
+    row_a["launches_by_path"] = by_a
+    by_b = {"generate": e2e["B"], "serve": served["B"],
+            "speculative": spec["B"], **cp_run["B"]}
+    row_b = time_kernel_b(sum(by_b.values()),
+                          max(err_b, err_br, err_w["B"], err_cp["B"],
+                              err_cp["B_ragged"]))
+    row_b["launches_by_path"] = by_b
+    by_c = {"train": tr["C"], **cp_run["C"]}
+    row_c = time_kernel_c(sum(by_c.values()), max(err_c, err_cp["C"]))
+    row_c["launches_by_path"] = by_c
+    by_br = {"serve": served["B"], "cp_serve": cp_run["B"]["cp_serve"]}
+    row_br = time_kernel_b_ragged(sum(by_br.values()),
+                                  max(err_br, err_cp["B_ragged"]))
+    row_br["launches_by_path"] = by_br
+    for row, key in ((row_a, "A"), (row_b, "B"), (row_c, "C")):
+        row.update(cp_times[key])
     row_d = time_kernel_d(sum(rnn["launches"].values()), err_d)
     row_d["launches_by_path"] = rnn["launches"]
     row_e = time_kernel_e(spec["E"], max(err_e, err_w["E"]))
@@ -4210,10 +4809,12 @@ def main(argv: list) -> int:
     row_f = time_kernel_f(loop["F"], loop["by_path"], err_f)
     q_by_path = {
         "B": {"cli_generate": q_cli["generate"]["B_int8"],
-              "generate_parity": q_paths["generate"]},
+              "generate_parity": q_paths["generate"],
+              "cp_cli_generate": cp_run["B_int8"]},
         "B_ragged": {"serve_parity": q_paths["serve"]},
         "E": {"cli_spec_lookup": q_cli["spec_lookup"]["E_int8"],
               "speculative_parity": q_paths["speculative"]}}
+    err_int8 = dict(err_int8, B=max(err_int8["B"], err_cp["B_int8"]))
     q_rows = time_int8(err_int8, {k: sum(v.values())
                                   for k, v in q_by_path.items()})
     for r, k in zip(q_rows, ("B", "B_ragged", "E")):
@@ -4247,6 +4848,12 @@ def main(argv: list) -> int:
     print(f"end to end: prefill {e2e['prefill_ms']:.3f} ms, decode "
           f"{e2e['tok_s']:.1f} tokens/s; train step {step_t['step_ms']:.3f} "
           f"ms ({step_t['tok_s']:.0f} tokens/s)", f"on {gpu_line()}")
+    print(f"CP transformer bf16 B={B}: prefill ({CP_MAX_SEQ - CP_STEPS} rows) "
+          f"{cp_run['prefill_ms']:.3f} ms, decode {cp_run['rows_s']:.1f} "
+          f"rows/s ({100 * cp_run['decode_busy']:.1f}% busy); serving "
+          f"goodput {cp_run['goodput']:.1f} rows/s; train step (L {L_TRAIN}) "
+          f"{cp_run['step_ms']:.3f} ms ({100 * cp_run['train_busy']:.1f}% "
+          "busy)", f"on {gpu_line()}")
     for family in ("event_rnn", "performance_rnn"):
         print(f"{family}: decode {rnn['tok_s'][family]:.1f} tokens/s (B={B}, "
               f"bf16); serving: {rnn['serve'][family]}", f"on {gpu_line()}")

@@ -1,5 +1,5 @@
-"""Generate MIDI from a MusicTransformer, EventMelodyRNN or PerformanceRNN
-checkpoint on the GPU.
+"""Generate MIDI from a MusicTransformer, CPTransformer, EventMelodyRNN or
+PerformanceRNN checkpoint on the GPU.
 
     python -m musicgeneration_tpu_torch.cli.generate model.pth out.mid \\
         --prime prompt.mid --steps 512 --temperature 1.0 --topk 0
@@ -24,6 +24,14 @@ MusicTransformer of the same vocabulary (``DRAFT``: any checkpoint this
 CLI reads), loaded in the same ``--dtype`` on the same device, with
 the ``decode_quant`` its own checkpoint records. Greedy output equals
 plain decoding's; the prime is not bucketed.
+
+A CPTransformer (a ``cli.train model=cp_transformer`` checkpoint) takes
+its prime as Compound Word rows of ``--prime`` (at most ``--prime-len``
+rows; a bare bar-marker row without one), cut to max_seq - steps rows,
+samples each row type-first (``decode/cp_generate.py``; ``--temperature
+0`` is greedy, ``--topk``/``--topp`` are refused) and writes the rows
+through the CP codec. ``--batch``, ``--include-prime`` and ``--quant
+int8`` apply as for the MusicTransformer.
 
 The GRU families add ``--beam N`` (beam search; ``--stochastic-beam``
 for Gumbel-perturbed selection), and PerformanceRNN ``--control``
@@ -236,7 +244,7 @@ def main(argv=None) -> int:
     p.add_argument("--spec-ngram", type=int, default=3,
                    help="lookup match length (--spec lookup)")
     p.add_argument("--quant", default="none", choices=("none", "int8"),
-                   help="weight-only int8 decode (music_transformer): the "
+                   help="weight-only int8 decode (the transformers): the "
                         "decode step's and the verify forward's matrices "
                         "in int8 with per-column scales; 'none' keeps what "
                         "a cli.train checkpoint records")
@@ -254,6 +262,8 @@ def main(argv=None) -> int:
             decode_quant=None if args.quant == "none" else args.quant)
     except ValueError as e:  # e.g. --quant int8 on a GRU checkpoint
         raise SystemExit(f"{args.checkpoint}: {e}") from None
+    if model.family == "cp_transformer":
+        return _generate_cp(model, args)
     if args.spec is not None:
         if model.family != "music_transformer":
             raise SystemExit("--spec needs a music_transformer target "
@@ -340,6 +350,44 @@ def _generate_rnn(model, args) -> int:
         outs = generate(model, prompt, gen, dp, controls=controls,
                         cache0=cache0)
     _write_outputs(outs.cpu().numpy(), prime, args)
+    return 0
+
+
+def _generate_cp(model, args) -> int:
+    """Compound-word continuation (the JAX CLI's ``_generate_cp``): prime
+    rows from a MIDI (or a bare bar-marker row) -> type-first sampled
+    rows -> MIDI."""
+    from ..decode.cp_generate import generate_cp
+    from ..tokenizers import cp as cp_codec
+
+    if (args.spec is not None or args.beam > 1 or args.control is not None
+            or args.topk or 0 < args.topp < 1.0):
+        raise SystemExit("--spec, --beam, --control, --topk and --topp do "
+                         "not apply to compound-word rows (type-first "
+                         "sampling draws each field categorically)")
+    if args.prime is not None:
+        rows = cp_codec.extract_events(args.prime)[:args.prime_len]
+        if not len(rows):
+            raise SystemExit("prime MIDI produced no CP rows")
+    else:  # start at a bar marker
+        rows = [cp_codec._row(cp_codec.FAMILY_METRIC, position=0)]
+    rows = np.asarray(rows, np.int64)[:max(1, model.max_seq - args.steps)]
+    nb = max(args.batch, 1)
+    gen = torch.Generator(device=model.device).manual_seed(args.seed)
+    try:
+        out = generate_cp(model, np.tile(rows[None], (nb, 1, 1)), args.steps,
+                          max_len=rows.shape[0] + args.steps,
+                          temperature=args.temperature or 1.0,
+                          greedy=(args.temperature == 0.0), generator=gen)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    stem, ext = os.path.splitext(args.output)
+    for i, gen_rows in enumerate(out.cpu().numpy()):
+        all_rows = (np.concatenate([rows, gen_rows]) if args.include_prime
+                    else gen_rows)
+        path = args.output if nb == 1 else f"{stem}-{i:03d}{ext or '.mid'}"
+        cp_codec.write_midi(all_rows, path)
+        print(f"wrote {path} ({len(all_rows)} compound rows)")
     return 0
 
 

@@ -33,6 +33,13 @@ max_new (`window` is refused); their requests may also carry
                                 prompts from `prime` or the default get
                                 the primary event prepended, as in
                                 cli.generate.
+A CPTransformer serves Compound Word rows through the CP engine
+(decode/serving_cp.py): `prime` is encoded to rows with the CP codec (up
+to `prime_len` rows; no `prime` and no `tokens`: a bare bar-marker row),
+`tokens` gives [P, 8] rows, `eos` is matched against the family column
+(2 = end of piece), the results are [n, 8] rows written with the CP
+codec; sampling is the CLI-level --greedy/--temperature only (no
+--topk/--topp, no per-request fields, no `window`).
 Each request's continuation is written to `outdir/<id>.mid` the moment
 it finalizes. Runs on `--device cuda` by default; a missing GPU is an
 error.
@@ -96,7 +103,7 @@ def _load_model(args):
                                dtype=_dtype(args))
     except (KeyError, ValueError) as e:
         raise SystemExit(
-            f"{args.checkpoint}: {e}; the other families (MelodyRNN, CP, "
+            f"{args.checkpoint}: {e}; the other families (MelodyRNN, "
             "PoPMAG) come with a later slice of the port") from None
 
 
@@ -141,12 +148,23 @@ def main(argv=None) -> int:
 
     from ..decode.sampling import SamplingParams
     from ..decode.serving import ContinuousBatcher
+    from ..decode.serving_cp import CPContinuousBatcher
     from ..decode.serving_rnn import RNNContinuousBatcher
+    from ..tokenizers import cp as cp_codec
     from .generate import prime_tokens, rnn_prime, write_midi
 
     model = _load_model(args)
-    is_rnn = model.family != "music_transformer"
-    if is_rnn:
+    is_cp = model.family == "cp_transformer"
+    is_rnn = model.family in ("event_rnn", "performance_rnn")
+    if is_cp:
+        if args.topk or args.topp < 1.0:
+            raise SystemExit("--topk/--topp are not defined for compound-word "
+                             "rows (type-first sampling draws each field "
+                             "categorically)")
+        write_midi = cp_codec.write_midi
+        print(f"loaded CPTransformer ({model.num_layers} layers, d_model "
+              f"{model.d_model}, max_seq {model.max_seq}) on {model.device}")
+    elif is_rnn:
         print(f"loaded {model.family} ({model.num_layers} GRU layers, hidden "
               f"{model.hidden_dim}, event_dim {model.event_dim}) on "
               f"{model.device}")
@@ -165,6 +183,12 @@ def main(argv=None) -> int:
         name = str(req.get("id", ln))
         if "tokens" in req:
             toks = np.asarray(req["tokens"], np.int32)
+        elif is_cp:
+            toks = (np.asarray([cp_codec._row(cp_codec.FAMILY_METRIC,
+                                              position=0)], np.int32)
+                    if req.get("prime") is None else np.asarray(
+                        cp_codec.extract_events(req["prime"])[
+                            :req.get("prime_len", 500)], np.int32))
         elif is_rnn:
             toks = np.asarray(rnn_prime(model, req.get("prime"),
                                         req.get("prime_len", 500)), np.int32)
@@ -173,6 +197,11 @@ def main(argv=None) -> int:
                                            req.get("prime_len", 500)),
                               np.int32)
         sp = None
+        if is_cp and (any(f in req for f in _SAMP_FIELDS)
+                      or "window" in req):
+            raise ValueError(
+                "per-request sampling and window= are not defined for "
+                "compound-word rows; set the CLI-level flags")
         if any(f in req for f in _SAMP_FIELDS):
             sp = SamplingParams(
                 temperature=float(req.get("temperature", args.temperature)),
@@ -201,6 +230,14 @@ def main(argv=None) -> int:
 
     def build_cb(per_row: bool, on_finalize):
         gen = torch.Generator(device=model.device).manual_seed(args.seed)
+        if is_cp:
+            if args.boost and args.boost > 1:
+                print("note: --boost is not supported for compound-word "
+                      "rows; ignored", file=sys.stderr)
+            return CPContinuousBatcher(
+                model, slots=args.slots, sampling=sampling,
+                seg_len=args.seg_len, cache_len=args.cache_len,
+                depth=args.depth, on_finalize=on_finalize, generator=gen)
         if is_rnn:
             return RNNContinuousBatcher(
                 model, slots=args.slots, sampling=sampling,

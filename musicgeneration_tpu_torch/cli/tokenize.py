@@ -1,10 +1,11 @@
-"""Tokenize a MIDI corpus into packed MIDI-like shards.
+"""Tokenize a MIDI corpus into packed shards.
 
     python -m musicgeneration_tpu_torch.cli.tokenize <midi_dir> <out_dir> \\
-        --workers 8
+        --scheme midilike|cp --workers 8
 
 The port of ``musicgeneration_tpu.cli.tokenize`` for the ``midilike``
-scheme; its shards are the JAX package's format (``data/pipeline.py``).
+and ``cp`` (Compound Word rows) schemes; its shards are the JAX
+package's format (``data/pipeline.py``).
 """
 
 from __future__ import annotations

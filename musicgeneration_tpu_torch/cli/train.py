@@ -1,10 +1,15 @@
-"""Train the MusicTransformer on a tokenized MIDI-like corpus.
+"""Train the MusicTransformer or the CP transformer on a tokenized corpus.
 
     python -m musicgeneration_tpu_torch.cli.train <shard_dir> \\
         steps=2000 ckpt_dir=runs/mt model.dtype=bfloat16 [--device cuda]
 
 The port of ``musicgeneration_tpu.cli.train`` for ``model=
-music_transformer`` in the crop mode (``slide_seq2seq``): dotted
+music_transformer`` on a MIDI-like corpus and ``model=cp_transformer``
+on a ``cp`` corpus (``cli.tokenize --scheme cp``), in the crop mode:
+``slide_seq2seq`` crops of tokens, or random crops of seq_len + 1
+compound rows (the model's max_seq is seq_len) trained with the weighted
+mean cross-entropy of the 8 field heads (``cp_head_weights``, normalised
+to mean 1; no label smoothing), as the JAX CLI. Dotted
 overrides (bare keys set ``TrainCLIConfig``, ``model.<field>`` the model
 constructor), the counter-indexed batch stream (step s consumes batch s,
 so a resumed run replays the uninterrupted run's batches), auto-resume
@@ -50,10 +55,15 @@ import torch
 from ..utils.config import Config, apply_overrides
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# model.<field> overrides the port's MusicTransformer takes
-_MODEL_KEYS = ("vocab_size", "num_layers", "d_model", "max_seq",
-               "head_dim", "ffn_dim", "dtype", "dropout_rate",
-               "pad_in_input", "logits_dtype", "remat", "decode_quant")
+# model.<field> overrides each family takes
+_MODEL_KEYS = {
+    "music_transformer": ("vocab_size", "num_layers", "d_model", "max_seq",
+                          "head_dim", "ffn_dim", "dtype", "dropout_rate",
+                          "pad_in_input", "logits_dtype", "remat",
+                          "decode_quant"),
+    "cp_transformer": ("num_layers", "d_model", "max_seq", "dtype",
+                       "dropout_rate", "decode_quant"),
+}
 
 
 @dataclasses.dataclass
@@ -80,13 +90,17 @@ class TrainCLIConfig(Config):
     # sp > 1 shards the sequence over one process per GPU and switches
     # attention to the ring (parallel/)
     sp: int = 1
+    # CP per-head loss weights, in tokenizers/cp field order (family,
+    # position, tempo_class, tempo_value, chord, pitch, duration,
+    # velocity), normalised to mean 1; None = equal
+    cp_head_weights: Optional[tuple] = None
 
 
 def _default_vocab(scheme: str) -> int:
     """event_dim + 1 pad (reference MusicTransformer/config.py:11-16)."""
     if scheme != "midilike":
-        raise SystemExit(f"the port tokenizes scheme 'midilike' only; the "
-                         f"corpus is {scheme!r}")
+        raise SystemExit(f"model=music_transformer trains on a 'midilike' "
+                         f"corpus; this one is {scheme!r}")
     from ..tokenizers.midilike import EventSeq
     return EventSeq.dim() + 1
 
@@ -121,42 +135,118 @@ def _lm_batch_fn(corpus, cfg: TrainCLIConfig):
     return batch_at
 
 
+def _cp_batch_fn(corpus, cfg: TrainCLIConfig):
+    """Random crops of seq_len + 1 compound rows (the shards store the
+    [T, 8] rows flattened), indexed by batch number: x the first seq_len
+    rows, y the last (the JAX CLI's ``_cp_batch_fn``)."""
+    from ..tokenizers.cp import WIDTH
+
+    seqs = [np.asarray(corpus[i]).reshape(-1, WIDTH)
+            for i in range(len(corpus))]
+    seqs = [s for s in seqs if len(s) > cfg.seq_len]
+    if not seqs:
+        raise ValueError(f"no CP sequence longer than {cfg.seq_len} rows")
+    b = cfg.batch_size * cfg.accum_steps
+
+    def batch_at(idx: int):
+        rng = _batch_rng(cfg.seed, idx)
+        xs = np.zeros((b, cfg.seq_len + 1, WIDTH), np.int32)
+        for row in range(b):
+            s = seqs[rng.randint(0, len(seqs))]
+            start = rng.randint(0, len(s) - cfg.seq_len)
+            xs[row] = s[start:start + cfg.seq_len + 1]
+        return xs[:, :-1], xs[:, 1:]
+
+    return batch_at
+
+
+def cp_loss_fn(head_weights: Optional[tuple], n_heads: int):
+    """The CP objective (the JAX CLI's ``cp_loss_fn``): the weighted mean
+    over the 8 field heads of each head's mean cross-entropy, the weights
+    normalised to mean 1 (equal when None), and the mean of the heads'
+    accuracies. Returns ``loss_fn(model, x, y, generator) -> (loss,
+    accuracy)`` for ``make_train_step``."""
+    if head_weights is None:
+        head_w = (1.0,) * n_heads
+    else:
+        if len(head_weights) != n_heads:
+            raise ValueError(f"cp_head_weights needs {n_heads} entries "
+                             f"(got {len(head_weights)})")
+        w = np.asarray(head_weights, np.float32)
+        head_w = tuple(float(x) for x in (w / w.mean()))
+
+    def loss_fn(model, x, y, generator):
+        logits = model(x, deterministic=False, generator=generator)
+        loss = acc = 0.0
+        for i, lg in enumerate(logits):
+            tgt = y[..., i].long()
+            lp = torch.log_softmax(lg, dim=-1)
+            loss = loss + head_w[i] * -torch.gather(
+                lp, -1, tgt[..., None]).mean()
+            acc = acc + (lg.argmax(-1) == tgt).float().mean()
+        return loss / len(logits), acc / len(logits)
+
+    return loss_fn
+
+
 def build_model(cfg: TrainCLIConfig, scheme: str,
-                  model_kwargs: Dict[str, Any], device, mesh=None):
-    """(model, trainer config) for ``cfg``; the model's initial weights
-    come from a CPU generator seeded with ``cfg.seed``. With a ``mesh``
-    attention runs as the ring over it."""
-    from ..models.music_transformer import (MusicTransformer,
-                                            music_transformer_defaults)
+                model_kwargs: Dict[str, Any], device, mesh=None):
+    """(model, trainer config, loss_fn or None for the default objective)
+    for ``cfg``; the model's initial weights come from a CPU generator
+    seeded with ``cfg.seed``. With a ``mesh`` attention runs as the ring
+    over it. The family comes from the model registry."""
+    from ..models.registry import get_model
     from ..train.trainer import TrainerConfig
 
-    if cfg.model != "music_transformer":
-        raise SystemExit("the port trains model=music_transformer only")
+    if cfg.model not in _MODEL_KEYS:
+        try:
+            get_model(cfg.model)
+        except KeyError as e:
+            raise SystemExit(str(e)) from None
+        raise SystemExit(f"the port trains model=music_transformer or "
+                         f"cp_transformer; {cfg.model} is not ported to "
+                         "cli.train yet")
     if cfg.train_mode != "crop":
         raise SystemExit("the port trains train_mode=crop only")
+    cls, defaults = get_model(cfg.model)
     kw = dict(model_kwargs)  # never mutate the caller's dict
-    unknown = sorted(set(kw) - set(_MODEL_KEYS))
+    unknown = sorted(set(kw) - set(_MODEL_KEYS[cfg.model]))
     if unknown:
         raise SystemExit(f"unknown model overrides {unknown}; the port's "
-                         f"MusicTransformer takes {list(_MODEL_KEYS)}")
+                         f"{cfg.model} takes {list(_MODEL_KEYS[cfg.model])}")
     for key in ("dtype", "logits_dtype"):
         if isinstance(kw.get(key), str):
             kw[key] = _DTYPES[kw[key]]
+    gen = torch.Generator().manual_seed(cfg.seed)
+    if cfg.model == "cp_transformer":
+        if scheme != "cp":
+            raise SystemExit(f"model=cp_transformer trains on a 'cp' corpus "
+                             f"(cli.tokenize --scheme cp); this one is "
+                             f"{scheme!r}")
+        if mesh is not None:
+            raise SystemExit("sp > 1 is wired for model=music_transformer "
+                             "only")
+        model = cls(**{**defaults(max_seq=cfg.seq_len), **kw},
+                    device=device, generator=gen)
+        tcfg = TrainerConfig(
+            vocab_size=0, label_smoothing=0.0, d_model=model.d_model,
+            warmup_steps=cfg.warmup_steps, accum_steps=cfg.accum_steps,
+            max_grad_norm=cfg.max_grad_norm, peak_lr=cfg.peak_lr)
+        return model, tcfg, cp_loss_fn(cfg.cp_head_weights,
+                                       len(model.field_dims))
     vocab = kw.pop("vocab_size", _default_vocab(scheme))
     if mesh is not None:  # not recorded in the checkpoint's model_kwargs
         kw.update(attention_impl="ring", mesh=mesh)
     # crops are dense windows: the training model skips pad masking
-    model = MusicTransformer(
-        **{**music_transformer_defaults(vocab_size=vocab,
-                                        max_seq=cfg.seq_len),
-           "pad_in_input": False, **kw},
-        device=device, generator=torch.Generator().manual_seed(cfg.seed))
+    model = cls(**{**defaults(vocab_size=vocab, max_seq=cfg.seq_len),
+                   "pad_in_input": False, **kw},
+                device=device, generator=gen)
     tcfg = TrainerConfig(
         vocab_size=model.vocab_size, pad_id=model.vocab_size - 1,
         label_smoothing=cfg.label_smoothing, d_model=model.d_model,
         warmup_steps=cfg.warmup_steps, accum_steps=cfg.accum_steps,
         max_grad_norm=cfg.max_grad_norm, peak_lr=cfg.peak_lr)
-    return model, tcfg
+    return model, tcfg, None
 
 
 def _parse(argv):
@@ -251,11 +341,15 @@ def _train(args, cfg: TrainCLIConfig, model_kwargs, mesh) -> int:
     rank = mesh.rank if mesh is not None else 0
     with open(os.path.join(args.data_dir, "manifest.json")) as f:
         scheme = json.load(f)["scheme"]
-    limlen = cfg.seq_len + 1
+    is_cp = cfg.model == "cp_transformer"
+    # the cp shards store flattened [T, 8] rows: limlen counts flat tokens
+    limlen = (cfg.seq_len + 1) * 8 if is_cp else cfg.seq_len + 1
     corpus = TokenCorpus(args.data_dir, limlen=limlen)
     print(f"corpus: {len(corpus)} sequences (scheme={scheme})")
-    model, tcfg = build_model(cfg, scheme, model_kwargs, device, mesh)
-    batch_at = _seq_shard(_lm_batch_fn(corpus, cfg), mesh, cfg.seq_len)
+    model, tcfg, loss_fn = build_model(cfg, scheme, model_kwargs, device,
+                                       mesh)
+    batch_at = (_cp_batch_fn(corpus, cfg) if is_cp else
+                _seq_shard(_lm_batch_fn(corpus, cfg), mesh, cfg.seq_len))
 
     # step s consumes batch s, so starting the stream at the checkpoint's
     # next step replays exactly the uninterrupted batch sequence
@@ -273,10 +367,10 @@ def _train(args, cfg: TrainCLIConfig, model_kwargs, mesh) -> int:
 
     tx = make_optimizer(tcfg)
     state = create_train_state(model, tx, dropout_seed=cfg.seed)
-    train_step = make_train_step(tx, tcfg, mesh=mesh)
+    train_step = make_train_step(tx, tcfg, loss_fn=loss_fn, mesh=mesh)
 
     eval_step = eval_batches = None
-    if cfg.eval_dir:
+    if cfg.eval_dir and not is_cp:   # the JAX CLI evaluates only the LM
         eval_corpus = TokenCorpus(cfg.eval_dir, limlen=limlen)
         eval_seqs = [np.asarray(eval_corpus[i])
                      for i in range(len(eval_corpus))]

@@ -6,16 +6,21 @@ stacked ``layers_scan``) to the port's ``state_dict``, under the
 reference names that ``musicgeneration_tpu/cli/export_checkpoint.py:
 70-95`` writes; ``event_rnn_state_dict_from_jax`` and
 ``performance_rnn_state_dict_from_jax`` are the port's copies of
-``export_event_rnn`` / ``export_performance_rnn`` (:98-133). Flax
-kernels are [in, out] (a GRU's [in, 3H]); torch weights are [out, in].
+``export_event_rnn`` / ``export_performance_rnn`` (:98-133), and
+``cp_transformer_state_dict_from_jax`` maps a flax CPTransformer tree
+(unrolled or ``layers_scan``) to the port's own CP names (the JAX
+package exports no CP ``.pth``): ``embed_<field>.weight``,
+``layers.<i>.`` + the ``EncoderLayer`` names, ``head_<field>.weight`` /
+``.bias`` (``models/cp_transformer.py``). Flax kernels are [in, out] (a
+GRU's [in, 3H]); torch weights are [out, in].
 
 ``load_checkpoint`` reads what ``python -m
 musicgeneration_tpu.cli.export_checkpoint runs/x model.pth`` writes for
-the three families the port runs: a MusicTransformer's ``{'net':
+the three families it exports: a MusicTransformer's ``{'net':
 state_dict, 'optimizer': {}, 'epoch': step}``, an EventMelodyRNN's bare
 state dict, a PerformanceRNN's session dict ``{'model_config',
 'model_state', 'model_optimizer_state'}``; or the port's own training
-checkpoints (``utils/checkpoint.py``). It infers the family and shape
+checkpoints (``utils/checkpoint.py``), a CPTransformer's among them. It infers the family and shape
 from the state dict and loads it with ``strict=True``. The port reads no
 flax msgpack.
 """
@@ -29,6 +34,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from .models.cp_transformer import CPTransformer
 from .models.event_rnn import EventMelodyRNN
 from .models.music_transformer import MusicTransformer
 from .models.performance_rnn import PerformanceRNN
@@ -64,30 +70,49 @@ def _lin(p, name: str, sd) -> None:
     sd[f"{name}.bias"] = _t(p["bias"])
 
 
+def _encoder_layer(lp, pre: str, sd) -> None:
+    """One flax ``EncoderLayer`` subtree -> the port's names under
+    ``pre``."""
+    for name in ("Wq", "Wk", "Wv", "fc"):
+        _lin(lp["rga"][name], f"{pre}.rga.{name}", sd)
+    sd[f"{pre}.rga.E"] = _t(lp["rga"]["E"])
+    _lin(lp["ffn_pre"], f"{pre}.FFN_pre", sd)
+    _lin(lp["ffn_suf"], f"{pre}.FFN_suf", sd)
+    for ln, name in (("ln1", "layernorm1"), ("ln2", "layernorm2")):
+        sd[f"{pre}.{name}.weight"] = _t(lp[ln]["scale"])
+        sd[f"{pre}.{name}.bias"] = _t(lp[ln]["bias"])
+
+
 def state_dict_from_jax(params: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
     """Flax MusicTransformer params -> the port's (reference-named)
     state_dict of float32 tensors."""
     params = _unstack_layers(params)
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-
-    def ln(p, name):
-        sd[f"{name}.weight"] = _t(p["scale"])
-        sd[f"{name}.bias"] = _t(p["bias"])
-
     sd["Decoder.embedding.weight"] = _t(params["embedding"]["embedding"])
     i = 0
     while f"layer_{i}" in params:
-        lp = params[f"layer_{i}"]
-        pre = f"Decoder.enc_layers.{i}"
-        for name in ("Wq", "Wk", "Wv", "fc"):
-            _lin(lp["rga"][name], f"{pre}.rga.{name}", sd)
-        sd[f"{pre}.rga.E"] = _t(lp["rga"]["E"])
-        _lin(lp["ffn_pre"], f"{pre}.FFN_pre", sd)
-        _lin(lp["ffn_suf"], f"{pre}.FFN_suf", sd)
-        ln(lp["ln1"], f"{pre}.layernorm1")
-        ln(lp["ln2"], f"{pre}.layernorm2")
+        _encoder_layer(params[f"layer_{i}"], f"Decoder.enc_layers.{i}", sd)
         i += 1
     _lin(params["fc"], "fc", sd)
+    return sd
+
+
+def cp_transformer_state_dict_from_jax(
+        params: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
+    """Flax CPTransformer params (``layer_i`` or ``layers_scan``) -> the
+    port's CP state dict of float32 tensors (module docstring)."""
+    from .tokenizers.cp import field_names
+
+    params = _unstack_layers(params)
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for name in field_names():
+        sd[f"embed_{name}.weight"] = _t(params[f"embed_{name}"]["embedding"])
+    i = 0
+    while f"layer_{i}" in params:
+        _encoder_layer(params[f"layer_{i}"], f"layers.{i}", sd)
+        i += 1
+    for name in field_names():
+        _lin(params[f"head_{name}"], f"head_{name}", sd)
     return sd
 
 
@@ -137,11 +162,12 @@ def model_from_state_dict(sd: Mapping[str, torch.Tensor], device="cuda",
                           dtype=torch.float32, decode_quant: str = "none"):
     """Build the model whose family and shape are read off ``sd`` (a
     MusicTransformer's, EventMelodyRNN's or PerformanceRNN's reference
-    state dict) and load it with ``strict=True``, for inference: its
+    state dict, or a CPTransformer's: ``embed_<field>`` / ``head_<field>``
+    keys) and load it with ``strict=True``, for inference: its
     parameters are frozen (``requires_grad_(True)`` to train it). Any
     other state dict raises ValueError naming what it holds.
-    decode_quant: the MusicTransformer's ("none" or "int8"); a GRU
-    family takes only "none"."""
+    decode_quant: the transformers' ("none" or "int8"); a GRU family
+    takes only "none"."""
     if "rnn.weight_ih_l0" in sd and "event_embedding.weight" in sd:
         model = EventMelodyRNN(
             event_dim=sd["event_embedding.weight"].shape[0],
@@ -158,13 +184,16 @@ def model_from_state_dict(sd: Mapping[str, torch.Tensor], device="cuda",
             num_layers=_gru_layers(sd, "gru"), dtype=dtype, device=device)
     elif "Decoder.embedding.weight" in sd:
         model = _music_transformer(sd, device, dtype, decode_quant)
+    elif "embed_family.weight" in sd and "head_family.weight" in sd:
+        model = _cp_transformer(sd, device, dtype, decode_quant)
     else:
         keys = sorted(sd)
         raise ValueError(
             "not a checkpoint of a family the port runs (MusicTransformer, "
-            "EventMelodyRNN, PerformanceRNN): its state dict holds "
-            f"{len(keys)} keys, {keys[:6]}")
-    if decode_quant != "none" and model.family != "music_transformer":
+            "CPTransformer, EventMelodyRNN, PerformanceRNN): its state dict "
+            f"holds {len(keys)} keys, {keys[:6]}")
+    if decode_quant != "none" and model.family not in (
+            "music_transformer", "cp_transformer"):
         raise ValueError(f"decode_quant {decode_quant!r} applies to the "
                          "transformer families (the fused decode kernels); "
                          f"this checkpoint holds a {model.family}")
@@ -184,6 +213,16 @@ def _music_transformer(sd, device, dtype, decode_quant) -> MusicTransformer:
         ffn_dim=sd["Decoder.enc_layers.0.FFN_pre.weight"].shape[0],
         dtype=dtype, device=device, decode_quant=decode_quant)
     return model
+
+
+def _cp_transformer(sd, device, dtype, decode_quant) -> CPTransformer:
+    num_layers = 0
+    while f"layers.{num_layers}.rga.E" in sd:
+        num_layers += 1
+    return CPTransformer(
+        num_layers=num_layers, d_model=sd["embed_family.weight"].shape[1],
+        max_seq=sd["layers.0.rga.E"].shape[0], dtype=dtype, device=device,
+        decode_quant=decode_quant)
 
 
 _DTYPE_NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

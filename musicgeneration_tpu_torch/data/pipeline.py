@@ -1,7 +1,8 @@
 """Offline tokenization pipeline: MIDI corpus -> packed token shards.
 
 The port of ``musicgeneration_tpu/data/pipeline.py`` for the MIDI-like
-scheme, through the port's own codec (``tokenizers/midilike.py``). The
+and CP schemes, through the port's own codecs (``tokenizers/midilike.py``,
+``tokenizers/cp.py``; a CP file's [T, 8] rows are stored flattened). The
 shard layout and ``manifest.json`` are the JAX package's, so each package
 reads the other's corpora: shard ``midilike-00000.npz`` holds, for the
 stream key ``tokens``,
@@ -44,8 +45,16 @@ def _tokenize_midilike(path: str) -> Dict[str, np.ndarray]:
             .astype(np.uint16)}
 
 
+def _tokenize_cp(path: str) -> Dict[str, np.ndarray]:
+    """Compound Word rows [T, 8] stored flattened (width 8 is fixed by the
+    scheme; reshape(-1, 8) on load)."""
+    from ..tokenizers import cp
+    return {"tokens": cp.encode_rows(path).reshape(-1)}
+
+
 SCHEMES: Dict[str, Callable[[str], Dict[str, np.ndarray]]] = {
     "midilike": _tokenize_midilike,
+    "cp": _tokenize_cp,
 }
 
 

@@ -164,6 +164,28 @@ class SlotScheduler:
 
     # ------------------------------------------------------------ hooks
 
+    def _canon_prompt(self, prompt) -> np.ndarray:
+        """The prompt as the engine takes it, axis 0 the step axis: flat
+        int32 ids (the CP engine takes [P, 8] rows)."""
+        return np.asarray(prompt, np.int32).reshape(-1)
+
+    def _warm_prompt(self, n: int) -> np.ndarray:
+        """The ``warm()`` probe's prompt of n steps."""
+        return np.ones(n, np.int32)
+
+    def _empty_result(self) -> np.ndarray:
+        """A result of no steps in the engine's shape (the CP engine's is
+        [0, 8])."""
+        return np.zeros((0,), np.int32)
+
+    def _eos_index(self, toks, eos_id) -> Optional[int]:
+        """Index of the first eos in emitted steps, or None (the CP
+        engine matches the FAMILY column of its rows)."""
+        for j, x in enumerate(toks):
+            if x == eos_id:
+                return j
+        return None
+
     def _validate_request(self, prompt: np.ndarray, max_new: int,
                           eos_id: Optional[int], kw: dict) -> dict:
         """Engine-specific submit validation. Returns the extra payload
@@ -261,7 +283,7 @@ class SlotScheduler:
         self._warming = True
         rid = None
         try:
-            rid = self.submit(np.ones(max(1, prompt_len), np.int32),
+            rid = self.submit(self._warm_prompt(max(1, prompt_len)),
                               max_new or self.seg_len)
             self.run()
         finally:
@@ -273,7 +295,7 @@ class SlotScheduler:
     def submit(self, prompt, max_new: int,
                eos_id: Optional[int] = None,
                sampling: Optional[SamplingParams] = None, **kw) -> int:
-        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        prompt = self._canon_prompt(prompt)
         if prompt.shape[0] == 0:
             raise ValueError("empty prompt")
         if sampling is not None and not self.per_row:
@@ -287,7 +309,7 @@ class SlotScheduler:
         rid = self._next_rid
         self._next_rid += 1
         pb = self._bucket(prompt.shape[0])
-        pad = np.full((pb,), self._pad_id, np.int32)
+        pad = np.full((pb,) + prompt.shape[1:], self._pad_id, np.int32)
         pad[:prompt.shape[0]] = prompt
         self.pending.append(_Pending(
             rid, prompt, max_new, eos_id, padded=pad, pb=pb,
@@ -306,7 +328,7 @@ class SlotScheduler:
         for q in self.pending:
             if q.rid == rid:
                 self.pending.remove(q)
-                self.done[rid] = np.zeros((0,), np.int32)
+                self.done[rid] = self._empty_result()
                 self.times[rid]["done"] = time.perf_counter()
                 self._record_latency(rid)
                 if self.on_finalize is not None and not self._warming:
@@ -400,9 +422,12 @@ class SlotScheduler:
         """Emitted tokens -> the request's result: trimmed to max_new and
         cut at the first eos."""
         toks = toks[:max_new]
-        if eos_id is not None and eos_id in toks:
-            toks = toks[:toks.index(eos_id)]
-        return np.asarray(toks, np.int32)
+        if eos_id is not None:
+            cut = self._eos_index(toks, eos_id)
+            if cut is not None:
+                toks = toks[:cut]
+        return (np.asarray(toks, np.int32) if toks
+                else self._empty_result())
 
     def _finalize(self, rid: int):
         max_new, eos_id = self._req.pop(rid)
@@ -460,13 +485,14 @@ class SlotScheduler:
             if rid not in self._req:
                 continue                 # finalized mid-pipeline
             em = self._emitted[rid]
-            em.extend(int(x) for x in toks[:, i])
+            em.extend(toks[:, i].tolist())   # ids, or CP rows
             max_new, eos_id = self._req[rid]
             if eos_id is None:
                 if len(em) >= max_new:
                     self._finalize(rid)
                 continue
-            if len(em) >= max_new or eos_id in em[:max_new]:
+            if (len(em) >= max_new
+                    or self._eos_index(em[:max_new], eos_id) is not None):
                 # by rid, not the segment's slot index: a resize may
                 # have moved the slot since dispatch
                 for k, s in enumerate(self.slots):

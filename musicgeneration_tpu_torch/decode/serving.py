@@ -75,7 +75,8 @@ class ContinuousBatcher(SlotScheduler):
             slots=slots, sampling=sampling, seg_len=seg_len,
             prompt_bucket=prompt_bucket, depth=depth, min_slots=min_slots,
             per_row_sampling=per_row_sampling, on_finalize=on_finalize,
-            generator=generator, pad_id=model.pad_id, boost=boost)
+            generator=generator, pad_id=getattr(model, "pad_id", 0),
+            boost=boost)
         self.model = model
         self.device = model.device
         self._next_seg = seg_len

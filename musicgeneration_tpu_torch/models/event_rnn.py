@@ -31,6 +31,7 @@ from torch import nn
 from .. import resolve_device
 from ..ops.gru import GRUStack
 from .music_transformer import _linear
+from .registry import register_model
 
 
 @torch.no_grad()
@@ -94,6 +95,7 @@ class GRULanguageModel(nn.Module):
                                  dtype=self.dtype, device=self.device)}
 
 
+@register_model("event_rnn")
 class EventMelodyRNN(GRULanguageModel):
     family = "event_rnn"
 

@@ -58,6 +58,7 @@ from ..ops.fused_decode import (WEIGHT_KEYS, fused_decode_chunk,
 from ..ops.relative_attention import sinusoid_position_encoding
 from ..parallel.ring_attention import ring_relative_attention
 from ..parallel.ring_attention_pallas import ring_relative_attention_pallas
+from .registry import register_model
 
 Cache = Dict[str, torch.Tensor]
 ATTENTION_IMPLS = ("auto", "ring", "ring_pallas")
@@ -174,6 +175,42 @@ class EncoderLayer(nn.Module):
         return _layer_norm(self.layernorm2, out1 + ffn)
 
 
+def stack_decode_weights(layers, dtype, quant: str = "none"
+                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """The ``EncoderLayer``s' weights stacked [L, ...] for
+    ``fused_decode_step`` (matrices [in, out], in ``dtype``) and their E
+    tables [L, max_seq, dh] f32; with ``quant="int8"`` the weights dict
+    also holds, under "int8", (``quantize_stream_weights`` of the stack,
+    its scales), quantized from the ``dtype`` stack as the JAX
+    ``fused_layer_stack_step`` does."""
+    if quant not in ("none", "int8"):
+        raise ValueError(f"unknown decode_quant {quant!r}")
+
+    def mats(layer):
+        r = layer.rga
+        return {
+            "wq": r.Wq.weight.T, "bq": r.Wq.bias,
+            "wk": r.Wk.weight.T, "bk": r.Wk.bias,
+            "wv": r.Wv.weight.T, "bv": r.Wv.bias,
+            "wfc": r.fc.weight.T, "bfc": r.fc.bias,
+            "ln1_scale": layer.layernorm1.weight,
+            "ln1_bias": layer.layernorm1.bias,
+            "ffn1_w": layer.FFN_pre.weight.T,
+            "ffn1_b": layer.FFN_pre.bias,
+            "ffn2_w": layer.FFN_suf.weight.T,
+            "ffn2_b": layer.FFN_suf.bias,
+            "ln2_scale": layer.layernorm2.weight,
+            "ln2_bias": layer.layernorm2.bias,
+        }
+    per_layer = [mats(layer) for layer in layers]
+    w_all = {k: torch.stack([m[k] for m in per_layer]).to(dtype).contiguous()
+             for k in WEIGHT_KEYS}
+    e_all = torch.stack([layer.rga.E for layer in layers]).float().contiguous()
+    if quant == "int8":
+        w_all["int8"] = quantize_stream_weights(w_all)
+    return w_all, e_all
+
+
 class _Decoder(nn.Module):
     """Holds the reference's ``Decoder.*`` parameters."""
 
@@ -188,6 +225,8 @@ class _Decoder(nn.Module):
             for _ in range(num_layers))
 
 
+@register_model("music_transformer",
+                lambda **kw: music_transformer_defaults(**kw))
 class MusicTransformer(nn.Module):
     """vocab 309, 6 layers, d_model 256, max_seq 2048 is the flagship
     (``music_transformer_defaults``). ``generator``: optional CPU
@@ -361,32 +400,7 @@ class MusicTransformer(nn.Module):
         module's ``fused_layer_stack_step``. ``decode_step`` and
         ``decode_chunk`` pick the pair they run."""
         quant = self.decode_quant if quant is None else quant
-        if quant not in ("none", "int8"):
-            raise ValueError(f"unknown decode_quant {quant!r}")
-        def mats(layer):
-            r = layer.rga
-            return {
-                "wq": r.Wq.weight.T, "bq": r.Wq.bias,
-                "wk": r.Wk.weight.T, "bk": r.Wk.bias,
-                "wv": r.Wv.weight.T, "bv": r.Wv.bias,
-                "wfc": r.fc.weight.T, "bfc": r.fc.bias,
-                "ln1_scale": layer.layernorm1.weight,
-                "ln1_bias": layer.layernorm1.bias,
-                "ffn1_w": layer.FFN_pre.weight.T,
-                "ffn1_b": layer.FFN_pre.bias,
-                "ffn2_w": layer.FFN_suf.weight.T,
-                "ffn2_b": layer.FFN_suf.bias,
-                "ln2_scale": layer.layernorm2.weight,
-                "ln2_bias": layer.layernorm2.bias,
-            }
-        per_layer = [mats(layer) for layer in self.Decoder.enc_layers]
-        w_all = {k: torch.stack([m[k] for m in per_layer]).to(
-            self.dtype).contiguous() for k in WEIGHT_KEYS}
-        e_all = torch.stack([layer.rga.E for layer in self.Decoder.enc_layers]
-                            ).float().contiguous()
-        if quant == "int8":
-            w_all["int8"] = quantize_stream_weights(w_all)
-        return w_all, e_all
+        return stack_decode_weights(self.Decoder.enc_layers, self.dtype, quant)
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, cache: Cache, t: int,

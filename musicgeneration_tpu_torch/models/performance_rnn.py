@@ -35,8 +35,10 @@ from .. import resolve_device
 from ..ops.gru import GRUStack
 from .event_rnn import GRULanguageModel, reset_rnn_parameters
 from .music_transformer import _linear
+from .registry import register_model
 
 
+@register_model("performance_rnn")
 class PerformanceRNN(GRULanguageModel):
     family = "performance_rnn"
 

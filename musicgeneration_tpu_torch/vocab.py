@@ -1,17 +1,20 @@
-"""The MIDI-like vocabulary spec — the token id layout the port generates.
+"""Vocabulary specs — the token id layouts the port reads and generates.
 
-A copy of the MIDI-like part of ``musicgeneration_tpu/vocab.py``
-(reference: mg/model/utils/sequence.py:14-36, 204-228): note_on 88 |
-note_off 88 | velocity 32 | time_shift 100 = 308 ids, and the
+Copies of parts of ``musicgeneration_tpu/vocab.py``: the MIDI-like
+layout (reference: mg/model/utils/sequence.py:14-36, 204-228): note_on 88
+| note_off 88 | velocity 32 | time_shift 100 = 308 ids; the
 PerformanceRNN control spec (``vocab.py:210-214``): pitch_histogram 12 |
-note_density 12 = 24. The other schemes (REMI, MuMIDI) come with the
-families that use them.
+note_density 12 = 24; and the REMI constants, chord map and layout
+(``vocab.py:48-54``, ``:74-81``; reference REMI.py:9-37, 449-458):
+note_on 127 | note_duration 64 | note_velocity 4 | bar 1 | position 16 |
+tempo_class 3 | tempo_value 60 | chord 61 = 336, which the REMI and CP
+codecs read. MuMIDI comes with the family that uses it.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -27,6 +30,25 @@ DEFAULT_VELOCITY = 64
 # PerformanceRNN controls (musicgeneration_tpu/vocab.py:44-45)
 CONTROL_WINDOW_SIZE = BEAT_LENGTH * 4
 NOTE_DENSITY_BINS = np.arange(12) * 3 + 1
+
+# REMI scheme (reference: REMI.py:9-35), read by the REMI and CP codecs
+REMI_FRACTION = 16
+REMI_DURATION_BINS = np.arange(60, 3841, 60, dtype=int)  # 64 bins
+REMI_TEMPO_INTERVALS = [range(30, 90), range(90, 150), range(150, 210)]
+REMI_PITCH_RANGE = range(0, 127)
+REMI_VELOCITY_STEPS = 4
+REMI_VELOCITY_BINS = np.arange(4, 128, 4)  # 31 edges; index via searchsorted-1
+REMI_RESOLUTION = 480
+
+# Chord vocabulary of REMI and CP (reference: REMI.py:27-37)
+CHORD_QUALITY = ["maj", "min", "dim", "aug", "dom"]
+CHORD_ROOT = ["C", "C#", "D", "D#", "E", "F", "F#", "G", "G#", "A", "A#", "B"]
+CHORD_MAP: Dict[str, int] = {}
+for _q in CHORD_QUALITY:
+    for _r in CHORD_ROOT:
+        CHORD_MAP[f"{_r}:{_q}"] = len(CHORD_MAP)
+CHORD_MAP["N:N"] = len(CHORD_MAP)
+INV_CHORD_MAP = {v: k for k, v in CHORD_MAP.items()}
 
 
 def midilike_velocity_bins() -> np.ndarray:
@@ -62,6 +84,14 @@ class VocabSpec:
     def feat_ranges(self) -> "collections.OrderedDict[str, range]":
         return collections.OrderedDict(self._feat_ranges)
 
+    def dims_feat(self) -> "collections.OrderedDict[int, Tuple[str, int]]":
+        """id -> (feature name, value). Reference: REMI.py:461-471."""
+        out = collections.OrderedDict()
+        for name, rng in self._feat_ranges.items():
+            for i, idx in enumerate(rng):
+                out[idx] = (name, i)
+        return out
+
     @property
     def names(self) -> List[str]:
         return self._names
@@ -86,6 +116,19 @@ def _midilike_spec() -> VocabSpec:
     return VocabSpec(d)
 
 
+def _remi_spec() -> VocabSpec:
+    d = collections.OrderedDict()
+    d["note_on"] = len(REMI_PITCH_RANGE)
+    d["note_duration"] = len(REMI_DURATION_BINS)
+    d["note_velocity"] = REMI_VELOCITY_STEPS
+    d["bar"] = 1
+    d["position"] = REMI_FRACTION
+    d["tempo_class"] = len(REMI_TEMPO_INTERVALS)
+    d["tempo_value"] = len(REMI_TEMPO_INTERVALS[0])
+    d["chord"] = len(CHORD_MAP)
+    return VocabSpec(d)
+
+
 def _control_spec() -> VocabSpec:
     d = collections.OrderedDict()
     d["pitch_histogram"] = 12
@@ -94,4 +137,5 @@ def _control_spec() -> VocabSpec:
 
 
 MIDILIKE = _midilike_spec()
+REMI = _remi_spec()
 CONTROL = _control_spec()
