@@ -186,9 +186,26 @@ Phases (the first failure raises and the exit code is non-zero):
    2's limits) -> ``cli.train model=cp_transformer`` bf16 for 30 steps
    (exactly 4 A and 4 C a step) -> ``cli.generate`` from the checkpoint
    directory; kernels A, B and C timed at CP's shapes beside their plain
-   versions and bounds; prefill ms, decode rows/s, serving goodput and
-   the train step's time;
-14. one JSON line of kernels, the card's line, and the final JSON line.
+   versions and bounds (A also beside SDPA); prefill ms, decode rows/s,
+   serving goodput and the train step's time;
+14. PoPMAG at its defaults (embed 256, hidden 256, 2 GRU layers, init_dim
+   32, bar_dim 188, 485 events; seeded random weights; synthetic
+   six-role 16-bar pieces written with the port's MIDI writer): kernel D
+   against its plain version at in 256, H 256, 2 layers, B 1, 8 and 32,
+   f32 and bf16 (run with the other kernel checks); greedy f32
+   ``generate_arrangement`` (B 8, 16 bars) kernel path == plain path with
+   exactly 400 D launches a bar; greedy f32 serving of 8 staggered
+   requests, kernel path == plain path == one dedicated
+   ``generate_arrangement`` at the pool width; ``cli.tokenize --scheme
+   mumidi`` -> ``cli.train model=popmag`` (B 8, max_bars 16, max_bar_len
+   96; 3 f32 steps, the same run cut after step 0 and resumed with equal
+   losses, 1 bf16 step) -> ``cli.generate`` from the checkpoint directory
+   (B 8, 16 bars, exactly 400 D launches a bar) -> ``cli.serve`` file mode
+   (24 requests of 2-16 bars, 8 slots, exactly 400 D launches a bar step),
+   every MIDI read back; arrangement bars/s and decoder steps/s at B 8
+   (f32, bf16), the f32 train step's time and busy share; kernel D at
+   PoPMAG's step beside its bound, plain version and cuDNN;
+15. one JSON line of kernels, the card's line, and the final JSON line.
 
 Imports nothing of JAX or of ``musicgeneration_tpu``. Needs one CUDA card.
 """
@@ -221,13 +238,15 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from musicgeneration_tpu_torch.cli.generate import (  # noqa: E402
-    bucket_prompt, parse_control, prime_tokens, write_midi)
+    bucket_prompt, melody_compound_from_midi, parse_control, prime_tokens,
+    write_midi)
 from musicgeneration_tpu_torch.cli import train as train_cli  # noqa: E402
 from musicgeneration_tpu_torch.cli.generate import main as cli_main  # noqa: E402
 from musicgeneration_tpu_torch.cli.serve import main as serve_main  # noqa: E402
 from musicgeneration_tpu_torch.cli.tokenize import (  # noqa: E402
     main as tokenize_main)
 from musicgeneration_tpu_torch.data.pipeline import TokenCorpus  # noqa: E402
+from musicgeneration_tpu_torch.data.prefetch import to_device  # noqa: E402
 from musicgeneration_tpu_torch.decode import (  # noqa: E402
     DecodeParams, SamplingParams, SpecParams, generate, generate_speculative)
 from musicgeneration_tpu_torch.decode.cp_generate import (  # noqa: E402
@@ -241,7 +260,15 @@ from musicgeneration_tpu_torch.decode.serving_rnn import (  # noqa: E402
 from musicgeneration_tpu_torch.models import cp_transformer as cp_mod  # noqa: E402
 from musicgeneration_tpu_torch.models import music_transformer as mt  # noqa: E402
 from musicgeneration_tpu_torch.models import (  # noqa: E402
-    EventMelodyRNN, PerformanceRNN)
+    EventMelodyRNN, PerformanceRNN, PoPMAGRNN)
+from musicgeneration_tpu_torch.decode.popmag_generate import (  # noqa: E402
+    flatten_arrangement, generate_arrangement)
+from musicgeneration_tpu_torch.decode.serving_popmag import (  # noqa: E402
+    PopMAGContinuousBatcher)
+from musicgeneration_tpu_torch.midi import (  # noqa: E402
+    Instrument, MidiFile, Note, TempoChange)
+from musicgeneration_tpu_torch.tokenizers.mumidi import (  # noqa: E402
+    MuMIDI_EventSeq)
 from musicgeneration_tpu_torch.ops import gru as gru_mod  # noqa: E402
 from musicgeneration_tpu_torch.ops import cuda_build  # noqa: E402
 from musicgeneration_tpu_torch.ops.decode_loop import (  # noqa: E402
@@ -1087,14 +1114,19 @@ def gru_inputs(b: int, in_dim: int, hidden: int, layers: int, dtype, gen):
 
 
 def check_kernel_d() -> float:
-    """Kernel D against its plain version at both families' full width
-    (in 308 and 512, H 512, 3 layers) for B 1, 4, 8 and 64, f32 and bf16,
-    and at a small shape (in 32, H 32, 2 layers); its inputs unchanged."""
+    """Kernel D against its plain version at both GRU language models'
+    full width (in 308 and 512, H 512, 3 layers) for B 1, 4, 8 and 64, at
+    PoPMAG's decoder width (in 256, H 256, 2 layers: 64 CTAs in bf16) for
+    B 1, 8 and 32, f32 and bf16, and at a small shape (in 32, H 32, 2
+    layers); its inputs unchanged."""
     gen = torch.Generator().manual_seed(21)
     worst = 0.0
     cases = [(b, in_dim, RNN_HIDDEN, RNN_LAYERS, dtype)
              for in_dim in (EVENT_DIM, RNN_HIDDEN) for b in (1, 4, 8, 64)
              for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(b, PM_HIDDEN, PM_HIDDEN, PM_LAYERS, dtype)
+              for b in PM_D_BATCHES
+              for dtype in (torch.float32, torch.bfloat16)]
     cases += [(b, 32, 32, 2, dtype) for b in (1, 8)
               for dtype in (torch.float32, torch.bfloat16)]
     for b, in_dim, hidden, layers, dtype in cases:
@@ -2053,12 +2085,12 @@ def profile_rnn_decode(steps: int = 32, warm: int = 3) -> None:
               f"{key[:90]}")
 
 
-def gru_bound(b: int, in_dim: int, dtype) -> tuple:
+def gru_bound(b: int, in_dim: int, dtype, hd: int = RNN_HIDDEN,
+              nl: int = RNN_LAYERS) -> tuple:
     """Least time of one GRU step at full width: the weights (rows of
     their true width), biases, x and h read once, the new h written;
     2 * b * 3H * (in_l + H) operations per layer."""
     e = torch.finfo(dtype).bits // 8
-    hd, nl = RNN_HIDDEN, RNN_LAYERS
     widths = [in_dim] + [hd] * (nl - 1)
     w_elems = sum(3 * hd * (w + hd) for w in widths)
     nbytes = (w_elems * e + 2 * nl * 3 * hd * 4 + b * in_dim * e
@@ -2140,6 +2172,40 @@ def time_kernel_d(launches: int, err: float) -> dict:
             "bound_ms_performance_rnn": res[("performance_rnn", B)][2],
             "ms_performance_rnn_b1": res[("performance_rnn", 1)][1],
             "ms_performance_rnn_b1_warm": res[("performance_rnn", 1)][0]}
+
+
+def time_kernel_d_popmag() -> dict:
+    """Kernel D at PoPMAG's decoder step (in 256, H 256, 2 layers, B 8),
+    f32 (the family's default) and bf16: device time warm and with L2
+    flushed, beside its bytes bound, its plain version and torch.nn.GRU
+    (cuDNN) over one step of the same shape, warm and flushed."""
+    gen = torch.Generator().manual_seed(37)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEV)
+    out = {}
+    for name, dtype in (("", torch.bfloat16), ("_f32", torch.float32)):
+        x, h, w = gru_inputs(B, PM_HIDDEN, PM_HIDDEN, PM_LAYERS, dtype, gen)
+        warm = device_ms(lambda: fused_gru_step(x, h, w))
+        cold = device_ms(lambda: fused_gru_step(x, h, w), flush=flush)
+        plain = device_ms(lambda: fused_gru_step_plain(x, h, w), iters=20)
+        bnd, by = gru_bound(B, PM_HIDDEN, dtype, PM_HIDDEN, PM_LAYERS)
+        gru = torch.nn.GRU(PM_HIDDEN, PM_HIDDEN, PM_LAYERS).to(DEV, dtype)
+        gru.flatten_parameters()
+        xs = x[None]
+        with torch.no_grad():
+            lib_warm = device_ms(lambda: gru(xs, h))
+            lib_cold = device_ms(lambda: gru(xs, h), flush=flush)
+        print(f"kernel D {str(dtype)[6:]} PoPMAG in={PM_HIDDEN} H="
+              f"{PM_HIDDEN} L={PM_LAYERS} B={B}: warm {warm:.5f} ms, L2 "
+              f"flushed {cold:.5f} ms; bound {bnd:.5f} ms ({by}); plain "
+              f"{plain:.4f} ms; torch.nn.GRU (cuDNN) one step warm "
+              f"{lib_warm:.5f} ms, L2 flushed {lib_cold:.5f} ms",
+              f"on {gpu_line()}")
+        out.update({f"ms_popmag{name}": cold, f"ms_popmag{name}_warm": warm,
+                    f"bound_ms_popmag{name}": bnd,
+                    f"plain_ms_popmag{name}": plain,
+                    f"library_ms_popmag{name}": lib_cold,
+                    f"library_ms_popmag{name}_warm": lib_warm})
+    return out
 
 
 def write_corpus(tmp: str) -> str:
@@ -4586,6 +4652,20 @@ def time_cp_kernels() -> dict:
         lambda: fused_relative_attention_plain(q, k, v, e, None), iters=5)
     a_bound = bound(3 * bh * l * DH * 2 + l * DH * 4 + bh * l * DH * 2
                     + bh * l * 4, 3 * 2 * DH * bh * l * (l + 1) / 2, dtype)
+    # yardstick at the prefill's shape: SDPA with the relative bias and the
+    # causal mask materialized as attn_mask (built outside the time)
+    t_idx = torch.arange(l, device=DEV)
+    rel = (CP_MAX_SEQ - 1 - t_idx[:, None] + t_idx[None, :]).clamp(
+        0, CP_MAX_SEQ - 1)
+    later = t_idx[None, :] > t_idx[:, None]
+    srel = torch.einsum("bhld,lsd->bhls", q.float(),
+                        e.to(dtype).float()[rel]).masked_fill(later, 0.0)
+    mask = (srel / math.sqrt(DH) + later.float() * -1e9).to(dtype)
+    a_lib = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask))
+    del srel, mask
+    print(f"CP prefill shape: SDPA (bias and causal mask as attn_mask) "
+          f"{a_lib:.4f} ms", f"on {gpu_line()}")
 
     model = cp_model(dtype)
     t = CP_MAX_SEQ - CP_STEPS + CP_STEPS // 2 - 1
@@ -4620,9 +4700,11 @@ def time_cp_kernels() -> dict:
         print(f"CP kernel {name} bf16 {shape}: {ms:.4f} ms, plain "
               f"{plain:.4f} ms, bound {bnd:.5f} ms ({by})",
               f"on {gpu_line()}")
-    return {name: {"cp_shape": shape, "cp_ms": ms, "cp_plain_ms": plain,
-                   "cp_bound_ms": bnd, "cp_bound_by": by}
-            for name, (ms, plain, (bnd, by), shape) in res.items()}
+    out = {name: {"cp_shape": shape, "cp_ms": ms, "cp_plain_ms": plain,
+                  "cp_bound_ms": bnd, "cp_bound_by": by}
+           for name, (ms, plain, (bnd, by), shape) in res.items()}
+    out["A"]["cp_library_ms"] = a_lib
+    return out
 
 
 def cp_paths() -> dict:
@@ -4650,6 +4732,410 @@ def cp_paths() -> dict:
             "goodput": served["goodput"], "step_ms": tr["step_ms"],
             "decode_busy": gen["decode_busy"],
             "train_busy": tr["train_busy"]}
+
+
+# PoPMAG at its defaults (musicgeneration_tpu/models/popmag.py:46-52:
+# event_dim 485, bar_dim 188, init_dim 32, embed 256, hidden 256, 2 GRU
+# layers, dropout 0.5 in training) with cli.train's buckets (max_bars 16,
+# max_bar_len 96) and 200 decoder steps a bar, each one kernel-D launch a
+# layer. Depth is cut, never width (a train step takes ~1.8 s of host
+# work): 8 synthetic 16-bar MIDI files, 3 f32 train steps (the same run
+# cut after step 0 and resumed, so that step 2's loss follows an update
+# made with the restored Adam state) and 1 bf16 one, 24 served requests
+# of 2-16 bars, 8 staggered parity requests of 2-4 bars, rates over 4
+# bars and 3 train steps (one warm), one profiled step
+PM_HIDDEN, PM_LAYERS, PM_STEPS, PM_BARS, PM_BAR_LEN = 256, 2, 200, 16, 96
+PM_D_BATCHES = (1, 8, 32)
+PM_MIDI, PM_TRAIN, PM_CUT, PM_BF16, PM_CKPT = 8, 3, 1, 1, 1
+PM_PARITY_NEWS = (2, 4, 3, 2, 3, 2, 4, 3)      # staggered serving, bars
+PM_RATE_BARS, PM_RATE_STEPS = 4, 3
+PM_LAUNCHES_PER_BAR = PM_LAYERS * PM_STEPS
+# the synthetic pieces' roles: (name, program, drum, pitch range, step in
+# ticks); note starts sit 30 ticks past the grid (a downbeat-aligned note
+# would count in two bars, MuMIDI's grouping quirk)
+PM_ROLES = (("melody", 72, False, 60, 84, 480),
+            ("piano", 0, False, 48, 72, 960),
+            ("bass", 32, False, 28, 52, 480),
+            ("guitar", 24, False, 52, 76, 960),
+            ("string", 65, False, 55, 79, 1920),
+            ("drum", 0, True, 35, 50, 480))
+
+
+def popmag_model(dtype, seed: int = 0) -> PoPMAGRNN:
+    """PoPMAG at its defaults with seeded random weights."""
+    return PoPMAGRNN(dtype=dtype, device=DEV,
+                     generator=torch.Generator().manual_seed(seed))
+
+
+def popmag_midi(path: str, seed: int, n_bars: int = PM_BARS) -> None:
+    """A six-role piece of ``n_bars`` 4/4 bars written with the port's MIDI
+    writer: each role a note every ``step`` ticks (85 % of them), so a
+    melody bar encodes to ~30 MuMIDI tokens and an arrangement bar to
+    ~85, inside max_bar_len."""
+    rng = np.random.default_rng(seed)
+    midi = MidiFile(ticks_per_beat=480)
+    midi.tempo_changes = [TempoChange(tempo=float(rng.integers(80, 140)),
+                                      time=0)]
+    for name, program, drum, lo, hi, step in PM_ROLES:
+        inst = Instrument(program=program, is_drum=drum, name=name)
+        for t in range(0, n_bars * 1920, step):
+            if rng.random() < 0.85:
+                inst.notes.append(Note(
+                    velocity=int(rng.integers(40, 110)),
+                    pitch=int(rng.integers(lo, hi)), start=t + 30,
+                    end=t + 30 + int(step * rng.uniform(0.4, 0.95))))
+        midi.instruments.append(inst)
+    midi.dump(path)
+
+
+def popmag_melodies(tmp: str) -> tuple:
+    """``PM_MIDI`` synthetic pieces and their packed melodies at the
+    training buckets: (paths, [(src [bars, S, 7], src_len [bars])])."""
+    midis = os.path.join(tmp, "popmag_midis")
+    os.makedirs(midis)
+    paths, mels = [], []
+    for i in range(PM_MIDI):
+        path = os.path.join(midis, f"piece-{i:02d}.mid")
+        popmag_midi(path, 100 + i)
+        paths.append(path)
+        mels.append(melody_compound_from_midi(path, PM_BARS, PM_BAR_LEN))
+    if any(src.shape[0] != PM_BARS for src, _ in mels):
+        raise AssertionError("a synthetic piece lost bars to max_bar_len")
+    return paths, mels
+
+
+def pool_batch(mels: list) -> tuple:
+    """The melodies as a serving slot holds them: [B, max_bars,
+    max_bar_len, 7] rows and [B, max_bars] lengths, zeros past each."""
+    src = np.zeros((len(mels), PM_BARS, PM_BAR_LEN, 7), np.int64)
+    src_len = np.zeros((len(mels), PM_BARS), np.int64)
+    for i, (m, ml) in enumerate(mels):
+        src[i, :m.shape[0], :m.shape[1]] = m
+        src_len[i, :len(ml)] = ml
+    return src, src_len
+
+
+def popmag_greedy_parity(mels: list) -> int:
+    """Greedy f32 ``generate_arrangement`` at B 8 over 16 bars: the
+    kernel path's emitted tokens (``flatten_arrangement``) and valid
+    flags equal the plain path's, with exactly 400 kernel-D launches a
+    bar. Returns the launches. (A pitch or duration drawn where nothing
+    is emitted never reaches the state or the output.)"""
+    model = popmag_model(torch.float32)
+    src, src_len = pool_batch(mels)
+    init = torch.randn(len(mels), model.init_dim,
+                       generator=torch.Generator().manual_seed(5))
+    (kern, n, secs) = count_d(lambda: generate_arrangement(
+        model, init, src, src_len, PM_BARS, greedy=True))
+    with plain_path():
+        plain = generate_arrangement(model, init, src, src_len, PM_BARS,
+                                     greedy=True)
+    same = torch.equal(kern[1], plain[1]) and all(
+        np.array_equal(a, b) for a, b in zip(flatten_arrangement(*kern),
+                                             flatten_arrangement(*plain)))
+    if not same:
+        diff = (kern[0] != plain[0]) & kern[1]
+        print(f"  first differing emitted (row, bar, step, field): "
+              f"{diff.nonzero()[:1].tolist()}")
+    emitted = int(kern[1][..., 0].sum())
+    print(f"PoPMAG greedy f32 generate_arrangement B={len(mels)} "
+          f"{PM_BARS} bars: kernel path == plain path: {same}; kernel D "
+          f"launches {n} (expected {PM_LAUNCHES_PER_BAR} x {PM_BARS}); "
+          f"{emitted} event tokens in {secs:.2f} s")
+    if not same or n != PM_LAUNCHES_PER_BAR * PM_BARS:
+        raise AssertionError(f"PoPMAG greedy parity: same {same}, "
+                             f"launches {n}")
+    return n
+
+
+def popmag_serve_parity(mels: list) -> None:
+    """Greedy f32 serving of 8 staggered requests (5, one segment, then
+    3 more; latents on every other) through kernel D and through its
+    plain version: equal streams, each equal to its row of one dedicated
+    ``generate_arrangement`` at the pool width on the slots' buffers."""
+    model = popmag_model(torch.float32)
+    rng = np.random.default_rng(29)
+    inits = [rng.standard_normal(model.init_dim).astype(np.float32)
+             if i % 2 else None for i in range(len(mels))]
+    outs = []
+    for plain in (False, True):
+        cb = PopMAGContinuousBatcher(
+            model, slots=SLOTS, sampling=SamplingParams(greedy=True),
+            max_bars=PM_BARS, max_bar_len=PM_BAR_LEN,
+            prompt_bucket=math.gcd(8, PM_BARS))
+        kws = [{"src_len": ml} if init is None else
+               {"src_len": ml, "init": init}
+               for (_, ml), init in zip(mels, inits)]
+        with plain_path() if plain else contextlib.nullcontext():
+            rids = [cb.submit(m, PM_PARITY_NEWS[i], **kws[i])
+                    for i, (m, _) in enumerate(mels[:5])]
+            cb.step()
+            rids += [cb.submit(mels[i][0], PM_PARITY_NEWS[i], **kws[i])
+                     for i in range(5, len(mels))]
+            done = cb.run()
+        outs.append([done[r] for r in rids])
+    same = all(np.array_equal(a, b) for a, b in zip(*outs))
+    src, src_len = pool_batch(mels)
+    init = torch.from_numpy(np.stack([
+        np.zeros(model.init_dim, np.float32) if x is None else x
+        for x in inits]))
+    ref = flatten_arrangement(*generate_arrangement(
+        model, init, src, src_len, max(PM_PARITY_NEWS), greedy=True))
+    bar = MuMIDI_EventSeq.segmentation
+    dedicated = all(np.array_equal(
+        got, np.concatenate(bar(r)[:n]) if n else r[:0])
+        for got, r, n in zip(outs[0], ref, PM_PARITY_NEWS))
+    print(f"PoPMAG serving greedy f32, {len(mels)} staggered requests of "
+          f"{min(PM_PARITY_NEWS)}-{max(PM_PARITY_NEWS)} bars: kernel path "
+          f"== plain path: {same}; == dedicated generate_arrangement at "
+          f"the pool width: {dedicated}")
+    if not (same and dedicated):
+        raise AssertionError("PoPMAG served streams differ")
+
+
+def popmag_write_corpus(tmp: str, paths: list) -> str:
+    """``cli.tokenize --scheme mumidi`` over the synthetic pieces."""
+    shards = os.path.join(tmp, "popmag_tok")
+    t0 = time.perf_counter()
+    with quiet(os.path.join(tmp, "tokenize.log")):
+        rc = tokenize_main([os.path.dirname(paths[0]), shards, "--scheme",
+                            "mumidi", "--workers", "1"])
+    corpus = TokenCorpus(shards, key="melody")
+    arr_bars = [len(b) for i in range(len(corpus)) for b in
+                MuMIDI_EventSeq.segmentation(np.asarray(
+                    corpus.pair(i, "arrangement"), np.int64))]
+    print(f"cli.tokenize --scheme mumidi: {len(paths)} MIDI files -> "
+          f"{len(corpus)} melody/arrangement pairs (arrangement bars of "
+          f"{min(arr_bars)}-{max(arr_bars)} tokens) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if rc != 0 or len(corpus) != len(paths):
+        raise AssertionError("cli.tokenize --scheme mumidi lost files")
+    return shards
+
+
+def popmag_train_args(shards: str, run: str, steps: int, *extra) -> list:
+    """cli.train model=popmag at full width and the default buckets: B 8,
+    max_bars 16, max_bar_len 96, dropout 0.5, Adam at 1e-3."""
+    return [shards, "model=popmag", f"steps={steps}", f"batch_size={B}",
+            f"max_bars={PM_BARS}", f"max_bar_len={PM_BAR_LEN}",
+            f"ckpt_dir={run}", f"ckpt_every={PM_CKPT}", "log_every=1",
+            f"metrics_path={run}.jsonl", *extra]
+
+
+def popmag_train(tmp: str, shards: str) -> str:
+    """cli.train model=popmag in f32 for 3 steps; the same run cut after
+    step 0 and resumed (it must repeat the uninterrupted losses, the last
+    one after an update from the restored Adam state); 1 bf16 step. Every
+    loss finite; training runs the plain GRU forward, so kernel D is not
+    launched. Returns the f32 run's directory."""
+    run, cut, bf = (os.path.join(tmp, n) for n in
+                    ("popmag_run", "popmag_cut", "popmag_bf16"))
+    fused_gru_step.launches = 0
+    t0 = time.perf_counter()
+    with quiet(os.path.join(tmp, "popmag_train.log")):
+        train_cli.main(popmag_train_args(shards, run, PM_TRAIN))
+        train_cli.main(popmag_train_args(shards, cut, PM_CUT))
+        train_cli.main(popmag_train_args(shards, cut, PM_TRAIN))
+        train_cli.main(popmag_train_args(shards, bf, PM_BF16,
+                                         "model.dtype=bfloat16"))
+    secs = time.perf_counter() - t0
+    ref, resumed, low = (losses(p + ".jsonl") for p in (run, cut, bf))
+    finite = (sorted(ref) == sorted(resumed) == list(range(PM_TRAIN))
+              and sorted(low) == list(range(PM_BF16))
+              and all(math.isfinite(v) for d in (ref, resumed, low)
+                      for v in d.values()))
+    same = finite and all(abs(resumed[k] - ref[k]) <= 1e-3 * abs(ref[k])
+                          for k in ref)
+    cut_losses = [round(resumed[k], 4) for k in sorted(resumed)]
+    bf_losses = [round(low[k], 4) for k in sorted(low)]
+    print(f"cli.train model=popmag f32 B{B} max_bars {PM_BARS} max_bar_len "
+          f"{PM_BAR_LEN}: loss {ref[0]:.4f} -> {ref[PM_TRAIN - 1]:.4f}; cut "
+          f"at {PM_CUT} and resumed: {cut_losses} (equal: {same}); bf16 "
+          f"{PM_BF16} steps {bf_losses}; all finite: {finite}; "
+          f"{secs:.1f} s for 4 runs; "
+          f"kernel D launches {fused_gru_step.launches} (training runs "
+          "the plain GRU forward)")
+    if not (finite and same) or fused_gru_step.launches:
+        raise AssertionError("cli.train model=popmag failed")
+    return run
+
+
+def popmag_generate_cli(tmp: str, run: str, prime: str) -> int:
+    """cli.generate from the checkpoint directory: B 8 sampled
+    arrangements of the 16-bar prime, exactly 400 kernel-D launches a
+    bar, every MIDI read back. Returns the launches."""
+    out = os.path.join(tmp, "arranged.mid")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, n, secs = count_d(lambda: cli_main(
+            [run, out, "--prime", prime, "--batch", str(B), "--seed", "3"]))
+    paths = re.findall(r"wrote (\S+) \((\d+) tokens, (\d+) bars\)",
+                       buf.getvalue())
+    notes = [sum(len(i.notes) for i in MidiFile(p).instruments)
+             for p, _, _ in paths]
+    ok = (rc == 0 and len(paths) == B and n == PM_LAUNCHES_PER_BAR * PM_BARS
+          and all(int(k) == PM_BARS for _, _, k in paths) and sum(notes) > 0)
+    print(f"cli.generate PoPMAG f32 (checkpoint directory, B={B}, "
+          f"{PM_BARS}-bar prime, sampled): {secs:.3f} s; kernel D launches "
+          f"{n} (expected {PM_LAUNCHES_PER_BAR} x {PM_BARS}); {len(paths)} "
+          f"MIDI files read back with {min(notes)}-{max(notes)} notes "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("cli.generate PoPMAG failed")
+    return n
+
+
+def popmag_serve_cli(tmp: str, run: str, paths: list) -> tuple:
+    """cli.serve file mode with its defaults (8 slots, segments of 2
+    bars, boost 4, depth 2) on 24 requests of 2-16 bars (every third with
+    an ``init_seed``, every fourth given as packed ``melody`` rows):
+    exactly 400 kernel-D launches per bar step of the pool, every MIDI
+    read back. Returns (launches, summary line)."""
+    rng = np.random.default_rng(31)
+    reqs = []
+    for i in range(N_SERVE):
+        r = {"id": f"p{i:02d}", "max_new": int(rng.integers(2, PM_BARS + 1))}
+        if i % 4 == 3:
+            src, src_len = melody_compound_from_midi(paths[i % len(paths)],
+                                                     PM_BARS, PM_BAR_LEN)
+            r.update(melody=src.tolist(), src_len=src_len.tolist())
+        else:
+            r["prime"] = paths[i % len(paths)]
+        if i % 3 == 0:
+            r["init_seed"] = i
+        reqs.append(r)
+    path = os.path.join(tmp, "popmag-requests.jsonl")
+    with open(path, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in reqs)
+    outdir = os.path.join(tmp, "popmag-served")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, n, secs = count_d(lambda: serve_main([run, path, outdir,
+                                                  "--seed", "0"]))
+    out = buf.getvalue()
+    summary = next(x for x in out.splitlines() if x.startswith("generated"))
+    bar_steps = int(re.search(r"(\d+) bar steps", summary).group(1))
+    written = dict(re.findall(r"wrote .*/(p\d\d)\.mid \((\d+) tokens\)",
+                              out))
+    read = [MidiFile(os.path.join(outdir, f"{r['id']}.mid")) for r in reqs]
+    expect = PM_LAUNCHES_PER_BAR * bar_steps
+    print(f"cli.serve PoPMAG f32 file mode ({N_SERVE} requests of 2-"
+          f"{PM_BARS} bars, slots {SLOTS}, 2 bars a segment, boost 4, depth "
+          f"{DEPTH}) in {secs:.3f} s (load, warm, serve, write): {summary}",
+          f"on {gpu_line()}")
+    print(f"  {len(written)} MIDI files read back ({len(read)} parsed); "
+          f"kernel D launches {n} ({PM_LAUNCHES_PER_BAR} x {bar_steps} bar "
+          f"steps = {expect})")
+    if rc != 0 or len(written) != N_SERVE or n != expect:
+        raise AssertionError(f"cli.serve PoPMAG: rc {rc}, {len(written)} "
+                             f"files, launches {n} vs {expect}")
+    return n, summary
+
+
+def popmag_rates(mels: list, shards: str) -> dict:
+    """Arrangement decoder steps/s and bars/s at B 8 (f32 and bf16,
+    sampled, ``PM_RATE_BARS`` bars, host clock after a warm bar); the f32
+    train step at B 8 over ``PM_RATE_STEPS`` - 1 steps after a warm one
+    (CUDA events) and the device's busy share of one more step under
+    torch.profiler (device activity only: a step is ~10^5 launches)."""
+    src, src_len = pool_batch(mels)
+    init = torch.randn(len(mels), 32, generator=torch.Generator(
+    ).manual_seed(6))
+    rates = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        model = popmag_model(dtype)
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        generate_arrangement(model, init, src, src_len, 1, greedy=False,
+                             generator=gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, _ = generate_arrangement(model, init, src, src_len,
+                                       PM_RATE_BARS, greedy=False,
+                                       generator=gen)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rates[name] = PM_RATE_BARS * len(mels) / secs
+        print(f"PoPMAG generate_arrangement {name} B={len(mels)}, sampled: "
+              f"{PM_RATE_BARS} bars of {len(mels)} rows in {secs:.3f} s: "
+              f"{rates[name]:.2f} arranged bars/s, "
+              f"{PM_RATE_BARS * PM_STEPS / secs:.1f} decoder steps/s of the "
+              "batch (host clock)", f"on {gpu_line()}")
+    cfg = apply_overrides(train_cli.TrainCLIConfig(), [
+        "model=popmag", f"batch_size={B}", f"max_bars={PM_BARS}",
+        f"max_bar_len={PM_BAR_LEN}"])
+    corpus = TokenCorpus(shards, key="melody")
+    at = train_cli._popmag_batch_fn(corpus, cfg)
+    model, tcfg, loss_fn = train_cli.build_model(cfg, "mumidi", {}, DEV)
+    tx = make_optimizer(tcfg)
+    state = create_train_state(model, tx, dropout_seed=cfg.seed)
+    step = make_train_step(tx, tcfg, loss_fn=loss_fn)
+    batches = [to_device(at(i), DEV) for i in range(PM_RATE_STEPS + 1)]
+    state, _ = step(state, *batches[0])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for x, y in batches[1:PM_RATE_STEPS]:
+        state, _ = step(state, x, y)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (PM_RATE_STEPS - 1)
+    print(f"PoPMAG train step f32 B{B} ({PM_BARS} bars of {PM_BAR_LEN}, "
+          f"dropout 0.5): {ms:.3f} ms/step over {PM_RATE_STEPS - 1} warm "
+          "steps (CUDA events)", f"on {gpu_line()}")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, *batches[-1])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # the raw trace, not key_averages(): ~10^5 kernels take seconds of
+    # host time to read directly and tens of seconds to aggregate
+    rows = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            us, n = rows.get(ev.name(), (0.0, 0))
+            rows[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
+    rows = [(us, n, name) for name, (us, n) in rows.items()]
+    busy_us = sum(r[0] for r in rows)
+    if DEV.type == "cuda" and not busy_us:
+        raise AssertionError("the PoPMAG train-step trace holds no device "
+                             "time")
+    print(f"PoPMAG train step (f32, B {B}) profile: wall {wall_us:.1f} us "
+          f"under the profiler, device busy {busy_us:.1f} us "
+          f"({100 * busy_us / wall_us:.1f}% of wall)", f"on {gpu_line()}")
+    for dev_us, count, key in sorted(rows, reverse=True)[:6]:
+        print(f"  {dev_us:9.1f} us {count:7d}x {key[:80]}")
+    return {"bars_s": rates, "step_ms": ms, "train_busy": busy_us / wall_us}
+
+
+def popmag_paths() -> dict:
+    """PoPMAG's phases: greedy parity (generate_arrangement, serving),
+    cli.tokenize --scheme mumidi -> cli.train model=popmag (f32 with
+    resume, bf16) -> cli.generate -> cli.serve, and the rates. Returns
+    the kernel-D launches of the CLI paths and the rates."""
+    t0 = time.perf_counter()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    secs = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        secs[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        paths, mels = timed("melodies", popmag_melodies, tmp)
+        parity_n = timed("greedy parity", popmag_greedy_parity, mels)
+        timed("serve parity", popmag_serve_parity, mels)
+        shards = timed("tokenize", popmag_write_corpus, tmp, paths)
+        run = timed("train", popmag_train, tmp, shards)
+        gen_n = timed("generate", popmag_generate_cli, tmp, run, paths[0])
+        serve_n, summary = timed("serve", popmag_serve_cli, tmp, run, paths)
+        rates = timed("rates", popmag_rates, mels, shards)
+    print(f"PoPMAG phases: {time.perf_counter() - t0:.1f} s ({secs})")
+    return {"launches": {"popmag_generate": gen_n, "popmag_serve": serve_n},
+            "parity_launches": parity_n, "serve": summary, **rates}
 
 
 TC_ENTRIES = {"relative_attention": ("rel_attn_fwd_tc_kernel",),
@@ -4774,6 +5260,7 @@ def main(argv: list) -> int:
     q_cli = int8_cli()
     rnn = rnn_paths(e2e["prime"])
     cp_run = cp_paths()
+    pm = popmag_paths()
     os.makedirs(OUT_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
         shards = write_corpus(tmp)
@@ -4801,8 +5288,10 @@ def main(argv: list) -> int:
     row_br["launches_by_path"] = by_br
     for row, key in ((row_a, "A"), (row_b, "B"), (row_c, "C")):
         row.update(cp_times[key])
-    row_d = time_kernel_d(sum(rnn["launches"].values()), err_d)
-    row_d["launches_by_path"] = rnn["launches"]
+    by_d = {**rnn["launches"], **pm["launches"]}
+    row_d = time_kernel_d(sum(by_d.values()), err_d)
+    row_d["launches_by_path"] = by_d
+    row_d.update(time_kernel_d_popmag())
     row_e = time_kernel_e(spec["E"], max(err_e, err_w["E"]))
     row_e["launches_by_path"] = {f"speculative_{k}": r["E"]
                                  for k, r in spec["runs"].items()}
@@ -4857,6 +5346,12 @@ def main(argv: list) -> int:
     for family in ("event_rnn", "performance_rnn"):
         print(f"{family}: decode {rnn['tok_s'][family]:.1f} tokens/s (B={B}, "
               f"bf16); serving: {rnn['serve'][family]}", f"on {gpu_line()}")
+    print(f"PoPMAG generate_arrangement B={B}, sampled: " + ", ".join(
+        f"{k} {v:.2f} arranged bars/s ({v * PM_STEPS / B:.1f} decoder "
+        "steps/s)" for k, v in pm["bars_s"].items())
+        + f"; train step f32 {pm['step_ms']:.3f} ms ("
+        f"{100 * pm['train_busy']:.1f}% busy); serving: {pm['serve']}",
+        f"on {gpu_line()}")
     print("speculative B=1 bf16 greedy, tokens/s (median): " + ", ".join(
         f"{k} {r['tok_s']:.1f}" for k, r in spec["rates"].items()),
         f"on {gpu_line()}")

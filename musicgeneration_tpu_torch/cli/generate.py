@@ -1,5 +1,5 @@
-"""Generate MIDI from a MusicTransformer, CPTransformer, EventMelodyRNN or
-PerformanceRNN checkpoint on the GPU.
+"""Generate MIDI from a MusicTransformer, CPTransformer, EventMelodyRNN,
+PerformanceRNN or PoPMAG checkpoint on the GPU.
 
     python -m musicgeneration_tpu_torch.cli.generate model.pth out.mid \\
         --prime prompt.mid --steps 512 --temperature 1.0 --topk 0
@@ -32,6 +32,17 @@ samples each row type-first (``decode/cp_generate.py``; ``--temperature
 0`` is greedy, ``--topk``/``--topp`` are refused) and writes the rows
 through the CP codec. ``--batch``, ``--include-prime`` and ``--quant
 int8`` apply as for the MusicTransformer.
+
+A PoPMAG checkpoint (a ``cli.train model=popmag`` run or a reference
+``.pth``) arranges a melody: ``--prime <melody.mid>`` is required; its
+melody track is encoded with the MuMIDI codec, cut to the run's
+``max_bars`` and at its first bar longer than ``max_bar_len`` (16 and 96
+for a ``.pth``), and packed to compound rows; ``--batch N`` draws N
+latents from ``--seed`` and writes ``<stem>-000.mid``...; each row is
+arranged bar by bar (``decode/popmag_generate.py``, 200 decoder steps a
+bar through kernel D; ``--temperature 0`` is greedy; ``--topk``,
+``--topp``, ``--spec``, ``--beam`` and ``--control`` are refused) and
+written through the MuMIDI codec.
 
 The GRU families add ``--beam N`` (beam search; ``--stochastic-beam``
 for Gumbel-perturbed selection), and PerformanceRNN ``--control``
@@ -162,6 +173,49 @@ def rnn_prime(model, prime: Optional[str], prime_len: int) -> List[int]:
     return prime_tokens(prime, prime_len)
 
 
+def melody_compound_from_midi(prime: str, max_bars: int, max_bar_len: int):
+    """A melody MIDI -> packed compound rows (src [bars, S, 7] int32,
+    src_len [bars] int32) for PoPMAG (the JAX CLI's
+    ``_melody_compound_from_midi``; reference PoPMAG_RNN/generate.py:
+    150-177): the melody track in MuMIDI, cut to ``max_bars`` and at the
+    first bar longer than ``max_bar_len`` (as the training batches).
+    Raises ValueError when the file has no melody and arrangement tracks
+    or no usable bar."""
+    from ..data import mumidi_packing as mp
+    from ..tokenizers.mumidi import MuMIDI_EventSeq
+
+    melody_events, _ = MuMIDI_EventSeq.extract_split_events(prime)
+    if melody_events is None:
+        raise ValueError(
+            f"prime {prime!r} has no extractable melody track: PoPMAG "
+            "needs a multi-track MIDI with a 'melody' instrument and at "
+            "least one arrangement role (MuMIDI extract_split_events "
+            "returned None, the reference's skip condition)")
+    melody = MuMIDI_EventSeq.to_array(melody_events).astype(np.int64)
+    bars = list(MuMIDI_EventSeq.segmentation(melody))[:max_bars]
+    for k, bar in enumerate(bars):
+        if len(bar) > max_bar_len:
+            bars = bars[:k]
+            break
+    if not bars:
+        raise ValueError("prime melody has no usable bars after MuMIDI "
+                         "encoding (first bar longer than max_bar_len?)")
+    packed, lens = mp.pack_compound(bars, 0)
+    src = np.zeros((len(packed), max(len(a) for a in packed), 7), np.int32)
+    for gi, arr in enumerate(packed):
+        src[gi, :len(arr)] = arr
+    return src, np.maximum(np.asarray(lens, np.int32), 1)
+
+
+def popmag_limits(config) -> tuple:
+    """(max_bars, max_bar_len) a ``cli.train`` run recorded in its
+    checkpoint's config (``load_checkpoint(..., with_config=True)``), else
+    (an exported ``.pth``, config {}) the training CLI's defaults (16,
+    96)."""
+    cli = config.get("cli") or {}
+    return int(cli.get("max_bars", 16)), int(cli.get("max_bar_len", 96))
+
+
 def beam_decode(model, prompt: torch.Tensor, steps: int, beam: int,
                 temperature: float, stochastic: bool,
                 generator: Optional[torch.Generator], controls=None,
@@ -257,13 +311,16 @@ def main(argv=None) -> int:
     from ..convert import load_checkpoint
 
     try:
-        model = load_checkpoint(
+        model, config = load_checkpoint(
             args.checkpoint, device=args.device, dtype=_dtype(args),
+            with_config=True,
             decode_quant=None if args.quant == "none" else args.quant)
     except ValueError as e:  # e.g. --quant int8 on a GRU checkpoint
         raise SystemExit(f"{args.checkpoint}: {e}") from None
     if model.family == "cp_transformer":
         return _generate_cp(model, args)
+    if model.family == "popmag":
+        return _generate_popmag(model, args, config)
     if args.spec is not None:
         if model.family != "music_transformer":
             raise SystemExit("--spec needs a music_transformer target "
@@ -388,6 +445,45 @@ def _generate_cp(model, args) -> int:
         path = args.output if nb == 1 else f"{stem}-{i:03d}{ext or '.mid'}"
         cp_codec.write_midi(all_rows, path)
         print(f"wrote {path} ({len(all_rows)} compound rows)")
+    return 0
+
+
+def _generate_popmag(model, args, config) -> int:
+    """Melody MIDI -> multi-track arrangement MIDI (the JAX CLI's
+    ``_generate_arrangement``; reference PoPMAG_RNN/generate.py:177)."""
+    from ..decode.popmag_generate import (flatten_arrangement,
+                                          generate_arrangement)
+    from ..tokenizers.mumidi import MuMIDI_EventSeq
+
+    if args.prime is None:
+        raise SystemExit("popmag needs --prime <melody midi> (melody -> "
+                         "arrangement seq2seq)")
+    if (args.spec is not None or args.beam > 1 or args.control is not None
+            or args.topk or 0 < args.topp < 1.0):
+        raise SystemExit("--spec, --beam, --control, --topk and --topp do "
+                         "not apply to PoPMAG (typed heads, greedy or one "
+                         "temperature)")
+    try:
+        src, src_len = melody_compound_from_midi(
+            args.prime, *popmag_limits(config))
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    nb = max(args.batch, 1)
+    n_bars = src.shape[0]
+    # one latent a row, drawn on the CPU: one seed gives one latent anywhere
+    init = torch.randn(nb, model.init_dim,
+                       generator=torch.Generator().manual_seed(args.seed))
+    gen = torch.Generator(device=model.device).manual_seed(args.seed + 1)
+    tokens, valid = generate_arrangement(
+        model, init, np.tile(src[None], (nb, 1, 1, 1)),
+        np.tile(src_len[None], (nb, 1)), n_bars,
+        greedy=(args.temperature == 0.0),
+        temperature=args.temperature or 1.0, generator=gen)
+    stem, ext = os.path.splitext(args.output)
+    for i, flat in enumerate(flatten_arrangement(tokens, valid)):
+        path = args.output if nb == 1 else f"{stem}-{i:03d}{ext or '.mid'}"
+        MuMIDI_EventSeq.write_midi(MuMIDI_EventSeq.from_array(flat), path)
+        print(f"wrote {path} ({len(flat)} tokens, {n_bars} bars)")
     return 0
 
 

@@ -40,6 +40,18 @@ to `prime_len` rows; no `prime` and no `tokens`: a bare bar-marker row),
 (2 = end of piece), the results are [n, 8] rows written with the CP
 codec; sampling is the CLI-level --greedy/--temperature only (no
 --topk/--topp, no per-request fields, no `window`).
+A PoPMAG checkpoint serves melody -> arrangement requests through the
+bar engine (decode/serving_popmag.py):
+    {"id": "m", "prime": "melody.mid"}          — a melody MIDI, or
+    {"melody": [[[..7 ids..], ...] per bar], "src_len": [..]}
+                                                — packed compound rows,
+with optional `init`/`init_seed` latents; `max_new` counts target BARS
+(default: the melody's bar count) and `eos` is refused. A segment is
+`--seg-bars` bars (default 2; `--boost` 4 by default), a bar 200
+decoder steps through kernel D; melodies are cut to the run's max_bars
+and max_bar_len (16 and 96 for a `.pth`) and bucketed by gcd(8,
+max_bars) bars. Results are flat MuMIDI token streams written with the
+MuMIDI codec; goodput is reported in bars/s and tokens/s.
 Each request's continuation is written to `outdir/<id>.mid` the moment
 it finalizes. Runs on `--device cuda` by default; a missing GPU is an
 error.
@@ -77,6 +89,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import sys
 import time
@@ -95,16 +108,16 @@ _SAMP_FIELDS = ("temperature", "top_k", "top_p", "greedy")
 
 
 def _load_model(args):
-    """The model of the checkpoint; a family the port does not run yet
-    exits."""
+    """(model, recorded config) of the checkpoint; a family the port does
+    not run yet exits."""
     from ..convert import load_checkpoint
     try:
         return load_checkpoint(args.checkpoint, device=args.device,
-                               dtype=_dtype(args))
+                               dtype=_dtype(args), with_config=True)
     except (KeyError, ValueError) as e:
         raise SystemExit(
-            f"{args.checkpoint}: {e}; the other families (MelodyRNN, "
-            "PoPMAG) come with a later slice of the port") from None
+            f"{args.checkpoint}: {e}; the other family (MelodyRNN) comes "
+            "with a later slice of the port") from None
 
 
 def main(argv=None) -> int:
@@ -122,12 +135,14 @@ def main(argv=None) -> int:
     p.add_argument("--cache-len", type=int, default=None)
     p.add_argument("--ctrl-window", type=int, default=256,
                    help="per-slot control window (performance_rnn)")
+    p.add_argument("--seg-bars", type=int, default=2,
+                   help="bars per dispatched segment (popmag)")
     p.add_argument("--boost", type=int, default=None,
                    help="fuse up to this many segments into one dispatch "
                         "when the queue is empty and every active "
                         "request has that much left (1 disables); "
-                        "default 8 for the GRU families, 1 for the "
-                        "MusicTransformer")
+                        "default 8 for the GRU families, 4 for PoPMAG, 1 "
+                        "for the MusicTransformer")
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--topk", type=int, default=0)
     p.add_argument("--topp", type=float, default=1.0)
@@ -151,12 +166,28 @@ def main(argv=None) -> int:
     from ..decode.serving_cp import CPContinuousBatcher
     from ..decode.serving_rnn import RNNContinuousBatcher
     from ..tokenizers import cp as cp_codec
-    from .generate import prime_tokens, rnn_prime, write_midi
+    from .generate import (melody_compound_from_midi, popmag_limits,
+                           prime_tokens, rnn_prime, write_midi)
 
-    model = _load_model(args)
+    model, config = _load_model(args)
     is_cp = model.family == "cp_transformer"
     is_rnn = model.family in ("event_rnn", "performance_rnn")
-    if is_cp:
+    is_popmag = model.family == "popmag"
+    if is_popmag:
+        from ..decode.serving_popmag import PopMAGContinuousBatcher
+        from ..tokenizers.mumidi import MuMIDI_EventSeq
+
+        if args.topk or args.topp < 1.0:
+            raise SystemExit("--topk/--topp are not defined for PoPMAG's "
+                             "typed heads (greedy or one temperature)")
+        max_bars, max_bar_len = popmag_limits(config)
+
+        def write_midi(toks, path):
+            MuMIDI_EventSeq.write_midi(MuMIDI_EventSeq.from_array(toks), path)
+        print(f"loaded PoPMAG ({model.num_layers} GRU layers, hidden "
+              f"{model.hidden_dim}, embed {model.embed_dim}; max_bars "
+              f"{max_bars}, max_bar_len {max_bar_len}) on {model.device}")
+    elif is_cp:
         if args.topk or args.topp < 1.0:
             raise SystemExit("--topk/--topp are not defined for compound-word "
                              "rows (type-first sampling draws each field "
@@ -181,6 +212,8 @@ def main(argv=None) -> int:
             raise ValueError("request must be a JSON object, got "
                              f"{type(req).__name__}")
         name = str(req.get("id", ln))
+        if is_popmag:
+            return parse_popmag(req, name)
         if "tokens" in req:
             toks = np.asarray(req["tokens"], np.int32)
         elif is_cp:
@@ -228,8 +261,50 @@ def main(argv=None) -> int:
         return (name, toks, int(req.get("max_new", args.max_new)),
                 req.get("eos"), sp, extra)
 
+    def parse_popmag(req: dict, name: str):
+        """A melody -> arrangement request: ``melody`` rows or a ``prime``
+        MIDI; ``max_new`` counts bars (default: the melody's)."""
+        if "melody" in req:
+            src = np.asarray(req["melody"], np.int32)
+            if src.ndim != 3:
+                raise ValueError("'melody' must be [bars, S, 7] compound "
+                                 "rows")
+            src_len = np.asarray(req.get(
+                "src_len", (src != 0).any(-1).sum(-1)), np.int32)
+        elif req.get("prime"):
+            src, src_len = melody_compound_from_midi(req["prime"], max_bars,
+                                                     max_bar_len)
+        else:
+            raise ValueError("PoPMAG requests need 'prime' (a melody MIDI) "
+                             "or 'melody' (packed [bars, S, 7] compound "
+                             "rows)")
+        if req.get("eos") is not None:
+            raise ValueError("PoPMAG requests retire by bar count; drop "
+                             "'eos'")
+        if any(f in req for f in _SAMP_FIELDS) or "window" in req:
+            raise ValueError("per-request sampling and window= are not "
+                             "defined for PoPMAG; set the CLI-level flags")
+        extra = {"src_len": src_len}
+        if "init" in req:
+            extra["init"] = np.asarray(req["init"], np.float32)
+        elif "init_seed" in req:
+            rs = np.random.RandomState(int(req["init_seed"]))
+            extra["init"] = rs.randn(model.init_dim).astype(np.float32)
+        return (name, src, int(req.get("max_new", src.shape[0])), None, None,
+                extra)
+
     def build_cb(per_row: bool, on_finalize):
         gen = torch.Generator(device=model.device).manual_seed(args.seed)
+        if is_popmag:
+            return PopMAGContinuousBatcher(
+                model, slots=args.slots, sampling=sampling,
+                seg_len=args.seg_bars, max_bars=max_bars,
+                max_bar_len=max_bar_len, depth=args.depth,
+                boost=args.boost if args.boost is not None else 4,
+                # a bucket that divides max_bars (the slots' melody
+                # buffers are max_bars wide)
+                prompt_bucket=math.gcd(8, max_bars),
+                on_finalize=on_finalize, generator=gen)
         if is_cp:
             if args.boost and args.boost > 1:
                 print("note: --boost is not supported for compound-word "
@@ -289,8 +364,10 @@ def main(argv=None) -> int:
         rid = cb.submit(toks, max_new, eos_id=eos, sampling=sp, **extra)
         names[rid] = name
         rids.append(rid)
+    seg = f"seg_bars={args.seg_bars}" if is_popmag else \
+        f"seg_len={args.seg_len}"
     print(f"serving {len(rids)} requests over {args.slots} slots "
-          f"(seg_len={args.seg_len}, depth={args.depth})")
+          f"({seg}, depth={args.depth})")
 
     t0 = time.perf_counter()
     outs = cb.run()
@@ -298,6 +375,28 @@ def main(argv=None) -> int:
     total = sum(len(v) for v in outs.values())
     st = cb.stats()
     lat = cb.latency_summary()
+    if is_popmag:
+        bars = sum(max_new for _, _, max_new, *_ in parsed)
+        print(f"generated {bars} bars, {total} tokens in {dt:.3f}s "
+              f"({bars / dt:.2f} bars/s, {total / dt:.1f} tok/s goodput); "
+              f"{st['segments']} segments, {st['steps']} bar steps "
+              f"({st['steps'] * cb.max_steps} decoder steps), occupancy "
+              f"{st['occupancy']:.1%}, {st['admit_calls']} admission calls; "
+              f"latency p50/p95 {lat['e2e_p50']:.3f}/{lat['e2e_p95']:.3f}s "
+              f"(queue wait {lat['wait_p50']:.3f}/{lat['wait_p95']:.3f}s)")
+    else:
+        _summary(st, lat, total, dt, is_rnn)
+    missing = set(rids) - set(outs)
+    if missing:
+        raise SystemExit(f"requests never finalized: {sorted(missing)}")
+    for path, n in written:
+        print(f"wrote {path} ({n} tokens)")
+    return 0
+
+
+def _summary(st: dict, lat: dict, total: int, dt: float,
+             is_rnn: bool) -> None:
+    """The file-mode summary line of the token engines."""
     engine = (f"{st['prefill_steps']} prefill steps" if is_rnn else
               f"{st['compactions']} compactions, {st['reprimes']} reprimes")
     print(f"generated {total} tokens in {dt:.3f}s "
@@ -307,12 +406,6 @@ def main(argv=None) -> int:
           f"{st['admit_calls']} admission calls, {engine}; "
           f"latency p50/p95 {lat['e2e_p50']:.3f}/{lat['e2e_p95']:.3f}s "
           f"(queue wait {lat['wait_p50']:.3f}/{lat['wait_p95']:.3f}s)")
-    missing = set(rids) - set(outs)
-    if missing:
-        raise SystemExit(f"requests never finalized: {sorted(missing)}")
-    for path, n in written:
-        print(f"wrote {path} ({n} tokens)")
-    return 0
 
 
 def _serve_http(build_cb, parse_request, write_midi, args) -> int:

@@ -1,11 +1,12 @@
 """Tokenize a MIDI corpus into packed shards.
 
     python -m musicgeneration_tpu_torch.cli.tokenize <midi_dir> <out_dir> \\
-        --scheme midilike|cp --workers 8
+        --scheme midilike|cp|mumidi --workers 8
 
-The port of ``musicgeneration_tpu.cli.tokenize`` for the ``midilike``
-and ``cp`` (Compound Word rows) schemes; its shards are the JAX
-package's format (``data/pipeline.py``).
+The port of ``musicgeneration_tpu.cli.tokenize`` for the ``midilike``,
+``cp`` (Compound Word rows) and ``mumidi`` (a melody/arrangement pair a
+file, for PoPMAG) schemes; its shards are the JAX package's format
+(``data/pipeline.py``).
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Train the MusicTransformer or the CP transformer on a tokenized corpus.
+"""Train the MusicTransformer, the CP transformer or PoPMAG on a tokenized
+corpus.
 
     python -m musicgeneration_tpu_torch.cli.train <shard_dir> \\
         steps=2000 ckpt_dir=runs/mt model.dtype=bfloat16 [--device cuda]
@@ -9,7 +10,15 @@ on a ``cp`` corpus (``cli.tokenize --scheme cp``), in the crop mode:
 ``slide_seq2seq`` crops of tokens, or random crops of seq_len + 1
 compound rows (the model's max_seq is seq_len) trained with the weighted
 mean cross-entropy of the 8 field heads (``cp_head_weights``, normalised
-to mean 1; no label smoothing), as the JAX CLI. Dotted
+to mean 1; no label smoothing), as the JAX CLI; and ``model=popmag`` on
+a ``mumidi`` corpus (``cli.tokenize --scheme mumidi``): melody/
+arrangement pairs cut at ``max_bars`` and at the first bar longer than
+``max_bar_len`` (the arrangement's ``max_bar_len - 1``), packed by
+``data/mumidi_packing.pack_batch`` to [B, max_bars, max_bar_len, 7] and
+trained with the masked 3-head cross-entropy (``popmag_masked_loss``)
+from a normal latent drawn per micro-batch from the step's generator,
+with Adam at a fixed 1e-3 unless ``peak_lr`` says otherwise, f32 unless
+``model.dtype=bfloat16``. Dotted
 overrides (bare keys set ``TrainCLIConfig``, ``model.<field>`` the model
 constructor), the counter-indexed batch stream (step s consumes batch s,
 so a resumed run replays the uninterrupted run's batches), auto-resume
@@ -63,6 +72,8 @@ _MODEL_KEYS = {
                           "decode_quant"),
     "cp_transformer": ("num_layers", "d_model", "max_seq", "dtype",
                        "dropout_rate", "decode_quant"),
+    "popmag": ("event_dim", "bar_dim", "init_dim", "embed_dim",
+               "hidden_dim", "num_layers", "dropout_rate", "dtype"),
 }
 
 
@@ -94,6 +105,9 @@ class TrainCLIConfig(Config):
     # position, tempo_class, tempo_value, chord, pitch, duration,
     # velocity), normalised to mean 1; None = equal
     cp_head_weights: Optional[tuple] = None
+    # PoPMAG bucketing: every batch is [B, max_bars, max_bar_len, 7]
+    max_bars: int = 16
+    max_bar_len: int = 96
 
 
 def _default_vocab(scheme: str) -> int:
@@ -160,6 +174,62 @@ def _cp_batch_fn(corpus, cfg: TrainCLIConfig):
     return batch_at
 
 
+def _popmag_batch_fn(corpus, cfg: TrainCLIConfig):
+    """Melody/arrangement pairs of a ``mumidi`` corpus, packed per batch
+    index (the JAX CLI's ``_popmag_batch_fn``): each pair is cut at
+    ``max_bars`` and at its first overlong bar (clipping inside a bar
+    would cut compound groups mid-way; the arrangement keeps one slot for
+    the trailing bar token ``pack_batch`` appends). Returns ``batch_at``
+    giving (x, y): x the packed batch as a dict of arrays, y a dummy."""
+    from ..data.mumidi_packing import pack_batch
+    from ..tokenizers.mumidi import MuMIDI_EventSeq
+
+    seg = MuMIDI_EventSeq.segmentation
+    pairs = []
+    for i in range(len(corpus)):
+        mel = seg(np.asarray(corpus.pair(i, "melody"), np.int64))
+        arr = seg(np.asarray(corpus.pair(i, "arrangement"), np.int64))
+        n = min(len(mel), len(arr), cfg.max_bars)
+        for k in range(n):
+            if (len(mel[k]) > cfg.max_bar_len
+                    or len(arr[k]) > cfg.max_bar_len - 1):
+                n = k
+                break
+        if n:
+            pairs.append((list(mel[:n]), list(arr[:n])))
+    if not pairs:
+        raise ValueError("no usable melody/arrangement pairs in corpus")
+    b = cfg.batch_size * cfg.accum_steps
+
+    def batch_at(idx: int):
+        picks = _batch_rng(cfg.seed, idx).randint(0, len(pairs), b)
+        batch = pack_batch([pairs[p] for p in picks],
+                           pad_bars_to=cfg.max_bars,
+                           pad_len_to=cfg.max_bar_len)
+        return dataclasses.asdict(batch), np.zeros(b, np.int32)
+
+    return batch_at
+
+
+def popmag_loss_fn(init_dim: int):
+    """The PoPMAG objective (the JAX CLI's loss): a normal latent [B,
+    init_dim] drawn from the micro-batch's generator, the training
+    forward with dropout from the same generator, and
+    ``popmag_masked_loss`` over the packed labels. Returns ``loss_fn(model,
+    x, y, generator) -> (loss, accuracy)`` for ``make_train_step``."""
+    from ..train.objective import popmag_masked_loss
+
+    def loss_fn(model, x, y, generator):
+        src = x["src"]
+        init = torch.randn(src.shape[0], init_dim, generator=generator,
+                           device=src.device)
+        logits = model(init, src, x["src_len"], x["tar"], x["tar_len"],
+                       deterministic=False, generator=generator)
+        return popmag_masked_loss(logits, x["labels"], x["label_mask"])
+
+    return loss_fn
+
+
 def cp_loss_fn(head_weights: Optional[tuple], n_heads: int):
     """The CP objective (the JAX CLI's ``cp_loss_fn``): the weighted mean
     over the 8 field heads of each head's mean cross-entropy, the weights
@@ -203,9 +273,9 @@ def build_model(cfg: TrainCLIConfig, scheme: str,
             get_model(cfg.model)
         except KeyError as e:
             raise SystemExit(str(e)) from None
-        raise SystemExit(f"the port trains model=music_transformer or "
-                         f"cp_transformer; {cfg.model} is not ported to "
-                         "cli.train yet")
+        raise SystemExit(f"the port trains model=music_transformer, "
+                         f"cp_transformer or popmag; {cfg.model} is not "
+                         "ported to cli.train yet")
     if cfg.train_mode != "crop":
         raise SystemExit("the port trains train_mode=crop only")
     cls, defaults = get_model(cfg.model)
@@ -218,6 +288,19 @@ def build_model(cfg: TrainCLIConfig, scheme: str,
         if isinstance(kw.get(key), str):
             kw[key] = _DTYPES[kw[key]]
     gen = torch.Generator().manual_seed(cfg.seed)
+    if cfg.model == "popmag":
+        if scheme != "mumidi":
+            raise SystemExit(f"model=popmag trains on a 'mumidi' corpus "
+                             f"(cli.tokenize --scheme mumidi); this one is "
+                             f"{scheme!r}")
+        if mesh is not None:
+            raise SystemExit("sp > 1 is wired for model=music_transformer "
+                             "only")
+        model = cls(**kw, device=device, generator=gen)
+        tcfg = TrainerConfig(
+            vocab_size=0, accum_steps=cfg.accum_steps,
+            max_grad_norm=cfg.max_grad_norm, peak_lr=cfg.peak_lr or 1e-3)
+        return model, tcfg, popmag_loss_fn(model.init_dim)
     if cfg.model == "cp_transformer":
         if scheme != "cp":
             raise SystemExit(f"model=cp_transformer trains on a 'cp' corpus "
@@ -288,7 +371,7 @@ def init_mesh(cfg: TrainCLIConfig, device_arg: str):
             f"sp={cfg.sp} runs one process per sequence shard, but "
             f"WORLD_SIZE is {world}: start it with torchrun --nproc-per-node "
             f"{cfg.sp} (data parallelism is not ported yet: ROADMAP.md "
-            f"Queue A item 8)")
+            f"Queue A, multi-device paths)")
     if cfg.seq_len % cfg.sp:
         raise SystemExit(f"seq_len={cfg.seq_len} is not divisible by "
                          f"sp={cfg.sp}")
@@ -342,14 +425,21 @@ def _train(args, cfg: TrainCLIConfig, model_kwargs, mesh) -> int:
     with open(os.path.join(args.data_dir, "manifest.json")) as f:
         scheme = json.load(f)["scheme"]
     is_cp = cfg.model == "cp_transformer"
+    is_popmag = cfg.model == "popmag"
     # the cp shards store flattened [T, 8] rows: limlen counts flat tokens
-    limlen = (cfg.seq_len + 1) * 8 if is_cp else cfg.seq_len + 1
-    corpus = TokenCorpus(args.data_dir, limlen=limlen)
+    limlen = (0 if is_popmag else (cfg.seq_len + 1) * 8 if is_cp
+              else cfg.seq_len + 1)
+    corpus = TokenCorpus(args.data_dir, limlen=limlen,
+                         key="melody" if scheme == "mumidi" else "tokens")
     print(f"corpus: {len(corpus)} sequences (scheme={scheme})")
     model, tcfg, loss_fn = build_model(cfg, scheme, model_kwargs, device,
                                        mesh)
-    batch_at = (_cp_batch_fn(corpus, cfg) if is_cp else
-                _seq_shard(_lm_batch_fn(corpus, cfg), mesh, cfg.seq_len))
+    if is_popmag:
+        batch_at = _popmag_batch_fn(corpus, cfg)
+    elif is_cp:
+        batch_at = _cp_batch_fn(corpus, cfg)
+    else:
+        batch_at = _seq_shard(_lm_batch_fn(corpus, cfg), mesh, cfg.seq_len)
 
     # step s consumes batch s, so starting the stream at the checkpoint's
     # next step replays exactly the uninterrupted batch sequence
@@ -370,7 +460,8 @@ def _train(args, cfg: TrainCLIConfig, model_kwargs, mesh) -> int:
     train_step = make_train_step(tx, tcfg, loss_fn=loss_fn, mesh=mesh)
 
     eval_step = eval_batches = None
-    if cfg.eval_dir and not is_cp:   # the JAX CLI evaluates only the LM
+    # the JAX CLI evaluates only the LM
+    if cfg.eval_dir and cfg.model == "music_transformer":
         eval_corpus = TokenCorpus(cfg.eval_dir, limlen=limlen)
         eval_seqs = [np.asarray(eval_corpus[i])
                      for i in range(len(eval_corpus))]

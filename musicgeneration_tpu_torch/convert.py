@@ -4,25 +4,26 @@
 parameter tree (nested dicts of numpy arrays, unrolled ``layer_i`` or
 stacked ``layers_scan``) to the port's ``state_dict``, under the
 reference names that ``musicgeneration_tpu/cli/export_checkpoint.py:
-70-95`` writes; ``event_rnn_state_dict_from_jax`` and
-``performance_rnn_state_dict_from_jax`` are the port's copies of
-``export_event_rnn`` / ``export_performance_rnn`` (:98-133), and
-``cp_transformer_state_dict_from_jax`` maps a flax CPTransformer tree
-(unrolled or ``layers_scan``) to the port's own CP names (the JAX
-package exports no CP ``.pth``): ``embed_<field>.weight``,
+70-95`` writes; ``event_rnn_state_dict_from_jax``,
+``performance_rnn_state_dict_from_jax`` and
+``popmag_state_dict_from_jax`` are the port's copies of
+``export_event_rnn`` / ``export_performance_rnn`` / ``export_popmag``
+(:98-147), and ``cp_transformer_state_dict_from_jax`` maps a flax
+CPTransformer tree (unrolled or ``layers_scan``) to the port's own CP
+names (the JAX package exports no CP ``.pth``): ``embed_<field>.weight``,
 ``layers.<i>.`` + the ``EncoderLayer`` names, ``head_<field>.weight`` /
 ``.bias`` (``models/cp_transformer.py``). Flax kernels are [in, out] (a
 GRU's [in, 3H]); torch weights are [out, in].
 
 ``load_checkpoint`` reads what ``python -m
 musicgeneration_tpu.cli.export_checkpoint runs/x model.pth`` writes for
-the three families it exports: a MusicTransformer's ``{'net':
-state_dict, 'optimizer': {}, 'epoch': step}``, an EventMelodyRNN's bare
-state dict, a PerformanceRNN's session dict ``{'model_config',
-'model_state', 'model_optimizer_state'}``; or the port's own training
-checkpoints (``utils/checkpoint.py``), a CPTransformer's among them. It infers the family and shape
-from the state dict and loads it with ``strict=True``. The port reads no
-flax msgpack.
+the four families it exports: a MusicTransformer's ``{'net':
+state_dict, 'optimizer': {}, 'epoch': step}``, an EventMelodyRNN's or
+PoPMAG's bare state dict, a PerformanceRNN's session dict
+``{'model_config', 'model_state', 'model_optimizer_state'}``; or the
+port's own training checkpoints (``utils/checkpoint.py``), a
+CPTransformer's among them. It infers the family and shape from the
+state dict and loads it with ``strict=True``. The port reads no flax msgpack.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from .models.cp_transformer import CPTransformer
 from .models.event_rnn import EventMelodyRNN
 from .models.music_transformer import MusicTransformer
 from .models.performance_rnn import PerformanceRNN
+from .models.popmag import PoPMAGRNN
 
 
 def _t(a) -> torch.Tensor:
@@ -151,6 +153,20 @@ def performance_rnn_state_dict_from_jax(params: Mapping[str, Any]
     return sd
 
 
+def popmag_state_dict_from_jax(params: Mapping[str, Any]
+                               ) -> "OrderedDict[str, torch.Tensor]":
+    """Flax PoPMAGRNN params -> the reference state dict (the port's copy
+    of ``export_popmag``): the three heads as ``output_fc.0/1/2``."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    sd["event_embedding.weight"] = _t(params["event_embedding"]["embedding"])
+    _lin(params["inithid_fc"], "inithid_fc", sd)
+    _gru(params["encoder"], "encoder", sd)
+    _gru(params["decoder"], "decoder", sd)
+    for i, head in enumerate(("head_type", "head_pitch", "head_duration")):
+        _lin(params[head], f"output_fc.{i}", sd)
+    return sd
+
+
 def _gru_layers(sd, name: str) -> int:
     n = 0
     while f"{name}.weight_ih_l{n}" in sd:
@@ -161,10 +177,11 @@ def _gru_layers(sd, name: str) -> int:
 def model_from_state_dict(sd: Mapping[str, torch.Tensor], device="cuda",
                           dtype=torch.float32, decode_quant: str = "none"):
     """Build the model whose family and shape are read off ``sd`` (a
-    MusicTransformer's, EventMelodyRNN's or PerformanceRNN's reference
-    state dict, or a CPTransformer's: ``embed_<field>`` / ``head_<field>``
-    keys) and load it with ``strict=True``, for inference: its
-    parameters are frozen (``requires_grad_(True)`` to train it). Any
+    MusicTransformer's, EventMelodyRNN's, PerformanceRNN's or PoPMAG's
+    reference state dict, or a CPTransformer's: ``embed_<field>`` /
+    ``head_<field>`` keys) and load it with ``strict=True``, for
+    inference: its parameters are frozen (``requires_grad_(True)`` to
+    train it). Any
     other state dict raises ValueError naming what it holds.
     decode_quant: the transformers' ("none" or "int8"); a GRU family
     takes only "none"."""
@@ -182,6 +199,8 @@ def model_from_state_dict(sd: Mapping[str, torch.Tensor], device="cuda",
             init_dim=sd["inithid_fc.weight"].shape[1],
             hidden_dim=sd["gru.weight_hh_l0"].shape[1],
             num_layers=_gru_layers(sd, "gru"), dtype=dtype, device=device)
+    elif "encoder.weight_ih_l0" in sd and "output_fc.0.weight" in sd:
+        model = _popmag(sd, device, dtype)
     elif "Decoder.embedding.weight" in sd:
         model = _music_transformer(sd, device, dtype, decode_quant)
     elif "embed_family.weight" in sd and "head_family.weight" in sd:
@@ -190,8 +209,8 @@ def model_from_state_dict(sd: Mapping[str, torch.Tensor], device="cuda",
         keys = sorted(sd)
         raise ValueError(
             "not a checkpoint of a family the port runs (MusicTransformer, "
-            "CPTransformer, EventMelodyRNN, PerformanceRNN): its state dict "
-            f"holds {len(keys)} keys, {keys[:6]}")
+            "CPTransformer, EventMelodyRNN, PerformanceRNN, PoPMAG): its "
+            f"state dict holds {len(keys)} keys, {keys[:6]}")
     if decode_quant != "none" and model.family not in (
             "music_transformer", "cp_transformer"):
         raise ValueError(f"decode_quant {decode_quant!r} applies to the "
@@ -213,6 +232,21 @@ def _music_transformer(sd, device, dtype, decode_quant) -> MusicTransformer:
         ffn_dim=sd["Decoder.enc_layers.0.FFN_pre.weight"].shape[0],
         dtype=dtype, device=device, decode_quant=decode_quant)
     return model
+
+
+def _popmag(sd, device, dtype) -> PoPMAGRNN:
+    """PoPMAG's shape as ``cli/import_checkpoint.py::convert_popmag``
+    (:154-180) reads it: event_dim from the head widths (out_len[0] =
+    event_dim - 1 - note_on - note_duration, network.py:50), bar_dim the
+    embedding's remaining rows."""
+    heads = [sd[f"output_fc.{i}.weight"].shape[0] for i in range(3)]
+    event_dim = heads[0] + 1 + heads[1] + heads[2]
+    emb = sd["event_embedding.weight"]
+    return PoPMAGRNN(
+        event_dim=event_dim, bar_dim=emb.shape[0] - event_dim,
+        init_dim=sd["inithid_fc.weight"].shape[1], embed_dim=emb.shape[1],
+        hidden_dim=sd["encoder.weight_hh_l0"].shape[1],
+        num_layers=_gru_layers(sd, "encoder"), dtype=dtype, device=device)
 
 
 def _cp_transformer(sd, device, dtype, decode_quant) -> CPTransformer:

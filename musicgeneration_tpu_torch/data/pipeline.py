@@ -1,11 +1,13 @@
 """Offline tokenization pipeline: MIDI corpus -> packed token shards.
 
-The port of ``musicgeneration_tpu/data/pipeline.py`` for the MIDI-like
-and CP schemes, through the port's own codecs (``tokenizers/midilike.py``,
-``tokenizers/cp.py``; a CP file's [T, 8] rows are stored flattened). The
-shard layout and ``manifest.json`` are the JAX package's, so each package
-reads the other's corpora: shard ``midilike-00000.npz`` holds, for the
-stream key ``tokens``,
+The port of ``musicgeneration_tpu/data/pipeline.py`` for the MIDI-like,
+CP and MuMIDI schemes, through the port's own codecs
+(``tokenizers/midilike.py``, ``tokenizers/cp.py``, ``tokenizers/
+mumidi.py``; a CP file's [T, 8] rows are stored flattened, a MuMIDI file
+is a uint16 ``melody``/``arrangement`` pair). The shard layout and
+``manifest.json`` are the JAX package's, so each package reads the
+other's corpora: shard ``midilike-00000.npz`` holds, for the stream key
+``tokens`` (``melody`` and ``arrangement`` for MuMIDI),
 
     tokens_data    — 1-D uint16 concatenation of all sequences
     tokens_offsets — int64 [n+1]; file i is tokens_data[offsets[i]:offsets[i+1]]
@@ -52,9 +54,21 @@ def _tokenize_cp(path: str) -> Dict[str, np.ndarray]:
     return {"tokens": cp.encode_rows(path).reshape(-1)}
 
 
+def _tokenize_mumidi(path: str) -> Dict[str, np.ndarray]:
+    """The file's melody track and the other five roles as two MuMIDI
+    streams; a file without both fails (and is quarantined)."""
+    from ..tokenizers import mumidi
+    melody, arrangement = mumidi.MuMIDI_EventSeq.encode_split_arrays(path)
+    if melody is None:
+        raise ValueError("no melody/arrangement tracks to split")
+    return {"melody": melody.astype(np.uint16),
+            "arrangement": arrangement.astype(np.uint16)}
+
+
 SCHEMES: Dict[str, Callable[[str], Dict[str, np.ndarray]]] = {
     "midilike": _tokenize_midilike,
     "cp": _tokenize_cp,
+    "mumidi": _tokenize_mumidi,
 }
 
 

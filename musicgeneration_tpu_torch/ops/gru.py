@@ -12,10 +12,17 @@ Parameters are ``weight_ih_l{k}`` [3H, in], ``weight_hh_l{k}`` [3H, H],
 dict's layout (``cli/export_checkpoint.py:57-67`` transposes the flax
 [in, 3H] kernels into it). ``dtype`` is the compute dtype, as the JAX
 module's. ``forward`` runs a whole sequence in plain torch (the JAX
-module's ``lax.scan``, outside any Pallas kernel): the tests and the
-teacher-forced logits use it. ``step`` is one decode step through
-``fused_gru_step`` (kernel D on CUDA) and nothing else. Inter-layer
-dropout comes with the RNN training modes; inference has none.
+module's ``lax.scan``, outside any Pallas kernel), layer by layer: each
+layer's input product for every step at once, then its recurrence. The
+tests, the teacher-forced logits, PoPMAG's encoder and its training use
+it. ``step`` is one decode step through ``fused_gru_step`` (kernel D on
+CUDA) and nothing else.
+
+Inter-layer dropout (``dropout_rate``; torch ``nn.GRU(dropout=)``, JAX
+``ops/gru.py:104-113``) applies in ``forward(deterministic=False)`` only:
+between layers, never after the last, a fresh mask at every timestep,
+kept values scaled by 1 / (1 - rate), drawn from the caller's
+generator. ``step`` and inference have none.
 """
 
 from __future__ import annotations
@@ -28,11 +35,8 @@ from torch import nn
 from .fused_gru_decode import fused_gru_step, pack_gru_weights
 
 
-def gru_cell_step(x, h, w_ih, w_hh, b_ih, b_hh):
-    """One GRU cell step in x's dtype. x: [B, in], h: [B, H], w_ih:
-    [3H, in], w_hh: [3H, H] -> h': [B, H]."""
-    gi = x @ w_ih.T + b_ih
-    gh = h @ w_hh.T + b_hh
+def _gates(gi, gh, h):
+    """The r/z/n gates and h' from the input and hidden products."""
     hd = h.shape[-1]
     r = torch.sigmoid(gi[..., :hd] + gh[..., :hd])
     z = torch.sigmoid(gi[..., hd:2 * hd] + gh[..., hd:2 * hd])
@@ -40,23 +44,31 @@ def gru_cell_step(x, h, w_ih, w_hh, b_ih, b_hh):
     return (1.0 - z) * n + z * h
 
 
+def gru_cell_step(x, h, w_ih, w_hh, b_ih, b_hh):
+    """One GRU cell step in x's dtype. x: [B, in], h: [B, H], w_ih:
+    [3H, in], w_hh: [3H, H] -> h': [B, H]."""
+    return _gates(x @ w_ih.T + b_ih, h @ w_hh.T + b_hh, h)
+
+
 class GRUStack(nn.Module):
     """``num_layers`` GRU layers over time-major input.
 
     forward(xs [T, B, in], h0 [L, B, H], lengths=None,
-            return_all_hiddens=False) -> (outputs [T, B, H] of the top
-        layer, h_T [L, B, H]) and, with ``return_all_hiddens``, every
-        step's [T, L, B, H] hidden too.
+            return_all_hiddens=False, deterministic=True, generator=None)
+        -> (outputs [T, B, H] of the top layer, h_T [L, B, H]) and, with
+        ``return_all_hiddens``, every step's [T, L, B, H] hidden too.
     step(x [B, in], h [L, B, H]) -> (top output [B, H], h' [L, B, H]).
     """
 
     def __init__(self, input_dim: int, hidden_dim: int, num_layers: int = 1,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.input_dim = input_dim
         self.hidden_dim = hidden_dim
         self.num_layers = num_layers
         self.dtype = dtype
+        self.dropout_rate = dropout_rate
         hd = hidden_dim
         for k in range(num_layers):
             in_k = input_dim if k == 0 else hd
@@ -98,35 +110,52 @@ class GRUStack(nn.Module):
 
     def forward(self, xs: torch.Tensor, h0: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None,
-                return_all_hiddens: bool = False):
+                return_all_hiddens: bool = False,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         """lengths: optional [B] ints, packed-sequence semantics (torch
         ``pack_padded_sequence``): positions t >= lengths[b] neither
         advance the hidden state nor produce output (outputs there are
-        0), so h_T holds each row's hidden at its own length."""
+        0), so h_T holds each row's hidden at its own length. With
+        ``deterministic=False`` and a ``dropout_rate``, the masks between
+        layers come from ``generator`` (on xs's device)."""
         dt = self.dtype
-        layers = [tuple(p.to(dt) for p in self.layer(k))
-                  for k in range(self.num_layers)]
-        h = [h0[k].to(dt) for k in range(self.num_layers)]
-        outs, h_seq = [], []
-        for t in range(xs.shape[0]):
-            valid = (None if lengths is None else
-                     (t < lengths.to(xs.device))[:, None])
-            inp = xs[t].to(dt)
-            for k, params in enumerate(layers):
-                h_next = gru_cell_step(inp, h[k], *params)
+        steps, b = xs.shape[0], xs.shape[1]
+        valid = (None if lengths is None else
+                 (torch.arange(steps, device=xs.device)[:, None]
+                  < lengths.to(xs.device)[None, :])[..., None])
+        drop = 0.0 if deterministic else self.dropout_rate
+        inp = xs.to(dt)
+        h_t, h_seq = [], []
+        for k in range(self.num_layers):
+            w_ih, w_hh, b_ih, b_hh = (p.to(dt) for p in self.layer(k))
+            # the input product of every step at once; the recurrence
+            # carries only the hidden product
+            gi = (inp.reshape(steps * b, -1) @ w_ih.T + b_ih).view(
+                steps, b, -1)
+            h = h0[k].to(dt)
+            outs = []
+            for t in range(steps):
+                h_next = _gates(gi[t], h @ w_hh.T + b_hh, h)
                 if valid is not None:
-                    h_next = torch.where(valid, h_next, h[k])
-                h[k] = h_next
-                inp = h_next
-            if valid is not None:
-                inp = torch.where(valid, inp, torch.zeros_like(inp))
-            outs.append(inp)
+                    h_next = torch.where(valid[t], h_next, h)
+                h = h_next
+                outs.append(h)
+            inp = torch.stack(outs)
+            h_t.append(h)
             if return_all_hiddens:
-                h_seq.append(torch.stack(h))
-        h_t = torch.stack(h)
+                h_seq.append(inp)
+            if drop > 0.0 and k < self.num_layers - 1:
+                keep = torch.rand(inp.shape, generator=generator,
+                                  device=inp.device) < 1.0 - drop
+                inp = torch.where(keep, inp / (1.0 - drop),
+                                  torch.zeros_like(inp))
+        if valid is not None:
+            inp = torch.where(valid, inp, torch.zeros_like(inp))
+        h_t = torch.stack(h_t)
         if return_all_hiddens:
-            return torch.stack(outs), h_t, torch.stack(h_seq)
-        return torch.stack(outs), h_t
+            return inp, h_t, torch.stack(h_seq, dim=1)
+        return inp, h_t
 
     def step(self, x: torch.Tensor, h: torch.Tensor):
         """One inference step through ``fused_gru_step`` (kernel D for

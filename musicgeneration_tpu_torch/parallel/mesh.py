@@ -10,8 +10,8 @@ for its ``seq`` axis only. A mesh is one of two things:
   the ring in the JAX tests and ``dryrun_multichip``.
 
 Data, tensor, FSDP and pipeline parallelism (``dp``, ``tp``, ``fsdp``,
-``pp`` > 1) are not ported yet (ROADMAP.md Queue A item 8) and are
-refused.
+``pp`` > 1) are not ported yet (ROADMAP.md Queue A, multi-device
+paths) and are refused.
 """
 
 from __future__ import annotations
@@ -22,8 +22,8 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-_LATER = "not ported yet (ROADMAP.md Queue A item 8): the port's mesh has "\
-         "its 'seq' axis only"
+_LATER = "not ported yet (ROADMAP.md Queue A, multi-device paths): the " \
+         "port's mesh has its 'seq' axis only"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,9 +2,9 @@
 
 The port of ``musicgeneration_tpu/train/objective.py`` (reference parity:
 SmoothCrossEntropyLoss, MusicTransformer/criterion.py:28-67;
-CategoricalAccuracy and MetricsSet, metrics.py:40-75). Computation is f32
-whatever the model's compute dtype. ``popmag_masked_loss`` is not ported
-yet (PoPMAG is not).
+CategoricalAccuracy and MetricsSet, metrics.py:40-75; PoPMAG's masked
+3-head loss, PoPMAG_RNN/train.py:252-256). Computation is f32 whatever the
+model's compute dtype.
 """
 
 from __future__ import annotations
@@ -57,6 +57,26 @@ def token_accuracy(logits: torch.Tensor, targets: torch.Tensor,
     elif denom is None:
         return hit.mean()
     return hit.sum() / denom
+
+
+def popmag_masked_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor):
+    """Masked 3-head CE for PoPMAG (reference PoPMAG_RNN/train.py:252-256,
+    without its double softmax; JAX ``train/objective.py:88-109``).
+
+    logits: [..., 3, mx_dim] f32; labels: [..., 3] int per-head ids;
+    mask: [..., 3] {0, 1}. Returns (loss, accuracy) over the masked slots;
+    a label outside [0, mx_dim) counts as masked."""
+    mx = logits.shape[-1]
+    labels = labels.long()
+    in_range = (labels >= 0) & (labels < mx)
+    labels = labels.clamp(0, mx - 1)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    m = mask.float() * in_range.float()
+    denom = m.sum().clamp_min(1.0)
+    correct = (logits.argmax(-1) == labels).float()
+    return (nll * m).sum() / denom, (correct * m).sum() / denom
 
 
 def CategoricalAccuracy(ignore_index: Optional[int] = None):

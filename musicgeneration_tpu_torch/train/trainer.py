@@ -177,15 +177,25 @@ def _objective(logits, y, cfg: TrainerConfig, group):
     return loss, token_accuracy(logits, y, cfg.pad_id, denom)
 
 
+def _micro_batches(x, a: int) -> list:
+    """x ([a * B, ...], or a dict of such tensors) as ``a`` micro-batches
+    along axis 0."""
+    if isinstance(x, dict):
+        parts = {k: _micro_batches(v, a) for k, v in x.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(a)]
+    return list(x.reshape(a, x.shape[0] // a, *x.shape[1:]))
+
+
 def make_train_step(tx: Optimizer, cfg: TrainerConfig,
                     loss_fn: Optional[Callable] = None,
                     mesh=None) -> Callable:
     """Returns ``train_step(state, x, y, guard=False) -> (state,
     metrics)``.
 
-    x, y: [accum * B, L] int tensors on the model's device, split into
-    ``accum_steps`` micro-batches (on a process-group ``mesh``, this
-    rank's sequence shard of them). ``loss_fn(model, x, y, generator) ->
+    x, y: [accum * B, ...] tensors on the model's device (x may be a dict
+    of them, as PoPMAG's packed batch), split into ``accum_steps``
+    micro-batches along axis 0, key by key (on a process-group ``mesh``,
+    this rank's sequence shard of them). ``loss_fn(model, x, y, generator) ->
     (loss, accuracy)`` replaces the default objective (over a process
     group it must return this rank's share of the global mean). With
     ``guard`` a non-finite loss leaves parameters and optimizer state
@@ -207,12 +217,12 @@ def make_train_step(tx: Optimizer, cfg: TrainerConfig,
         for p in params:
             p.grad = None
         a = cfg.accum_steps
-        xs = x.reshape(a, x.shape[0] // a, *x.shape[1:])
-        ys = y.reshape(a, y.shape[0] // a, *y.shape[1:])
+        xs, ys = _micro_batches(x, a), _micro_batches(y, a)
+        device = y.device
         loss = acc = 0.0
         for i in range(a):
             gen = dropout_generator(state.dropout_seed, state.step, i,
-                                    x.device, rank)
+                                    device, rank)
             l_i, acc_i = loss_of(model, xs[i], ys[i], gen)
             l_i.backward()  # sums into .grad across micro-batches
             loss = loss + l_i.detach()

@@ -8,7 +8,11 @@ note_density 12 = 24; and the REMI constants, chord map and layout
 (``vocab.py:48-54``, ``:74-81``; reference REMI.py:9-37, 449-458):
 note_on 127 | note_duration 64 | note_velocity 4 | bar 1 | position 16 |
 tempo_class 3 | tempo_value 60 | chord 61 = 336, which the REMI and CP
-codecs read. MuMIDI comes with the family that uses it.
+codecs read; and the MuMIDI constants and layout (``vocab.py:57-70``,
+``_mumidi_spec`` :195; reference MuMIDI.py:9-55, 352-384): empty 1 |
+note_on 256 (128 pitch + 128 drum) | note_duration 32 | note_velocity 32
+| bar 1 | position 33 | track 6 | tempo_class 3 | tempo_value 60 | chord
+61 = 485, which the MuMIDI codec and PoPMAG read.
 """
 
 from __future__ import annotations
@@ -40,7 +44,24 @@ REMI_VELOCITY_STEPS = 4
 REMI_VELOCITY_BINS = np.arange(4, 128, 4)  # 31 edges; index via searchsorted-1
 REMI_RESOLUTION = 480
 
-# Chord vocabulary of REMI and CP (reference: REMI.py:27-37)
+# MuMIDI scheme (reference: MuMIDI.py:9-55), read by the MuMIDI codec
+MUMIDI_FRACTION = 32
+MUMIDI_DURATION_BINS = np.arange(60, 1921, 60, dtype=int)  # 32 bins
+MUMIDI_PITCH_RANGE = range(1, 129)
+MUMIDI_DRUM_TYPE = range(1, 129)
+MUMIDI_VELOCITY_BINS = np.arange(4, 129, 4)  # 32 edges
+MUMIDI_TRACKS = ["melody", "piano", "bass", "guitar", "string", "drum"]
+MUMIDI_TRACK_IDX = {name: i for i, name in enumerate(MUMIDI_TRACKS)}
+MUMIDI_INSTRUMENT_NUMBERS = {
+    "melody": [73],
+    "piano": [1, 2, 3, 4, 5, 6, 7, 8],
+    "bass": [33, 34, 35, 36, 37, 38, 39, 40],
+    "guitar": [25, 26, 27, 28, 29, 30, 31, 32],
+    "drum": [114, 115, 116, 117, 118, 119],
+    "string": [66],
+}
+
+# Chord vocabulary of REMI, CP and MuMIDI (reference: REMI.py:27-37)
 CHORD_QUALITY = ["maj", "min", "dim", "aug", "dom"]
 CHORD_ROOT = ["C", "C#", "D", "D#", "E", "F", "F#", "G", "G#", "A", "A#", "B"]
 CHORD_MAP: Dict[str, int] = {}
@@ -129,6 +150,21 @@ def _remi_spec() -> VocabSpec:
     return VocabSpec(d)
 
 
+def _mumidi_spec() -> VocabSpec:
+    d = collections.OrderedDict()
+    d["empty"] = 1
+    d["note_on"] = len(MUMIDI_PITCH_RANGE) + len(MUMIDI_DRUM_TYPE)
+    d["note_duration"] = len(MUMIDI_DURATION_BINS)
+    d["note_velocity"] = len(MUMIDI_VELOCITY_BINS)
+    d["bar"] = 1
+    d["position"] = MUMIDI_FRACTION + 1
+    d["track"] = len(MUMIDI_TRACKS)
+    d["tempo_class"] = len(REMI_TEMPO_INTERVALS)
+    d["tempo_value"] = len(REMI_TEMPO_INTERVALS[0])
+    d["chord"] = len(CHORD_MAP)
+    return VocabSpec(d)
+
+
 def _control_spec() -> VocabSpec:
     d = collections.OrderedDict()
     d["pitch_histogram"] = 12
@@ -138,4 +174,5 @@ def _control_spec() -> VocabSpec:
 
 MIDILIKE = _midilike_spec()
 REMI = _remi_spec()
+MUMIDI = _mumidi_spec()
 CONTROL = _control_spec()

@@ -452,9 +452,10 @@ def test_cli_dtype_defaults_to_the_recorded_one(monkeypatch, exported,
     real = convert.load_checkpoint
 
     def spy(*args, **kw):
-        model = real(*args, **kw)
+        out = real(*args, **kw)
+        model = out[0] if kw.get("with_config") else out
         seen.append(model.dtype)
-        return model
+        return out
 
     monkeypatch.setattr(convert, "load_checkpoint", spy)
     ckpt = bf16_run if source == "run" else pth

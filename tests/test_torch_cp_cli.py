@@ -104,8 +104,9 @@ def test_cli_train_cp_records_and_resumes(run_dir):
 def test_cli_train_refusals(run_dir, tmp_path):
     with pytest.raises(SystemExit, match="unknown model overrides"):
         tcli.main(_train_args(run_dir, "x", 1, "model.vocab_size=9"))
-    with pytest.raises(SystemExit, match="unknown model 'popmag'"):
-        tcli.main([str(run_dir / "tok"), "model=popmag", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="unknown model 'melody_rnn'"):
+        tcli.main([str(run_dir / "tok"), "model=melody_rnn", "--device",
+                   "cpu"])
     with pytest.raises(SystemExit, match="'midilike' corpus"):
         tcli.main([str(run_dir / "tok"), "steps=1", "batch_size=2",
                    f"seq_len={SEQ}", "--device", "cpu"])

@@ -182,7 +182,7 @@ def test_ring_refusals(fn):
 def test_mesh_refusals():
     for kw in (dict(dp=2, sp=2), dict(tp=2, sp=2), dict(pp=2),
                dict(fsdp=True)):
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        with pytest.raises(NotImplementedError, match="Queue A, multi-device paths"):
             make_mesh(devices=["cpu"] * 4, **kw)
     with pytest.raises(ValueError, match="one device"):
         make_mesh(sp=2, devices=["cpu", "meta"])
