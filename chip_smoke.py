@@ -205,7 +205,28 @@ Phases (the first failure raises and the exit code is non-zero):
    every MIDI read back; arrangement bars/s and decoder steps/s at B 8
    (f32, bf16), the f32 train step's time and busy share; kernel D at
    PoPMAG's step beside its bound, plain version and cuDNN;
-15. one JSON line of kernels, the card's line, and the final JSON line.
+15. the RNN families' training (``rnn_train_paths``) at their full
+   widths (EventMelodyRNN 308/32/512/3, PerformanceRNN with 24 controls,
+   MelodyRNN 130/64/64/2 with attn_length 0 and 40), f32, B 8: 8
+   synthetic MIDI files through ``cli.tokenize`` as ``midilike``,
+   ``midilike_control`` and ``melody``; ``cli.train`` for EventMelodyRNN
+   in segment mode, window mode 200/10 with scheduled sampling at 0.5 and
+   sequence mode, PerformanceRNN on the control corpus and MelodyRNN, 3
+   steps each, the same run cut after step 1 and resumed to equal losses
+   (1e-3), no kernel D launched; one f32 step (dropout 0) on the card
+   against the same step on the CPU (loss 1e-5, grad norm 1e-4
+   relative); from the trained EventMelodyRNN and PerformanceRNN step
+   files ``cli.generate`` (B 8, 512 sampled tokens; PerformanceRNN under
+   ``--control <corpus dir>``) and ``cli.serve`` (24 requests) with
+   exactly 3 kernel-D launches a decode step, and greedy f32 kernel path
+   == plain path on the trained weights; the EventMelodyRNN window
+   step's time and busy share;
+16. MelodyRNN from its step files (``melody_paths``, attn_length 0 and
+   40): ``cli.generate`` (B 8, 512 sampled tokens, MIDI read back),
+   greedy f32 serving of 8 staggered requests == one dedicated
+   ``generate`` at the pool width, decode tokens/s at B 8, ``cli.serve``
+   goodput (24 requests) and the train step's time and busy share;
+17. one JSON line of kernels, the card's line, and the final JSON line.
 
 Imports nothing of JAX or of ``musicgeneration_tpu``. Needs one CUDA card.
 """
@@ -260,7 +281,7 @@ from musicgeneration_tpu_torch.decode.serving_rnn import (  # noqa: E402
 from musicgeneration_tpu_torch.models import cp_transformer as cp_mod  # noqa: E402
 from musicgeneration_tpu_torch.models import music_transformer as mt  # noqa: E402
 from musicgeneration_tpu_torch.models import (  # noqa: E402
-    EventMelodyRNN, PerformanceRNN, PoPMAGRNN)
+    EventMelodyRNN, MelodyRNN, PerformanceRNN, PoPMAGRNN)
 from musicgeneration_tpu_torch.decode.popmag_generate import (  # noqa: E402
     flatten_arrangement, generate_arrangement)
 from musicgeneration_tpu_torch.decode.serving_popmag import (  # noqa: E402
@@ -291,7 +312,8 @@ from musicgeneration_tpu_torch.parallel import (  # noqa: E402
     make_mesh, ring_relative_attention, ring_relative_attention_pallas)
 from musicgeneration_tpu_torch.parallel.ring_attention import (  # noqa: E402
     to_shards)
-from musicgeneration_tpu_torch.tokenizers import cp, midilike  # noqa: E402
+from musicgeneration_tpu_torch.tokenizers import (  # noqa: E402
+    cp, melody, midilike)
 from musicgeneration_tpu_torch.train.trainer import (  # noqa: E402
     TrainerConfig, create_train_state, make_optimizer, make_train_step)
 from musicgeneration_tpu_torch.utils.checkpoint import (  # noqa: E402
@@ -1902,10 +1924,11 @@ def rnn_decode_rate(family: str, prime: np.ndarray) -> float:
     return rate
 
 
-def rnn_greedy_parity(family: str, prime: np.ndarray) -> None:
+def rnn_greedy_parity(family: str, prime: np.ndarray, model=None) -> None:
     """Greedy f32, 64 tokens at B 8 after the 500-token prompt: the
-    kernel path's tokens equal the plain path's."""
-    model = rnn_model(family, torch.float32)
+    kernel path's tokens equal the plain path's (random weights from a
+    seed, or ``model``'s)."""
+    model = model or rnn_model(family, torch.float32)
     prompt = rnn_prompt(family, prime, B)
     kw = rnn_conditioning(model, B)
     dp = DecodeParams(max_len=prompt.shape[1] + RNN_GREEDY, steps=RNN_GREEDY,
@@ -5032,6 +5055,48 @@ def popmag_serve_cli(tmp: str, run: str, paths: list) -> tuple:
     return n, summary
 
 
+def train_step_rate(label: str, step, state, batches: list) -> tuple:
+    """A train step's time and the device's busy share: one warm step,
+    the mean over the next ``len(batches) - 2`` (CUDA events), then one
+    more under torch.profiler (device activity only; its raw trace, not
+    ``key_averages()``: ~10^5 kernels take seconds of host time to read
+    directly and tens of seconds to aggregate). Returns (ms, busy)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state, _ = step(state, *batches[0])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for x, y in batches[1:-1]:
+        state, _ = step(state, x, y)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (len(batches) - 2)
+    print(f"{label}: {ms:.3f} ms/step over {len(batches) - 2} warm steps "
+          "(CUDA events)", f"on {gpu_line()}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, *batches[-1])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            us, n = rows.get(ev.name(), (0.0, 0))
+            rows[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
+    rows = [(us, n, name) for name, (us, n) in rows.items()]
+    busy_us = sum(r[0] for r in rows)
+    if DEV.type == "cuda" and not busy_us:
+        raise AssertionError(f"{label}: the trace holds no device time")
+    print(f"{label} profile: wall {wall_us:.1f} us under the profiler, "
+          f"device busy {busy_us:.1f} us ({100 * busy_us / wall_us:.1f}% of "
+          "wall)", f"on {gpu_line()}")
+    for dev_us, count, key in sorted(rows, reverse=True)[:6]:
+        print(f"  {dev_us:9.1f} us {count:7d}x {key[:80]}")
+    return ms, busy_us / wall_us
+
+
 def popmag_rates(mels: list, shards: str) -> dict:
     """Arrangement decoder steps/s and bars/s at B 8 (f32 and bf16,
     sampled, ``PM_RATE_BARS`` bars, host clock after a warm bar); the f32
@@ -5070,43 +5135,10 @@ def popmag_rates(mels: list, shards: str) -> dict:
     state = create_train_state(model, tx, dropout_seed=cfg.seed)
     step = make_train_step(tx, tcfg, loss_fn=loss_fn)
     batches = [to_device(at(i), DEV) for i in range(PM_RATE_STEPS + 1)]
-    state, _ = step(state, *batches[0])
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for x, y in batches[1:PM_RATE_STEPS]:
-        state, _ = step(state, x, y)
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (PM_RATE_STEPS - 1)
-    print(f"PoPMAG train step f32 B{B} ({PM_BARS} bars of {PM_BAR_LEN}, "
-          f"dropout 0.5): {ms:.3f} ms/step over {PM_RATE_STEPS - 1} warm "
-          "steps (CUDA events)", f"on {gpu_line()}")
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, _ = step(state, *batches[-1])
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # the raw trace, not key_averages(): ~10^5 kernels take seconds of
-    # host time to read directly and tens of seconds to aggregate
-    rows = {}
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() == torch.autograd.DeviceType.CUDA:
-            us, n = rows.get(ev.name(), (0.0, 0))
-            rows[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
-    rows = [(us, n, name) for name, (us, n) in rows.items()]
-    busy_us = sum(r[0] for r in rows)
-    if DEV.type == "cuda" and not busy_us:
-        raise AssertionError("the PoPMAG train-step trace holds no device "
-                             "time")
-    print(f"PoPMAG train step (f32, B {B}) profile: wall {wall_us:.1f} us "
-          f"under the profiler, device busy {busy_us:.1f} us "
-          f"({100 * busy_us / wall_us:.1f}% of wall)", f"on {gpu_line()}")
-    for dev_us, count, key in sorted(rows, reverse=True)[:6]:
-        print(f"  {dev_us:9.1f} us {count:7d}x {key[:80]}")
-    return {"bars_s": rates, "step_ms": ms, "train_busy": busy_us / wall_us}
+    ms, busy = train_step_rate(
+        f"PoPMAG train step f32 B{B} ({PM_BARS} bars of {PM_BAR_LEN}, "
+        "dropout 0.5)", step, state, batches)
+    return {"bars_s": rates, "step_ms": ms, "train_busy": busy}
 
 
 def popmag_paths() -> dict:
@@ -5136,6 +5168,413 @@ def popmag_paths() -> dict:
     print(f"PoPMAG phases: {time.perf_counter() - t0:.1f} s ({secs})")
     return {"launches": {"popmag_generate": gen_n, "popmag_serve": serve_n},
             "parity_launches": parity_n, "serve": summary, **rates}
+
+
+# The RNN families' training through the port's cli.train at the
+# reference's widths (the CLI's defaults): EventMelodyRNN 308/32/512/3
+# with GRU dropout 0.5, PerformanceRNN with 24 controls (dropout 0.3) on
+# a midilike_control corpus, MelodyRNN 130/64/64/2 (dropout 0.5) with
+# attn_length 0 and 40; f32 (the JAX RNN default), B 8, crops of 512.
+# Depth is cut, never width: 8 synthetic files of 640-900 MIDI-like
+# events (written with the port's MIDI writer), 3 steps a run (the same
+# run cut after step 1 and resumed), windows of 200/10, sequences padded
+# to the longest file; from the trained step files cli.generate (B 8,
+# the 500-token prime, 512 steps) and cli.serve (24 requests) of both
+# GRU families through kernel D, and MelodyRNN's cli.generate, 8
+# staggered served requests, decode and serving rates
+RT_MIDI, RT_STEPS, RT_CUT, RT_LENS = 8, 3, 2, (640, 900)
+RT_WINDOW = ["train_mode=window", "window_size=200", "stride_size=10"]
+RT_RUNS = {  # run -> (scheme, cli.train overrides)
+    "event_segment": ("midilike", ["model=event_rnn", "train_mode=segment"]),
+    "event_window": ("midilike", ["model=event_rnn", *RT_WINDOW,
+                                  "teacher_forcing_ratio=0.5"]),
+    "event_sequence": ("midilike", ["model=event_rnn",
+                                    "train_mode=sequence"]),
+    "performance_control": ("midilike_control", ["model=performance_rnn"]),
+    "melody_basic": ("melody", ["model=melody_rnn"]),
+    "melody_attn40": ("melody", ["model=melody_rnn", "model.attn_length=40"]),
+}
+# one f32 step, dropout 0, on the card and on the CPU: (label, scheme,
+# cli.train overrides, model overrides)
+RT_PARITY = (("event_rnn window", "midilike", ["model=event_rnn",
+                                               *RT_WINDOW], {}),
+             ("performance_rnn control", "midilike_control",
+              ["model=performance_rnn"], {}),
+             ("melody_rnn attn 40", "melody", ["model=melody_rnn"],
+              {"attn_length": 40}))
+MEL_RUNS = ("melody_basic", "melody_attn40")
+MEL_PROMPT, MEL_STEPS, MEL_RATE_PROMPT = 500, 512, 16
+MEL_PARITY_NEWS = (64, 128, 96, 64, 100, 80, 128, 72)
+MEL_SERVE_NEW = (64, 513)
+
+
+def rnn_train_corpora(tmp: str) -> dict:
+    """``RT_MIDI`` synthetic MIDI files tokenized by ``cli.tokenize`` as
+    ``midilike``, ``midilike_control`` and ``melody``. Returns {scheme:
+    shard directory}."""
+    midis = os.path.join(tmp, "rnn_midis")
+    os.makedirs(midis)
+    rng = np.random.default_rng(41)
+    for i in range(RT_MIDI):
+        write_midi(rng.integers(0, EVENT_DIM - 1, int(rng.integers(*RT_LENS))),
+                   os.path.join(midis, f"r{i:02d}.mid"))
+    shards = {}
+    t0 = time.perf_counter()
+    with quiet(os.path.join(tmp, "tokenize.log")):
+        for scheme in ("midilike", "midilike_control", "melody"):
+            shards[scheme] = os.path.join(tmp, f"rnn_{scheme}")
+            if tokenize_main([midis, shards[scheme], "--scheme", scheme,
+                              "--workers", "1"]) != 0:
+                raise AssertionError(f"cli.tokenize --scheme {scheme} failed")
+    lens = {k: TokenCorpus(d).lengths() for k, d in shards.items()}
+    print(f"cli.tokenize: {RT_MIDI} MIDI files -> " + ", ".join(
+        f"{k} {len(v)} sequences of {v.min()}-{v.max()}"
+        for k, v in lens.items()) + f" in {time.perf_counter() - t0:.1f} s")
+    if any(len(v) != RT_MIDI for v in lens.values()):
+        raise AssertionError("cli.tokenize lost files")
+    return shards
+
+
+def rnn_train_args(shards: str, run: str, steps: int, extra: list) -> list:
+    """cli.train of an RNN family at its full width (the CLI's defaults),
+    B 8, a checkpoint every step."""
+    return [shards, f"steps={steps}", f"batch_size={B}", f"ckpt_dir={run}",
+            "ckpt_every=1", "log_every=1", f"metrics_path={run}.jsonl",
+            *extra]
+
+
+def rnn_train_runs(tmp: str, shards: dict) -> dict:
+    """Each run of ``RT_RUNS`` for 3 f32 steps on the card, and the same
+    run cut after step 1 and resumed: its losses must equal the
+    uninterrupted run's (1e-3), every one finite; training launches no
+    kernel D. Returns {run: checkpoint directory}."""
+    runs = {}
+    fused_gru_step.launches = 0
+    for name, (scheme, extra) in RT_RUNS.items():
+        run, cut = (os.path.join(tmp, f"{name}{s}") for s in ("", "_cut"))
+        t0 = time.perf_counter()
+        with quiet(os.path.join(tmp, "rnn_train.log")):
+            train_cli.main(rnn_train_args(shards[scheme], run, RT_STEPS,
+                                          extra))
+            train_cli.main(rnn_train_args(shards[scheme], cut, RT_CUT, extra))
+            train_cli.main(rnn_train_args(shards[scheme], cut, RT_STEPS,
+                                          extra))
+        secs = time.perf_counter() - t0
+        ref, resumed = losses(run + ".jsonl"), losses(cut + ".jsonl")
+        finite = (sorted(ref) == sorted(resumed) == list(range(RT_STEPS))
+                  and all(math.isfinite(v) for d in (ref, resumed)
+                          for v in d.values()))
+        same = finite and all(abs(resumed[k] - ref[k]) <= 1e-3 * abs(ref[k])
+                              for k in ref)
+        print(f"cli.train {name} f32 B{B} ({' '.join(extra)}): losses "
+              f"{[round(ref[k], 4) for k in sorted(ref)]}; cut after step "
+              f"{RT_CUT - 1} and resumed: "
+              f"{[round(resumed[k], 4) for k in sorted(resumed)]} (equal: "
+              f"{same}); {secs:.1f} s for 2 runs of {2 * RT_STEPS} steps",
+              f"on {gpu_line()}")
+        if not same:
+            raise AssertionError(f"cli.train {name} failed")
+        runs[name] = run
+    if fused_gru_step.launches:
+        raise AssertionError(f"training launched kernel D "
+                             f"{fused_gru_step.launches} times")
+    return runs
+
+
+def rnn_step_parity(shards: dict) -> None:
+    """One f32 train step (dropout 0, TF32 off) on the card and on the
+    CPU, the plain version of a path that runs no kernel, from the same
+    weights, batch and latent: loss 1e-5 and grad norm 1e-4 relative."""
+    for label, scheme, over, mkw in RT_PARITY:
+        cfg = apply_overrides(train_cli.TrainCLIConfig(),
+                              [f"batch_size={B}", *over])
+        corpus = TokenCorpus(shards[scheme], limlen=train_cli._limlen(cfg))
+        batch = train_cli._batch_fn(corpus, cfg, scheme)(0)
+        mets = []
+        for dev in (DEV, torch.device("cpu")):
+            model, tcfg, loss_fn = train_cli.build_model(
+                cfg, scheme, {**mkw, "dropout_rate": 0.0}, dev)
+            if hasattr(model, "init_dim"):
+                init = torch.randn(B, model.init_dim,
+                                   generator=torch.Generator().manual_seed(3))
+                init = init.to(dev)
+
+                def loss_fn(m, x, y, gen, init=init):
+                    tokens, controls = ((x["tokens"], x["controls"])
+                                        if isinstance(x, dict) else (x, None))
+                    return train_cli.gru_objective(m, tokens, init, controls)
+            tx = make_optimizer(tcfg)
+            step = make_train_step(tx, tcfg, loss_fn=loss_fn)
+            t0 = time.perf_counter()
+            _, met = step(create_train_state(model, tx, dropout_seed=0),
+                          *to_device(batch, dev))
+            mets.append((met, time.perf_counter() - t0))
+        (card, t_card), (host, t_host) = mets
+        loss_rel = abs(card["loss"] - host["loss"]) / abs(host["loss"])
+        norm_rel = (abs(card["grad_norm"] - host["grad_norm"])
+                    / abs(host["grad_norm"]))
+        print(f"train step {label} f32 B{B}, card vs CPU: loss "
+              f"{card['loss']:.6f} / {host['loss']:.6f} (rel {loss_rel:.2e}), "
+              f"grad norm {card['grad_norm']:.6f} / {host['grad_norm']:.6f} "
+              f"(rel {norm_rel:.2e}); {t_card:.2f} s / {t_host:.2f} s",
+              f"on {gpu_line()}")
+        if not (loss_rel <= 1e-5 and norm_rel <= 1e-4):
+            raise AssertionError(f"{label}: the card's step differs from the "
+                                 "CPU's")
+
+
+def rnn_trained_cli(family: str, tmp: str, run: str, prime_mid: str,
+                    ctrl_dir: str) -> int:
+    """cli.generate from a trained GRU step directory: B 8, the prime
+    MIDI's first 500 tokens, 512 sampled f32 tokens (PerformanceRNN under
+    ``--control <midilike_control corpus dir>``), kernel D's launches
+    exactly L x the decode steps, every MIDI read back. Returns the
+    launches."""
+    p = RNN_PROMPT + (family == "performance_rnn")
+    ctrl = ["--control", ctrl_dir] if family == "performance_rnn" else []
+    out = os.path.join(tmp, f"{family}-trained.mid")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, n, secs = count_d(lambda: cli_main(
+            [run, out, "--prime", prime_mid, "--prime-len", str(RNN_PROMPT),
+             "--steps", str(RNN_STEPS), "--batch", str(B), "--seed", "0"]
+            + ctrl))
+    paths = re.findall(r"wrote (\S+) \((\d+) tokens\)", buf.getvalue())
+    events = [len(midilike.extract_events(path).events) for path, _ in paths]
+    ok = (rc == 0 and n == RNN_LAYERS * (p + RNN_STEPS) and len(paths) == B
+          and all(int(k) == RNN_STEPS for _, k in paths) and min(events) > 0)
+    where = ", --control <corpus dir>" if ctrl else ""
+    print(f"cli.generate {family} f32 from its cli.train step file (B={B}, "
+          f"prime {p}, {RNN_STEPS} steps{where}): {secs:.3f} s; kernel D "
+          f"launches {n} (expected {RNN_LAYERS} x {p + RNN_STEPS}); "
+          f"{len(paths)} MIDI files read back as "
+          f"{min(events)}-{max(events)} events {'ok' if ok else 'FAIL'}",
+          f"on {gpu_line()}")
+    if not ok:
+        raise AssertionError(f"cli.generate {family} from a step file failed")
+    return n
+
+
+def rnn_train_paths(tmp: str, shards: dict, prime_mid: str) -> dict:
+    """The RNN families' training on the card (``rnn_train_runs``), the
+    card-vs-CPU step, and generation and serving from the trained
+    EventMelodyRNN and PerformanceRNN step files through kernel D
+    (exact launches; greedy f32 kernel path == plain path on the trained
+    weights); the EventMelodyRNN window step's time and busy share.
+    Returns the runs, kernel D's launches by path and the step rate."""
+    from musicgeneration_tpu_torch.convert import load_checkpoint
+
+    runs = rnn_train_runs(tmp, shards)
+    rnn_step_parity(shards)
+    prime = np.asarray(prime_tokens(prime_mid, RNN_PROMPT))
+    launches, serve = {}, {}
+    for family, name in (("event_rnn", "event_window"),
+                         ("performance_rnn", "performance_control")):
+        launches[f"generate_{family}_trained"] = rnn_trained_cli(
+            family, tmp, runs[name], prime_mid, shards["midilike_control"])
+        n, serve[family] = rnn_serve_file_mode(family, tmp, runs[name],
+                                               prime_mid)
+        launches[f"serve_{family}_trained"] = n
+        rnn_greedy_parity(family, prime, load_checkpoint(runs[name],
+                                                         device=DEV))
+    scheme, extra = RT_RUNS["event_window"]
+    cfg = apply_overrides(train_cli.TrainCLIConfig(),
+                          [f"batch_size={B}", *extra])
+    at = train_cli._batch_fn(TokenCorpus(shards[scheme],
+                                         limlen=train_cli._limlen(cfg)),
+                             cfg, scheme)
+    model, tcfg, loss_fn = train_cli.build_model(cfg, scheme, {}, DEV)
+    tx = make_optimizer(tcfg)
+    ms, busy = train_step_rate(
+        f"EventMelodyRNN train step f32 B{B} (window 200, scheduled "
+        "sampling 0.5, dropout 0.5)", make_train_step(tx, tcfg,
+                                                      loss_fn=loss_fn),
+        create_train_state(model, tx, dropout_seed=0),
+        [to_device(at(i), DEV) for i in range(4)])
+    return {"runs": runs, "launches": launches, "serve": serve,
+            "step_ms": ms, "train_busy": busy}
+
+
+def melody_serve_parity(model) -> None:
+    """Greedy f32 serving of 8 staggered requests (5, one segment, then
+    3 more) equals one dedicated ``generate`` at the pool width: one-token
+    prompts, so that every step of both runs is a step of 8 rows, and each
+    row's attention window is its own (``attn_n``)."""
+    prompts = np.arange(60, 60 + len(MEL_PARITY_NEWS), dtype=np.int64)
+    cb = RNNContinuousBatcher(model, slots=SLOTS, seg_len=SEG, depth=DEPTH,
+                              sampling=SamplingParams(greedy=True))
+    rids = [cb.submit(prompts[i:i + 1], MEL_PARITY_NEWS[i]) for i in range(5)]
+    cb.step()
+    rids += [cb.submit(prompts[i:i + 1], MEL_PARITY_NEWS[i])
+             for i in range(5, len(prompts))]
+    done = cb.run()
+    steps = max(MEL_PARITY_NEWS)
+    ref = generate(model, torch.from_numpy(prompts)[:, None], None,
+                   DecodeParams(max_len=1 + steps, steps=steps,
+                                sampling=SamplingParams(greedy=True)))
+    ref = ref.cpu().numpy()
+    same = all(np.array_equal(done[r], ref[i, :n])
+               for i, (r, n) in enumerate(zip(rids, MEL_PARITY_NEWS)))
+    print(f"serving melody_rnn (attn_length {model.attn_length}) greedy f32, "
+          f"{len(prompts)} staggered requests: == dedicated generate at the "
+          f"pool width: {same}")
+    if not same:
+        raise AssertionError("MelodyRNN served streams differ from generate")
+
+
+def melody_cli(tmp: str, run: str, prime_mid: str) -> None:
+    """cli.generate from a MelodyRNN step file: B 8, the prime MIDI's first
+    500 note-array slots, 512 sampled tokens, every MIDI read back."""
+    out = os.path.join(tmp, f"{os.path.basename(run)}.mid")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main([run, out, "--prime", prime_mid, "--prime-len",
+                       str(MEL_PROMPT), "--steps", str(MEL_STEPS), "--batch",
+                       str(B), "--seed", "0"])
+    secs = time.perf_counter() - t0
+    paths = re.findall(r"wrote (\S+) \((\d+) tokens\)", buf.getvalue())
+    notes = [len(MidiFile(p).instruments[0].notes) for p, _ in paths]
+    ok = (rc == 0 and len(paths) == B and min(notes) > 0
+          and all(int(k) == MEL_STEPS for _, k in paths))
+    print(f"cli.generate {os.path.basename(run)} f32 from its step file "
+          f"(B={B}, prime {MEL_PROMPT} slots, {MEL_STEPS} sampled): "
+          f"{secs:.3f} s; {len(paths)} MIDI files read back with "
+          f"{min(notes)}-{max(notes)} notes {'ok' if ok else 'FAIL'}",
+          f"on {gpu_line()}")
+    if not ok:
+        raise AssertionError("cli.generate melody_rnn failed")
+
+
+def melody_decode_rate(model, prime: np.ndarray) -> float:
+    """Decode tokens/s at B 8, f32, sampled, on the host clock: a 16-slot
+    prompt plus 512 steps through ``decode.generate``, less the prompt."""
+    prompt = torch.tensor([list(prime[:MEL_RATE_PROMPT])] * B, device=DEV)
+
+    def run(steps):
+        dp = DecodeParams(max_len=MEL_RATE_PROMPT + steps, steps=steps,
+                          sampling=SamplingParams())
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(model, prompt, gen, dp)
+        torch.cuda.synchronize()
+        return toks, time.perf_counter() - t0
+
+    run(8)
+    _, t_prompt = run(0)
+    toks, t_all = run(MEL_STEPS)
+    t = toks.cpu().numpy()
+    if t.shape != (B, MEL_STEPS) or t.min() < 0 or t.max() >= model.vocab_size:
+        raise AssertionError(f"bad tokens {t.shape} [{t.min()}, {t.max()}]")
+    rate = B * MEL_STEPS / (t_all - t_prompt)
+    print(f"generate melody_rnn (attn_length {model.attn_length}) f32: "
+          f"{MEL_STEPS} steps {t_all - t_prompt:.3f} s: decode {rate:.1f} "
+          f"tokens/s (B={B}, host clock)", f"on {gpu_line()}")
+    return rate
+
+
+def melody_serve_cli(tmp: str, run: str, prime_mid: str) -> str:
+    """cli.serve file mode with its defaults (8 slots, segments of 64,
+    depth 2, boost 8) on the MelodyRNN step file: 24 requests primed from
+    the prime MIDI's note array (1-500 slots), 64-512 new tokens, four
+    with an eos id, four with their own sampling; every MIDI read back.
+    Returns the summary line."""
+    rng = np.random.default_rng(43)
+    reqs = []
+    for i in range(N_SERVE):
+        r = {"id": f"m{i:02d}", "prime": prime_mid,
+             "prime_len": SERVE_PROMPTS[i % len(SERVE_PROMPTS)],
+             "max_new": int(rng.integers(*MEL_SERVE_NEW))}
+        if i < 4:
+            r["eos"] = int(rng.integers(0, 128))
+        elif i < 8:
+            r.update(temperature=0.9, top_k=20)
+        reqs.append(r)
+    path = os.path.join(tmp, "melody-requests.jsonl")
+    with open(path, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in reqs)
+    outdir = os.path.join(tmp, "melody-served")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_main([run, path, outdir, "--seed", "0"])
+    secs = time.perf_counter() - t0
+    out = buf.getvalue()
+    summary = next(x for x in out.splitlines() if x.startswith("generated"))
+    written = dict(re.findall(r"wrote .*/(m\d\d)\.mid \((\d+) tokens\)", out))
+    read = [MidiFile(os.path.join(outdir, f"{r['id']}.mid")) for r in reqs]
+    exact = all(int(written[r["id"]]) == r["max_new"] for r in reqs
+                if "eos" not in r)
+    print(f"cli.serve {os.path.basename(run)} f32 file mode ({N_SERVE} "
+          f"requests, slots {SLOTS}, seg {SEG}, depth {DEPTH}) in "
+          f"{secs:.3f} s (load, warm, serve, write): {summary}",
+          f"on {gpu_line()}")
+    if rc != 0 or len(written) != N_SERVE or len(read) != N_SERVE or not exact:
+        raise AssertionError(f"cli.serve melody_rnn: rc {rc}, {len(written)} "
+                             "files")
+    return summary
+
+
+def melody_paths(tmp: str, shards: dict, runs: dict, prime_mid: str) -> dict:
+    """MelodyRNN from its trained step files (``attn_length`` 0 and 40):
+    cli.generate, 8 staggered served requests == dedicated generate
+    (greedy f32), decode tokens/s at B 8, cli.serve's goodput (attn 40),
+    the train step's time and busy share (attn 40)."""
+    from musicgeneration_tpu_torch.convert import load_checkpoint
+
+    prime = melody.midi_to_note_array(prime_mid).astype(np.int64)
+    rates = {}
+    for name in MEL_RUNS:
+        melody_cli(tmp, runs[name], prime_mid)
+        model = load_checkpoint(runs[name], device=DEV)
+        melody_serve_parity(model)
+        rates[name] = melody_decode_rate(model, prime)
+    summary = melody_serve_cli(tmp, runs["melody_attn40"], prime_mid)
+    scheme = RT_RUNS["melody_attn40"][0]
+    cfg = apply_overrides(train_cli.TrainCLIConfig(),
+                          [f"batch_size={B}", "model=melody_rnn"])
+    at = train_cli._batch_fn(TokenCorpus(shards[scheme],
+                                         limlen=train_cli._limlen(cfg)),
+                             cfg, scheme)
+    model, tcfg, loss_fn = train_cli.build_model(cfg, scheme,
+                                                 {"attn_length": 40}, DEV)
+    tx = make_optimizer(tcfg)
+    ms, busy = train_step_rate(
+        f"MelodyRNN train step f32 B{B} (attn_length 40, crops of "
+        f"{cfg.seq_len}, dropout 0.5)",
+        make_train_step(tx, tcfg, loss_fn=loss_fn),
+        create_train_state(model, tx, dropout_seed=0),
+        [to_device(at(i), DEV) for i in range(4)])
+    return {"tok_s": rates, "serve": summary, "step_ms": ms,
+            "train_busy": busy}
+
+
+def rnn_slice_paths() -> dict:
+    """The RNN training slice: synthetic corpora, ``rnn_train_paths`` and
+    ``melody_paths`` in one scratch directory; prints each phase's
+    seconds."""
+    t0 = time.perf_counter()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    secs = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        secs[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        prime_mid = os.path.join(tmp, "prime.mid")
+        write_midi(np.random.default_rng(0).integers(0, EVENT_DIM - 1, 3000),
+                   prime_mid)
+        shards = timed("corpora", rnn_train_corpora, tmp)
+        rt = timed("rnn_train_paths", rnn_train_paths, tmp, shards, prime_mid)
+        mel = timed("melody_paths", melody_paths, tmp, shards, rt["runs"],
+                    prime_mid)
+    print(f"RNN training phases: {time.perf_counter() - t0:.1f} s ({secs})",
+          f"on {gpu_line()}")
+    return {"train": rt, "melody": mel}
 
 
 TC_ENTRIES = {"relative_attention": ("rel_attn_fwd_tc_kernel",),
@@ -5261,6 +5700,7 @@ def main(argv: list) -> int:
     rnn = rnn_paths(e2e["prime"])
     cp_run = cp_paths()
     pm = popmag_paths()
+    rt = rnn_slice_paths()
     os.makedirs(OUT_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
         shards = write_corpus(tmp)
@@ -5288,7 +5728,7 @@ def main(argv: list) -> int:
     row_br["launches_by_path"] = by_br
     for row, key in ((row_a, "A"), (row_b, "B"), (row_c, "C")):
         row.update(cp_times[key])
-    by_d = {**rnn["launches"], **pm["launches"]}
+    by_d = {**rnn["launches"], **pm["launches"], **rt["train"]["launches"]}
     row_d = time_kernel_d(sum(by_d.values()), err_d)
     row_d["launches_by_path"] = by_d
     row_d.update(time_kernel_d_popmag())
@@ -5352,6 +5792,14 @@ def main(argv: list) -> int:
         + f"; train step f32 {pm['step_ms']:.3f} ms ("
         f"{100 * pm['train_busy']:.1f}% busy); serving: {pm['serve']}",
         f"on {gpu_line()}")
+    mel = rt["melody"]
+    print(f"RNN training f32 B={B}: EventMelodyRNN window step "
+          f"{rt['train']['step_ms']:.3f} ms "
+          f"({100 * rt['train']['train_busy']:.1f}% busy); MelodyRNN (attn "
+          f"40) step {mel['step_ms']:.3f} ms ({100 * mel['train_busy']:.1f}% "
+          "busy); MelodyRNN decode B=8 f32: " + ", ".join(
+              f"{k} {v:.1f} tokens/s" for k, v in mel["tok_s"].items())
+          + f"; MelodyRNN serving: {mel['serve']}", f"on {gpu_line()}")
     print("speculative B=1 bf16 greedy, tokens/s (median): " + ", ".join(
         f"{k} {r['tok_s']:.1f}" for k, r in spec["rates"].items()),
         f"on {gpu_line()}")

@@ -1,5 +1,5 @@
 """Generate MIDI from a MusicTransformer, CPTransformer, EventMelodyRNN,
-PerformanceRNN or PoPMAG checkpoint on the GPU.
+PerformanceRNN, MelodyRNN or PoPMAG checkpoint on the GPU.
 
     python -m musicgeneration_tpu_torch.cli.generate model.pth out.mid \\
         --prime prompt.mid --steps 512 --temperature 1.0 --topk 0
@@ -44,15 +44,22 @@ bar through kernel D; ``--temperature 0`` is greedy; ``--topk``,
 ``--topp``, ``--spec``, ``--beam`` and ``--control`` are refused) and
 written through the MuMIDI codec.
 
-The GRU families add ``--beam N`` (beam search; ``--stochastic-beam``
-for Gumbel-perturbed selection), and PerformanceRNN ``--control``
-(``'PITCH_HISTOGRAM;NOTE_DENSITY'``, e.g. ``'2,0,1,1,0,1,0,1,1,0,0,1;4'``
-or ``';3'`` for uniform pitches, repeated every step; or a
-``midilike_control`` ``.npz`` shard whose per-event control sequence
-drives every step, ``--control-index`` picking the sequence), a latent
-per batch row (``--init-zero`` for zeros) and a prime that starts with
-the primary event. Runs on ``--device cuda`` by default; a missing GPU
-is an error, not a fallback.
+The RNN families (EventMelodyRNN, PerformanceRNN, MelodyRNN) take the
+prime one token at a time, unpadded, and write through the codec of the
+scheme their ``cli.train`` run recorded (the MIDI-like codec for an
+exported ``.pth``; MelodyRNN's note arrays for a MelodyRNN: the prime
+through ``midi_to_note_array``, ids >= 130 dropped before
+``note_array_to_midi``). The GRU families add ``--beam N`` (beam search;
+``--stochastic-beam`` for Gumbel-perturbed selection), and
+PerformanceRNN ``--control`` (``'PITCH_HISTOGRAM;NOTE_DENSITY'``, e.g.
+``'2,0,1,1,0,1,0,1,1,0,0,1;4'`` or ``';3'`` for uniform pitches,
+repeated every step; or a ``midilike_control`` corpus directory or one
+``.npz`` shard of it, whose per-event control sequence drives every
+step: ``--control-index`` picks the sequence, else one drawn by
+``RandomState(--seed)``), a latent per batch row (``--init-zero`` for
+zeros) and a prime that starts with the primary event. Runs on
+``--device cuda`` by default; a missing GPU is an error, not a
+fallback.
 """
 
 from __future__ import annotations
@@ -74,21 +81,52 @@ def _dtype(args):
     return None if args.dtype is None else _DTYPES[args.dtype]
 
 
-def prime_tokens(prime: Optional[str], prime_len: int) -> List[int]:
-    """Tokenize a prompt MIDI; default prime = [24, 28, 31]
+# the token schemes the RNN families decode through (the port's codecs)
+RNN_SCHEMES = ("midilike", "midilike_control", "melody")
+
+
+def prime_tokens(prime: Optional[str], prime_len: int,
+                 scheme: str = "midilike") -> List[int]:
+    """Tokenize a prompt MIDI with the scheme's codec (the MIDI-like one,
+    or ``melody``'s note arrays); default prime = [24, 28, 31]
     (MusicTransformer/generate.py:103-110)."""
     if prime is None:
         return [24, 28, 31]
-    from ..tokenizers import midilike
-    arr = midilike.extract_events(prime).to_array()
+    if scheme == "melody":
+        from ..tokenizers import melody
+        arr = melody.midi_to_note_array(prime)
+    else:
+        from ..tokenizers import midilike
+        arr = midilike.extract_events(prime).to_array()
     return [int(t) for t in arr[:prime_len]]
 
 
-def write_midi(tokens: np.ndarray, path: str) -> None:
-    from ..tokenizers import midilike
+def write_midi(tokens: np.ndarray, path: str,
+               scheme: str = "midilike") -> None:
+    """Write tokens through the scheme's codec; ids past its vocabulary
+    (a pad id, say) are dropped first, as the JAX CLI's ``_write_midi``."""
     tokens = np.asarray(tokens)
+    if scheme == "melody":
+        from ..tokenizers import melody
+        melody.note_array_to_midi(tokens[tokens < melody.MELODY_VOCAB], path)
+        return
+    from ..tokenizers import midilike
     tokens = tokens[tokens < midilike.EventSeq.dim()]
     midilike.write_midi(midilike.EventSeq.from_array(tokens), path)
+
+
+def rnn_scheme(model, config) -> str:
+    """The scheme an RNN checkpoint decodes through: the one its
+    ``cli.train`` run recorded, else (an exported ``.pth``) ``melody``
+    for a MelodyRNN and ``midilike`` for the GRU families. A scheme
+    without a codec in the port exits."""
+    scheme = config.get("scheme") or (
+        "melody" if model.family == "melody_rnn" else "midilike")
+    if scheme not in RNN_SCHEMES:
+        raise SystemExit(f"the port decodes the RNN families through "
+                         f"{list(RNN_SCHEMES)}; this run recorded "
+                         f"scheme {scheme!r}")
+    return scheme
 
 
 def bucket_prompt(prompt: np.ndarray, steps: int, max_seq: int,
@@ -108,17 +146,14 @@ def bucket_prompt(prompt: np.ndarray, steps: int, max_seq: int,
 
 def parse_control(spec: str, index: Optional[int], seed: int) -> np.ndarray:
     """``--control`` -> [S, control_dim] (cli/generate.py:139-169 of the
-    JAX CLI): a ``.npz`` shard's per-event control sequence, else
-    'p1,...,p12;density' (an empty histogram is uniform), one control
-    repeated every step."""
+    JAX CLI): the per-event control sequence of a ``midilike_control``
+    corpus directory or ``.npz`` shard, else 'p1,...,p12;density' (an
+    empty histogram is uniform), one control repeated every step."""
     from ..tokenizers.midilike import Control, ControlSeq
 
     if os.path.isdir(spec):
-        raise SystemExit(
-            "--control with a corpus directory needs `cli.tokenize --scheme "
-            "midilike_control`, which comes with a later slice of the port; "
-            "pass one .npz shard of such a corpus, or a "
-            "'PITCH_HISTOGRAM;NOTE_DENSITY' spec")
+        comp = load_corpus_controls(spec, index, seed)
+        return ControlSeq.recover_compressed_array(comp)
     if os.path.isfile(spec):
         comp = load_compressed_controls(spec, index, seed)
         return ControlSeq.recover_compressed_array(comp)
@@ -142,6 +177,33 @@ def parse_control(spec: str, index: Optional[int], seed: int) -> np.ndarray:
     return Control(hist, density).to_array()[None]
 
 
+def load_corpus_controls(path: str, index: Optional[int],
+                         seed: int) -> np.ndarray:
+    """Compressed [S, 13] controls of one sequence of a corpus directory
+    that ``cli.tokenize --scheme midilike_control`` wrote: sequence
+    ``index``, else one drawn by ``RandomState(seed)`` (the JAX CLI's
+    ``_load_compressed_controls``, :172-193). A directory of another
+    scheme exits."""
+    from ..data.pipeline import TokenCorpus
+
+    manifest = os.path.join(path, "manifest.json")
+    scheme = None
+    if os.path.exists(manifest):
+        import json
+        with open(manifest) as f:
+            scheme = json.load(f).get("scheme")
+    if scheme != "midilike_control":
+        raise SystemExit(f"--control {path!r} is not a midilike_control "
+                         f"corpus (its manifest names scheme {scheme!r}); "
+                         "tokenize with --scheme midilike_control")
+    corpus = TokenCorpus(path)
+    if not len(corpus):
+        raise SystemExit(f"no sequences in corpus {path!r}")
+    i = (np.random.RandomState(seed).randint(0, len(corpus))
+         if index is None else index)
+    return np.asarray(corpus.pair(i, "controls"), np.uint8).reshape(-1, 13)
+
+
 def load_compressed_controls(path: str, index: Optional[int],
                              seed: int) -> np.ndarray:
     """Compressed [S, 13] controls of one sequence of a ``.npz`` shard
@@ -163,14 +225,16 @@ def load_compressed_controls(path: str, index: Optional[int],
                           np.uint8).reshape(-1, 13)
 
 
-def rnn_prime(model, prime: Optional[str], prime_len: int) -> List[int]:
-    """The GRU families' prompt: PerformanceRNN starts from its primary
+def rnn_prime(model, prime: Optional[str], prime_len: int,
+              scheme: str = "midilike") -> List[int]:
+    """The RNN families' prompt: PerformanceRNN starts from its primary
     event (reference generate.py:171-175), then the prime's tokens if
-    any; EventMelodyRNN takes the prime (default [24, 28, 31])."""
+    any; EventMelodyRNN and MelodyRNN take the prime (default [24, 28,
+    31]), tokenized with the scheme's codec."""
     if model.family == "performance_rnn":
         return [model.primary_event] + (
-            [] if prime is None else prime_tokens(prime, prime_len))
-    return prime_tokens(prime, prime_len)
+            [] if prime is None else prime_tokens(prime, prime_len, scheme))
+    return prime_tokens(prime, prime_len, scheme)
 
 
 def melody_compound_from_midi(prime: str, max_bars: int, max_bar_len: int):
@@ -282,10 +346,11 @@ def main(argv=None) -> int:
                    help="PerformanceRNN conditioning: "
                         "'PITCH_HISTOGRAM;NOTE_DENSITY' like "
                         "'2,0,1,1,0,1,0,1,1,0,0,1;4' or ';3' (uniform "
-                        "pitches), or a midilike_control .npz shard")
+                        "pitches), or a midilike_control corpus directory "
+                        "or .npz shard")
     p.add_argument("--control-index", type=int, default=None,
-                   help="sequence index inside a --control shard "
-                        "(default: random)")
+                   help="sequence index inside a --control corpus or shard "
+                        "(default: drawn from --seed)")
     p.add_argument("--init-zero", action="store_true",
                    help="PerformanceRNN: zero latent instead of N(0, 1)")
     p.add_argument("--spec", default=None, metavar="lookup|DRAFT",
@@ -328,7 +393,7 @@ def main(argv=None) -> int:
         if args.beam > 1:
             raise SystemExit("--spec is mutually exclusive with --beam")
     if model.family != "music_transformer":
-        return _generate_rnn(model, args)
+        return _generate_rnn(model, args, rnn_scheme(model, config))
     if args.beam > 1 or args.control is not None:
         raise SystemExit("--beam and --control are for the GRU families "
                          "(event_rnn / performance_rnn)")
@@ -343,22 +408,26 @@ def _sampling(args):
                           greedy=(args.temperature == 0.0))
 
 
-def _write_outputs(outs, prime, args) -> None:
+def _write_outputs(outs, prime, args, scheme: str = "midilike") -> None:
     nb = len(outs)
     stem, ext = os.path.splitext(args.output)
     for i, row in enumerate(outs):
         tokens = (np.concatenate([np.asarray(prime, np.int64), row])
                   if args.include_prime else row)
         path = args.output if nb == 1 else f"{stem}-{i:03d}{ext or '.mid'}"
-        write_midi(tokens, path)
+        write_midi(tokens, path, scheme)
         print(f"wrote {path} ({len(tokens)} tokens)")
 
 
-def _generate_rnn(model, args) -> int:
-    """EventMelodyRNN / PerformanceRNN: sampled or greedy generation
-    through ``decode.generate``, or (stochastic) beam search."""
+def _generate_rnn(model, args, scheme: str) -> int:
+    """EventMelodyRNN / PerformanceRNN / MelodyRNN: sampled or greedy
+    generation through ``decode.generate``, or (stochastic) beam search
+    for the GRU families."""
     from ..decode import DecodeParams, generate
 
+    if model.family == "melody_rnn" and args.beam > 1:
+        raise SystemExit("--beam is for the GRU families (event_rnn / "
+                         "performance_rnn), as in the JAX CLI")
     controls = cache0 = None
     if args.control is not None:
         if model.family != "performance_rnn":
@@ -389,7 +458,7 @@ def _generate_rnn(model, args) -> int:
                             generator=torch.Generator().manual_seed(
                                 args.seed + 7)))
         cache0 = model.init_cache(nb, init=init)
-    prime = rnn_prime(model, args.prime, args.prime_len)
+    prime = rnn_prime(model, args.prime, args.prime_len, scheme)
     prompt = torch.tensor([prime] * nb, dtype=torch.long,
                           device=model.device)
     if controls is not None:
@@ -406,7 +475,7 @@ def _generate_rnn(model, args) -> int:
                           sampling=_sampling(args))
         outs = generate(model, prompt, gen, dp, controls=controls,
                         cache0=cache0)
-    _write_outputs(outs.cpu().numpy(), prime, args)
+    _write_outputs(outs.cpu().numpy(), prime, args, scheme)
     return 0
 
 

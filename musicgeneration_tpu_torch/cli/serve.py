@@ -19,10 +19,13 @@ read off the state dict. A MusicTransformer serves through the KV-cache
 engine (decode/serving.py), where {"window": 256} asks for
 sliding-context decoding: max_new is then not bounded by the serve
 window — the slot re-primes from its last `window` tokens whenever the
-context would exceed 2*window, as generate_sliding does. EventMelodyRNN
-and PerformanceRNN serve through the hidden-state engine
+context would exceed 2*window, as generate_sliding does. EventMelodyRNN,
+PerformanceRNN and MelodyRNN serve through the hidden-state engine
 (decode/serving_rnn.py), whose slots hold O(1) state and take any
-max_new (`window` is refused); their requests may also carry
+max_new (`window` is refused; a MelodyRNN slot also holds its attention
+window and its own count of it); `prime` goes through the codec of the
+scheme a `cli.train` run recorded (MelodyRNN: note arrays, written back
+with `note_array_to_midi`). The GRU families' requests may also carry
     {"init_seed": 3}          — an N(0, 1) latent from that seed, or
     {"init": [..init_dim..]}  — an explicit latent (default: zeros),
     {"control": [..C..] | [[..C..], ...]}
@@ -105,19 +108,18 @@ def _dtype(args):
     an exported .pth)."""
     return None if args.dtype is None else _DTYPES[args.dtype]
 _SAMP_FIELDS = ("temperature", "top_k", "top_p", "greedy")
+RNN_FAMILIES = ("event_rnn", "performance_rnn", "melody_rnn")
 
 
 def _load_model(args):
-    """(model, recorded config) of the checkpoint; a family the port does
-    not run yet exits."""
+    """(model, recorded config) of the checkpoint; a state dict of no
+    family the port runs exits."""
     from ..convert import load_checkpoint
     try:
         return load_checkpoint(args.checkpoint, device=args.device,
                                dtype=_dtype(args), with_config=True)
     except (KeyError, ValueError) as e:
-        raise SystemExit(
-            f"{args.checkpoint}: {e}; the other family (MelodyRNN) comes "
-            "with a later slice of the port") from None
+        raise SystemExit(f"{args.checkpoint}: {e}") from None
 
 
 def main(argv=None) -> int:
@@ -141,7 +143,7 @@ def main(argv=None) -> int:
                    help="fuse up to this many segments into one dispatch "
                         "when the queue is empty and every active "
                         "request has that much left (1 disables); "
-                        "default 8 for the GRU families, 4 for PoPMAG, 1 "
+                        "default 8 for the RNN families, 4 for PoPMAG, 1 "
                         "for the MusicTransformer")
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--topk", type=int, default=0)
@@ -167,11 +169,11 @@ def main(argv=None) -> int:
     from ..decode.serving_rnn import RNNContinuousBatcher
     from ..tokenizers import cp as cp_codec
     from .generate import (melody_compound_from_midi, popmag_limits,
-                           prime_tokens, rnn_prime, write_midi)
+                           prime_tokens, rnn_prime, rnn_scheme, write_midi)
 
     model, config = _load_model(args)
     is_cp = model.family == "cp_transformer"
-    is_rnn = model.family in ("event_rnn", "performance_rnn")
+    is_rnn = model.family in RNN_FAMILIES
     is_popmag = model.family == "popmag"
     if is_popmag:
         from ..decode.serving_popmag import PopMAGContinuousBatcher
@@ -196,8 +198,13 @@ def main(argv=None) -> int:
         print(f"loaded CPTransformer ({model.num_layers} layers, d_model "
               f"{model.d_model}, max_seq {model.max_seq}) on {model.device}")
     elif is_rnn:
-        print(f"loaded {model.family} ({model.num_layers} GRU layers, hidden "
-              f"{model.hidden_dim}, event_dim {model.event_dim}) on "
+        scheme = rnn_scheme(model, config)
+
+        def write_midi(toks, path, _write=write_midi):
+            _write(toks, path, scheme)
+        cell = "LSTM" if model.family == "melody_rnn" else "GRU"
+        print(f"loaded {model.family} ({model.num_layers} {cell} layers, "
+              f"hidden {model.hidden_dim}; scheme {scheme}) on "
               f"{model.device}")
     else:
         print(f"loaded MusicTransformer ({model.num_layers} layers, d_model "
@@ -224,7 +231,8 @@ def main(argv=None) -> int:
                             :req.get("prime_len", 500)], np.int32))
         elif is_rnn:
             toks = np.asarray(rnn_prime(model, req.get("prime"),
-                                        req.get("prime_len", 500)), np.int32)
+                                        req.get("prime_len", 500), scheme),
+                              np.int32)
         else:
             toks = np.asarray(prime_tokens(req.get("prime"),
                                            req.get("prime_len", 500)),
@@ -245,11 +253,15 @@ def main(argv=None) -> int:
         if "window" in req:
             if is_rnn:
                 raise ValueError(
-                    "window= is a KV-cache sliding-context option; GRU "
+                    "window= is a KV-cache sliding-context option; RNN "
                     "slots hold O(1) state and serve any max_new — drop "
                     "the field")
             extra["window"] = int(req["window"])
         if is_rnn:
+            if ("init" in req or "init_seed" in req) and not hasattr(
+                    model, "init_dim"):
+                raise ValueError(f"{model.family} has no init latent; drop "
+                                 "'init'/'init_seed'")
             if "init" in req:
                 extra["init"] = np.asarray(req["init"], np.float32)
             elif "init_seed" in req:

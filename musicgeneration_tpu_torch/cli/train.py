@@ -1,40 +1,70 @@
-"""Train the MusicTransformer, the CP transformer or PoPMAG on a tokenized
-corpus.
+"""Train any family the port runs on a tokenized corpus.
 
     python -m musicgeneration_tpu_torch.cli.train <shard_dir> \\
-        steps=2000 ckpt_dir=runs/mt model.dtype=bfloat16 [--device cuda]
+        model=music_transformer steps=2000 ckpt_dir=runs/mt \\
+        model.dtype=bfloat16 [--device cuda]
 
-The port of ``musicgeneration_tpu.cli.train`` for ``model=
-music_transformer`` on a MIDI-like corpus and ``model=cp_transformer``
-on a ``cp`` corpus (``cli.tokenize --scheme cp``), in the crop mode:
-``slide_seq2seq`` crops of tokens, or random crops of seq_len + 1
-compound rows (the model's max_seq is seq_len) trained with the weighted
-mean cross-entropy of the 8 field heads (``cp_head_weights``, normalised
-to mean 1; no label smoothing), as the JAX CLI; and ``model=popmag`` on
-a ``mumidi`` corpus (``cli.tokenize --scheme mumidi``): melody/
-arrangement pairs cut at ``max_bars`` and at the first bar longer than
-``max_bar_len`` (the arrangement's ``max_bar_len - 1``), packed by
-``data/mumidi_packing.pack_batch`` to [B, max_bars, max_bar_len, 7] and
-trained with the masked 3-head cross-entropy (``popmag_masked_loss``)
-from a normal latent drawn per micro-batch from the step's generator,
-with Adam at a fixed 1e-3 unless ``peak_lr`` says otherwise, f32 unless
-``model.dtype=bfloat16``. Dotted
-overrides (bare keys set ``TrainCLIConfig``, ``model.<field>`` the model
-constructor), the counter-indexed batch stream (step s consumes batch s,
-so a resumed run replays the uninterrupted run's batches), auto-resume
-from ``ckpt_dir`` with a warning when the seed changed, label-smoothed CE,
-Noam warmup and Adam (train/trainer.py). The training model masks
-causally only (``pad_in_input=False``): crops hold no pad id. Runs on
-``--device cuda`` unless told otherwise; a missing GPU is an error.
+The port of ``musicgeneration_tpu.cli.train``. Each family trains on the
+corpus ``cli.tokenize`` wrote for it:
+
+* ``model=music_transformer`` on a MIDI-like corpus: ``slide_seq2seq``
+  crops, label-smoothed CE, Noam warmup (causal masking only,
+  ``pad_in_input=False``: crops hold no pad id);
+* ``model=cp_transformer`` on a ``cp`` corpus: random crops of seq_len +
+  1 compound rows (max_seq = seq_len), the weighted mean CE of the 8
+  field heads (``cp_head_weights``, normalised to mean 1);
+* ``model=popmag`` on a ``mumidi`` corpus: melody/arrangement pairs cut
+  at ``max_bars`` and at the first bar longer than ``max_bar_len`` (the
+  arrangement's ``max_bar_len - 1``), packed to [B, max_bars,
+  max_bar_len, 7], the masked 3-head CE (``popmag_masked_loss``);
+* ``model=event_rnn`` and ``model=performance_rnn`` (event_dim = the
+  codec's vocabulary) on a ``midilike`` (or ``melody``) corpus, the
+  target the whole input: row t predicts token t from the primary event
+  and tokens [:t] (reference Event_MelodyRNN/train.py:340); and
+  ``model=performance_rnn`` on a ``midilike_control`` corpus, random
+  crops of aligned tokens and per-event controls (24 wide, recovered
+  from the stored 13 bytes);
+* ``model=melody_rnn`` on a ``melody`` corpus (note arrays, vocabulary
+  130; ``model.attn_length=40`` for the attention variant): crops, CE on
+  the shifted tokens.
+
+The RNN families train with plain CE and Adam at a fixed 1e-3 unless
+``peak_lr`` says otherwise, f32 unless ``model.dtype=bfloat16``, the GRU
+families from a normal latent [B, init_dim] drawn per micro-batch from
+the step's generator (the dropout masks follow from it).
+
+``train_mode`` (JAX ``cli/train.py:36-50``): ``crop`` (the default);
+``segment`` (windows of the shortest file's length, capped at seq_len +
+1, stride a third of it, shuffled per epoch; reference Event_MelodyRNN
+train.py:311-325); ``window`` (``window_size``/``stride_size`` windows,
+the loss on the whole window; with ``teacher_forcing_ratio`` < 1,
+scheduled sampling: one Bernoulli draw a step, shared by the batch,
+feeds the ground truth or the model's own argmax); ``sequence`` (whole
+files, length-sorted and padded to ``seq_pad_to``, default the longest
+file, the masked CE over positions 1 <= t < len; EventMelodyRNN only).
+``window`` and ``sequence`` are for the unconditioned GRU families;
+the CP transformer, PoPMAG and conditioned PerformanceRNN keep their
+own streams in any mode. Every stream is a pure function of (seed,
+batch index) and equals the JAX CLI's bit for bit, across epochs too.
+
+Dotted overrides (bare keys set ``TrainCLIConfig``, ``model.<field>``
+the model constructor), the counter-indexed batch stream (step s
+consumes batch s, so a resumed run replays the uninterrupted run's
+batches), auto-resume from ``ckpt_dir`` with a warning when the seed
+changed, Adam and the optax clip (train/trainer.py). Runs on ``--device
+cuda`` unless told otherwise; a missing GPU is an error.
 
 Checkpoints (``ckpt_dir/step-<N>.pt``, utils/checkpoint.py) carry the
-model under the reference names; ``cli.generate`` reads the directory.
+model under the reference names (MelodyRNN: ``models/melody_rnn.py``)
+and the run's config, its ``scheme`` and ``model_kwargs`` among it;
+``cli.generate`` and ``cli.serve`` read the directory.
 
-Sequence parallelism: ``sp=N`` cuts every crop into N sequence shards,
-one per process, and runs attention as the ring (``attention_impl=
-"ring"``, ``parallel/``). Start one process per GPU with ``torchrun``:
+Sequence parallelism (the MusicTransformer in crop mode): ``sp=N`` cuts
+every crop into N sequence shards, one per process, and runs attention
+as the ring (``attention_impl="ring"``, ``parallel/``). Start one
+process per GPU with ``torchrun``:
 
-    torchrun --nproc-per-node 4 -m musicgeneration_tpu_torch.cli.train \
+    torchrun --nproc-per-node 4 -m musicgeneration_tpu_torch.cli.train \\
         <shard_dir> sp=4 ...
 
 which sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
@@ -74,7 +104,16 @@ _MODEL_KEYS = {
                        "dropout_rate", "decode_quant"),
     "popmag": ("event_dim", "bar_dim", "init_dim", "embed_dim",
                "hidden_dim", "num_layers", "dropout_rate", "dtype"),
+    "event_rnn": ("event_dim", "init_dim", "hidden_dim", "num_layers",
+                  "dropout_rate", "dtype"),
+    "performance_rnn": ("event_dim", "control_dim", "init_dim",
+                        "hidden_dim", "num_layers", "dropout_rate",
+                        "dtype"),
+    "melody_rnn": ("vocab_size", "embed_size", "hidden_dim", "num_layers",
+                   "dropout_rate", "attn_length", "dtype"),
 }
+_GRU_FAMILIES = ("event_rnn", "performance_rnn")
+TRAIN_MODES = ("crop", "segment", "window", "sequence")
 
 
 @dataclasses.dataclass
@@ -83,11 +122,18 @@ class TrainCLIConfig(Config):
     steps: int = 1000
     batch_size: int = 8
     seq_len: int = 512            # LM crop length (reference max_seq)
-    train_mode: str = "crop"      # crop (slide_seq2seq) only, for now
+    train_mode: str = "crop"      # crop | segment | window | sequence
+    window_size: int = 200        # window mode (Event_MelodyRNN/config.py:20)
+    stride_size: int = 10
+    # window-mode scheduled sampling: the probability that a step's next
+    # input is the ground truth rather than the model's own argmax; 1.0
+    # (the reference's config, config.py:22) is pure teacher forcing
+    teacher_forcing_ratio: float = 1.0
+    seq_pad_to: Optional[int] = None  # sequence mode (default: longest)
     accum_steps: int = 1
     label_smoothing: float = 0.1
     warmup_steps: int = 4000
-    peak_lr: Optional[float] = None   # fixed LR instead of Noam
+    peak_lr: Optional[float] = None   # fixed LR (RNN families: 1e-3)
     max_grad_norm: float = 1.0
     seed: int = 42
     ckpt_dir: Optional[str] = None
@@ -110,11 +156,22 @@ class TrainCLIConfig(Config):
     max_bar_len: int = 96
 
 
-def _default_vocab(scheme: str) -> int:
-    """event_dim + 1 pad (reference MusicTransformer/config.py:11-16)."""
-    if scheme != "midilike":
+def _default_vocab(scheme: str, model: str) -> int:
+    """The vocabulary the JAX CLI derives from the scheme (reference
+    MusicTransformer/config.py:11-16: the codec's dim + 1 pad for the
+    MIDI-like schemes; the 130 note-array ids for ``melody``). The port
+    trains the MusicTransformer on ``midilike`` corpora only, the GRU
+    families on the MIDI-like ones and ``melody``."""
+    if model == "music_transformer" and scheme != "midilike":
         raise SystemExit(f"model=music_transformer trains on a 'midilike' "
                          f"corpus; this one is {scheme!r}")
+    if scheme == "melody":
+        from ..tokenizers.melody import MELODY_VOCAB
+        return MELODY_VOCAB
+    if scheme not in ("midilike", "midilike_control"):
+        raise SystemExit(f"model={model} trains on a 'midilike', "
+                         f"'midilike_control' or 'melody' corpus in the port; "
+                         f"this one is {scheme!r}")
     from ..tokenizers.midilike import EventSeq
     return EventSeq.dim() + 1
 
@@ -145,6 +202,140 @@ def _lm_batch_fn(corpus, cfg: TrainCLIConfig):
     def batch_at(idx: int):
         return slide_seq2seq_batch(seqs, b, cfg.seq_len,
                                    _batch_rng(cfg.seed, idx))
+
+    return batch_at
+
+
+def _segment_batch_fn(corpus, cfg: TrainCLIConfig):
+    """Segment mode (reference Event_MelodyRNN train.py:311-325): window
+    = the shortest sequence's length, capped at seq_len + 1, stride
+    window // 3, the whole (file, start) list shuffled per epoch. Batch
+    idx maps to (epoch, position); the epoch's permutation comes from
+    (seed, epoch), so a resumed run lands mid-epoch on the window the
+    uninterrupted run would see. Returns (x, y): the windows' [:-1] and
+    [1:]."""
+    from ..data.batching import gather_windows, window_indices
+
+    seqs = [np.asarray(corpus[i]) for i in range(len(corpus))]
+    lens = [len(s) for s in seqs]
+    window = min(min(lens), cfg.seq_len + 1)
+    stride = max(window // 3, 1)
+    indices = window_indices(lens, window, stride)
+    b = cfg.batch_size * cfg.accum_steps
+    if len(indices) < b:
+        raise ValueError(
+            f"segment mode: only {len(indices)} windows (window={window}, "
+            f"stride={stride}) for batch {b}: corpus too small (the "
+            "reference's indexing yields no window for the shortest file, "
+            "data.py:77's exclusive stop)")
+    # batches per epoch, as range(0, len(order) - b + 1, b)
+    per_epoch = (len(indices) - b) // b + 1
+
+    def batch_at(idx: int):
+        epoch, pos = divmod(idx, per_epoch)
+        order = _batch_rng(cfg.seed, epoch, tag=1).permutation(len(indices))
+        sel = indices[order[pos * b:pos * b + b]]
+        batch = gather_windows(seqs, sel, window,
+                               time_major=False).astype(np.int32)
+        return batch[:, :-1], batch[:, 1:]
+
+    return batch_at
+
+
+def _window_batch_fn(corpus, cfg: TrainCLIConfig):
+    """Window mode (reference Event_MelodyRNN train.py:209-218): fixed
+    ``window_size``/``stride_size`` windows over every file, shuffled per
+    epoch, the last partial batch dropped. Returns (x, y), both the
+    whole window: the model drops the last input itself and the loss
+    covers the window (train.py:233)."""
+    from ..data.batching import gather_windows, window_indices
+
+    seqs = [np.asarray(corpus[i]) for i in range(len(corpus))]
+    w = cfg.window_size
+    indices = window_indices([len(s) for s in seqs], w, cfg.stride_size)
+    b = cfg.batch_size * cfg.accum_steps
+    if len(indices) < b:
+        raise ValueError(
+            f"window mode: only {len(indices)} windows (window_size={w}, "
+            f"stride_size={cfg.stride_size}) for batch {b}: corpus too "
+            "small (data.py:77's exclusive stop drops exactly fitting "
+            "tails)")
+    per_epoch = (len(indices) - b) // b + 1
+
+    def batch_at(idx: int):
+        epoch, pos = divmod(idx, per_epoch)
+        order = _batch_rng(cfg.seed, epoch, tag=1).permutation(len(indices))
+        sel = indices[order[pos * b:pos * b + b]]
+        batch = gather_windows(seqs, sel, w, time_major=False).astype(
+            np.int32)
+        return batch, batch
+
+    return batch_at
+
+
+def _sequence_batch_fn(corpus, cfg: TrainCLIConfig):
+    """Sequence mode (reference Event_MelodyRNN train.py:263-272): whole
+    sequences, shuffled per epoch, the last partial batch dropped, each
+    batch sorted by length, descending, and zero-padded to one length
+    (``seq_pad_to``, default the longest sequence: SeqBatchify,
+    data.py:23-36). Returns ({"tokens" [B, pad], "lengths" [B]}, a dummy
+    [B] target)."""
+    from ..data.batching import pad_and_batch_sequences
+
+    seqs = [np.asarray(corpus[i]) for i in range(len(corpus))]
+    max_len = max(len(s) for s in seqs)
+    pad_to = cfg.seq_pad_to or max_len
+    if max_len > pad_to:
+        raise ValueError(
+            f"sequence mode: longest corpus sequence ({max_len}) exceeds "
+            f"seq_pad_to={pad_to}; raise it (cutting whole sequences would "
+            "change the reference semantics)")
+    b = cfg.batch_size * cfg.accum_steps
+    if len(seqs) < b:
+        raise ValueError(f"sequence mode: {len(seqs)} sequences < batch {b} "
+                         "(no batch once the last partial one is dropped)")
+    per_epoch = len(seqs) // b
+
+    def batch_at(idx: int):
+        epoch, pos = divmod(idx, per_epoch)
+        order = _batch_rng(cfg.seed, epoch, tag=2).permutation(len(seqs))
+        pick = order[pos * b:pos * b + b]
+        sb = pad_and_batch_sequences([seqs[i] for i in pick], pad_to=pad_to)
+        return ({"tokens": sb.tokens, "lengths": sb.lengths},
+                np.zeros((b,), np.int32))
+
+    return batch_at
+
+
+def _control_batch_fn(corpus, cfg: TrainCLIConfig):
+    """Aligned random crops of tokens and controls for PerformanceRNN on
+    a ``midilike_control`` corpus (the JAX CLI's ``_control_batch_fn``).
+    Returns ({"tokens" [B, L], "controls" [B, L, 24] f32}, tokens): the
+    target is the crop itself."""
+    from ..tokenizers.midilike import ControlSeq
+
+    pairs = []
+    for i in range(len(corpus)):
+        toks = np.asarray(corpus[i])
+        ctrl = np.asarray(corpus.pair(i, "controls"), np.uint8).reshape(-1,
+                                                                         13)
+        if len(toks) > cfg.seq_len:
+            pairs.append((toks, ctrl))
+    if not pairs:
+        raise ValueError(f"no sequence longer than {cfg.seq_len}")
+    b = cfg.batch_size * cfg.accum_steps
+
+    def batch_at(idx: int):
+        rng = _batch_rng(cfg.seed, idx)
+        xs = np.zeros((b, cfg.seq_len), np.int32)
+        cs = np.zeros((b, cfg.seq_len, ControlSeq.dim()), np.float32)
+        for row in range(b):
+            toks, ctrl = pairs[rng.randint(0, len(pairs))]
+            start = rng.randint(0, len(toks) - cfg.seq_len)
+            xs[row] = toks[start:start + cfg.seq_len]
+            cs[row] = ControlSeq.recover_compressed_array(
+                ctrl[start:start + cfg.seq_len])
+        return {"tokens": xs, "controls": cs}, xs
 
     return batch_at
 
@@ -259,12 +450,122 @@ def cp_loss_fn(head_weights: Optional[tuple], n_heads: int):
     return loss_fn
 
 
+def gru_objective(model, tokens, init, controls=None,
+                  deterministic: bool = True, generator=None):
+    """The GRU families' teacher-forced loss on a [B, L] batch (the JAX
+    CLI's ``apply_fn`` and default objective): logits row t predicts
+    tokens[t] from the primary event and tokens[:t] (EventMelodyRNN's
+    extra last row dropped), plain mean CE over every token. controls:
+    PerformanceRNN's [B, L, C] or None. Returns (loss, accuracy)."""
+    from ..train.objective import smooth_cross_entropy, token_accuracy
+
+    args = (init, tokens.T) if controls is None else (
+        init, tokens.T, controls.transpose(0, 1))
+    logits = model(*args, deterministic=deterministic, generator=generator)
+    if logits.shape[0] == tokens.shape[1] + 1:
+        logits = logits[:-1]
+    logits = logits.transpose(0, 1)
+    return (smooth_cross_entropy(logits, tokens, model.event_dim, 0.0),
+            token_accuracy(logits, tokens))
+
+
+def sequence_objective(model, tokens, lengths, init,
+                       deterministic: bool = True, generator=None):
+    """Sequence mode's loss (the JAX CLI's ``seq_loss_fn``; reference
+    Event_MelodyRNN/train.py:285-295): the padded batch through the
+    packed-sequence forward, mean CE over the positions 1 <= t <
+    lengths[b] (the labels are each sequence's tokens[1:len]), and the
+    accuracy over the same positions. Returns (loss, accuracy)."""
+    logits = model(init, tokens.T, lengths=lengths,
+                   deterministic=deterministic, generator=generator)
+    logits = logits[:-1].transpose(0, 1).float()            # [B, L, V]
+    t_pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    mask = ((t_pos >= 1) & (t_pos < lengths[:, None])).float()
+    tok_lp = torch.gather(torch.log_softmax(logits, dim=-1), -1,
+                          tokens.long()[..., None])[..., 0]
+    n = mask.sum().clamp_min(1.0)
+    acc = ((logits.argmax(-1) == tokens).float() * mask).sum() / n
+    return -(tok_lp * mask).sum() / n, acc
+
+
+def scheduled_objective(model, tokens, init, draws,
+                        deterministic: bool = True, generator=None):
+    """Window mode's scheduled-sampling loss (the JAX CLI's
+    ``sched_loss_fn``): ``scheduled_sampling_logits`` over the [B, W]
+    window with the step draws [W - 1], mean CE over the window. Returns
+    (loss, accuracy)."""
+    from ..models.event_rnn import scheduled_sampling_logits
+    from ..train.objective import smooth_cross_entropy, token_accuracy
+
+    logits = scheduled_sampling_logits(
+        model, init, tokens.T, draws, deterministic=deterministic,
+        generator=generator).transpose(0, 1)
+    return (smooth_cross_entropy(logits, tokens, model.event_dim, 0.0),
+            token_accuracy(logits, tokens))
+
+
+def gru_loss_fn(cfg: TrainCLIConfig, init_dim: int):
+    """``loss_fn(model, x, y, generator)`` of a GRU family for
+    ``make_train_step``: a normal latent [B, init_dim] drawn from the
+    micro-batch's generator (the reference draws a fresh latent a batch,
+    Event_MelodyRNN/train.py:334), then, in window mode below a
+    teacher-forcing ratio of 1, one Bernoulli draw a step shared by the
+    batch; dropout masks from the same generator. The target is the
+    input itself (y is ignored)."""
+    ratio = float(cfg.teacher_forcing_ratio)
+
+    def latent(tokens, generator):
+        return torch.randn(tokens.shape[0], init_dim, generator=generator,
+                           device=tokens.device)
+
+    if cfg.train_mode == "sequence":
+        def loss_fn(model, x, y, generator):
+            tokens = x["tokens"]
+            return sequence_objective(model, tokens, x["lengths"],
+                                      latent(tokens, generator),
+                                      deterministic=False,
+                                      generator=generator)
+    elif cfg.train_mode == "window" and ratio < 1.0:
+        def loss_fn(model, x, y, generator):
+            init = latent(x, generator)
+            draws = torch.rand(x.shape[1] - 1, generator=generator,
+                               device=x.device) < ratio
+            return scheduled_objective(model, x, init, draws,
+                                       deterministic=False,
+                                       generator=generator)
+    else:
+        def loss_fn(model, x, y, generator):
+            tokens, controls = ((x["tokens"], x["controls"])
+                                if isinstance(x, dict) else (x, None))
+            return gru_objective(model, tokens, latent(tokens, generator),
+                                 controls, deterministic=False,
+                                 generator=generator)
+    return loss_fn
+
+
+def melody_loss_fn(tcfg):
+    """MelodyRNN's ``loss_fn`` (the JAX CLI's time-major ``apply_fn`` and
+    default objective): logits of the [B, L] input, plain mean CE on the
+    shifted target y."""
+    from ..train.objective import smooth_cross_entropy, token_accuracy
+
+    def loss_fn(model, x, y, generator):
+        logits = model(x.T, deterministic=False,
+                       generator=generator).transpose(0, 1)
+        return (smooth_cross_entropy(logits, y, tcfg.vocab_size,
+                                     tcfg.label_smoothing, tcfg.pad_id),
+                token_accuracy(logits, y, tcfg.pad_id))
+
+    return loss_fn
+
+
 def build_model(cfg: TrainCLIConfig, scheme: str,
                 model_kwargs: Dict[str, Any], device, mesh=None):
     """(model, trainer config, loss_fn or None for the default objective)
     for ``cfg``; the model's initial weights come from a CPU generator
     seeded with ``cfg.seed``. With a ``mesh`` attention runs as the ring
-    over it. The family comes from the model registry."""
+    over it. The family comes from the model registry; a train mode a
+    family does not take exits, as in the JAX CLI (:556-560, :797-806)."""
     from ..models.registry import get_model
     from ..train.trainer import TrainerConfig
 
@@ -273,11 +574,25 @@ def build_model(cfg: TrainCLIConfig, scheme: str,
             get_model(cfg.model)
         except KeyError as e:
             raise SystemExit(str(e)) from None
-        raise SystemExit(f"the port trains model=music_transformer, "
-                         f"cp_transformer or popmag; {cfg.model} is not "
-                         "ported to cli.train yet")
-    if cfg.train_mode != "crop":
-        raise SystemExit("the port trains train_mode=crop only")
+        raise SystemExit(f"the port trains model={', '.join(_MODEL_KEYS)}; "
+                         f"{cfg.model} is not ported to cli.train yet")
+    if cfg.train_mode not in TRAIN_MODES:
+        raise SystemExit(f"unknown train_mode={cfg.train_mode!r}; one of "
+                         f"{list(TRAIN_MODES)}")
+    if cfg.train_mode == "sequence" and cfg.model != "event_rnn":
+        raise SystemExit("train_mode=sequence is the reference "
+                         "Event_MelodyRNN path (train.py:263-309): use "
+                         "model=event_rnn")
+    if cfg.train_mode in ("window", "sequence") and (
+            cfg.model not in _GRU_FAMILIES or scheme == "midilike_control"):
+        raise SystemExit(
+            f"train_mode={cfg.train_mode} is wired for the plain RNN "
+            "families (model=event_rnn|performance_rnn on an unconditioned "
+            "scheme)")
+    if mesh is not None and (cfg.model != "music_transformer"
+                             or cfg.train_mode != "crop"):
+        raise SystemExit("sp > 1 is wired for model=music_transformer in "
+                         "train_mode=crop only")
     cls, defaults = get_model(cfg.model)
     kw = dict(model_kwargs)  # never mutate the caller's dict
     unknown = sorted(set(kw) - set(_MODEL_KEYS[cfg.model]))
@@ -293,9 +608,6 @@ def build_model(cfg: TrainCLIConfig, scheme: str,
             raise SystemExit(f"model=popmag trains on a 'mumidi' corpus "
                              f"(cli.tokenize --scheme mumidi); this one is "
                              f"{scheme!r}")
-        if mesh is not None:
-            raise SystemExit("sp > 1 is wired for model=music_transformer "
-                             "only")
         model = cls(**kw, device=device, generator=gen)
         tcfg = TrainerConfig(
             vocab_size=0, accum_steps=cfg.accum_steps,
@@ -306,9 +618,6 @@ def build_model(cfg: TrainCLIConfig, scheme: str,
             raise SystemExit(f"model=cp_transformer trains on a 'cp' corpus "
                              f"(cli.tokenize --scheme cp); this one is "
                              f"{scheme!r}")
-        if mesh is not None:
-            raise SystemExit("sp > 1 is wired for model=music_transformer "
-                             "only")
         model = cls(**{**defaults(max_seq=cfg.seq_len), **kw},
                     device=device, generator=gen)
         tcfg = TrainerConfig(
@@ -317,7 +626,27 @@ def build_model(cfg: TrainCLIConfig, scheme: str,
             max_grad_norm=cfg.max_grad_norm, peak_lr=cfg.peak_lr)
         return model, tcfg, cp_loss_fn(cfg.cp_head_weights,
                                        len(model.field_dims))
-    vocab = kw.pop("vocab_size", _default_vocab(scheme))
+    if cfg.model == "melody_rnn":
+        if scheme != "melody":
+            raise SystemExit(f"model=melody_rnn trains on a 'melody' corpus "
+                             f"(cli.tokenize --scheme melody); this one is "
+                             f"{scheme!r}")
+        vocab = kw.pop("vocab_size", _default_vocab(scheme, cfg.model))
+        model = cls(vocab_size=vocab, **kw, device=device, generator=gen)
+        tcfg = TrainerConfig(
+            vocab_size=vocab, pad_id=None, label_smoothing=0.0,
+            accum_steps=cfg.accum_steps, max_grad_norm=cfg.max_grad_norm,
+            peak_lr=cfg.peak_lr or 1e-3)
+        return model, tcfg, melody_loss_fn(tcfg)
+    if cfg.model in _GRU_FAMILIES:
+        vocab = kw.pop("event_dim", _default_vocab(scheme, cfg.model) - 1)
+        model = cls(event_dim=vocab, **kw, device=device, generator=gen)
+        tcfg = TrainerConfig(
+            vocab_size=vocab, pad_id=None, label_smoothing=0.0,
+            accum_steps=cfg.accum_steps, max_grad_norm=cfg.max_grad_norm,
+            peak_lr=cfg.peak_lr or 1e-3)
+        return model, tcfg, gru_loss_fn(cfg, model.init_dim)
+    vocab = kw.pop("vocab_size", _default_vocab(scheme, cfg.model))
     if mesh is not None:  # not recorded in the checkpoint's model_kwargs
         kw.update(attention_impl="ring", mesh=mesh)
     # crops are dense windows: the training model skips pad masking
@@ -410,6 +739,49 @@ def main(argv=None) -> int:
             dist.destroy_process_group()
 
 
+def _limlen(cfg: TrainCLIConfig) -> int:
+    """The shortest sequence the corpus keeps, per family and mode (the
+    JAX CLI's, :757-770)."""
+    if cfg.model == "popmag":
+        return 0
+    if cfg.model == "cp_transformer":
+        # the shards store flattened [T, 8] rows: limlen counts flat tokens
+        return (cfg.seq_len + 1) * 8
+    if cfg.train_mode in ("segment", "sequence"):
+        # segment windows shrink to the shortest file; sequence mode
+        # takes any file with a label token
+        return 2
+    if cfg.train_mode == "window":
+        return cfg.window_size + 1   # at least one strided window
+    return cfg.seq_len + 1
+
+
+def _batch_fn(corpus, cfg: TrainCLIConfig, scheme: str):
+    """The batch stream of the family and mode (the JAX CLI's
+    dispatch, :808-818): the CP transformer, PoPMAG and a conditioned
+    PerformanceRNN keep their own streams in any mode."""
+    if cfg.model == "popmag":
+        return _popmag_batch_fn(corpus, cfg)
+    if cfg.model == "cp_transformer":
+        return _cp_batch_fn(corpus, cfg)
+    if cfg.model == "performance_rnn" and scheme == "midilike_control":
+        return _control_batch_fn(corpus, cfg)
+    return {"segment": _segment_batch_fn, "window": _window_batch_fn,
+            "sequence": _sequence_batch_fn}.get(
+                cfg.train_mode, _lm_batch_fn)(corpus, cfg)
+
+
+def _tokens_per_batch(corpus, cfg: TrainCLIConfig) -> int:
+    """Tokens a step trains on, for the step lines' rate (window mode:
+    the window; sequence mode: the corpus's mean length)."""
+    b = cfg.batch_size * cfg.accum_steps
+    if cfg.train_mode == "window":
+        return b * cfg.window_size
+    if cfg.train_mode == "sequence":
+        return int(np.mean(corpus.lengths()) * b)
+    return b * cfg.seq_len
+
+
 def _train(args, cfg: TrainCLIConfig, model_kwargs, mesh) -> int:
     from .. import resolve_device
     from ..data.batching import slide_seq2seq_batch
@@ -424,22 +796,14 @@ def _train(args, cfg: TrainCLIConfig, model_kwargs, mesh) -> int:
     rank = mesh.rank if mesh is not None else 0
     with open(os.path.join(args.data_dir, "manifest.json")) as f:
         scheme = json.load(f)["scheme"]
-    is_cp = cfg.model == "cp_transformer"
-    is_popmag = cfg.model == "popmag"
-    # the cp shards store flattened [T, 8] rows: limlen counts flat tokens
-    limlen = (0 if is_popmag else (cfg.seq_len + 1) * 8 if is_cp
-              else cfg.seq_len + 1)
-    corpus = TokenCorpus(args.data_dir, limlen=limlen,
-                         key="melody" if scheme == "mumidi" else "tokens")
-    print(f"corpus: {len(corpus)} sequences (scheme={scheme})")
     model, tcfg, loss_fn = build_model(cfg, scheme, model_kwargs, device,
                                        mesh)
-    if is_popmag:
-        batch_at = _popmag_batch_fn(corpus, cfg)
-    elif is_cp:
-        batch_at = _cp_batch_fn(corpus, cfg)
-    else:
-        batch_at = _seq_shard(_lm_batch_fn(corpus, cfg), mesh, cfg.seq_len)
+    corpus = TokenCorpus(args.data_dir, limlen=_limlen(cfg),
+                         key="melody" if scheme == "mumidi" else "tokens")
+    print(f"corpus: {len(corpus)} sequences (scheme={scheme})")
+    batch_at = _batch_fn(corpus, cfg, scheme)
+    if cfg.model == "music_transformer":
+        batch_at = _seq_shard(batch_at, mesh, cfg.seq_len)
 
     # step s consumes batch s, so starting the stream at the checkpoint's
     # next step replays exactly the uninterrupted batch sequence
@@ -462,7 +826,7 @@ def _train(args, cfg: TrainCLIConfig, model_kwargs, mesh) -> int:
     eval_step = eval_batches = None
     # the JAX CLI evaluates only the LM
     if cfg.eval_dir and cfg.model == "music_transformer":
-        eval_corpus = TokenCorpus(cfg.eval_dir, limlen=limlen)
+        eval_corpus = TokenCorpus(cfg.eval_dir, limlen=_limlen(cfg))
         eval_seqs = [np.asarray(eval_corpus[i])
                      for i in range(len(eval_corpus))]
 
@@ -489,8 +853,7 @@ def _train(args, cfg: TrainCLIConfig, model_kwargs, mesh) -> int:
     try:
         run_loop(state, train_step, stream, loop_cfg, eval_step=eval_step,
                  eval_batches=eval_batches,
-                 tokens_per_batch=(cfg.batch_size * cfg.accum_steps
-                                   * cfg.seq_len),
+                 tokens_per_batch=_tokens_per_batch(corpus, cfg),
                  config_dict={"cli": cfg.to_dict(), "scheme": scheme,
                               "model_kwargs": model_kwargs})
     finally:

@@ -8,7 +8,11 @@ reference names that ``musicgeneration_tpu/cli/export_checkpoint.py:
 ``performance_rnn_state_dict_from_jax`` and
 ``popmag_state_dict_from_jax`` are the port's copies of
 ``export_event_rnn`` / ``export_performance_rnn`` / ``export_popmag``
-(:98-147), and ``cp_transformer_state_dict_from_jax`` maps a flax
+(:98-147), ``melody_rnn_state_dict_from_jax`` maps a flax MelodyRNN tree
+to the port's MelodyRNN names (the JAX package exports no MelodyRNN
+``.pth``: its module names with torch's LSTM layout, ``lstm.weight_ih_l
+{k}``, ...; ``models/melody_rnn.py``), and
+``cp_transformer_state_dict_from_jax`` maps a flax
 CPTransformer tree (unrolled or ``layers_scan``) to the port's own CP
 names (the JAX package exports no CP ``.pth``): ``embed_<field>.weight``,
 ``layers.<i>.`` + the ``EncoderLayer`` names, ``head_<field>.weight`` /
@@ -22,7 +26,10 @@ state_dict, 'optimizer': {}, 'epoch': step}``, an EventMelodyRNN's or
 PoPMAG's bare state dict, a PerformanceRNN's session dict
 ``{'model_config', 'model_state', 'model_optimizer_state'}``; or the
 port's own training checkpoints (``utils/checkpoint.py``), a
-CPTransformer's among them. It infers the family and shape from the
+CPTransformer's and the RNN families' among them, with the config they
+record (its ``scheme`` and ``model_kwargs``; a MelodyRNN's
+``attn_length`` comes from there, as the weights do not hold it). It
+infers the family and shape from the
 state dict and loads it with ``strict=True``. The port reads no flax msgpack.
 """
 
@@ -37,6 +44,7 @@ import torch
 
 from .models.cp_transformer import CPTransformer
 from .models.event_rnn import EventMelodyRNN
+from .models.melody_rnn import MelodyRNN
 from .models.music_transformer import MusicTransformer
 from .models.performance_rnn import PerformanceRNN
 from .models.popmag import PoPMAGRNN
@@ -119,7 +127,8 @@ def cp_transformer_state_dict_from_jax(
 
 
 def _gru(p, name: str, sd) -> None:
-    """The JAX GRUStack's ``l{k}_*`` ([in, 3H]) -> nn.GRU names."""
+    """The JAX GRUStack's (or LSTMStack's) ``l{k}_*`` ([in, 3H] or
+    [in, 4H]) -> nn.GRU (nn.LSTM) names."""
     k = 0
     while f"l{k}_w_ih" in p:
         sd[f"{name}.weight_ih_l{k}"] = _t(p[f"l{k}_w_ih"]).T.contiguous()
@@ -153,6 +162,25 @@ def performance_rnn_state_dict_from_jax(params: Mapping[str, Any]
     return sd
 
 
+def melody_rnn_state_dict_from_jax(params: Mapping[str, Any]
+                                   ) -> "OrderedDict[str, torch.Tensor]":
+    """Flax MelodyRNN params -> the port's MelodyRNN state dict: the JAX
+    module names with torch's LSTM layout (``lstm.weight_ih_l{k}``
+    [4H, in], ...; the JAX package has no MelodyRNN exporter) and, with
+    attention, ``attn_query``/``attn_key``/``attn_v`` (no bias) and
+    ``attn_mix``."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    sd["embedding.weight"] = _t(params["embedding"]["embedding"])
+    _gru(params["lstm"], "lstm", sd)
+    for name in ("attn_query", "attn_key", "attn_v"):
+        if name in params:
+            sd[f"{name}.weight"] = _t(params[name]["kernel"]).T.contiguous()
+    if "attn_mix" in params:
+        _lin(params["attn_mix"], "attn_mix", sd)
+    _lin(params["decoder"], "decoder", sd)
+    return sd
+
+
 def popmag_state_dict_from_jax(params: Mapping[str, Any]
                                ) -> "OrderedDict[str, torch.Tensor]":
     """Flax PoPMAGRNN params -> the reference state dict (the port's copy
@@ -175,16 +203,19 @@ def _gru_layers(sd, name: str) -> int:
 
 
 def model_from_state_dict(sd: Mapping[str, torch.Tensor], device="cuda",
-                          dtype=torch.float32, decode_quant: str = "none"):
+                          dtype=torch.float32, decode_quant: str = "none",
+                          attn_length: Optional[int] = None):
     """Build the model whose family and shape are read off ``sd`` (a
     MusicTransformer's, EventMelodyRNN's, PerformanceRNN's or PoPMAG's
-    reference state dict, or a CPTransformer's: ``embed_<field>`` /
-    ``head_<field>`` keys) and load it with ``strict=True``, for
-    inference: its parameters are frozen (``requires_grad_(True)`` to
-    train it). Any
-    other state dict raises ValueError naming what it holds.
-    decode_quant: the transformers' ("none" or "int8"); a GRU family
-    takes only "none"."""
+    reference state dict, a CPTransformer's: ``embed_<field>`` /
+    ``head_<field>`` keys, or a MelodyRNN's: ``lstm.*`` and ``decoder``)
+    and load it with ``strict=True``, for inference: its parameters are
+    frozen (``requires_grad_(True)`` to train it). Any other state dict
+    raises ValueError naming what it holds. decode_quant: the
+    transformers' ("none" or "int8"); an RNN family takes only "none".
+    attn_length: a MelodyRNN's attention window, which its weights do not
+    hold; None gives 40 (Magenta's ``attention_rnn``) where the state
+    dict has attention weights, else 0."""
     if "rnn.weight_ih_l0" in sd and "event_embedding.weight" in sd:
         model = EventMelodyRNN(
             event_dim=sd["event_embedding.weight"].shape[0],
@@ -201,6 +232,8 @@ def model_from_state_dict(sd: Mapping[str, torch.Tensor], device="cuda",
             num_layers=_gru_layers(sd, "gru"), dtype=dtype, device=device)
     elif "encoder.weight_ih_l0" in sd and "output_fc.0.weight" in sd:
         model = _popmag(sd, device, dtype)
+    elif "lstm.weight_ih_l0" in sd and "decoder.weight" in sd:
+        model = _melody_rnn(sd, device, dtype, attn_length)
     elif "Decoder.embedding.weight" in sd:
         model = _music_transformer(sd, device, dtype, decode_quant)
     elif "embed_family.weight" in sd and "head_family.weight" in sd:
@@ -209,7 +242,8 @@ def model_from_state_dict(sd: Mapping[str, torch.Tensor], device="cuda",
         keys = sorted(sd)
         raise ValueError(
             "not a checkpoint of a family the port runs (MusicTransformer, "
-            "CPTransformer, EventMelodyRNN, PerformanceRNN, PoPMAG): its "
+            "CPTransformer, EventMelodyRNN, PerformanceRNN, MelodyRNN, "
+            "PoPMAG): its "
             f"state dict holds {len(keys)} keys, {keys[:6]}")
     if decode_quant != "none" and model.family not in (
             "music_transformer", "cp_transformer"):
@@ -247,6 +281,22 @@ def _popmag(sd, device, dtype) -> PoPMAGRNN:
         init_dim=sd["inithid_fc.weight"].shape[1], embed_dim=emb.shape[1],
         hidden_dim=sd["encoder.weight_hh_l0"].shape[1],
         num_layers=_gru_layers(sd, "encoder"), dtype=dtype, device=device)
+
+
+def _melody_rnn(sd, device, dtype, attn_length) -> MelodyRNN:
+    has_attn = "attn_key.weight" in sd
+    if attn_length is None:
+        attn_length = 40 if has_attn else 0
+    if has_attn != (attn_length > 0):
+        raise ValueError(f"attn_length={attn_length} does not match the "
+                         "state dict (attention weights "
+                         f"{'present' if has_attn else 'absent'})")
+    emb = sd["embedding.weight"]
+    return MelodyRNN(
+        vocab_size=emb.shape[0], embed_size=emb.shape[1],
+        hidden_dim=sd["lstm.weight_hh_l0"].shape[1],
+        num_layers=_gru_layers(sd, "lstm"), attn_length=attn_length,
+        dtype=dtype, device=device)
 
 
 def _cp_transformer(sd, device, dtype, decode_quant) -> CPTransformer:
@@ -318,6 +368,7 @@ def load_checkpoint(path: str, device="cuda", dtype=torch.float32,
         dtype = recorded_dtype(config)
     if decode_quant is None:
         decode_quant = recorded_quant(config)
-    model = model_from_state_dict(sd, device=device, dtype=dtype,
-                                  decode_quant=decode_quant)
+    model = model_from_state_dict(
+        sd, device=device, dtype=dtype, decode_quant=decode_quant,
+        attn_length=(config.get("model_kwargs") or {}).get("attn_length"))
     return (model, config) if with_config else model

@@ -1,10 +1,13 @@
 """Offline tokenization pipeline: MIDI corpus -> packed token shards.
 
-The port of ``musicgeneration_tpu/data/pipeline.py`` for the MIDI-like,
-CP and MuMIDI schemes, through the port's own codecs
-(``tokenizers/midilike.py``, ``tokenizers/cp.py``, ``tokenizers/
-mumidi.py``; a CP file's [T, 8] rows are stored flattened, a MuMIDI file
-is a uint16 ``melody``/``arrangement`` pair). The shard layout and
+The port of ``musicgeneration_tpu/data/pipeline.py`` for the MIDI-like
+(with or without per-event controls), CP, MuMIDI and melody schemes,
+through the port's own codecs (``tokenizers/midilike.py``, ``tokenizers/
+cp.py``, ``tokenizers/mumidi.py``, ``tokenizers/melody.py``; a CP file's
+[T, 8] rows are stored flattened, a MuMIDI file is a uint16 ``melody``/
+``arrangement`` pair, a ``midilike_control`` file adds its compressed
+[n, 13] uint8 controls flattened, a melody file is an int16 note
+array). The shard layout and
 ``manifest.json`` are the JAX package's, so each package reads the
 other's corpora: shard ``midilike-00000.npz`` holds, for the stream key
 ``tokens`` (``melody`` and ``arrangement`` for MuMIDI),
@@ -47,6 +50,24 @@ def _tokenize_midilike(path: str) -> Dict[str, np.ndarray]:
             .astype(np.uint16)}
 
 
+def _tokenize_midilike_control(path: str) -> Dict[str, np.ndarray]:
+    """MIDI-like tokens and their per-event compressed controls (pitch
+    histogram and note density, reference sequence.py:294-407), the
+    [n_events, 13] uint8 array flattened (reshape(-1, 13) on load):
+    PerformanceRNN's conditioned training data."""
+    from ..tokenizers import midilike
+    tokens = midilike.extract_events(path).to_array()
+    controls = midilike.ControlSeq.compressed_from_ids(tokens)
+    return {"tokens": tokens.astype(np.uint16),
+            "controls": controls.reshape(-1)}
+
+
+def _tokenize_melody(path: str) -> Dict[str, np.ndarray]:
+    """The Melody-RNN note array of every non-drum part (int16)."""
+    from ..tokenizers import melody
+    return {"tokens": melody.midi_to_note_array(path).astype(np.int16)}
+
+
 def _tokenize_cp(path: str) -> Dict[str, np.ndarray]:
     """Compound Word rows [T, 8] stored flattened (width 8 is fixed by the
     scheme; reshape(-1, 8) on load)."""
@@ -67,6 +88,8 @@ def _tokenize_mumidi(path: str) -> Dict[str, np.ndarray]:
 
 SCHEMES: Dict[str, Callable[[str], Dict[str, np.ndarray]]] = {
     "midilike": _tokenize_midilike,
+    "midilike_control": _tokenize_midilike_control,
+    "melody": _tokenize_melody,
     "cp": _tokenize_cp,
     "mumidi": _tokenize_mumidi,
 }

@@ -3,13 +3,15 @@
 The port of ``musicgeneration_tpu/decode/engine.py``'s single-device
 path. A MusicTransformer takes a one-pass prefill of the (optionally
 bucketed) prompt through the relative-attention kernel, then one fused
-decode step per generated token, or, with ``use_loop_kernel``, chunks of
-whole sampling-and-decode steps in one launch each (kernel F). A model without ``prefill`` (the GRU
-families) feeds the prompt one token at a time through ``decode_step``
-(kernel D once per prompt token), optionally from a latent-seeded state
-``cache0`` and with PerformanceRNN ``controls``. JAX ran the loops as
-compiled ``lax.scan``s; here they are Python loops that keep tokens on
-the device and never sync the host. ``generate_sliding`` continues past
+decode step per generated token, or, with ``use_loop_kernel``, chunks
+of whole sampling-and-decode steps in one launch each (kernel F). A
+model without ``prefill`` (the RNN families) feeds the prompt one token
+at a time through ``decode_step`` (the GRU families: kernel D once per
+prompt token; MelodyRNN: its LSTM step and attention window in plain
+torch), optionally from a latent-seeded state ``cache0`` and with
+PerformanceRNN ``controls``. JAX ran the loops as compiled
+``lax.scan``s; here they are Python loops that keep tokens on the
+device and never sync the host. ``generate_sliding`` continues past
 max_seq by re-priming a window.
 """
 

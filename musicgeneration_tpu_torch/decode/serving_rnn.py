@@ -1,18 +1,23 @@
-"""Continuous-batching serving for the GRU families.
+"""Continuous-batching serving for the RNN families.
 
 The port of ``musicgeneration_tpu/decode/serving_rnn.py`` for
-EventMelodyRNN and PerformanceRNN, on the port's ``SlotScheduler``
-(``decode/scheduling.py``: FIFO admission, count and eos retirement,
+EventMelodyRNN, PerformanceRNN and MelodyRNN, on the port's
+``SlotScheduler`` (``decode/scheduling.py``: FIFO admission, count and
+eos retirement,
 pipelined dispatch with pinned non-blocking token copies, drain-tail
 resizing, cancellation, per-row sampling, boost):
 
-* a slot's state is its column of the ``[L, B, H]`` hidden stack: no KV
-  cache, no clock, no compaction, and any (prompt, max_new) fits,
+* a slot's state is its column of the ``[L, B, H]`` hidden stack
+  (MelodyRNN: h and c, and its attention window ``[W, B, H]`` with a
+  per-row count ``attn_n``, so a slot admitted mid-flight masks its own
+  unfilled window): no KV cache, no clock, no compaction, and any
+  (prompt, max_new) fits,
 * admission is one masked prefill per prompt bucket: the group runs
   ``decode_step`` over its prompts from a fresh state (latent-seeded
-  through ``init_to_hidden``; a request without a latent gets a zero
-  one, as in the JAX engine), each row frozen with ``torch.where`` once
-  past its own p - 1 tokens, then the rows are scattered into the pool.
+  through ``init_to_hidden`` where the family has one; a request
+  without a latent gets a zero one, as in the JAX engine), each row
+  frozen with ``torch.where`` once past its own p - 1 tokens, then the
+  rows are scattered into the pool.
   The prompt's last token becomes the slot's pending input,
 * PerformanceRNN conditioning is per row: each slot owns a control
   window ``[W, C]`` and a cursor ``n`` (its global step); a step reads
@@ -21,10 +26,12 @@ resizing, cancellation, per-row sampling, boost):
   window is pre-expanded on the host (a sequence's last row repeated),
   so the clamped cursor gives ``expand_controls``'s rows exactly,
 * decode runs in segments of ``decode_step`` + sampling whose tokens
-  stay on the device; kernel D runs once per step for the whole pool.
+  stay on the device; for the GRU families kernel D runs once per step
+  for the whole pool (MelodyRNN's LSTM step is plain torch).
 
-Cache-leaf batch axis: 1-D leaves carry the batch at axis 0, all others
-at axis 1 (``[L, B, H]``), the JAX module's rule (serving_rnn.py:37-41).
+Cache-leaf batch axis: 1-D leaves (``attn_n``) carry the batch at axis
+0, all others at axis 1 (``[L, B, H]``, ``[W, B, H]``), the JAX module's
+rule (serving_rnn.py:37-41).
 
 The JAX engine pads every admission group to the pool width and scans
 the whole bucket, for one compiled program; here the group runs at its
@@ -52,7 +59,7 @@ def _batch_axis(leaf: torch.Tensor) -> int:
 
 
 class RNNContinuousBatcher(SlotScheduler):
-    """Continuous-batching decode over a pool of GRU hidden-state slots.
+    """Continuous-batching decode over a pool of RNN state slots.
 
     >>> cb = RNNContinuousBatcher(model, slots=8)
     >>> rid = cb.submit(prompt_ids, max_new=256, init=latent)

@@ -1,7 +1,7 @@
 """PerformanceRNN: control-conditioned GRU event LM.
 
-The port of ``musicgeneration_tpu/models/performance_rnn.py`` for
-generation, with the reference's architecture (mg/model/PerformanceRNN/
+The port of ``musicgeneration_tpu/models/performance_rnn.py``, with the
+reference's architecture (mg/model/PerformanceRNN/
 network.py:15-154) and state-dict names (``event_embedding``,
 ``inithid_fc``, ``concat_input_fc``, ``gru``, ``output_fc``;
 ``export_performance_rnn``, ``cli/export_checkpoint.py:108-133``):
@@ -17,10 +17,12 @@ network.py:15-154) and state-dict names (``event_embedding``,
   order: Linear(hidden * layers, event_dim),
 * the primary event is event_dim - 1,
 * defaults: event_dim 308, control_dim 24, init_dim 32, hidden 512,
-  3 layers.
+  3 layers, dropout 0.3 between the GRU layers in training.
 
-Parameters are float32; ``dtype`` is the compute dtype. ``decode_step``
-runs the GRU step through kernel D on CUDA (``ops/gru.py``).
+Parameters are float32; ``dtype`` is the compute dtype. The training
+``forward`` and ``step_train`` run ``GRUStack.forward`` in plain torch
+under autograd; ``decode_step`` runs the GRU step through kernel D on
+CUDA (``ops/gru.py``).
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ class PerformanceRNN(GRULanguageModel):
 
     def __init__(self, event_dim: int = 308, control_dim: int = 24,
                  init_dim: int = 32, hidden_dim: int = 512,
-                 num_layers: int = 3, dtype=torch.float32, device="cuda",
+                 num_layers: int = 3, dropout_rate: float = 0.3,
+                 dtype=torch.float32, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
@@ -61,7 +64,7 @@ class PerformanceRNN(GRULanguageModel):
         self.concat_input_fc = nn.Linear(event_dim + 1 + control_dim,
                                          hidden_dim, device=device)
         self.gru = GRUStack(hidden_dim, hidden_dim, num_layers, dtype=dtype,
-                            device=device)
+                            device=device, dropout_rate=dropout_rate)
         self.output_fc = nn.Linear(num_layers * hidden_dim, event_dim,
                                    device=device)
         reset_rnn_parameters(self, generator)
@@ -96,22 +99,39 @@ class PerformanceRNN(GRULanguageModel):
         flat = h_all.transpose(0, 1).reshape(h_all.shape[1], -1)
         return _linear(self.output_fc, flat, self.dtype).float()
 
-    @torch.no_grad()
     def forward(self, init: torch.Tensor, events: torch.Tensor,
-                controls: Optional[torch.Tensor] = None) -> torch.Tensor:
+                controls: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Teacher-forced logits. init: [B, init_dim]; events: [T, B];
         controls: [T, B, control_dim] or None. Returns [T, B, event_dim]
         f32; row t predicts events[t] from the primary event and
-        events[:t] (network.py:106-154 with teacher forcing)."""
+        events[:t] (network.py:106-154 with teacher forcing). Dropout
+        between the GRU layers when not ``deterministic``, drawn from
+        ``generator``."""
         t_len, b = events.shape
         hidden = self.init_to_hidden(init)
         primary = torch.full((1, b), self.primary_event, dtype=torch.long,
                              device=events.device)
         inputs = torch.cat([primary, events[:-1].long()], dim=0)
         _, _, h_seq = self.gru(self._step_input(inputs, controls), hidden,
-                               return_all_hiddens=True)     # [T, L, B, H]
+                               return_all_hiddens=True,
+                               deterministic=deterministic,
+                               generator=generator)         # [T, L, B, H]
         flat = h_seq.transpose(1, 2).reshape(t_len, b, -1)
         return _linear(self.output_fc, flat, self.dtype).float()
+
+    def step_train(self, token: torch.Tensor, hidden: torch.Tensor,
+                   deterministic: bool = True,
+                   generator: Optional[torch.Generator] = None):
+        """One unconditioned step with inter-layer dropout, under
+        autograd (the reference's generate() step under ``model.train()``,
+        network.py:106-154), for scheduled sampling. token: [B] ints,
+        hidden: [L, B, H] -> (logits [B, event_dim] f32, hidden')."""
+        _, h, _ = self.gru(self._step_input(token, None)[None], hidden,
+                           return_all_hiddens=True,
+                           deterministic=deterministic, generator=generator)
+        return self._head(h), h
 
     # -- incremental decoding -------------------------------------------------
 

@@ -24,7 +24,7 @@ def register_model(name: str,
 def _import_families() -> None:
     """Import every family's module (each registers itself)."""
     from . import (cp_transformer, event_rnn,  # noqa: F401
-                   music_transformer, performance_rnn, popmag)
+                   melody_rnn, music_transformer, performance_rnn, popmag)
 
 
 def get_model(name: str) -> Tuple[type, Callable[..., dict]]:

@@ -389,14 +389,14 @@ def test_serve_http(exported):
 
 
 def test_serve_refuses_another_family(tmp_path):
-    """A checkpoint that is not a MusicTransformer's exits and names the
-    later slice; it does not fall back."""
+    """A state dict of no family the port runs exits and says so; it does
+    not fall back."""
     pth = tmp_path / "rnn.pth"
     torch.save({"net": {"gru.weight_ih_l0": torch.zeros(3, 2)},
                 "optimizer": {}, "epoch": 0}, pth)
     reqs = tmp_path / "r.jsonl"
     reqs.write_text('{"tokens": [1], "max_new": 4}\n')
-    with pytest.raises(SystemExit, match="later slice"):
+    with pytest.raises(SystemExit, match="not a checkpoint of a family"):
         tserve.main([str(pth), str(reqs), str(tmp_path / "o"), "--device",
                      "cpu"])
 

@@ -104,7 +104,10 @@ def test_cli_train_cp_records_and_resumes(run_dir):
 def test_cli_train_refusals(run_dir, tmp_path):
     with pytest.raises(SystemExit, match="unknown model overrides"):
         tcli.main(_train_args(run_dir, "x", 1, "model.vocab_size=9"))
-    with pytest.raises(SystemExit, match="unknown model 'melody_rnn'"):
+    with pytest.raises(SystemExit, match="unknown model 'no_such_model'"):
+        tcli.main([str(run_dir / "tok"), "model=no_such_model", "--device",
+                   "cpu"])
+    with pytest.raises(SystemExit, match="'melody' corpus"):
         tcli.main([str(run_dir / "tok"), "model=melody_rnn", "--device",
                    "cpu"])
     with pytest.raises(SystemExit, match="'midilike' corpus"):

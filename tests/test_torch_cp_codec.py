@@ -155,7 +155,7 @@ def test_registry_lookup():
 
 def test_registry_unknown_name_lists_the_registered():
     with pytest.raises(KeyError) as e:
-        get_model("melody_rnn")
-    assert ("unknown model 'melody_rnn'; registered: ['cp_transformer', "
-            "'event_rnn', 'music_transformer', 'performance_rnn', "
-            "'popmag']") in str(e.value)
+        get_model("no_such_model")
+    assert ("unknown model 'no_such_model'; registered: ['cp_transformer', "
+            "'event_rnn', 'melody_rnn', 'music_transformer', "
+            "'performance_rnn', 'popmag']") in str(e.value)
