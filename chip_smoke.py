@@ -262,7 +262,9 @@ from musicgeneration_tpu_torch.cli.generate import (  # noqa: E402
     bucket_prompt, melody_compound_from_midi, parse_control, prime_tokens,
     write_midi)
 from musicgeneration_tpu_torch.cli import train as train_cli  # noqa: E402
+from musicgeneration_tpu_torch.cli.eval import main as eval_main  # noqa: E402
 from musicgeneration_tpu_torch.cli.generate import main as cli_main  # noqa: E402
+from musicgeneration_tpu_torch.convert import load_checkpoint  # noqa: E402
 from musicgeneration_tpu_torch.cli.serve import main as serve_main  # noqa: E402
 from musicgeneration_tpu_torch.cli.tokenize import (  # noqa: E402
     main as tokenize_main)
@@ -287,7 +289,7 @@ from musicgeneration_tpu_torch.decode.popmag_generate import (  # noqa: E402
 from musicgeneration_tpu_torch.decode.serving_popmag import (  # noqa: E402
     PopMAGContinuousBatcher)
 from musicgeneration_tpu_torch.midi import (  # noqa: E402
-    Instrument, MidiFile, Note, TempoChange)
+    ControlChange, Instrument, MidiFile, Note, TempoChange)
 from musicgeneration_tpu_torch.tokenizers.mumidi import (  # noqa: E402
     MuMIDI_EventSeq)
 from musicgeneration_tpu_torch.ops import gru as gru_mod  # noqa: E402
@@ -315,9 +317,10 @@ from musicgeneration_tpu_torch.parallel.ring_attention import (  # noqa: E402
 from musicgeneration_tpu_torch.tokenizers import (  # noqa: E402
     cp, melody, midilike)
 from musicgeneration_tpu_torch.train.trainer import (  # noqa: E402
-    TrainerConfig, create_train_state, make_optimizer, make_train_step)
+    TrainerConfig, create_train_state, make_eval_step, make_optimizer,
+    make_train_step)
 from musicgeneration_tpu_torch.utils.checkpoint import (  # noqa: E402
-    list_checkpoints)
+    latest_checkpoint, list_checkpoints)
 from musicgeneration_tpu_torch.utils.config import apply_overrides  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -913,11 +916,11 @@ def check_kernel_c_left_pad() -> None:
 
 
 def flagship(dtype, seed: int = 0, quant: str = "none",
-             d_model: int = D_MODEL) -> mt.MusicTransformer:
-    """The flagship (or, with ``d_model=D_RUNG``, the d 1024 rung) with
-    seeded random weights."""
+             d_model: int = D_MODEL, vocab: int = VOCAB) -> mt.MusicTransformer:
+    """The flagship (or, with ``d_model=D_RUNG``, the d 1024 rung; with
+    ``vocab``, another scheme's vocabulary) with seeded random weights."""
     return mt.MusicTransformer(
-        vocab_size=VOCAB, num_layers=N_LAYERS, d_model=d_model,
+        vocab_size=vocab, num_layers=N_LAYERS, d_model=d_model,
         max_seq=MAX_SEQ, dtype=dtype, device=DEV,
         generator=torch.Generator().manual_seed(seed), decode_quant=quant)
 
@@ -2338,6 +2341,37 @@ def step_parity(label: str, kern: tuple, plain: tuple, lr: float) -> None:
                              "plain one")
 
 
+def cut_and_resume(argv: list, run: str, stop_at: int) -> tuple:
+    """``cli.train argv`` (checkpoints in ``run``) interrupted by a
+    KeyboardInterrupt from the data stream at batch ``stop_at``, then run
+    again to resume. Returns (the checkpoints the cut run left, the first
+    batch the resumed run read)."""
+    requested, real = [], train_cli._lm_batch_fn
+
+    def recording(stop):
+        def fn(corpus, cfg):
+            at = real(corpus, cfg)
+
+            def batch_at(idx):
+                requested.append(idx)
+                if idx == stop:
+                    raise KeyboardInterrupt
+                return at(idx)
+            return batch_at
+        return fn
+
+    try:
+        train_cli._lm_batch_fn = recording(stop_at)
+        train_cli.main(argv)
+        saved = [s for s, _ in list_checkpoints(run)]
+        requested.clear()
+        train_cli._lm_batch_fn = recording(-1)
+        train_cli.main(argv)
+    finally:
+        train_cli._lm_batch_fn = real
+    return saved, min(requested)
+
+
 def train_end_to_end(tmp: str, shards: str) -> dict:
     """cli.train at full width for TRAIN_STEPS steps (launch counters of
     kernels A and C read around it), the same run interrupted at step
@@ -2370,37 +2404,15 @@ def train_end_to_end(tmp: str, shards: str) -> dict:
     # interrupt at batch CUT (a KeyboardInterrupt from the data stream,
     # as a SIGINT would arrive), then resume from the checkpoint
     cut = os.path.join(tmp, "cut")
-    requested = []
-    real = train_cli._lm_batch_fn
-
-    def recording(stop_at):
-        def fn(corpus, cfg):
-            at = real(corpus, cfg)
-
-            def batch_at(idx):
-                requested.append(idx)
-                if idx == stop_at:
-                    raise KeyboardInterrupt
-                return at(idx)
-            return batch_at
-        return fn
-
-    try:
-        with quiet(os.path.join(tmp, "train.log")):
-            train_cli._lm_batch_fn = recording(CUT)
-            train_cli.main(train_args(shards, cut, TRAIN_STEPS))
-            saved = [s for s, _ in list_checkpoints(cut)]
-            requested.clear()
-            train_cli._lm_batch_fn = recording(-1)
-            train_cli.main(train_args(shards, cut, TRAIN_STEPS))
-    finally:
-        train_cli._lm_batch_fn = real
+    with quiet(os.path.join(tmp, "train.log")):
+        saved, first = cut_and_resume(train_args(shards, cut, TRAIN_STEPS),
+                                      cut, CUT)
     resumed = losses(cut + ".jsonl")
     diff = max(abs(resumed[s] - ref[s]) for s in range(TRAIN_STEPS))
-    ok = (saved[-1] == CUT - 1 and min(requested) == CUT
+    ok = (saved[-1] == CUT - 1 and first == CUT
           and sorted(resumed) == list(range(TRAIN_STEPS)) and diff <= 1e-3)
     print(f"interrupt at step {CUT}: checkpoints {saved}; the resumed run "
-          f"starts at batch {min(requested)}; its losses vs the "
+          f"starts at batch {first}; its losses vs the "
           f"uninterrupted run's: max |diff| {diff:.2e} (tol 1e-3) "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -3332,10 +3344,11 @@ def loop_inputs(model, stacked, lw, gen, b: int, cache_len: int = MAX_SEQ):
     reads (``pack_loop_matrices``, where the widths take it), one seed."""
     shape = (model.num_layers, b, cache_len, model.d_model)
     embed, pos, fc_w, fc_b = lw
+    v = model.vocab_size
     cluster = loop_takes_cluster(model.d_model,
-                                 stacked[0]["ffn1_w"].shape[-1], VOCAB,
+                                 stacked[0]["ffn1_w"].shape[-1], v,
                                  cache_len, model.num_heads, model.dtype)
-    return {"logits": torch.randn(b, VOCAB, generator=gen, device=DEV) * 2,
+    return {"logits": torch.randn(b, v, generator=gen, device=DEV) * 2,
             "kc": torch.randn(shape, generator=gen, device=DEV).to(model.dtype),
             "vc": torch.randn(shape, generator=gen, device=DEV).to(model.dtype),
             "seed": torch.randint(0, 1 << 31, (1,), generator=gen,
@@ -3408,7 +3421,8 @@ def loop_agreement(inp, kern, plain, t0: int, c: int, dtype,
                 scaled = sample_mask(scaled, sp.top_k, sp.top_p)
             bits = loop_bits(inp["seed"].reshape(1),
                              torch.tensor([row], device=DEV),
-                             torch.tensor([t0 + n_eq], device=DEV), VOCAB)
+                             torch.tensor([t0 + n_eq], device=DEV),
+                             inp["logits"].shape[1])
             scores = (scaled + gumbel(bits))[0]
         e_before = (before_k - before_p).abs().max().item()
         print(f"kernel F {str(dtype):15s} row {row} parts at step {n_eq} "
@@ -3448,27 +3462,38 @@ def check_kernel_f() -> float:
         dtype = model.dtype
         stacked, lw = model.decode_weights(), model.loop_weights()
         for sp, name, b, c, t0 in cases:
-            inp = loop_inputs(model, stacked, lw, gen, b)
-            if (inp["packed"] is not None) != (
-                    cluster and dtype == torch.bfloat16):
-                raise AssertionError(f"kernel F at d {model.d_model} in "
-                                     f"{dtype} chose the other body")
-            kern = loop_call(fused_decode_loop, inp, t0, c, sp)
-            plain = loop_call(fused_decode_loop_plain, inp, t0, c, sp)
-            torch.cuda.synchronize()
-            err, parted = loop_agreement(inp, kern, plain, t0, c, dtype, sp)
-            ok = err <= TOL_B[dtype] and bool(torch.isfinite(kern[1]).all())
-            print(f"kernel F {str(dtype):15s} d={model.d_model:4d} "
-                  f"{name:14s} B={b} C={c:2d} t0={t0:4d}: tokens equal in "
-                  f"{b - parted}/{b} rows, max_abs_err={err:.3e} "
-                  f"tol={TOL_B[dtype]:.1e}; rows outside [t0, t0+C) "
-                  f"untouched {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError("kernel F disagrees with its plain "
-                                     "version")
+            err = loop_case(model, stacked, lw, gen, sp, name, b, c, t0,
+                            cluster and dtype == torch.bfloat16)
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
     return worst
+
+
+def loop_case(model, stacked, lw, gen, sp: SamplingParams, name: str, b: int,
+              c: int, t0: int, cluster: bool) -> float:
+    """One check of kernel F against its plain version (``loop_call``,
+    ``loop_agreement``) on fresh inputs at the model's width and
+    vocabulary, the cluster body taken exactly when ``cluster``. Returns
+    the max abs error."""
+    dtype = model.dtype
+    inp = loop_inputs(model, stacked, lw, gen, b)
+    if (inp["packed"] is not None) != cluster:
+        raise AssertionError(f"kernel F at d {model.d_model}, V "
+                             f"{model.vocab_size} in {dtype} chose the "
+                             "other body")
+    kern = loop_call(fused_decode_loop, inp, t0, c, sp)
+    plain = loop_call(fused_decode_loop_plain, inp, t0, c, sp)
+    torch.cuda.synchronize()
+    err, parted = loop_agreement(inp, kern, plain, t0, c, dtype, sp)
+    ok = err <= TOL_B[dtype] and bool(torch.isfinite(kern[1]).all())
+    print(f"kernel F {str(dtype):15s} d={model.d_model:4d} "
+          f"V={model.vocab_size} {name:14s} B={b} C={c:2d} t0={t0:4d}: "
+          f"tokens equal in {b - parted}/{b} rows, max_abs_err={err:.3e} "
+          f"tol={TOL_B[dtype]:.1e}; rows outside [t0, t0+C) untouched "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("kernel F disagrees with its plain version")
+    return err
 
 
 def sampler_cases() -> list:
@@ -3496,14 +3521,16 @@ def sampler_cases() -> list:
     return cases
 
 
-def check_loop_sampler() -> None:
+def check_loop_sampler(cases=None, label: str = "V 309 with ties, V 384 "
+                       "padded, V 4096") -> None:
     """Kernel F's sampler alone (``mg_loop_sample``) against the plain
-    sampler on the same logits, seeds, rows and positions: the masked
+    sampler on the same logits, seeds, rows and positions (``cases`` of
+    (logits, top_k, top_p), by default ``sampler_cases()``): the masked
     scaled logits (the kept sets and values) and the tokens equal bit for
     bit, at T 1 and T 0.9, and greedy (ties to the lowest index)."""
     gen = torch.Generator().manual_seed(19)
     n_cases = 0
-    for logits, k, p in sampler_cases():
+    for logits, k, p in sampler_cases() if cases is None else cases:
         x = torch.from_numpy(logits).to(DEV)
         n = x.shape[0]
         seeds = torch.randint(0, 1 << 62, (n,), generator=gen).to(DEV)
@@ -3521,9 +3548,9 @@ def check_loop_sampler() -> None:
                     f"T={temp} greedy={greedy}: tokens {tk.tolist()} vs "
                     f"{tp.tolist()}, masked rows differ {bad}")
             n_cases += 1
-    print(f"kernel F sampler: {n_cases} cases (V 309 with ties, V 384 "
-          f"padded, V 4096; top-k, top-p, T 1 and 0.9, greedy): kept sets, "
-          f"values and tokens equal the plain sampler's bit for bit ok")
+    print(f"kernel F sampler: {n_cases} cases ({label}; top-k, top-p, T 1 "
+          "and 0.9, greedy): kept sets, values and tokens equal the plain "
+          "sampler's bit for bit ok")
 
 
 def chi_square(draws: np.ndarray, probs: np.ndarray, n_bins: int = 20):
@@ -3686,7 +3713,7 @@ def profile_loop(prime: np.ndarray) -> dict:
             "busy_share": busy_us / wall_us}
 
 
-def loop_bound(b: int, c: int, t0: int) -> tuple:
+def loop_bound(b: int, c: int, t0: int, vocab: int = VOCAB) -> tuple:
     """Least time of one bf16 launch of c steps from t0: the weights, the
     embedding and the head read once, the K/V prefix [0, t0) of every row,
     the E rows [0, t0+c) of each layer, c positional rows, the logits in
@@ -3695,13 +3722,13 @@ def loop_bound(b: int, c: int, t0: int) -> tuple:
     (head, live row) pair."""
     d, f = D_MODEL, D_MODEL // 2
     w_elems = N_LAYERS * (4 * d * d + 2 * d * f + 9 * d + f)
-    nbytes = (w_elems * 2 + VOCAB * d * 2 + (VOCAB * d + VOCAB) * 2
+    nbytes = (w_elems * 2 + vocab * d * 2 + (vocab * d + vocab) * 2
               + 2 * N_LAYERS * b * t0 * d * 2 + N_LAYERS * (t0 + c) * DH * 4
-              + c * d * 2 + 2 * b * VOCAB * 4 + 2 * N_LAYERS * b * c * d * 2
+              + c * d * 2 + 2 * b * vocab * 4 + 2 * N_LAYERS * b * c * d * 2
               + b * c * 8)
     pairs = b * sum(t0 + i + 1 for i in range(c))
     flops = (N_LAYERS * (2 * b * c * (4 * d * d + 2 * d * f)
-                         + 3 * 2 * H * pairs * DH) + 2 * b * c * d * VOCAB)
+                         + 3 * 2 * H * pairs * DH) + 2 * b * c * d * vocab)
     return bound(nbytes, flops, torch.bfloat16)
 
 
@@ -4732,24 +4759,27 @@ def time_cp_kernels() -> dict:
 
 def cp_paths() -> dict:
     """The CP transformer's phases: greedy parity (generate_cp f32 and
-    int8, serving f32), cli.generate, cli.serve, cli.tokenize -> cli.train
-    -> cli.generate, and the rates. Returns the launches of each path and
-    the rates."""
+    int8, serving f32, sliding-window serving f32), cli.generate,
+    cli.serve, cli.tokenize -> cli.train -> cli.generate, and the rates.
+    Returns the launches of each path and the rates."""
     t0 = time.perf_counter()
     os.makedirs(OUT_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
         prime_mid, rows = cp_prime(tmp)
         cp_greedy_parity(rows)
         cp_serve_parity(rows)
+        window = cp_window_serving(rows)
         gen = cp_generate_cli(tmp, prime_mid, rows)
         served = cp_serve_cli(tmp, gen["pth"], prime_mid)
         shards = cp_write_corpus(tmp)
         tr = cp_train(tmp, shards)
     print(f"CP phases: {time.perf_counter() - t0:.1f} s")
     return {"A": {"cp_generate": gen["A"] + tr["A_generate"],
-                  "cp_serve": served["A"], "cp_train": tr["A"]},
+                  "cp_serve": served["A"], "cp_train": tr["A"],
+                  "cp_window_serve": window["A"]},
             "B": {"cp_generate": gen["B"] + tr["B_generate"],
-                  "cp_serve": served["B"]},
+                  "cp_serve": served["B"], "cp_window_serve": window["B"]},
+            "window_rows_s": window["rows_s"],
             "B_int8": gen["B_int8"], "C": {"cp_train": tr["C"]},
             "prefill_ms": gen["prefill_ms"], "rows_s": gen["rows_s"],
             "goodput": served["goodput"], "step_ms": tr["step_ms"],
@@ -5577,6 +5607,612 @@ def rnn_slice_paths() -> dict:
     return {"train": rt, "melody": mel}
 
 
+# The MusicTransformer on the other token schemes at the flagship's
+# config (6 layers, d 256, 4 heads of 64, FFN 128, max_seq 2048; cli.train's
+# B 8 and seq_len 512, bf16, dropout 0.1): REMI (vocabulary 337), the
+# sustain-pedal codec (390) and melody note arrays (131), on 8 synthetic
+# piano pieces of 1,500 notes under a sustain pedal (CC64). Depth is cut,
+# never width: cli.train 3 steps a scheme (the same run cut after step 1
+# and resumed), cli.eval 4 batches, cli.generate B 8 with 512 tokens after
+# a 500-token prime, cli.serve 24 requests on the pedal run (prompts of
+# 1-200 tokens, 64-240 new; one sliding request of window 256 running
+# 2,560 tokens), greedy parity over 64 tokens, rates over 5 timed steps.
+# The draft of distill_paths is the JAX CLI's recipe (2 layers, d 128),
+# with the target's max_seq so that it can draft past 512 tokens,
+# distilled from the pedal run for 3 steps
+SCHEMES = ("remi", "pedal", "melody")
+SCHEME_VOCAB = {"remi": 337, "pedal": 390, "melody": 131}
+SCH_MIDI, SCH_NOTES, SCH_STEPS, SCH_EVAL = 8, 1500, 3, 4
+SCH_SERVE_PROMPTS, SCH_SERVE_NEW = (1, 3, 64, 200), (64, 241)
+SCH_RATE_STEPS = 5
+LOOP_V_CASES = ((1, 7, 1), (1, 32, T_TIMED), (B, 7, T_TIMED), (B, 32, 1))
+DISTILL_KW = ["model.num_layers=2", "model.d_model=128",
+              f"model.max_seq={MAX_SEQ}"]
+DISTILL_SPEC_STEPS = 256
+# CP sliding-window serving: window 256 on the 1024-row cache, requests
+# of 1,536 rows each, so that every slot re-primes several times
+CP_WINDOW, CP_WINDOW_NEW = 256, 1536
+
+
+def sustain_midi(path: str, seed: int, n_notes: int = SCH_NOTES) -> None:
+    """A piano part of ``n_notes`` random notes under a sustain pedal
+    (CC64 down/up windows), written with the port's MIDI writer."""
+    rng = np.random.default_rng(seed)
+    midi = MidiFile(ticks_per_beat=480)
+    midi.tempo_changes = [TempoChange(tempo=120.0, time=0)]
+    midi._tempo_raw = [(0, 500000)]
+    piano = Instrument(0, False, "piano")
+    t = 37
+    for _ in range(n_notes):
+        dur = int(rng.integers(60, 500))
+        piano.notes.append(Note(int(rng.integers(30, 120)),
+                                int(rng.integers(36, 96)), t, t + dur))
+        t += int(rng.integers(30, 240))
+    c = 200
+    while c < t:
+        piano.control_changes.append(ControlChange(64, 100, c))
+        c += int(rng.integers(400, 1600))
+        piano.control_changes.append(ControlChange(64, 0, c))
+        c += int(rng.integers(200, 900))
+    midi.instruments = [piano]
+    midi.dump(path)
+
+
+def scheme_corpora(tmp: str) -> tuple:
+    """The pedalled pieces, tokenized by ``cli.tokenize --scheme`` into
+    each scheme's corpus; every piece holds a seq_len + 1 crop in each.
+    Returns (the first piece's path, {scheme: shard directory})."""
+    midis = os.path.join(tmp, "sch_midis")
+    os.makedirs(midis)
+    for i in range(SCH_MIDI):
+        sustain_midi(os.path.join(midis, f"s-{i:02d}.mid"), 40 + i)
+    shards, t0 = {}, time.perf_counter()
+    for scheme in SCHEMES:
+        shards[scheme] = os.path.join(tmp, f"tok_{scheme}")
+        with quiet(os.path.join(tmp, "tokenize.log")):
+            rc = tokenize_main([midis, shards[scheme], "--scheme", scheme,
+                                "--workers", "1"])
+        corpus = TokenCorpus(shards[scheme], limlen=L_TRAIN + 1)
+        if rc != 0 or len(corpus) != SCH_MIDI:
+            raise AssertionError(f"cli.tokenize --scheme {scheme}: rc {rc}, "
+                                 f"{len(corpus)} sequences > {L_TRAIN}")
+    lens = {s: int(TokenCorpus(d).lengths().min()) for s, d in shards.items()}
+    print(f"cli.tokenize: {SCH_MIDI} pedalled MIDI files of {SCH_NOTES} notes "
+          f"-> remi, pedal, melody in {time.perf_counter() - t0:.1f} s "
+          f"(shortest sequence {lens})")
+    return os.path.join(midis, "s-00.mid"), shards
+
+
+def counted_train(label: str, args, run: str, steps: int, per_step: tuple,
+                  tmp: str) -> dict:
+    """``cli.train args(run)`` for ``steps`` steps with kernels A and C
+    counted (exactly ``per_step`` a step), then the same run (``args(run
+    + "_cut")``) cut after step ``steps - 2`` and resumed to the
+    uninterrupted losses (1e-3). Returns the launches of the three runs
+    and the losses."""
+    reset_counts()
+    fused_relative_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    with quiet(os.path.join(tmp, "train.log")):
+        train_cli.main(args(run))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = (fused_relative_attention.launches,
+         fused_relative_attention_bwd.launches)
+    ref = losses(run + ".jsonl")
+    want = (per_step[0] * steps, per_step[1] * steps)
+    finite = (sorted(ref) == list(range(steps))
+              and all(math.isfinite(v) for v in ref.values()))
+    with quiet(os.path.join(tmp, "train.log")):
+        saved, first = cut_and_resume(args(run + "_cut"), run + "_cut",
+                                      steps - 1)
+    torch.cuda.synchronize()
+    total = (fused_relative_attention.launches,
+             fused_relative_attention_bwd.launches)
+    resumed = losses(run + "_cut.jsonl")
+    diff = max(abs(resumed[s] - ref[s]) for s in range(steps))
+    ok = (finite and n == want and saved[-1] == steps - 2
+          and first == steps - 1 and sorted(resumed) == list(range(steps))
+          and diff <= 1e-3 and total == (2 * want[0], 2 * want[1]))
+    print(f"{label}: {steps} steps in {secs:.1f} s (start-up included), loss "
+          f"{ref[0]:.4f} -> {ref[steps - 1]:.4f}; launches A={n[0]} C={n[1]} "
+          f"(expected {want[0]}, {want[1]}: {per_step[0]} and {per_step[1]} "
+          f"a step); cut after step {steps - 2} (checkpoints {saved}), "
+          f"resumed at batch {first}: losses max |diff| {diff:.2e} (tol "
+          f"1e-3) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: launches {n}/{total}, losses "
+                             f"{ref} / {resumed}")
+    return {"A": total[0], "C": total[1], "losses": ref}
+
+
+def scheme_train_args(shards: str, run: str, steps: int,
+                      extra: tuple = ()) -> list:
+    """cli.train at the flagship's config on ``shards`` (B 8, seq_len 512,
+    max_seq 2048, bf16, dropout 0.1), a checkpoint every step."""
+    return [shards, f"steps={steps}", f"batch_size={B}", f"seq_len={L_TRAIN}",
+            "model.dtype=bfloat16", f"model.max_seq={MAX_SEQ}",
+            f"ckpt_dir={run}", "ckpt_every=1", "log_every=1",
+            f"metrics_path={run}.jsonl", *extra]
+
+
+def scheme_eval(scheme: str, run: str, shards: str) -> dict:
+    """cli.eval on the run (4 batches of B 8 with --bucket: two forwards,
+    6 kernel-A launches each, a batch) and the eval step's tokens/s
+    (CUDA events over 8 batches, the CLI's ``make_eval_step``)."""
+    buf = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = eval_main([run, shards, "--batches", str(SCH_EVAL),
+                        "--batch-size", str(B), "--bucket"])
+    torch.cuda.synchronize()
+    a = fused_relative_attention.launches
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    ok = (rc == 0 and a == 2 * N_LAYERS * SCH_EVAL
+          and math.isfinite(out["loss"]) and 0 <= out["accuracy"] <= 1
+          and out["tokens"] == SCH_EVAL * B * L_TRAIN
+          and out["bucket"]["vocab"] == SCHEME_VOCAB[scheme])
+    model = load_checkpoint(run, device=DEV, dtype=None)
+    cfg = train_cli.TrainCLIConfig(batch_size=B, seq_len=L_TRAIN)
+    at = train_cli._lm_batch_fn(TokenCorpus(shards, limlen=L_TRAIN + 1), cfg)
+    batches = [to_device(at(i), DEV) for i in range(9)]
+    step = make_eval_step(TrainerConfig(vocab_size=model.vocab_size,
+                                        pad_id=model.vocab_size - 1,
+                                        label_smoothing=0.1))
+    step(model, *batches[0])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for x, y in batches[1:]:
+        step(model, x, y)
+    end.record()
+    torch.cuda.synchronize()
+    tok_s = 8 * B * L_TRAIN / (start.elapsed_time(end) / 1e3)
+    print(f"cli.eval {scheme} bf16: {json.dumps(out)}; launches A={a} "
+          f"(expected {2 * N_LAYERS * SCH_EVAL}); eval step {tok_s:.0f} "
+          f"tokens/s (B {B}, {L_TRAIN} tokens a row, CUDA events) "
+          f"{'ok' if ok else 'FAIL'}", f"on {gpu_line()}")
+    if not ok:
+        raise AssertionError(f"cli.eval {scheme} failed")
+    return {"A": a, "tok_s": tok_s}
+
+
+def scheme_generate(scheme: str, run: str, prime_mid: str, tmp: str) -> dict:
+    """cli.generate from the run (bf16 as recorded, B 8, the prime's first
+    500 tokens through the scheme's codec, 512 sampled tokens, MIDI
+    written back through it) with exactly 6 kernel-A and 18 x 512
+    kernel-B launches; every file reads back as MIDI (random weights may
+    sample too few well-formed REMI groups for a note: the notes are
+    counted, not required). Then the decode rate of
+    the same generation on the library path (prefill subtracted)."""
+    prime = prime_tokens(prime_mid, PROMPT, scheme)
+    if len(prime) != PROMPT:
+        raise AssertionError(f"{scheme} prime has {len(prime)} tokens")
+    out = os.path.join(tmp, f"gen_{scheme}.mid")
+    reset_counts()
+    with quiet(os.path.join(tmp, "generate.log")):
+        rc = cli_main([run, out, "--prime", prime_mid, "--prime-len",
+                       str(PROMPT), "--steps", str(STEPS), "--batch", str(B),
+                       "--seed", "0"])
+    torch.cuda.synchronize()
+    n = (fused_relative_attention.launches, fused_decode_step.launches)
+    back = [sum(len(i.notes) for i in MidiFile(os.path.join(
+        tmp, f"gen_{scheme}-{i:03d}.mid")).instruments) for i in range(B)]
+    ok = rc == 0 and n == (N_LAYERS, 3 * N_LAYERS * STEPS)
+    model = load_checkpoint(run, device=DEV, dtype=None)
+    prompt_np, prompt_len = bucket_prompt(np.tile(np.asarray(prime), (B, 1)),
+                                          STEPS, model.max_seq, model.pad_id)
+    prompt = torch.from_numpy(prompt_np).to(DEV)
+    dp = DecodeParams(max_len=prompt.shape[1] + STEPS, steps=STEPS,
+                      sampling=SamplingParams())
+    generate(model, prompt[:, :prompt_len], None, dataclasses.replace(
+        dp, steps=8, max_len=prompt_len + 8))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = generate(model, prompt, torch.Generator(DEV).manual_seed(0), dp,
+                    prompt_len)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    prefill_ms = device_ms(lambda: model.prefill(
+        prompt, prompt.shape[1] + STEPS, prompt_len - 1), iters=5)
+    tok_s = B * STEPS / (total - prefill_ms / 1e3)
+    t = toks.cpu().numpy()
+    ok = ok and 0 <= t.min() and t.max() < SCHEME_VOCAB[scheme]
+    print(f"cli.generate {scheme} bf16 (vocab {model.vocab_size}, max_seq "
+          f"{model.max_seq}): B={B} prime {PROMPT} -> bucket "
+          f"{prompt.shape[1]}, {STEPS} tokens; launches A={n[0]} B={n[1]} "
+          f"(expected {N_LAYERS}, {3 * N_LAYERS * STEPS}); files read back "
+          f"with {min(back)}-{max(back)} notes; decode {tok_s:.1f} tokens/s "
+          f"(prefill {prefill_ms:.3f} ms subtracted, host clock) "
+          f"{'ok' if ok else 'FAIL'}", f"on {gpu_line()}")
+    if not ok:
+        raise AssertionError(f"cli.generate {scheme} failed")
+    return {"A": n[0], "B": n[1], "tok_s": tok_s, "prime": prime}
+
+
+def scheme_parity(scheme: str, run: str, prime: list) -> int:
+    """Greedy f32 on the trained weights, B 8, 64 tokens: the kernel path
+    (A, B) equals the plain path, and ``generate(use_loop_kernel=True)``
+    (A, F) equals the step path, token for token. Returns F's launches."""
+    model = load_checkpoint(run, device=DEV, dtype=torch.float32)
+    prompt_np, plen = bucket_prompt(np.tile(np.asarray(prime), (B, 1)),
+                                    GREEDY_STEPS, model.max_seq, model.pad_id)
+    prompt = torch.from_numpy(prompt_np).to(DEV)
+    dp = DecodeParams(max_len=prompt.shape[1] + GREEDY_STEPS,
+                      steps=GREEDY_STEPS, sampling=SamplingParams(greedy=True))
+    kern = generate(model, prompt, None, dp, plen)
+    with plain_path():
+        plain = generate(model, prompt, None, dp, plen)
+    reset_counts()
+    loop = generate(model, prompt, None, dataclasses.replace(
+        dp, use_loop_kernel=True), plen)
+    torch.cuda.synchronize()
+    f = fused_decode_loop.launches
+    same, same_loop = torch.equal(kern, plain), torch.equal(kern, loop)
+    print(f"greedy f32 {scheme} (vocab {model.vocab_size}) {GREEDY_STEPS} "
+          f"tokens x {B}: kernel path == plain path: {same}; loop path "
+          f"({f} F launches) == step path: {same_loop}")
+    if not (same and same_loop):
+        raise AssertionError(f"{scheme}: greedy paths differ")
+    return f
+
+
+def check_kernel_f_vocab(vocab: int) -> float:
+    """Kernel F against its plain version at the flagship width and
+    another scheme's vocabulary (its bf16 body chosen from the widths
+    and V, as on the main path): greedy f32 and bf16 at (B, C, t0) of
+    LOOP_V_CASES, sampled f32 T 1 at B 8, C 32, t0 755; then its sampler
+    alone against the plain sampler bit for bit at V ``vocab`` (ties,
+    top-k, top-p). Returns the bf16 max abs error."""
+    gen = torch.Generator(DEV).manual_seed(vocab)
+    greedy, worst = SamplingParams(greedy=True), 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        model = flagship(dtype, vocab=vocab)
+        stacked, lw = model.decode_weights(), model.loop_weights()
+        cluster = dtype == torch.bfloat16 and loop_takes_cluster(
+            model.d_model, stacked[0]["ffn1_w"].shape[-1], vocab, MAX_SEQ,
+            model.num_heads, dtype)
+        cases = [(greedy, "greedy") + c for c in LOOP_V_CASES]
+        if dtype == torch.float32:
+            cases.append((LOOP_MODES[0][1], "T 1", B, LOOP_CHUNK, T_TIMED))
+        for sp, name, b, c, t0 in cases:
+            err = loop_case(model, stacked, lw, gen, sp, name, b, c, t0,
+                            cluster)
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+    rng = np.random.RandomState(vocab)
+    cases = []
+    for trial in range(12):
+        x = rng.randn(4, vocab).astype(np.float32) * 3
+        if trial % 3 == 0:
+            x[:, 50:60] = x[:, 49:50]
+        cases.append((x, [0, 1, 5, 40, vocab][trial % 5],
+                      [1.0, 0.9, 0.5][trial % 3]))
+    check_loop_sampler(cases, f"V {vocab} with ties")
+    return worst
+
+
+def time_kernel_f_vocab(vocab: int) -> dict:
+    """Kernel F in bf16 at B 8, C 32, t0 755, sampled T 1, the flagship
+    width at V ``vocab``: device time, its plain version's, its bound."""
+    model = flagship(torch.bfloat16, vocab=vocab)
+    gen = torch.Generator(DEV).manual_seed(18)
+    inp = loop_inputs(model, model.decode_weights(), model.loop_weights(),
+                      gen, B, 1024)
+    args = loop_args(inp, T_TIMED, LOOP_CHUNK)
+    ms = device_ms(lambda: fused_decode_loop(*args, packed=inp["packed"]),
+                   iters=10)
+    plain_ms = device_ms(lambda: fused_decode_loop_plain(*args), iters=2)
+    bnd, by = loop_bound(B, LOOP_CHUNK, T_TIMED, vocab)
+    print(f"kernel F bf16 V={vocab} B={B} C={LOOP_CHUNK} t0={T_TIMED}: "
+          f"{ms:.4f} ms per launch ({1e3 * ms / LOOP_CHUNK:.1f} us per step); "
+          f"plain {plain_ms:.4f} ms, bound {bnd:.5f} ms ({by})",
+          f"on {gpu_line()}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by}
+
+
+def scheme_serve(run: str, prime_mid: str, tmp: str) -> dict:
+    """cli.serve in file mode (8 slots, segments of 64, depth 2), bf16 as
+    recorded, on the pedal run: 24 requests primed through the pedal
+    codec (prompts of 1-200 tokens, 64-240 new; four with an eos id, four
+    with their own sampling fields; the last, as in serve_requests, the
+    500-token prime in a sliding window of 256 running 2,560 tokens past
+    the 2048-row cache), every result written
+    back through the codec, with exactly 6 kernel-A launches an admission
+    call and 18 kernel-B a decode step."""
+    rng = np.random.default_rng(29)
+    own = [{"temperature": 0.9, "top_k": 20}, {"top_p": 0.9},
+           {"greedy": True}, {"temperature": 1.2, "top_k": 5, "top_p": 0.95}]
+    reqs = []
+    for i in range(N_SERVE):
+        r = {"id": f"p{i:02d}", "prime": prime_mid,
+             "prime_len": SCH_SERVE_PROMPTS[i % len(SCH_SERVE_PROMPTS)],
+             "max_new": int(rng.integers(*SCH_SERVE_NEW))}
+        if i < 4:
+            r["eos"] = int(rng.integers(0, 388))
+        elif i < 8:
+            r.update(own[i - 4])
+        reqs.append(r)
+    reqs[-1].update(prime_len=PROMPT, max_new=WINDOW_NEW,
+                    window=SERVE_WINDOW)
+    path = os.path.join(tmp, "pedal_requests.jsonl")
+    with open(path, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in reqs)
+    outdir, buf = os.path.join(tmp, "pedal_served"), io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_main([run, path, outdir, "--seed", "0"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = (fused_relative_attention.launches, fused_decode_step.launches)
+    out = buf.getvalue()
+    summary = next(x for x in out.splitlines() if x.startswith("generated"))
+    stat = {k: int(re.search(rf"(\d+) {k}", summary).group(1))
+            for k in ("decode steps", "admission calls", "reprimes")}
+    goodput = float(re.search(r"\(([\d.]+) tok/s goodput\)",
+                              summary).group(1))
+    written = dict(re.findall(r"wrote .*/(p\d\d)\.mid \((\d+) tokens\)", out))
+    exact = all(int(written[r["id"]]) == r["max_new"] for r in reqs
+                if "eos" not in r)
+    ok = (rc == 0 and len(written) == N_SERVE and exact
+          and "scheme pedal" in out and stat["reprimes"] > 0
+          and n == (N_LAYERS * stat["admission calls"],
+                    3 * N_LAYERS * stat["decode steps"]))
+    print(f"cli.serve pedal bf16 file mode ({N_SERVE} requests) in "
+          f"{secs:.3f} s (load, warm, serve, write): {summary}; launches "
+          f"A={n[0]} (6 x {stat['admission calls']} admission calls), B="
+          f"{n[1]} (18 x {stat['decode steps']} decode steps) "
+          f"{'ok' if ok else 'FAIL'}", f"on {gpu_line()}")
+    if not ok:
+        raise AssertionError(f"cli.serve pedal: rc {rc}, {len(written)} "
+                             f"files, launches {n}, {stat}")
+    return {"A": n[0], "B": n[1], "goodput": goodput}
+
+
+def scheme_rate(scheme: str, shards: str) -> tuple:
+    """The cli.train step at the scheme's vocabulary (bf16, B 8, seq 512,
+    dropout 0.1): ms a step and the device's busy share."""
+    cfg = apply_overrides(train_cli.TrainCLIConfig(),
+                          [f"batch_size={B}", f"seq_len={L_TRAIN}"])
+    at = train_cli._lm_batch_fn(TokenCorpus(shards, limlen=L_TRAIN + 1), cfg)
+    batches = [to_device(at(i), DEV) for i in range(SCH_RATE_STEPS + 2)]
+    model, tcfg, _ = train_cli.build_model(
+        cfg, scheme, {"dtype": "bfloat16", "max_seq": MAX_SEQ}, DEV)
+    tx = make_optimizer(tcfg)
+    return train_step_rate(f"train step {scheme} bf16 (vocab "
+                           f"{model.vocab_size}) B{B} L{L_TRAIN}",
+                           make_train_step(tx, tcfg),
+                           create_train_state(model, tx, dropout_seed=0),
+                           batches)
+
+
+def scheme_paths(tmp: str) -> dict:
+    """The MusicTransformer on remi, pedal and melody: corpora, cli.train
+    (exact launches, cut and resumed), cli.eval, cli.generate (exact
+    launches, rates), greedy kernel == plain and loop == step, kernel F
+    and its sampler at V 131 and 390 with F's times there, cli.serve on
+    the pedal run, and each train step's rate. Returns the launches by
+    path, the runs, the rates."""
+    prime_mid, shards = scheme_corpora(tmp)
+    out = {"A": {}, "B": {}, "C": {}, "F": {}, "runs": {}, "shards": shards,
+           "rates": {}, "prime_mid": prime_mid}
+    for scheme in SCHEMES:
+        run = os.path.join(tmp, f"run_{scheme}")
+        tr = counted_train(f"cli.train {scheme} bf16 B{B} L{L_TRAIN}",
+                           functools.partial(scheme_train_args,
+                                             shards[scheme],
+                                             steps=SCH_STEPS),
+                           run, SCH_STEPS, (N_LAYERS, N_LAYERS), tmp)
+        ev = scheme_eval(scheme, run, shards[scheme])
+        gen = scheme_generate(scheme, run, prime_mid, tmp)
+        f = scheme_parity(scheme, run, gen["prime"])
+        step_ms, busy = scheme_rate(scheme, shards[scheme])
+        out["runs"][scheme] = run
+        out["A"].update({f"{scheme}_train": tr["A"], f"{scheme}_eval": ev["A"],
+                         f"{scheme}_generate": gen["A"]})
+        out["B"][f"{scheme}_generate"] = gen["B"]
+        out["C"][f"{scheme}_train"] = tr["C"]
+        out["F"][f"{scheme}_greedy_parity"] = f
+        out["rates"][scheme] = {"step_ms": step_ms, "train_busy": busy,
+                                "eval_tok_s": ev["tok_s"],
+                                "decode_tok_s": gen["tok_s"]}
+    out["f_err"] = max(check_kernel_f_vocab(v) for v in (131, 390))
+    out["f_times"] = {v: time_kernel_f_vocab(v) for v in (131, 390)}
+    served = scheme_serve(out["runs"]["pedal"], prime_mid, tmp)
+    out["A"]["pedal_serve"], out["B"]["pedal_serve"] = (served["A"],
+                                                        served["B"])
+    out["goodput"] = served["goodput"]
+    return out
+
+
+def distill_step_parity(shards: str, teacher: str, tmp: str) -> None:
+    """One f32 distillation step (dropout 0, TF32 off) of the draft on
+    the card and on the CPU, from the same teacher (its weights in f32),
+    student weights and batch: loss 1e-5 and grad norm 1e-4 relative."""
+    payload = torch.load(latest_checkpoint(teacher), map_location="cpu",
+                         weights_only=True)
+    payload["config"]["model_kwargs"]["dtype"] = "float32"
+    teacher32 = os.path.join(tmp, "teacher32")
+    os.makedirs(teacher32)
+    torch.save(payload, os.path.join(teacher32, "step-0.pt"))
+    cfg = apply_overrides(train_cli.TrainCLIConfig(), [
+        f"batch_size={B}", f"seq_len={L_TRAIN}", f"distill_from={teacher32}"])
+    batch = train_cli._lm_batch_fn(TokenCorpus(shards, limlen=L_TRAIN + 1),
+                                   cfg)(0)
+    kw = {"num_layers": 2, "d_model": 128, "max_seq": MAX_SEQ,
+          "dtype": "float32", "dropout_rate": 0.0}
+    mets = []
+    for dev in (DEV, torch.device("cpu")):
+        model, tcfg, loss_fn = train_cli.build_model(cfg, "pedal", kw, dev,
+                                                     distill=True)
+        tx = make_optimizer(tcfg)
+        t0 = time.perf_counter()
+        _, met = make_train_step(tx, tcfg, loss_fn=loss_fn)(
+            create_train_state(model, tx, dropout_seed=0),
+            *to_device(batch, dev))
+        mets.append((met, time.perf_counter() - t0))
+    (card, t_card), (host, t_host) = mets
+    loss_rel = abs(card["loss"] - host["loss"]) / abs(host["loss"])
+    norm_rel = abs(card["grad_norm"] - host["grad_norm"]) / host["grad_norm"]
+    ok = loss_rel <= 1e-5 and norm_rel <= 1e-4
+    print(f"distill step f32 B{B} L{L_TRAIN} (teacher 6 x 256, draft 2 x "
+          f"128), card vs CPU: loss {card['loss']:.6f} / {host['loss']:.6f} "
+          f"(rel {loss_rel:.2e}, tol 1e-5), grad norm "
+          f"{card['grad_norm']:.6f} / {host['grad_norm']:.6f} (rel "
+          f"{norm_rel:.2e}, tol 1e-4); {t_card:.2f} s / {t_host:.2f} s "
+          f"{'ok' if ok else 'FAIL'}", f"on {gpu_line()}")
+    if not ok:
+        raise AssertionError("the card's distillation step differs from "
+                             "the CPU's")
+
+
+def distill_spec(teacher: str, draft: str, prime_mid: str, tmp: str) -> dict:
+    """cli.generate --spec <draft dir> from the teacher run, greedy f32,
+    B 1, the 500-token pedal prime, 256 tokens, chunk 8: launches exactly
+    6 + 2 kernel-A (the two prefills), 18 kernel-E a verify forward and 6
+    kernel-B a draft step (C a verify forward); its MIDI equals that of
+    greedy f32 ``generate`` of the teacher written through the pedal
+    codec."""
+    out, buf = os.path.join(tmp, "spec_draft.mid"), io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main([teacher, out, "--prime", prime_mid, "--prime-len",
+                       str(PROMPT), "--steps", str(DISTILL_SPEC_STEPS),
+                       "--temperature", "0", "--dtype", "float32",
+                       "--spec", draft, "--spec-chunk", str(SPEC_CHUNK)])
+    torch.cuda.synchronize()
+    n = (fused_relative_attention.launches, fused_decode_chunk.launches,
+         fused_decode_step.launches)
+    text = buf.getvalue()
+    m = re.search(r"speculative: (\d+) verify forwards for (\d+) tokens "
+                  r"\(mean accepted ([\d.]+)/(\d+)\)", text)
+    iters = int(m.group(1))
+    want = (N_LAYERS + 2, iters * 3 * N_LAYERS, iters * SPEC_CHUNK * 3 * 2)
+    target = load_checkpoint(teacher, device=DEV, dtype=torch.float32)
+    prompt = torch.tensor([prime_tokens(prime_mid, PROMPT, "pedal")],
+                          device=DEV)
+    ref = generate(target, prompt, None, DecodeParams(
+        max_len=PROMPT + DISTILL_SPEC_STEPS, steps=DISTILL_SPEC_STEPS,
+        sampling=SamplingParams(greedy=True)))
+    ref_mid = os.path.join(tmp, "spec_ref.mid")
+    write_midi(ref[0].cpu().numpy(), ref_mid, "pedal")
+    with open(out, "rb") as a, open(ref_mid, "rb") as b:
+        same = a.read() == b.read()
+    ok = rc == 0 and n == want and same
+    print(f"cli.generate --spec <distilled draft> greedy f32 (B 1, prime "
+          f"{PROMPT}, {DISTILL_SPEC_STEPS} tokens, chunk {SPEC_CHUNK}): "
+          f"{m.group(0)}; launches A={n[0]} E={n[1]} B={n[2]} (expected "
+          f"{want[0]}, {want[1]}, {want[2]}); MIDI == greedy generate's: "
+          f"{same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("cli.generate --spec with the distilled draft "
+                             "failed")
+    return {"A": n[0], "E": n[1], "B": n[2],
+            "mean_accepted": float(m.group(3))}
+
+
+def distill_rate(shards: str, teacher: str) -> tuple:
+    """The distillation step of the draft (bf16 as cli.train runs it,
+    dropout 0.1, teacher forward under no_grad): ms and busy share."""
+    cfg = apply_overrides(train_cli.TrainCLIConfig(), [
+        f"batch_size={B}", f"seq_len={L_TRAIN}", f"distill_from={teacher}"])
+    at = train_cli._lm_batch_fn(TokenCorpus(shards, limlen=L_TRAIN + 1), cfg)
+    batches = [to_device(at(i), DEV) for i in range(SCH_RATE_STEPS + 2)]
+    model, tcfg, loss_fn = train_cli.build_model(
+        cfg, "pedal", {"num_layers": 2, "d_model": 128, "max_seq": MAX_SEQ,
+                       "dtype": "bfloat16"}, DEV, distill=True)
+    tx = make_optimizer(tcfg)
+    return train_step_rate(f"distill step bf16 B{B} L{L_TRAIN} (teacher 6 "
+                           "x 256, draft 2 x 128)",
+                           make_train_step(tx, tcfg, loss_fn=loss_fn),
+                           create_train_state(model, tx, dropout_seed=0),
+                           batches)
+
+
+def distill_paths(tmp: str, shards: str, teacher: str,
+                  prime_mid: str) -> dict:
+    """Draft distillation from the pedal run: cli.train distill_from= (the
+    JAX recipe, 2 layers, d 128; exactly 6 + 2 kernel-A and 2 kernel-C
+    launches a step; cut and resumed), one f32 step card vs CPU,
+    cli.generate --spec <draft>, and the step's rate."""
+    draft = os.path.join(tmp, "draft")
+    tr = counted_train(f"cli.train distill_from=<pedal run> bf16 B{B} "
+                       f"L{L_TRAIN}", functools.partial(
+                           scheme_train_args, shards, steps=SCH_STEPS,
+                           extra=[*DISTILL_KW, f"distill_from={teacher}"]),
+                       draft, SCH_STEPS, (N_LAYERS + 2, 2), tmp)
+    distill_step_parity(shards, teacher, tmp)
+    spec = distill_spec(teacher, draft, prime_mid, tmp)
+    step_ms, busy = distill_rate(shards, teacher)
+    return {"A": {"distill_train": tr["A"], "distill_spec": spec["A"]},
+            "C": {"distill_train": tr["C"]},
+            "B": {"distill_spec": spec["B"]}, "E": spec["E"],
+            "step_ms": step_ms, "busy": busy,
+            "mean_accepted": spec["mean_accepted"]}
+
+
+def scheme_slice_paths() -> dict:
+    """``scheme_paths`` then ``distill_paths`` (its teacher the pedal run)
+    in one scratch directory; prints each phase's seconds."""
+    t0 = time.perf_counter()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        sch = scheme_paths(tmp)
+        t1 = time.perf_counter()
+        dist = distill_paths(tmp, sch["shards"]["pedal"],
+                             sch["runs"]["pedal"], sch["prime_mid"])
+    print(f"scheme phases: {t1 - t0:.1f} s; distill phases: "
+          f"{time.perf_counter() - t1:.1f} s", f"on {gpu_line()}")
+    return {"scheme": sch, "distill": dist}
+
+
+def cp_window_serving(rows: np.ndarray) -> dict:
+    """Sliding-window CP serving, greedy f32 at full width: 4 requests of
+    1,536 rows with window 256 on the 1024-row cache (prompts of 600, 256,
+    64 and 1 rows, cut to their last 256), each re-priming its slot
+    several times; the kernel path's rows (A on every admission and
+    re-prime, ragged B) equal the plain path's. Returns the kernel path's
+    launches, re-primes and rows/s (host clock)."""
+    model32 = cp_model(torch.float32)
+    prompts = [rows[:p] for p in (600, 256, 64, 1)]
+    outs, stats = [], None
+    for plain in (False, True):
+        cb = CPContinuousBatcher(model32, slots=SLOTS, seg_len=SEG,
+                                 depth=DEPTH,
+                                 sampling=SamplingParams(greedy=True))
+        reset_counts()
+        t0 = time.perf_counter()
+        with plain_path() if plain else contextlib.nullcontext():
+            rids = [cb.submit(x, CP_WINDOW_NEW, window=CP_WINDOW)
+                    for x in prompts]
+            done = cb.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if not plain:
+            stats = cb.stats()
+            n = (fused_relative_attention.launches,
+                 fused_decode_step.launches)
+            rows_s = len(prompts) * CP_WINDOW_NEW / secs
+        outs.append([done[r] for r in rids])
+    same = all(np.array_equal(a, b) for a, b in zip(*outs))
+    shapes = all(o.shape == (CP_WINDOW_NEW, cp.WIDTH) for o in outs[0])
+    ok = (same and shapes and stats["reprimes"] >= 2 * len(prompts)
+          and n == (CP_LAYERS * stats["admit_calls"],
+                    3 * CP_LAYERS * stats["steps"]))
+    print(f"CP window serving greedy f32 ({len(prompts)} requests of "
+          f"{CP_WINDOW_NEW} rows, window {CP_WINDOW}, cache {CP_MAX_SEQ}): "
+          f"kernel path == plain path: {same}; {stats['reprimes']} re-primes, "
+          f"{stats['admit_calls']} admission calls, "
+          f"{stats['steps']} decode steps; launches A={n[0]} ragged "
+          f"B={n[1]}; {rows_s:.1f} rows/s (kernel path, host clock) "
+          f"{'ok' if ok else 'FAIL'}", f"on {gpu_line()}")
+    if not ok:
+        raise AssertionError(f"CP window serving: same {same}, {stats}, "
+                             f"launches {n}")
+    return {"A": n[0], "B": n[1], "rows_s": rows_s}
+
+
 TC_ENTRIES = {"relative_attention": ("rel_attn_fwd_tc_kernel",),
               "ring_attention": ("ring_tile_tc_kernel",),
               "relative_attention_bwd": ("rel_attn_bwd_tc_kernel",),
@@ -5701,6 +6337,8 @@ def main(argv: list) -> int:
     cp_run = cp_paths()
     pm = popmag_paths()
     rt = rnn_slice_paths()
+    sl = scheme_slice_paths()
+    sch, dist = sl["scheme"], sl["distill"]
     os.makedirs(OUT_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
         shards = write_corpus(tmp)
@@ -5710,19 +6348,23 @@ def main(argv: list) -> int:
     ring_launches = ring_paths()
     cp_times = time_cp_kernels()
     by_a = {"generate": e2e["A"], "train": tr["A"], "serve": served["A"],
-            "speculative": spec["A"], **cp_run["A"]}
+            "speculative": spec["A"], **cp_run["A"], **sch["A"],
+            **dist["A"]}
     row_a = time_kernel_a(sum(by_a.values()), max(err_a, err_cp["A"]))
     row_a["launches_by_path"] = by_a
     by_b = {"generate": e2e["B"], "serve": served["B"],
-            "speculative": spec["B"], **cp_run["B"]}
+            "speculative": spec["B"], **cp_run["B"], **sch["B"],
+            **dist["B"]}
     row_b = time_kernel_b(sum(by_b.values()),
                           max(err_b, err_br, err_w["B"], err_cp["B"],
                               err_cp["B_ragged"]))
     row_b["launches_by_path"] = by_b
-    by_c = {"train": tr["C"], **cp_run["C"]}
+    by_c = {"train": tr["C"], **cp_run["C"], **sch["C"], **dist["C"]}
     row_c = time_kernel_c(sum(by_c.values()), max(err_c, err_cp["C"]))
     row_c["launches_by_path"] = by_c
-    by_br = {"serve": served["B"], "cp_serve": cp_run["B"]["cp_serve"]}
+    by_br = {"serve": served["B"], "cp_serve": cp_run["B"]["cp_serve"],
+             "cp_window_serve": cp_run["B"]["cp_window_serve"],
+             "pedal_serve": sch["B"]["pedal_serve"]}
     row_br = time_kernel_b_ragged(sum(by_br.values()),
                                   max(err_br, err_cp["B_ragged"]))
     row_br["launches_by_path"] = by_br
@@ -5732,10 +6374,14 @@ def main(argv: list) -> int:
     row_d = time_kernel_d(sum(by_d.values()), err_d)
     row_d["launches_by_path"] = by_d
     row_d.update(time_kernel_d_popmag())
-    row_e = time_kernel_e(spec["E"], max(err_e, err_w["E"]))
+    row_e = time_kernel_e(spec["E"] + dist["E"], max(err_e, err_w["E"]))
     row_e["launches_by_path"] = {f"speculative_{k}": r["E"]
                                  for k, r in spec["runs"].items()}
-    row_f = time_kernel_f(loop["F"], loop["by_path"], err_f)
+    row_e["launches_by_path"]["distill_spec"] = dist["E"]
+    by_f = {**loop["by_path"], **sch["F"]}
+    row_f = time_kernel_f(sum(by_f.values()), by_f, max(err_f, sch["f_err"]))
+    for v, times in sch["f_times"].items():
+        row_f.update({f"{k}_v{v}": x for k, x in times.items()})
     q_by_path = {
         "B": {"cli_generate": q_cli["generate"]["B_int8"],
               "generate_parity": q_paths["generate"],
@@ -5810,6 +6456,19 @@ def main(argv: list) -> int:
           f"{loop['tok_s']['step']:.1f}, loop path {loop['tok_s']['loop']:.1f}"
           f"; under the profiler {loop_prof['busy_share'] * 100:.1f}% busy; "
           "chi2 " + ", ".join(f"{k} {v:.2f}" for k, v in loop["chi2"].items()),
+          f"on {gpu_line()}")
+    for scheme, r in sch["rates"].items():
+        print(f"MusicTransformer {scheme} (vocab {SCHEME_VOCAB[scheme]}) "
+              f"bf16 B={B}: train step {r['step_ms']:.3f} ms "
+              f"({100 * r['train_busy']:.1f}% busy), eval step "
+              f"{r['eval_tok_s']:.0f} tokens/s, decode {r['decode_tok_s']:.1f} "
+              "tokens/s", f"on {gpu_line()}")
+    print(f"pedal serving goodput {sch['goodput']:.1f} tok/s; distill step "
+          f"bf16 {dist['step_ms']:.3f} ms ({100 * dist['busy']:.1f}% busy); "
+          f"--spec <distilled draft> mean accepted {dist['mean_accepted']:.2f}"
+          f"/{SPEC_CHUNK - 1}; CP window serving {cp_run['window_rows_s']:.1f} "
+          f"rows/s (f32); kernel F bf16 B={B}: " + ", ".join(
+              f"V {v} {t['ms']:.4f} ms" for v, t in sch["f_times"].items()),
           f"on {gpu_line()}")
     print(f"ring train step bf16 B={B} L={L_RING} (host clock, median): "
           f"virtual ring sp {SP_RING} {ring_step['ring_pallas']:.2f} ms "

@@ -7,9 +7,13 @@ PerformanceRNN, MelodyRNN or PoPMAG checkpoint on the GPU.
 The checkpoint is what ``python -m musicgeneration_tpu.cli.export_checkpoint
 runs/x model.pth`` writes (the family is read off its state dict), or the
 port's own ``cli.train`` checkpoint directory (its newest ``step-<N>.pt``)
-or one file of it. The prime is tokenized with the MIDI-like codec and
-the continuation is written through the same codec (ids >= the codec's
-dim, e.g. the pad id, are dropped). A MusicTransformer prime is padded
+or one file of it. A MusicTransformer's prime is tokenized with the
+codec of the scheme its ``cli.train`` run recorded (``midilike``,
+``midilike_control``, ``remi``, ``pedal`` or ``melody``; the MIDI-like
+codec for an exported ``.pth``), and the continuation is written through
+the same codec (ids past the codec's vocabulary, e.g. the pad id, are
+dropped; the pedal codec drops them itself); a checkpoint whose
+vocabulary is not its scheme's exits. A MusicTransformer prime is padded
 to a power-of-two bucket (>= 16) as the JAX CLI does; a GRU model takes
 its prime one token at a time, unpadded. A MusicTransformer continuation
 past max_seq (batch 1) re-primes a sliding window of max_seq // 2.
@@ -87,32 +91,76 @@ RNN_SCHEMES = ("midilike", "midilike_control", "melody")
 
 def prime_tokens(prime: Optional[str], prime_len: int,
                  scheme: str = "midilike") -> List[int]:
-    """Tokenize a prompt MIDI with the scheme's codec (the MIDI-like one,
-    or ``melody``'s note arrays); default prime = [24, 28, 31]
-    (MusicTransformer/generate.py:103-110)."""
+    """Tokenize a prompt MIDI with the scheme's codec (the JAX CLI's
+    ``_prime_tokens``): MIDI-like events, REMI words, the pedal codec's
+    ``encode_midi`` or ``melody``'s note arrays; default prime = [24, 28,
+    31] (MusicTransformer/generate.py:103-110)."""
     if prime is None:
         return [24, 28, 31]
-    if scheme == "melody":
+    if scheme in ("midilike", "midilike_control"):
+        from ..tokenizers import midilike
+        arr = midilike.extract_events(prime).to_array()
+    elif scheme == "remi":
+        from ..tokenizers import remi
+        arr = remi.REMI_EventSeq.to_array(
+            remi.REMI_EventSeq.extract_events(prime))
+    elif scheme == "pedal":
+        from ..tokenizers import pedal_midilike
+        arr = np.asarray(pedal_midilike.encode_midi(prime))
+    elif scheme == "melody":
         from ..tokenizers import melody
         arr = melody.midi_to_note_array(prime)
     else:
-        from ..tokenizers import midilike
-        arr = midilike.extract_events(prime).to_array()
+        raise ValueError(f"cannot prime scheme {scheme!r}")
     return [int(t) for t in arr[:prime_len]]
 
 
 def write_midi(tokens: np.ndarray, path: str,
                scheme: str = "midilike") -> None:
-    """Write tokens through the scheme's codec; ids past its vocabulary
-    (a pad id, say) are dropped first, as the JAX CLI's ``_write_midi``."""
+    """Write tokens through the scheme's codec (the JAX CLI's
+    ``_write_midi``): ids past its vocabulary (a pad id, say) are
+    dropped first; the pedal codec's ``decode_midi`` drops them itself."""
     tokens = np.asarray(tokens)
-    if scheme == "melody":
+    if scheme in ("midilike", "midilike_control"):
+        from ..tokenizers import midilike
+        tokens = tokens[tokens < midilike.EventSeq.dim()]
+        midilike.write_midi(midilike.EventSeq.from_array(tokens), path)
+    elif scheme == "remi":
+        from ..tokenizers import remi
+        tokens = tokens[tokens < remi.REMI_EventSeq.dim()]
+        remi.REMI_EventSeq.write_midi(
+            remi.REMI_EventSeq.from_array(tokens), path)
+    elif scheme == "pedal":
+        from ..tokenizers import pedal_midilike
+        pedal_midilike.decode_midi([int(t) for t in tokens], path)
+    elif scheme == "melody":
         from ..tokenizers import melody
         melody.note_array_to_midi(tokens[tokens < melody.MELODY_VOCAB], path)
-        return
-    from ..tokenizers import midilike
-    tokens = tokens[tokens < midilike.EventSeq.dim()]
-    midilike.write_midi(midilike.EventSeq.from_array(tokens), path)
+    else:
+        raise ValueError(f"cannot write scheme {scheme!r}")
+
+
+def transformer_scheme(model, config) -> str:
+    """The scheme a MusicTransformer checkpoint decodes through: the one
+    its ``cli.train`` run recorded, else (an exported ``.pth``)
+    ``midilike``. A scheme without a codec here, or a vocabulary that is
+    not the scheme's, exits."""
+    from ..convert import recorded_scheme
+    from .train import LM_SCHEMES, lm_vocab
+
+    scheme = recorded_scheme(model.family, config)
+    if scheme not in LM_SCHEMES:
+        raise SystemExit(f"the MusicTransformer decodes through "
+                         f"{list(LM_SCHEMES)}; this run recorded scheme "
+                         f"{scheme!r}")
+    if model.vocab_size != lm_vocab(scheme):
+        raise SystemExit(
+            f"the checkpoint's vocabulary ({model.vocab_size}) is not the "
+            f"{scheme!r} codec's ({lm_vocab(scheme)})"
+            + ("" if config.get("scheme") else
+               ": an exported .pth records no scheme and decodes as "
+               "midilike; generate from its cli.train run instead"))
+    return scheme
 
 
 def rnn_scheme(model, config) -> str:
@@ -120,8 +168,9 @@ def rnn_scheme(model, config) -> str:
     ``cli.train`` run recorded, else (an exported ``.pth``) ``melody``
     for a MelodyRNN and ``midilike`` for the GRU families. A scheme
     without a codec in the port exits."""
-    scheme = config.get("scheme") or (
-        "melody" if model.family == "melody_rnn" else "midilike")
+    from ..convert import recorded_scheme
+
+    scheme = recorded_scheme(model.family, config)
     if scheme not in RNN_SCHEMES:
         raise SystemExit(f"the port decodes the RNN families through "
                          f"{list(RNN_SCHEMES)}; this run recorded "
@@ -397,7 +446,8 @@ def main(argv=None) -> int:
     if args.beam > 1 or args.control is not None:
         raise SystemExit("--beam and --control are for the GRU families "
                          "(event_rnn / performance_rnn)")
-    return _generate_transformer(model, args)
+    return _generate_transformer(model, args,
+                                 transformer_scheme(model, config))
 
 
 def _sampling(args):
@@ -556,10 +606,10 @@ def _generate_popmag(model, args, config) -> int:
     return 0
 
 
-def _generate_transformer(model, args) -> int:
+def _generate_transformer(model, args, scheme: str = "midilike") -> int:
     from ..decode import DecodeParams, generate, generate_sliding
 
-    prime = prime_tokens(args.prime, args.prime_len)
+    prime = prime_tokens(args.prime, args.prime_len, scheme)
     nb = max(args.batch, 1)
     prompt = np.tile(np.asarray(prime, np.int64)[None], (nb, 1))
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
@@ -583,7 +633,7 @@ def _generate_transformer(model, args) -> int:
                           steps=args.steps, sampling=_sampling(args))
         outs = generate(model, torch.from_numpy(prompt), gen, dp,
                         prompt_len).cpu().numpy()
-    _write_outputs(outs, prime, args)
+    _write_outputs(outs, prime, args, scheme)
     return 0
 
 

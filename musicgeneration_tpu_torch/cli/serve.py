@@ -7,8 +7,11 @@
     {"id": "a", "prime": "prompt.mid", "max_new": 256}
     {"id": "b", "tokens": [24, 28, 31], "max_new": 512, "eos": 107,
      "temperature": 0.8, "top_k": 20, "top_p": 0.95, "greedy": false}
-(`prime` tokenizes a MIDI with the MIDI-like codec, up to `prime_len`
-tokens (500); `tokens` supplies raw ids. `id` defaults to the line
+(`prime` tokenizes a MIDI, up to `prime_len` tokens (500), with the
+codec of the scheme the checkpoint's `cli.train` run recorded
+(`midilike`, `remi`, `pedal` or `melody` for a MusicTransformer; the
+MIDI-like codec for an exported `.pth`), and results are written back
+through it; `tokens` supplies raw ids. `id` defaults to the line
 number. Any sampling field on any line switches the engine to per-row
 sampling: each request decodes under its own params, defaulting to the
 CLI-level flags.)
@@ -40,9 +43,10 @@ A CPTransformer serves Compound Word rows through the CP engine
 (decode/serving_cp.py): `prime` is encoded to rows with the CP codec (up
 to `prime_len` rows; no `prime` and no `tokens`: a bare bar-marker row),
 `tokens` gives [P, 8] rows, `eos` is matched against the family column
-(2 = end of piece), the results are [n, 8] rows written with the CP
-codec; sampling is the CLI-level --greedy/--temperature only (no
---topk/--topp, no per-request fields, no `window`).
+(2 = end of piece), `window` re-primes the slot from its last `window`
+rows as for the MusicTransformer, the results are [n, 8] rows written
+with the CP codec; sampling is the CLI-level --greedy/--temperature only
+(no --topk/--topp, no per-request fields).
 A PoPMAG checkpoint serves melody -> arrangement requests through the
 bar engine (decode/serving_popmag.py):
     {"id": "m", "prime": "melody.mid"}          — a melody MIDI, or
@@ -169,7 +173,8 @@ def main(argv=None) -> int:
     from ..decode.serving_rnn import RNNContinuousBatcher
     from ..tokenizers import cp as cp_codec
     from .generate import (melody_compound_from_midi, popmag_limits,
-                           prime_tokens, rnn_prime, rnn_scheme, write_midi)
+                           prime_tokens, rnn_prime, rnn_scheme,
+                           transformer_scheme, write_midi)
 
     model, config = _load_model(args)
     is_cp = model.family == "cp_transformer"
@@ -207,8 +212,13 @@ def main(argv=None) -> int:
               f"hidden {model.hidden_dim}; scheme {scheme}) on "
               f"{model.device}")
     else:
+        scheme = transformer_scheme(model, config)
+
+        def write_midi(toks, path, _write=write_midi):
+            _write(toks, path, scheme)
         print(f"loaded MusicTransformer ({model.num_layers} layers, d_model "
-              f"{model.d_model}, max_seq {model.max_seq}) on {model.device}")
+              f"{model.d_model}, max_seq {model.max_seq}; scheme {scheme}) "
+              f"on {model.device}")
     sampling = SamplingParams(temperature=args.temperature,
                               top_k=args.topk, top_p=args.topp,
                               greedy=args.greedy)
@@ -235,13 +245,12 @@ def main(argv=None) -> int:
                               np.int32)
         else:
             toks = np.asarray(prime_tokens(req.get("prime"),
-                                           req.get("prime_len", 500)),
+                                           req.get("prime_len", 500), scheme),
                               np.int32)
         sp = None
-        if is_cp and (any(f in req for f in _SAMP_FIELDS)
-                      or "window" in req):
+        if is_cp and any(f in req for f in _SAMP_FIELDS):
             raise ValueError(
-                "per-request sampling and window= are not defined for "
+                "per-request sampling params are not defined for "
                 "compound-word rows; set the CLI-level flags")
         if any(f in req for f in _SAMP_FIELDS):
             sp = SamplingParams(

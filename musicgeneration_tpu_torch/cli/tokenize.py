@@ -1,11 +1,14 @@
 """Tokenize a MIDI corpus into packed shards.
 
     python -m musicgeneration_tpu_torch.cli.tokenize <midi_dir> <out_dir> \\
-        --scheme midilike|midilike_control|melody|cp|mumidi --workers 8
+        --scheme midilike|midilike_control|remi|pedal|melody|cp|mumidi \\
+        --workers 8
 
 The port of ``musicgeneration_tpu.cli.tokenize`` for the ``midilike``,
 ``midilike_control`` (MIDI-like tokens with per-event controls, for
-PerformanceRNN), ``melody`` (note arrays, for MelodyRNN), ``cp``
+PerformanceRNN), ``remi`` (REMI, vocabulary 336), ``pedal`` (the
+sustain-pedal MIDI-like codec, vocabulary 388), ``melody`` (note
+arrays, for MelodyRNN), ``cp``
 (Compound Word rows) and ``mumidi`` (a melody/arrangement pair a file,
 for PoPMAG) schemes; its shards are the JAX package's format
 (``data/pipeline.py``).

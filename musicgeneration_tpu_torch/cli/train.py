@@ -7,9 +7,21 @@
 The port of ``musicgeneration_tpu.cli.train``. Each family trains on the
 corpus ``cli.tokenize`` wrote for it:
 
-* ``model=music_transformer`` on a MIDI-like corpus: ``slide_seq2seq``
-  crops, label-smoothed CE, Noam warmup (causal masking only,
-  ``pad_in_input=False``: crops hold no pad id);
+* ``model=music_transformer`` on a ``midilike``, ``midilike_control``,
+  ``remi``, ``pedal`` or ``melody`` corpus (vocabulary 309, 309, 337, 390
+  and 131: the codec's ids and a pad id on top; the pedal codec's own
+  PAD 388 and EOS 389 are ids of the model's vocabulary, and the loss
+  ignores id 389): ``slide_seq2seq`` crops, label-smoothed CE, Noam
+  warmup (causal masking only, ``pad_in_input=False``: crops hold no pad
+  id). ``distill_from=<run>`` trains it against a frozen teacher, a
+  ``cli.train`` MusicTransformer run of the same scheme and seq_len:
+  loss = (1 - distill_alpha) * smoothed CE + distill_alpha * T^2 *
+  KL(teacher_T || student_T), T = ``distill_temp``, the KL averaged over
+  the positions whose label is not the pad id. The recipe for a
+  ``cli.generate --spec`` draft: ``model.num_layers=2 model.d_model=128
+  distill_from=<target run>`` on the target's corpus (with the target's
+  ``model.max_seq`` where its run set one, so that the draft's cache is
+  as long as the target's);
 * ``model=cp_transformer`` on a ``cp`` corpus: random crops of seq_len +
   1 compound rows (max_seq = seq_len), the weighted mean CE of the 8
   field heads (``cp_head_weights``, normalised to mean 1);
@@ -130,6 +142,13 @@ class TrainCLIConfig(Config):
     # (the reference's config, config.py:22) is pure teacher forcing
     teacher_forcing_ratio: float = 1.0
     seq_pad_to: Optional[int] = None  # sequence mode (default: longest)
+    # draft distillation (music_transformer): a frozen teacher run's
+    # token distributions; loss = (1 - alpha) * smoothed CE + alpha *
+    # T^2 * KL(teacher_T || student_T). Train-time only: the CLIs that
+    # rebuild a run ignore a recorded teacher path.
+    distill_from: Optional[str] = None
+    distill_alpha: float = 0.5
+    distill_temp: float = 1.0
     accum_steps: int = 1
     label_smoothing: float = 0.1
     warmup_steps: int = 4000
@@ -156,24 +175,44 @@ class TrainCLIConfig(Config):
     max_bar_len: int = 96
 
 
+# the schemes the MusicTransformer trains on (a flat token stream each)
+LM_SCHEMES = ("midilike", "midilike_control", "remi", "pedal", "melody")
+
+
 def _default_vocab(scheme: str, model: str) -> int:
-    """The vocabulary the JAX CLI derives from the scheme (reference
-    MusicTransformer/config.py:11-16: the codec's dim + 1 pad for the
-    MIDI-like schemes; the 130 note-array ids for ``melody``). The port
-    trains the MusicTransformer on ``midilike`` corpora only, the GRU
-    families on the MIDI-like ones and ``melody``."""
-    if model == "music_transformer" and scheme != "midilike":
-        raise SystemExit(f"model=music_transformer trains on a 'midilike' "
-                         f"corpus; this one is {scheme!r}")
-    if scheme == "melody":
-        from ..tokenizers.melody import MELODY_VOCAB
-        return MELODY_VOCAB
-    if scheme not in ("midilike", "midilike_control"):
+    """The vocabulary the JAX CLI derives from the scheme (its
+    ``_default_vocab``; reference MusicTransformer/config.py:11-16): the
+    codec's dim + 1 pad for the MIDI-like schemes and REMI (309, 337),
+    the pedal codec's 388 + pad + eos (390), the 130 note-array ids for
+    ``melody``. The GRU families train on the MIDI-like schemes and
+    ``melody`` in the port (the schemes ``cli.generate`` decodes them
+    through)."""
+    if model != "music_transformer" and scheme not in (
+            "midilike", "midilike_control", "melody"):
         raise SystemExit(f"model={model} trains on a 'midilike', "
                          f"'midilike_control' or 'melody' corpus in the port; "
                          f"this one is {scheme!r}")
-    from ..tokenizers.midilike import EventSeq
-    return EventSeq.dim() + 1
+    if scheme in ("midilike", "midilike_control"):
+        from ..tokenizers.midilike import EventSeq
+        return EventSeq.dim() + 1
+    if scheme == "remi":
+        from ..tokenizers.remi import REMI_EventSeq
+        return REMI_EventSeq.dim() + 1
+    if scheme == "pedal":
+        from ..tokenizers import pedal_midilike
+        return pedal_midilike.VOCAB_SIZE + 2
+    if scheme == "melody":
+        from ..tokenizers.melody import MELODY_VOCAB
+        return MELODY_VOCAB
+    raise SystemExit(f"model={model} trains on a flat token corpus, one of "
+                     f"{list(LM_SCHEMES)}; this one is {scheme!r}")
+
+
+def lm_vocab(scheme: str) -> int:
+    """The MusicTransformer's vocabulary on ``scheme`` (the JAX CLI's
+    :454-463): the scheme's default, and on ``melody`` a pad id over the
+    130 note-array ids, which are all meaningful (129 = no event)."""
+    return _default_vocab(scheme, "music_transformer") + (scheme == "melody")
 
 
 def _batch_rng(seed: int, idx: int, tag: int = 0) -> np.random.RandomState:
@@ -559,13 +598,77 @@ def melody_loss_fn(tcfg):
     return loss_fn
 
 
+def distill_loss_fn(tcfg, teacher, alpha: float, temp: float):
+    """The distillation objective (the JAX CLI's ``_make_distill_loss``):
+    (1 - alpha) * smoothed CE(labels) + alpha * T^2 * KL(teacher_T ||
+    student_T), the log-softmaxes in f32, the KL averaged over the
+    positions whose label is not ``tcfg.pad_id``. The teacher runs its
+    deterministic forward under ``no_grad``. Returns ``loss_fn(model, x,
+    y, generator) -> (loss, accuracy)`` for ``make_train_step``."""
+    from ..train.objective import smooth_cross_entropy, token_accuracy
+
+    def loss_fn(model, x, y, generator):
+        s_logits = model(x, deterministic=False, generator=generator)
+        with torch.no_grad():
+            t_logits = teacher(x, deterministic=True)
+        ce = smooth_cross_entropy(s_logits, y, tcfg.vocab_size,
+                                  tcfg.label_smoothing, tcfg.pad_id)
+        t_lp = torch.log_softmax(t_logits.float() / temp, dim=-1)
+        s_lp = torch.log_softmax(s_logits.float() / temp, dim=-1)
+        kl = (t_lp.exp() * (t_lp - s_lp)).sum(-1)
+        mask = ((y != tcfg.pad_id) if tcfg.pad_id is not None
+                else torch.ones_like(y, dtype=torch.bool)).float()
+        kl = (kl * mask).sum() / mask.sum().clamp_min(1.0) * (temp ** 2)
+        return ((1.0 - alpha) * ce + alpha * kl,
+                token_accuracy(s_logits, y, tcfg.pad_id))
+
+    return loss_fn
+
+
+def load_teacher(cfg: TrainCLIConfig, student, device):
+    """The frozen teacher of ``cfg.distill_from`` (the JAX CLI's
+    ``_load_teacher``): a ``cli.train`` step file or run directory of a
+    MusicTransformer trained at the student's seq_len (the relative
+    attention tables are max_seq-sized) on the student's vocabulary,
+    built as the student is (``build_model``, ``pad_in_input=False``)
+    from its recorded config, model_kwargs and dtype, with gradients off
+    and in eval mode."""
+    from ..utils.checkpoint import restore_checkpoint
+
+    payload = restore_checkpoint(cfg.distill_from)
+    meta = payload.get("config") or {}
+    if "cli" not in meta:
+        raise SystemExit("distill_from checkpoint has no CLI config")
+    t_cli = TrainCLIConfig.from_dict(meta["cli"])
+    if t_cli.model != "music_transformer":
+        raise SystemExit("distill_from must be a music_transformer "
+                         "checkpoint")
+    if t_cli.seq_len != cfg.seq_len:
+        raise SystemExit(
+            f"teacher was trained at seq_len={t_cli.seq_len}, "
+            f"student at {cfg.seq_len} — they must match (relative "
+            "attention position tables are max_seq-sized)")
+    teacher, _, _ = build_model(t_cli, meta.get("scheme", "midilike"),
+                                dict(meta.get("model_kwargs") or {}),
+                                device)
+    if teacher.vocab_size != student.vocab_size:
+        raise SystemExit(
+            f"teacher vocab ({teacher.vocab_size}) != student vocab "
+            f"({student.vocab_size}) — distill on the same scheme")
+    teacher.load_state_dict(payload["model"], strict=True)
+    return teacher.requires_grad_(False).eval()
+
+
 def build_model(cfg: TrainCLIConfig, scheme: str,
-                model_kwargs: Dict[str, Any], device, mesh=None):
+                model_kwargs: Dict[str, Any], device, mesh=None,
+                distill: bool = False):
     """(model, trainer config, loss_fn or None for the default objective)
     for ``cfg``; the model's initial weights come from a CPU generator
     seeded with ``cfg.seed``. With a ``mesh`` attention runs as the ring
     over it. The family comes from the model registry; a train mode a
-    family does not take exits, as in the JAX CLI (:556-560, :797-806)."""
+    family does not take exits, as in the JAX CLI (:556-560, :797-806).
+    ``distill`` (train time only) turns ``cfg.distill_from`` on: a
+    rebuilt run's recorded teacher path is otherwise ignored."""
     from ..models.registry import get_model
     from ..train.trainer import TrainerConfig
 
@@ -646,18 +749,24 @@ def build_model(cfg: TrainCLIConfig, scheme: str,
             accum_steps=cfg.accum_steps, max_grad_norm=cfg.max_grad_norm,
             peak_lr=cfg.peak_lr or 1e-3)
         return model, tcfg, gru_loss_fn(cfg, model.init_dim)
-    vocab = kw.pop("vocab_size", _default_vocab(scheme, cfg.model))
+    vocab = kw.pop("vocab_size", lm_vocab(scheme))
     if mesh is not None:  # not recorded in the checkpoint's model_kwargs
         kw.update(attention_impl="ring", mesh=mesh)
     # crops are dense windows: the training model skips pad masking
     model = cls(**{**defaults(vocab_size=vocab, max_seq=cfg.seq_len),
                    "pad_in_input": False, **kw},
                 device=device, generator=gen)
+    # the pad id is the vocabulary's last id, as JAX's TrainerConfig
+    # sets it: on `pedal` that is 389, the codec's EOS, not its PAD 388
     tcfg = TrainerConfig(
         vocab_size=model.vocab_size, pad_id=model.vocab_size - 1,
         label_smoothing=cfg.label_smoothing, d_model=model.d_model,
         warmup_steps=cfg.warmup_steps, accum_steps=cfg.accum_steps,
         max_grad_norm=cfg.max_grad_norm, peak_lr=cfg.peak_lr)
+    if distill and cfg.distill_from:
+        teacher = load_teacher(cfg, model, device)
+        return model, tcfg, distill_loss_fn(tcfg, teacher, cfg.distill_alpha,
+                                            cfg.distill_temp)
     return model, tcfg, None
 
 
@@ -730,6 +839,10 @@ def _seq_shard(batch_at, mesh, seq_len: int):
 
 def main(argv=None) -> int:
     args, cfg, model_kwargs = _parse(argv)
+    if cfg.distill_from and cfg.sp > 1:
+        # before any process group forms (the JAX CLI's :498-502)
+        raise SystemExit("distill_from composes with dp/fsdp meshes only "
+                         "(the teacher forward is an unsharded plain apply)")
     mesh = init_mesh(cfg, args.device)
     try:
         return _train(args, cfg, model_kwargs, mesh)
@@ -797,7 +910,7 @@ def _train(args, cfg: TrainCLIConfig, model_kwargs, mesh) -> int:
     with open(os.path.join(args.data_dir, "manifest.json")) as f:
         scheme = json.load(f)["scheme"]
     model, tcfg, loss_fn = build_model(cfg, scheme, model_kwargs, device,
-                                       mesh)
+                                       mesh, distill=True)
     corpus = TokenCorpus(args.data_dir, limlen=_limlen(cfg),
                          key="melody" if scheme == "mumidi" else "tokens")
     print(f"corpus: {len(corpus)} sequences (scheme={scheme})")

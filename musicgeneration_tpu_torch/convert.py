@@ -334,6 +334,19 @@ def recorded_quant(config: Mapping) -> str:
     return (config.get("model_kwargs") or {}).get("decode_quant", "none")
 
 
+_DEFAULT_SCHEMES = {"melody_rnn": "melody", "cp_transformer": "cp",
+                    "popmag": "mumidi"}
+
+
+def recorded_scheme(family: str, config: Mapping) -> str:
+    """The token scheme a checkpoint decodes through: the one its
+    ``cli.train`` run recorded (``config["scheme"]``), else the family's
+    (an exported ``.pth`` carries none): ``melody`` for a MelodyRNN,
+    ``cp`` for a CPTransformer, ``mumidi`` for PoPMAG, ``midilike``
+    for the MusicTransformer and the GRU families."""
+    return config.get("scheme") or _DEFAULT_SCHEMES.get(family, "midilike")
+
+
 def load_checkpoint(path: str, device="cuda", dtype=torch.float32,
                     with_config: bool = False,
                     decode_quant: Optional[str] = None):
@@ -347,7 +360,8 @@ def load_checkpoint(path: str, device="cuda", dtype=torch.float32,
     dtype: the compute dtype, or None for the one the checkpoint records
     (``recorded_dtype``); decode_quant likewise ("none" or "int8", or
     None for ``recorded_quant``). With ``with_config`` returns (model,
-    the recorded config: a step file's ``config``, else {})."""
+    the recorded config: a step file's ``config``, its ``scheme`` among
+    it, else {}; ``recorded_scheme`` reads it)."""
     if os.path.isdir(path):
         from .utils.checkpoint import latest_checkpoint
         newest = latest_checkpoint(path)

@@ -1,9 +1,11 @@
 """Offline tokenization pipeline: MIDI corpus -> packed token shards.
 
-The port of ``musicgeneration_tpu/data/pipeline.py`` for the MIDI-like
-(with or without per-event controls), CP, MuMIDI and melody schemes,
-through the port's own codecs (``tokenizers/midilike.py``, ``tokenizers/
-cp.py``, ``tokenizers/mumidi.py``, ``tokenizers/melody.py``; a CP file's
+The port of ``musicgeneration_tpu/data/pipeline.py`` for every scheme:
+MIDI-like (with or without per-event controls), REMI, sustain-pedal
+MIDI-like, CP, MuMIDI and melody, through the port's own codecs
+(``tokenizers/midilike.py``, ``tokenizers/remi.py``, ``tokenizers/
+pedal_midilike.py``, ``tokenizers/cp.py``, ``tokenizers/mumidi.py``,
+``tokenizers/melody.py``; REMI and pedal files are uint16, a CP file's
 [T, 8] rows are stored flattened, a MuMIDI file is a uint16 ``melody``/
 ``arrangement`` pair, a ``midilike_control`` file adds its compressed
 [n, 13] uint8 controls flattened, a melody file is an int16 note
@@ -50,6 +52,19 @@ def _tokenize_midilike(path: str) -> Dict[str, np.ndarray]:
             .astype(np.uint16)}
 
 
+def _tokenize_remi(path: str) -> Dict[str, np.ndarray]:
+    """REMI tokens (uint16) through the vectorised Python path, which
+    gives the JAX package's native tokens."""
+    from ..tokenizers import remi
+    return {"tokens": remi.encode_array_py(path).astype(np.uint16)}
+
+
+def _tokenize_pedal(path: str) -> Dict[str, np.ndarray]:
+    """Sustain-pedal MIDI-like tokens (vocabulary 388), uint16."""
+    from ..tokenizers import pedal_midilike
+    return {"tokens": pedal_midilike.encode_array(path).astype(np.uint16)}
+
+
 def _tokenize_midilike_control(path: str) -> Dict[str, np.ndarray]:
     """MIDI-like tokens and their per-event compressed controls (pitch
     histogram and note density, reference sequence.py:294-407), the
@@ -89,6 +104,8 @@ def _tokenize_mumidi(path: str) -> Dict[str, np.ndarray]:
 SCHEMES: Dict[str, Callable[[str], Dict[str, np.ndarray]]] = {
     "midilike": _tokenize_midilike,
     "midilike_control": _tokenize_midilike_control,
+    "remi": _tokenize_remi,
+    "pedal": _tokenize_pedal,
     "melody": _tokenize_melody,
     "cp": _tokenize_cp,
     "mumidi": _tokenize_mumidi,

@@ -218,7 +218,9 @@ class ContinuousBatcher(SlotScheduler):
         for i, s in need:
             w = s.window
             prompt = self._sliding_prompts[s.rid]
-            em = np.asarray(self._emitted[s.rid], np.int32)
+            # emitted tokens, or [n, 8] rows for the CP engine
+            em = np.asarray(self._emitted[s.rid], np.int32).reshape(
+                (-1,) + prompt.shape[1:])
             ctx = np.concatenate([prompt, em])[-w:]
             self._start_host[i] = self.t - (w - 1)
             groups.setdefault(w, []).append((ctx, i))

@@ -21,9 +21,15 @@ row windows, roll-compaction and the live-window floor. What changes:
 * ``eos_id`` is matched against the FAMILY column (``cp.FAMILY_EOS``
   cuts a request at its end-of-piece row).
 
+Sliding-window requests (``window=``) take the flat engine's rules: a
+window of at least ``seg_len``, ``2 * window + seg_len`` within the
+cache, the prompt cut to its last ``window`` rows, and a re-prime of the
+slot from the last ``window`` rows of prompt + emitted rows whenever its
+context would pass ``2 * window`` (one grouped prefill, kernel A).
+
 Greedy serving gives each request the rows of its dedicated
 ``generate_cp`` run (up to floating-point ties: the pool's batch width
-differs). Sliding-window requests (``window=``) are not ported for CP.
+differs).
 """
 
 from __future__ import annotations
@@ -89,12 +95,6 @@ class CPContinuousBatcher(ContinuousBatcher):
             if row[0] == eos_id:
                 return j
         return None
-
-    def _validate_request(self, prompt, max_new, eos_id, kw) -> dict:
-        if "window" in kw:
-            raise ValueError("window= (sliding-context serving) is not "
-                             "ported for compound-word rows")
-        return super()._validate_request(prompt, max_new, eos_id, kw)
 
     def _segment(self) -> torch.Tensor:
         """One segment of row decode steps; returns its [seg, B, 8] rows

@@ -201,6 +201,19 @@ def test_sources_import_no_jax(path):
     assert not bad, f"{path} imports {sorted(bad)}"
 
 
+def test_isolation_covers_the_copied_codecs_and_clis():
+    """The port's own copies of pure-Python modules of the JAX package
+    (the pedal codec, track extraction) and the CLIs beside them are
+    among the sources checked above, and import nothing of JAX or of the
+    JAX package."""
+    copies = {"tokenizers/pedal_midilike.py", "data/track_extraction.py",
+              "cli/eval.py", "cli/extract_tracks.py"}
+    assert copies <= {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    for rel in sorted(copies):
+        assert not {n for n in _imports(PORT / rel)
+                    if n.split(".")[0] in FORBIDDEN}, rel
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"

@@ -110,7 +110,8 @@ def test_cli_train_refusals(run_dir, tmp_path):
     with pytest.raises(SystemExit, match="'melody' corpus"):
         tcli.main([str(run_dir / "tok"), "model=melody_rnn", "--device",
                    "cpu"])
-    with pytest.raises(SystemExit, match="'midilike' corpus"):
+    # the MusicTransformer trains on every flat token scheme, not on cp
+    with pytest.raises(SystemExit, match="flat token corpus.*'cp'"):
         tcli.main([str(run_dir / "tok"), "steps=1", "batch_size=2",
                    f"seq_len={SEQ}", "--device", "cpu"])
 
@@ -214,12 +215,34 @@ def test_cli_serve_cp_refusals(run_dir, tmp_path):
     with pytest.raises(SystemExit, match="compound-word rows"):
         tserve.main([str(run_dir / "run"), str(reqs), str(tmp_path / "o"),
                      "--topk", "5", "--device", "cpu"])
-    for bad in ('{"max_new": 4, "temperature": 0.5}',
-                '{"max_new": 4, "window": 8}'):
+    # per-request sampling is refused; window= is served, under the flat
+    # engine's rules (a window narrower than a segment is refused)
+    for bad, err, match in (
+            ('{"max_new": 4, "temperature": 0.5}', SystemExit,
+             "request line 0: .*sampling"),
+            ('{"max_new": 4, "window": 2}', ValueError,
+             "must be >= seg_len")):
         reqs.write_text(bad + "\n")
-        with pytest.raises(SystemExit, match="request line 0"):
+        with pytest.raises(err, match=match):
             tserve.main([str(run_dir / "run"), str(reqs),
-                         str(tmp_path / "o"), "--device", "cpu"])
+                         str(tmp_path / "o"), "--seg-len", "4",
+                         "--device", "cpu"])
+
+
+def test_cli_serve_cp_window(run_dir, tmp_path, capsys):
+    """A sliding-window CP request runs past the 32-row cache: the slot
+    re-primes from its last rows, and the result is [max_new, 8] rows
+    written with the CP codec."""
+    reqs = tmp_path / "w.jsonl"
+    reqs.write_text('{"id": "w", "max_new": 60, "window": 8}\n')
+    capsys.readouterr()
+    assert tserve.main([str(run_dir / "run"), str(reqs), str(tmp_path / "o"),
+                        "--slots", "2", "--seg-len", "4", "--greedy",
+                        "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "wrote" in out and " 0 reprimes" not in out
+    assert "(60 tokens)" in out
+    assert cp.extract_events(str(tmp_path / "o" / "w.mid")).shape[1] == 8
 
 
 def test_cli_serve_cp_http(run_dir, tmp_path):

@@ -214,3 +214,32 @@ def test_cp_admission_at_the_cache_end_matches_jax():
     for rid, jrid in zip(rids, jrids):
         np.testing.assert_array_equal(outs[rid], np.asarray(jouts[jrid]))
     np.testing.assert_array_equal(outs[rids[1]], _reference(m, b, 24))
+
+
+def test_cp_window_serving_matches_jax():
+    """Sliding-window CP requests (window 16, a 64-row cache, segments of
+    8): prompts longer than the window are cut to its last rows, and each
+    request re-primes its slot from its last 16 rows of prompt + emitted
+    rows several times; the served rows and the re-prime count equal the
+    JAX ``CPContinuousBatcher``'s with ``window=`` on the same weights,
+    as do the validation errors."""
+    jm, params, m = _pair()
+    rng = np.random.RandomState(23)
+    reqs = [(_rows(rng, 3), 72), (_rows(rng, 24), 56), (_rows(rng, 9), 40)]
+    kw = dict(slots=2, seg_len=8, cache_len=64, prompt_bucket=16)
+    cb = CPContinuousBatcher(m, sampling=GREEDY, **kw)
+    jcb = JCPContinuousBatcher(jm, params, sampling=JSampling(greedy=True),
+                               **kw)
+    rids = [cb.submit(r, mn, window=16) for r, mn in reqs]
+    jrids = [jcb.submit(r, mn, window=16) for r, mn in reqs]
+    outs, jouts = cb.run(), jcb.run()
+    for (_, mn), rid, jrid in zip(reqs, rids, jrids):
+        assert outs[rid].shape == (mn, 8)
+        np.testing.assert_array_equal(outs[rid], np.asarray(jouts[jrid]))
+    assert cb.stats()["reprimes"] == jcb.stats()["reprimes"] >= 6
+    for window in (4, 40):
+        with pytest.raises(ValueError) as got:
+            cb.submit(_rows(rng, 2), 8, window=window)
+        with pytest.raises(ValueError) as want:
+            jcb.submit(_rows(rng, 2), 8, window=window)
+        assert str(got.value) == str(want.value)
