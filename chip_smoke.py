@@ -226,7 +226,26 @@ Phases (the first failure raises and the exit code is non-zero):
    greedy f32 serving of 8 staggered requests == one dedicated
    ``generate`` at the pool width, decode tokens/s at B 8, ``cli.serve``
    goodput (24 requests) and the train step's time and busy share;
-17. one JSON line of kernels, the card's line, and the final JSON line.
+17. data parallelism (``dp_paths``) on virtual meshes of the card (NCCL
+   refuses two ranks on one GPU): ``generate_dp`` of the flagship in bf16
+   (B 8, the 500-token prime, 512 sampled tokens) on 2 and 4 shards with
+   exactly 6 A launches a shard prefill and 18 B a shard step, tokens/s
+   beside ``generate``'s (no scaling claim), greedy f32 ``generate_dp`` ==
+   ``generate``; CP ``generate_cp(mesh=)`` (4 A, 12 B), both GRU families
+   (cache0, controls) and PoPMAG ``generate_arrangement_dp`` (kernel D
+   exactly) greedy-equal to their unsharded runs; one f32 train step of
+   the flagship with its loss taken a data shard at a time (2 shards
+   holding different numbers of pad targets) against the step on the
+   whole batch (6 A + 6 C a shard); ``cli.train fsdp=true`` (3 f32 steps
+   under a one-rank NCCL group, started as torchrun starts one rank)
+   against the same
+   run without it, and the bf16 step under FSDP2 and without,
+   interleaved; ``cli.generate --dp 2`` exits on one card;
+18. the checkpoint CLIs (``checkpoint_cli``): the fsdp run exported by
+   ``cli.export_checkpoint`` and imported by ``cli.import_checkpoint``;
+   ``cli.generate`` from the imported run writes the original run's MIDI
+   bytes (exactly 6 A and 18 B a step); ``cli.check_install`` exits 0;
+19. one JSON line of kernels, the card's line, and the final JSON line.
 
 Imports nothing of JAX or of ``musicgeneration_tpu``. Needs one CUDA card.
 """
@@ -259,8 +278,14 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from musicgeneration_tpu_torch.cli.generate import (  # noqa: E402
-    bucket_prompt, melody_compound_from_midi, parse_control, prime_tokens,
-    write_midi)
+    bucket_prompt, dp_mesh, melody_compound_from_midi, parse_control,
+    prime_tokens, write_midi)
+from musicgeneration_tpu_torch.cli.check_install import (  # noqa: E402
+    main as check_install_main)
+from musicgeneration_tpu_torch.cli.export_checkpoint import (  # noqa: E402
+    main as export_main)
+from musicgeneration_tpu_torch.cli.import_checkpoint import (  # noqa: E402
+    main as import_main)
 from musicgeneration_tpu_torch.cli import train as train_cli  # noqa: E402
 from musicgeneration_tpu_torch.cli.eval import main as eval_main  # noqa: E402
 from musicgeneration_tpu_torch.cli.generate import main as cli_main  # noqa: E402
@@ -271,7 +296,8 @@ from musicgeneration_tpu_torch.cli.tokenize import (  # noqa: E402
 from musicgeneration_tpu_torch.data.pipeline import TokenCorpus  # noqa: E402
 from musicgeneration_tpu_torch.data.prefetch import to_device  # noqa: E402
 from musicgeneration_tpu_torch.decode import (  # noqa: E402
-    DecodeParams, SamplingParams, SpecParams, generate, generate_speculative)
+    DecodeParams, SamplingParams, SpecParams, generate, generate_dp,
+    generate_speculative)
 from musicgeneration_tpu_torch.decode.cp_generate import (  # noqa: E402
     generate_cp, sample_row)
 from musicgeneration_tpu_torch.decode.serving_cp import (  # noqa: E402
@@ -285,7 +311,7 @@ from musicgeneration_tpu_torch.models import music_transformer as mt  # noqa: E4
 from musicgeneration_tpu_torch.models import (  # noqa: E402
     EventMelodyRNN, MelodyRNN, PerformanceRNN, PoPMAGRNN)
 from musicgeneration_tpu_torch.decode.popmag_generate import (  # noqa: E402
-    flatten_arrangement, generate_arrangement)
+    flatten_arrangement, generate_arrangement, generate_arrangement_dp)
 from musicgeneration_tpu_torch.decode.serving_popmag import (  # noqa: E402
     PopMAGContinuousBatcher)
 from musicgeneration_tpu_torch.midi import (  # noqa: E402
@@ -311,14 +337,17 @@ from musicgeneration_tpu_torch.ops.relative_attention import (  # noqa: E402
 from musicgeneration_tpu_torch.ops.ring_attention import (  # noqa: E402
     ring_tile, ring_tile_plain)
 from musicgeneration_tpu_torch.parallel import (  # noqa: E402
-    make_mesh, ring_relative_attention, ring_relative_attention_pallas)
+    make_mesh, ring_relative_attention, ring_relative_attention_pallas,
+    shard_batch)
 from musicgeneration_tpu_torch.parallel.ring_attention import (  # noqa: E402
     to_shards)
 from musicgeneration_tpu_torch.tokenizers import (  # noqa: E402
     cp, melody, midilike)
+from musicgeneration_tpu_torch.train.objective import (  # noqa: E402
+    smooth_cross_entropy, token_accuracy)
 from musicgeneration_tpu_torch.train.trainer import (  # noqa: E402
-    TrainerConfig, create_train_state, make_eval_step, make_optimizer,
-    make_train_step)
+    TrainerConfig, create_train_state, kept_count, make_eval_step,
+    make_optimizer, make_train_step)
 from musicgeneration_tpu_torch.utils.checkpoint import (  # noqa: E402
     latest_checkpoint, list_checkpoints)
 from musicgeneration_tpu_torch.utils.config import apply_overrides  # noqa: E402
@@ -623,10 +652,12 @@ def gpu_line() -> str:
 def device_rows(prof) -> list:
     """(device us, count, name) of each kernel in a torch.profiler run:
     device-side events only (a CPU op's device time repeats the time of
-    the kernels it launched)."""
+    the kernels it launched), and no annotation ranges (FSDP's
+    ``FSDP::pre_forward`` and the like span kernels counted already)."""
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
             continue
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0))
@@ -6213,6 +6244,407 @@ def cp_window_serving(rows: np.ndarray) -> dict:
     return {"A": n[0], "B": n[1], "rows_s": rows_s}
 
 
+# data parallelism on the one card: generate_dp, CP's mesh=, PoPMAG's
+# generate_arrangement_dp and one dp train step on virtual meshes of the
+# card (NCCL refuses two ranks on one GPU), FSDP2 under a one-rank NCCL
+# group, then the checkpoint CLIs. Greedy parity runs in f32: 64 tokens
+# of the flagship, 64 CP rows after 256, 64 GRU tokens after the prime,
+# PoPMAG over 4 bars
+DP_SHARDS, DP_GREEDY = (2, 4), 64
+DP_CP_PROMPT, DP_CP_ROWS, DP_RNN_STEPS, DP_PM_BARS = 256, 64, 64, 4
+FSDP_STEPS, FSDP_RATE_STEPS = 3, 10
+CK_PRIME, CK_STEPS = 100, 128
+
+
+def vmesh(dp: int):
+    """A virtual mesh of ``dp`` data shards, every one on the card."""
+    return make_mesh(dp=dp, devices=[DEV] * dp)
+
+
+def counted(fn):
+    """(fn(), (kernel A, kernel B) launches during it, host seconds)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (fused_relative_attention.launches,
+                 fused_decode_step.launches), time.perf_counter() - t0
+
+
+def expect(label: str, got, want) -> None:
+    print(f"{label}: launches {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def dp_generate(prime: np.ndarray) -> dict:
+    """``generate_dp`` of the flagship in bf16 (B 8, the 500-token prime
+    bucketed to 512, 512 sampled tokens) on virtual meshes of 2 and 4
+    shards, with exactly 6 A launches a shard prefill and 18 B a shard
+    decode step, tokens/s beside ``generate``'s (host clock, prefill
+    included; one card: no scaling); then greedy f32 ``generate_dp`` ==
+    ``generate``, 64 tokens."""
+    model = flagship(torch.bfloat16)
+    prompt_np, prompt_len = bucket_prompt(np.tile(prime, (B, 1)), STEPS,
+                                          MAX_SEQ, model.pad_id)
+    prompt = torch.from_numpy(prompt_np).to(DEV)
+    dp = DecodeParams(max_len=L_PREFILL + STEPS, steps=STEPS,
+                      sampling=SamplingParams())
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    warm = DecodeParams(max_len=L_PREFILL + 8, steps=8,
+                        sampling=SamplingParams())
+    for n in (1,) + DP_SHARDS:  # the first calls of a process run slower
+        generate_dp(model, prompt, 0, warm, vmesh(n), prompt_len)
+    _, _, secs = counted(lambda: generate(model, prompt, gen, dp, prompt_len))
+    rates, a, b = {1: B * STEPS / secs}, 0, 0
+    for n in DP_SHARDS:
+        toks, got, secs = counted(lambda: generate_dp(
+            model, prompt, 0, dp, vmesh(n), prompt_len))
+        expect(f"generate_dp bf16 dp {n}", got,
+               (N_LAYERS * n, 3 * N_LAYERS * STEPS * n))
+        t = toks.cpu().numpy()
+        if t.shape != (B, STEPS) or t.min() < 0 or t.max() >= VOCAB:
+            raise AssertionError(f"bad tokens {t.shape}")
+        rates[n] = B * STEPS / secs
+        a, b = a + got[0], b + got[1]
+    model32 = flagship(torch.float32)
+    dpg = DecodeParams(max_len=L_PREFILL + DP_GREEDY, steps=DP_GREEDY,
+                       sampling=SamplingParams(greedy=True))
+    ref = generate(model32, prompt, None, dpg, prompt_len)
+    for n in DP_SHARDS:
+        toks, got, _ = counted(lambda: generate_dp(
+            model32, prompt, 0, dpg, vmesh(n), prompt_len))
+        expect(f"generate_dp greedy f32 dp {n}", got,
+               (N_LAYERS * n, 3 * N_LAYERS * DP_GREEDY * n))
+        same = torch.equal(toks, ref)
+        print(f"greedy f32 generate_dp dp {n} == generate, {DP_GREEDY} "
+              f"tokens x {B}: {same}")
+        if not same:
+            raise AssertionError(f"generate_dp dp {n} differs first at "
+                                 f"{(toks != ref).nonzero()[0].tolist()}")
+        a, b = a + got[0], b + got[1]
+    print("generate_dp bf16 B=8 tokens/s (host clock, prefill included, one "
+          "card: no scaling): " + ", ".join(
+              f"dp {n} {r:.1f}" for n, r in rates.items()),
+          f"on {gpu_line()}")
+    return {"A": a, "B": b, "tok_s": rates}
+
+
+def dp_cp(tmp: str) -> dict:
+    """Greedy f32 ``generate_cp(mesh=)`` on 2 shards == ``generate_cp``
+    (B 8, 64 rows after 256), exactly 4 A a shard prefill and 12 B a
+    shard row."""
+    _, rows = cp_prime(tmp)
+    prompt = np.tile(rows[None, :DP_CP_PROMPT], (B, 1, 1))
+    model = cp_model(torch.float32)
+    ref = generate_cp(model, prompt, DP_CP_ROWS, greedy=True)
+    out, got, _ = counted(lambda: generate_cp(
+        model, prompt, DP_CP_ROWS, greedy=True, mesh=vmesh(2)))
+    expect("CP generate_cp(mesh=) greedy f32 dp 2", got,
+           (CP_LAYERS * 2, 3 * CP_LAYERS * DP_CP_ROWS * 2))
+    same = torch.equal(out, ref)
+    print(f"CP greedy f32 dp 2 == mesh=None, {DP_CP_ROWS} rows x {B}: {same}")
+    if not same:
+        raise AssertionError("CP dp rows differ")
+    return {"A": got[0], "B": got[1]}
+
+
+def dp_gru(prime: np.ndarray) -> int:
+    """Greedy f32 ``generate_dp`` of both GRU families on 2 shards (the
+    500-token prime, 64 tokens; PerformanceRNN with its latent-seeded
+    cache0 and controls) == ``generate``, kernel D exactly L a shard
+    step."""
+    total = 0
+    for family in ("event_rnn", "performance_rnn"):
+        model = rnn_model(family, torch.float32)
+        prompt = rnn_prompt(family, prime, B)
+        kw = rnn_conditioning(model, B)
+        dp = DecodeParams(max_len=prompt.shape[1] + DP_RNN_STEPS,
+                          steps=DP_RNN_STEPS,
+                          sampling=SamplingParams(greedy=True))
+        ref = generate(model, prompt, None, dp, **kw)
+        out, n, _ = count_d(lambda: generate_dp(model, prompt, 0, dp,
+                                                vmesh(2), **kw))
+        want = 2 * (prompt.shape[1] + DP_RNN_STEPS) * RNN_LAYERS
+        same = torch.equal(out, ref)
+        print(f"greedy f32 {family} generate_dp dp 2 == generate: {same}; "
+              f"kernel D launches {n} (expected {want})")
+        if not same or n != want:
+            raise AssertionError(f"{family} dp: same {same}, launches {n}")
+        total += n
+    return total
+
+
+def dp_popmag(tmp: str) -> int:
+    """Greedy f32 ``generate_arrangement_dp`` on 2 shards (B 8, 4 bars) ==
+    ``generate_arrangement``, kernel D exactly 400 a bar a shard."""
+    _, mels = popmag_melodies(tmp)
+    src, src_len = pool_batch(mels)
+    model = popmag_model(torch.float32)
+    init = torch.randn(B, model.init_dim,
+                       generator=torch.Generator().manual_seed(5))
+    ref = generate_arrangement(model, init, src, src_len, DP_PM_BARS)
+    out, n, _ = count_d(lambda: generate_arrangement_dp(
+        model, init, src, src_len, DP_PM_BARS, vmesh(2)))
+    want = PM_LAUNCHES_PER_BAR * DP_PM_BARS * 2
+    same = torch.equal(out[1], ref[1]) and all(
+        np.array_equal(x, y) for x, y in zip(flatten_arrangement(*out),
+                                             flatten_arrangement(*ref)))
+    print(f"PoPMAG greedy f32 generate_arrangement_dp dp 2 == unsharded, "
+          f"{DP_PM_BARS} bars x {B}: {same}; kernel D launches {n} "
+          f"(expected {want})")
+    if not same or n != want:
+        raise AssertionError(f"PoPMAG dp: same {same}, launches {n}")
+    return n
+
+
+def shard_loss(tcfg, mesh):
+    """A ``loss_fn`` for the single-device step that runs each data shard
+    of the virtual ``mesh`` on its rows of the micro-batch, one forward a
+    shard, each shard's loss its local sum over the micro-batch's count
+    of kept targets (as a rank of a process group computes it): the
+    shards' sum is the global mean."""
+    def loss_fn(model, x, y, generator):
+        denom = kept_count(y, tcfg)
+        loss = acc = 0.0
+        for i in range(mesh.data):
+            xi, yi = shard_batch(mesh, (x, y), i)
+            logits = model(xi, deterministic=False, generator=generator)
+            loss = loss + smooth_cross_entropy(
+                logits, yi, tcfg.vocab_size, tcfg.label_smoothing,
+                tcfg.pad_id, denom)
+            acc = acc + token_accuracy(logits, yi, tcfg.pad_id, denom)
+        return loss, acc
+    return loss_fn
+
+
+def dp_train_step(shards: str) -> tuple:
+    """One f32 train step (dropout 0) of the flagship at B 8, seq 512 with
+    the loss taken a data shard at a time (``shard_loss``, 2 shards whose
+    rows hold different numbers of pad targets), against the step on the
+    whole batch (both through kernels A and C): PERF.md section 2's
+    tolerances, exactly 6 A + 6 C a shard."""
+    cfg, batches = train_batches(1, shards)
+    x, y = batches[0]
+    y = y.clone()
+    y[0, :200] = VOCAB - 1       # shard 0: 203 pad targets
+    y[1, 5:8] = VOCAB - 1
+    y[6, :17] = VOCAB - 1        # shard 1: 17
+    kw = {"dtype": "float32", "dropout_rate": 0.0, "num_layers": N_LAYERS}
+    results, counts = [], []
+    for mesh in (None, vmesh(2)):
+        model, tcfg, _ = train_cli.build_model(cfg, "midilike", kw, DEV)
+        tx = make_optimizer(tcfg)
+        state = create_train_state(model, tx, dropout_seed=cfg.seed)
+        step = make_train_step(
+            tx, tcfg, loss_fn=mesh and shard_loss(tcfg, mesh))
+        reset_counts()
+        fused_relative_attention_bwd.launches = 0
+        state, m = step(state, x, y)
+        torch.cuda.synchronize()
+        counts.append((fused_relative_attention.launches,
+                       fused_relative_attention_bwd.launches))
+        results.append((state, m))
+    expect("dp 2 train step f32", counts[1], (2 * N_LAYERS, 2 * N_LAYERS))
+    step_parity(f"dp 2 train step (a loss a data shard, B{B} L{L_TRAIN}, "
+                "unequal pads) vs the whole batch", results[1], results[0],
+                tx.lr(0))
+    return counts[1]
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def one_rank_env():
+    """The variables ``torchrun --nproc-per-node 1`` sets, on a free
+    local port, for the duration of the block."""
+    env = dict(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+               MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def fsdp_cli(tmp: str, shards: str) -> dict:
+    """``cli.train fsdp=true`` at full width, f32, dropout 0, 3 steps,
+    started as ``torchrun --nproc-per-node 1`` starts it (a one-rank NCCL
+    group), against the same run without fsdp: equal losses (1e-5
+    relative), exactly 6 A + 6 C a step. Returns the launches and the
+    fsdp run's directory."""
+    runs = {}
+    for name, extra in (("plain", ()), ("fsdp", ("fsdp=true",))):
+        run = os.path.join(tmp, f"fsdp_{name}")
+        reset_counts()
+        fused_relative_attention_bwd.launches = 0
+        env = one_rank_env() if extra else contextlib.nullcontext()
+        with env, quiet(os.path.join(tmp, "train.log")):
+            train_cli.main(train_args(
+                shards, run, FSDP_STEPS, "model.dtype=float32",
+                "model.dropout_rate=0.0", f"model.num_layers={N_LAYERS}",
+                *extra))
+        torch.cuda.synchronize()
+        runs[name] = (losses(run + ".jsonl"),
+                      (fused_relative_attention.launches,
+                       fused_relative_attention_bwd.launches), run)
+    (plain, _, _), (fs, got, run) = runs["plain"], runs["fsdp"]
+    expect("cli.train fsdp=true f32", got,
+           (N_LAYERS * FSDP_STEPS, N_LAYERS * FSDP_STEPS))
+    diff = max(abs(fs[s] - plain[s]) / abs(plain[s]) for s in plain)
+    print(f"cli.train fsdp=true vs without, {FSDP_STEPS} steps: losses "
+          f"{[round(fs[s], 6) for s in sorted(fs)]}, max rel diff "
+          f"{diff:.2e} (tol 1e-5)")
+    if sorted(fs) != list(range(FSDP_STEPS)) or diff > 1e-5:
+        raise AssertionError(f"fsdp losses {fs} vs {plain}")
+    return {"A": got[0], "C": got[1], "run": run}
+
+
+def fsdp_rate(shards: str) -> dict:
+    """The bf16 train step (dropout 0.1, full width) with the model
+    sharded by FSDP2 over a one-rank NCCL group and without, interleaved
+    (plain, fsdp, fsdp, plain), CUDA events over FSDP_RATE_STEPS warm
+    steps each."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(dp=1, fsdp=True, device=DEV)
+        cfg, batches = train_batches(FSDP_RATE_STEPS + 1, shards)
+        times = {"plain": [], "fsdp": []}
+        for name in ("plain", "fsdp", "fsdp", "plain"):
+            m = mesh if name == "fsdp" else None
+            model, tcfg, _ = train_cli.build_model(
+                cfg, "midilike", {"dtype": "bfloat16",
+                                  "num_layers": N_LAYERS}, DEV)
+            tx = make_optimizer(tcfg)
+            state = create_train_state(model, tx, cfg.seed, mesh=m)
+            step = make_train_step(tx, tcfg, mesh=m)
+            state, _ = step(state, *batches[0])
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for x, y in batches[1:]:
+                state, _ = step(state, x, y)
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / FSDP_RATE_STEPS)
+            if name == "fsdp":
+                sharded = (state, step)
+        state, step = sharded
+        # where the sharded step's time goes: the device's busy share
+        # and its kernels (the gathers and reduce-scatters among them)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for x, y in batches[1:4]:
+                state, _ = step(state, x, y)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        dist.destroy_process_group()
+    ms = {k: float(np.median(v)) for k, v in times.items()}
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    print(f"train step bf16 B{B} L{L_TRAIN}: fsdp (one-rank NCCL group) "
+          f"{ms['fsdp']:.3f} ms, unsharded {ms['plain']:.3f} ms (runs "
+          f"{times}; CUDA events over {FSDP_RATE_STEPS} steps); under the "
+          f"profiler the fsdp step's device is busy {busy / 3e3:.3f} ms of "
+          f"{wall_us / 3e3:.3f} ({100 * busy / wall_us:.1f}%)",
+          f"on {gpu_line()}")
+    for dev_us, count, key in sorted(rows, reverse=True)[:8]:
+        print(f"  {dev_us / 3:9.1f} us/step {count / 3:6.1f}x/step "
+              f"{key[:80]}")
+    return dict(ms, busy=busy / wall_us)
+
+
+def dp_cli_refusal() -> None:
+    """``cli.generate --dp 2`` on the one card exits as the JAX CLI's
+    ``_dp_mesh`` does."""
+    try:
+        dp_mesh(2, B, "cuda")
+    except SystemExit as e:
+        print(f"cli.generate --dp 2 on {torch.cuda.device_count()} card: "
+              f"exits with {str(e)!r}")
+        if "needs 2 devices, have 1" not in str(e):
+            raise
+        return
+    raise AssertionError("--dp 2 took a mesh on one card")
+
+
+def dp_paths(tmp: str, shards: str, prime: np.ndarray) -> dict:
+    """Every data-parallel phase; launches by path for the kernels
+    line."""
+    gen = dp_generate(prime)
+    cpr = dp_cp(tmp)
+    d_gru = dp_gru(prime)
+    d_pm = dp_popmag(tmp)
+    step = dp_train_step(shards)
+    fs = fsdp_cli(tmp, shards)
+    rate = fsdp_rate(shards)
+    dp_cli_refusal()
+    return {"A": {"dp_generate": gen["A"], "dp_cp": cpr["A"],
+                  "dp_train": step[0], "fsdp_train": fs["A"]},
+            "B": {"dp_generate": gen["B"], "dp_cp": cpr["B"]},
+            "C": {"dp_train": step[1], "fsdp_train": fs["C"]},
+            "D": {"dp_gru": d_gru, "dp_popmag": d_pm},
+            "tok_s": gen["tok_s"], "fsdp_ms": rate, "fsdp_run": fs["run"]}
+
+
+def checkpoint_cli(tmp: str, run: str) -> dict:
+    """The fsdp run exported by ``cli.export_checkpoint`` and imported by
+    ``cli.import_checkpoint``: ``cli.generate`` from the imported run
+    (B 8, a 100-token prime, 128 sampled tokens; exactly 6 A and 18 B a
+    step) writes the MIDI bytes the original run gives; then
+    ``cli.check_install`` exits 0."""
+    pth = os.path.join(tmp, "exported.pth")
+    prime_mid = os.path.join(tmp, "ck_prime.mid")
+    write_midi(np.random.default_rng(3).integers(0, VOCAB - 1, 600),
+               prime_mid)
+    with quiet(os.path.join(tmp, "ck.log")):
+        export_main([run, pth])
+        import_main([pth, os.path.join(tmp, "imported")])
+    outs, a, b = {}, 0, 0
+    for name, src in (("original", run),
+                      ("imported", os.path.join(tmp, "imported"))):
+        out = os.path.join(tmp, f"ck_{name}.mid")
+        with quiet(os.path.join(tmp, "ck.log")):
+            _, got, _ = counted(lambda: cli_main(
+                [src, out, "--prime", prime_mid, "--prime-len",
+                 str(CK_PRIME), "--steps", str(CK_STEPS), "--batch", str(B),
+                 "--seed", "0"]))
+        expect(f"cli.generate from the {name} run", got,
+               (N_LAYERS, 3 * N_LAYERS * CK_STEPS))
+        outs[name] = [open(os.path.join(tmp, f"ck_{name}-{i:03d}.mid"),
+                           "rb").read() for i in range(B)]
+        a, b = a + got[0], b + got[1]
+    same = outs["original"] == outs["imported"]
+    print(f"export -> import -> cli.generate: MIDI bytes equal to the "
+          f"original run's: {same}")
+    if not same:
+        raise AssertionError("the imported run generates other MIDI")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = check_install_main([])
+    print(buf.getvalue().rstrip())
+    if rc != 0:
+        raise AssertionError(f"cli.check_install exited {rc}")
+    return {"A": a, "B": b}
+
+
 TC_ENTRIES = {"relative_attention": ("rel_attn_fwd_tc_kernel",),
               "ring_attention": ("ring_tile_tc_kernel",),
               "relative_attention_bwd": ("rel_attn_bwd_tc_kernel",),
@@ -6345,21 +6777,24 @@ def main(argv: list) -> int:
         train_parity(shards)
         tr = train_end_to_end(tmp, shards)
         step_t = time_train_step(shards)
+        dpr = dp_paths(tmp, shards, e2e["prime"])
+        ck = checkpoint_cli(tmp, dpr["fsdp_run"])
     ring_launches = ring_paths()
     cp_times = time_cp_kernels()
     by_a = {"generate": e2e["A"], "train": tr["A"], "serve": served["A"],
             "speculative": spec["A"], **cp_run["A"], **sch["A"],
-            **dist["A"]}
+            **dist["A"], **dpr["A"], "checkpoint_cli": ck["A"]}
     row_a = time_kernel_a(sum(by_a.values()), max(err_a, err_cp["A"]))
     row_a["launches_by_path"] = by_a
     by_b = {"generate": e2e["B"], "serve": served["B"],
             "speculative": spec["B"], **cp_run["B"], **sch["B"],
-            **dist["B"]}
+            **dist["B"], **dpr["B"], "checkpoint_cli": ck["B"]}
     row_b = time_kernel_b(sum(by_b.values()),
                           max(err_b, err_br, err_w["B"], err_cp["B"],
                               err_cp["B_ragged"]))
     row_b["launches_by_path"] = by_b
-    by_c = {"train": tr["C"], **cp_run["C"], **sch["C"], **dist["C"]}
+    by_c = {"train": tr["C"], **cp_run["C"], **sch["C"], **dist["C"],
+            **dpr["C"]}
     row_c = time_kernel_c(sum(by_c.values()), max(err_c, err_cp["C"]))
     row_c["launches_by_path"] = by_c
     by_br = {"serve": served["B"], "cp_serve": cp_run["B"]["cp_serve"],
@@ -6370,7 +6805,8 @@ def main(argv: list) -> int:
     row_br["launches_by_path"] = by_br
     for row, key in ((row_a, "A"), (row_b, "B"), (row_c, "C")):
         row.update(cp_times[key])
-    by_d = {**rnn["launches"], **pm["launches"], **rt["train"]["launches"]}
+    by_d = {**rnn["launches"], **pm["launches"], **rt["train"]["launches"],
+            **dpr["D"]}
     row_d = time_kernel_d(sum(by_d.values()), err_d)
     row_d["launches_by_path"] = by_d
     row_d.update(time_kernel_d_popmag())
@@ -6469,6 +6905,13 @@ def main(argv: list) -> int:
           f"/{SPEC_CHUNK - 1}; CP window serving {cp_run['window_rows_s']:.1f} "
           f"rows/s (f32); kernel F bf16 B={B}: " + ", ".join(
               f"V {v} {t['ms']:.4f} ms" for v, t in sch["f_times"].items()),
+          f"on {gpu_line()}")
+    print("data parallel on one card (virtual meshes, no scaling claim): "
+          "generate_dp bf16 B=8 tokens/s " + ", ".join(
+              f"dp {n} {r:.1f}" for n, r in dpr["tok_s"].items())
+          + f"; train step bf16 under FSDP2 (one rank) "
+          f"{dpr['fsdp_ms']['fsdp']:.3f} ms ({100 * dpr['fsdp_ms']['busy']:.1f}"
+          f"% busy), unsharded {dpr['fsdp_ms']['plain']:.3f} ms",
           f"on {gpu_line()}")
     print(f"ring train step bf16 B={B} L={L_RING} (host clock, median): "
           f"virtual ring sp {SP_RING} {ring_step['ring_pallas']:.2f} ms "

@@ -61,9 +61,18 @@ repeated every step; or a ``midilike_control`` corpus directory or one
 ``.npz`` shard of it, whose per-event control sequence drives every
 step: ``--control-index`` picks the sequence, else one drawn by
 ``RandomState(--seed)``), a latent per batch row (``--init-zero`` for
-zeros) and a prime that starts with the primary event. Runs on
-``--device cuda`` by default; a missing GPU is an error, not a
-fallback.
+zeros) and a prime that starts with the primary event.
+
+``--dp N`` splits ``--batch``'s rows over N data shards
+(``decode.generate_dp``; CP ``generate_cp(mesh=)``; PoPMAG
+``generate_arrangement_dp``): on ``cuda`` the first N visible devices,
+one shard each (the model copied to each); on the CPU N shards of the
+CPU. It exits, as the JAX CLI's ``_dp_mesh`` does, when fewer devices
+are visible or the batch does not divide; ``--spec``, ``--beam`` and a
+continuation past max_seq do not take it. Greedy output equals ``--dp
+1``'s; sampled shards draw from their own streams, seeded from
+``--seed`` and the shard index. Runs on ``--device cuda`` by default; a
+missing GPU is an error, not a fallback.
 """
 
 from __future__ import annotations
@@ -77,6 +86,25 @@ import numpy as np
 import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dp_mesh(dp: int, batch: int, device):
+    """--dp: a virtual mesh of ``dp`` data shards, the first ``dp``
+    visible CUDA devices (on the CPU, ``dp`` shards of it); exits as the
+    JAX CLI's ``_dp_mesh`` does on a batch that does not divide or too
+    few devices."""
+    from ..parallel.mesh import make_mesh
+
+    if batch % dp:
+        raise SystemExit(f"--batch {batch} not divisible by --dp {dp}")
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return make_mesh(dp=dp, devices=[dev] * dp)
+    have = torch.cuda.device_count()
+    if have < dp:
+        raise SystemExit(f"--dp {dp} needs {dp} devices, have {have}")
+    return make_mesh(dp=dp, devices=[torch.device("cuda", i)
+                                     for i in range(dp)])
 
 
 def _dtype(args):
@@ -383,6 +411,13 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=1,
                    help="generate N continuations in one batch; N>1 writes "
                         "<stem>-000.mid ...")
+    p.add_argument("--dp", type=int, default=1,
+                   help="shard the batch over N devices (data-parallel "
+                        "decode over the first N visible GPUs, their shards "
+                        "run one after another from this host thread; "
+                        "--batch must divide by N; greedy output equals "
+                        "--dp 1's, sampled shards draw from their own "
+                        "streams)")
     p.add_argument("--include-prime", action="store_true",
                    help="write prompt + continuation")
     p.add_argument("--beam", type=int, default=0,
@@ -439,8 +474,9 @@ def main(argv=None) -> int:
         if model.family != "music_transformer":
             raise SystemExit("--spec needs a music_transformer target "
                              "(chunked verify forward)")
-        if args.beam > 1:
-            raise SystemExit("--spec is mutually exclusive with --beam")
+        if args.dp > 1 or args.beam > 1:
+            raise SystemExit("--spec is mutually exclusive with --dp "
+                             "and --beam")
     if model.family != "music_transformer":
         return _generate_rnn(model, args, rnn_scheme(model, config))
     if args.beam > 1 or args.control is not None:
@@ -471,9 +507,9 @@ def _write_outputs(outs, prime, args, scheme: str = "midilike") -> None:
 
 def _generate_rnn(model, args, scheme: str) -> int:
     """EventMelodyRNN / PerformanceRNN / MelodyRNN: sampled or greedy
-    generation through ``decode.generate``, or (stochastic) beam search
-    for the GRU families."""
-    from ..decode import DecodeParams, generate
+    generation through ``decode.generate`` (``generate_dp`` with --dp), or
+    (stochastic) beam search for the GRU families."""
+    from ..decode import DecodeParams, generate, generate_dp
 
     if model.family == "melody_rnn" and args.beam > 1:
         raise SystemExit("--beam is for the GRU families (event_rnn / "
@@ -517,14 +553,22 @@ def _generate_rnn(model, args, scheme: str) -> int:
         if nb > 1:
             raise SystemExit("--batch and --beam are mutually exclusive "
                              "(a beam already explores N hypotheses)")
+        if args.dp > 1:
+            raise SystemExit("--dp/--tp do not apply to beam search "
+                             "(single-hypothesis-set decode)")
         outs = beam_decode(model, prompt, args.steps, args.beam,
                            args.temperature or 1.0, args.stochastic_beam,
                            gen, controls, cache0)[None]
     else:
         dp = DecodeParams(max_len=len(prime) + args.steps, steps=args.steps,
                           sampling=_sampling(args))
-        outs = generate(model, prompt, gen, dp, controls=controls,
-                        cache0=cache0)
+        if args.dp > 1:
+            outs = generate_dp(model, prompt, args.seed, dp,
+                               dp_mesh(args.dp, nb, args.device),
+                               controls=controls, cache0=cache0)
+        else:
+            outs = generate(model, prompt, gen, dp, controls=controls,
+                            cache0=cache0)
     _write_outputs(outs.cpu().numpy(), prime, args, scheme)
     return 0
 
@@ -549,12 +593,16 @@ def _generate_cp(model, args) -> int:
         rows = [cp_codec._row(cp_codec.FAMILY_METRIC, position=0)]
     rows = np.asarray(rows, np.int64)[:max(1, model.max_seq - args.steps)]
     nb = max(args.batch, 1)
-    gen = torch.Generator(device=model.device).manual_seed(args.seed)
+    if args.dp > 1:  # each data shard seeds its own stream from --seed
+        shard = dict(mesh=dp_mesh(args.dp, nb, args.device), seed=args.seed)
+    else:
+        shard = dict(generator=torch.Generator(
+            device=model.device).manual_seed(args.seed))
     try:
         out = generate_cp(model, np.tile(rows[None], (nb, 1, 1)), args.steps,
                           max_len=rows.shape[0] + args.steps,
                           temperature=args.temperature or 1.0,
-                          greedy=(args.temperature == 0.0), generator=gen)
+                          greedy=(args.temperature == 0.0), **shard)
     except ValueError as e:
         raise SystemExit(str(e)) from None
     stem, ext = os.path.splitext(args.output)
@@ -571,7 +619,8 @@ def _generate_popmag(model, args, config) -> int:
     """Melody MIDI -> multi-track arrangement MIDI (the JAX CLI's
     ``_generate_arrangement``; reference PoPMAG_RNN/generate.py:177)."""
     from ..decode.popmag_generate import (flatten_arrangement,
-                                          generate_arrangement)
+                                          generate_arrangement,
+                                          generate_arrangement_dp)
     from ..tokenizers.mumidi import MuMIDI_EventSeq
 
     if args.prime is None:
@@ -592,12 +641,18 @@ def _generate_popmag(model, args, config) -> int:
     # one latent a row, drawn on the CPU: one seed gives one latent anywhere
     init = torch.randn(nb, model.init_dim,
                        generator=torch.Generator().manual_seed(args.seed))
-    gen = torch.Generator(device=model.device).manual_seed(args.seed + 1)
-    tokens, valid = generate_arrangement(
-        model, init, np.tile(src[None], (nb, 1, 1, 1)),
-        np.tile(src_len[None], (nb, 1)), n_bars,
-        greedy=(args.temperature == 0.0),
-        temperature=args.temperature or 1.0, generator=gen)
+    src, src_len = np.tile(src[None], (nb, 1, 1, 1)), np.tile(src_len[None],
+                                                             (nb, 1))
+    kwargs = dict(greedy=(args.temperature == 0.0),
+                  temperature=args.temperature or 1.0)
+    if args.dp > 1:
+        tokens, valid = generate_arrangement_dp(
+            model, init, src, src_len, n_bars,
+            dp_mesh(args.dp, nb, args.device), seed=args.seed + 1, **kwargs)
+    else:
+        gen = torch.Generator(device=model.device).manual_seed(args.seed + 1)
+        tokens, valid = generate_arrangement(
+            model, init, src, src_len, n_bars, generator=gen, **kwargs)
     stem, ext = os.path.splitext(args.output)
     for i, flat in enumerate(flatten_arrangement(tokens, valid)):
         path = args.output if nb == 1 else f"{stem}-{i:03d}{ext or '.mid'}"
@@ -607,17 +662,17 @@ def _generate_popmag(model, args, config) -> int:
 
 
 def _generate_transformer(model, args, scheme: str = "midilike") -> int:
-    from ..decode import DecodeParams, generate, generate_sliding
+    from ..decode import DecodeParams, generate, generate_dp, generate_sliding
 
     prime = prime_tokens(args.prime, args.prime_len, scheme)
     nb = max(args.batch, 1)
     prompt = np.tile(np.asarray(prime, np.int64)[None], (nb, 1))
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     if len(prime) + args.steps > model.max_seq:
-        if nb > 1 or args.spec is not None:
+        if nb > 1 or args.dp > 1 or args.spec is not None:
             raise SystemExit(
                 f"prime ({len(prime)}) + steps ({args.steps}) exceeds "
-                f"max_seq ({model.max_seq}): --batch/--spec with a "
+                f"max_seq ({model.max_seq}): --batch/--dp/--spec with a "
                 "continuation beyond max_seq (sliding window) is not "
                 "supported")
         # the cache spans 2 * window rows, inside the relative table
@@ -631,8 +686,13 @@ def _generate_transformer(model, args, scheme: str = "midilike") -> int:
                                            model.pad_id)
         dp = DecodeParams(max_len=prompt.shape[1] + args.steps,
                           steps=args.steps, sampling=_sampling(args))
-        outs = generate(model, torch.from_numpy(prompt), gen, dp,
-                        prompt_len).cpu().numpy()
+        if args.dp > 1:
+            outs = generate_dp(model, prompt, args.seed, dp,
+                               dp_mesh(args.dp, nb, args.device), prompt_len)
+        else:
+            outs = generate(model, torch.from_numpy(prompt), gen, dp,
+                            prompt_len)
+        outs = outs.cpu().numpy()
     _write_outputs(outs, prime, args, scheme)
     return 0
 

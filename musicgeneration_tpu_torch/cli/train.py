@@ -71,22 +71,34 @@ model under the reference names (MelodyRNN: ``models/melody_rnn.py``)
 and the run's config, its ``scheme`` and ``model_kwargs`` among it;
 ``cli.generate`` and ``cli.serve`` read the directory.
 
-Sequence parallelism (the MusicTransformer in crop mode): ``sp=N`` cuts
-every crop into N sequence shards, one per process, and runs attention
-as the ring (``attention_impl="ring"``, ``parallel/``). Start one
-process per GPU with ``torchrun``:
+Data and sequence parallelism (the MusicTransformer; the JAX CLI's
+mesh training, :774-795): ``dp=N`` splits every batch's rows over N data
+shards, ``sp=M`` cuts every crop into M sequence shards and runs
+attention as the ring (``attention_impl="ring"``, ``parallel/``; crop
+mode only), ``fsdp=true`` shards parameter and Adam-state storage over
+the data shards (FSDP2; ``train/trainer.py``). One process per shard,
+dp x sp of them, started with ``torchrun``:
 
     torchrun --nproc-per-node 4 -m musicgeneration_tpu_torch.cli.train \\
-        <shard_dir> sp=4 ...
+        <shard_dir> dp=2 sp=2 ...
 
 which sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
-``MASTER_PORT``; sp must equal the world size (dp is 1), each rank runs
-on ``cuda:LOCAL_RANK`` over NCCL (``--device cpu``: gloo), and seq_len
-must divide by sp. Rank r takes columns ``[r, r + 1) * seq_len / sp`` of
-every batch; rank 0 alone writes checkpoints, ``meta.json``, the metrics
-file and the profile, every rank prints its step lines, and every rank
-resumes from ``ckpt_dir``. Data parallelism (several processes at sp=1)
-is not ported yet and is refused.
+``MASTER_PORT`` (a single process with ``fsdp=true`` or ``dp=1`` and
+none of them set trains unsharded, as JAX does on one device). dp
+defaults to WORLD_SIZE / sp, and dp x sp must equal WORLD_SIZE; each
+rank runs on ``cuda:LOCAL_RANK`` over NCCL (``--device cpu``: gloo).
+Rank r is data shard d = r // sp and ring index s = r % sp, as JAX lays
+out its mesh: every rank reads the same global batch stream and takes
+rows ``[d, d + 1) * B / dp`` of each of the ``accum_steps``
+micro-batches and columns ``[s, s + 1) * seq_len / sp``, so the global
+batch is the one-process run's, bit for bit; batch_size * accum_steps
+must divide by dp (and batch_size by dp when accum_steps > 1), seq_len
+by sp. Losses are global means, as the one-process step's. Rank 0 alone
+writes checkpoints (in the one-device layout, so a run resumes with
+another mesh), ``meta.json``, the metrics file and the profile, every
+rank prints its step lines, and every rank resumes from ``ckpt_dir``.
+``distill_from`` composes with dp and fsdp, not with sp. ``tp`` and
+``pp`` are the next slice and are refused.
 """
 
 from __future__ import annotations
@@ -163,9 +175,15 @@ class TrainCLIConfig(Config):
     metrics_path: Optional[str] = None
     profile_dir: Optional[str] = None
     profile_steps: int = 5        # traced steps [10, 10 + profile_steps)
-    # sp > 1 shards the sequence over one process per GPU and switches
-    # attention to the ring (parallel/)
+    # -- mesh training (music_transformer; parallel/mesh.py): one process
+    # per shard. dp = data parallel (defaults to WORLD_SIZE / sp), sp =
+    # sequence parallel (switches attention to the ring), fsdp = storage
+    # sharded over the data shards; tp and pp are not ported yet
+    dp: Optional[int] = None
+    tp: int = 1
     sp: int = 1
+    fsdp: bool = False
+    pp: int = 1
     # CP per-head loss weights, in tokenizers/cp field order (family,
     # position, tempo_class, tempo_value, chord, pitch, duration,
     # velocity), normalised to mean 1; None = equal
@@ -604,23 +622,27 @@ def distill_loss_fn(tcfg, teacher, alpha: float, temp: float):
     student_T), the log-softmaxes in f32, the KL averaged over the
     positions whose label is not ``tcfg.pad_id``. The teacher runs its
     deterministic forward under ``no_grad``. Returns ``loss_fn(model, x,
-    y, generator) -> (loss, accuracy)`` for ``make_train_step``."""
+    y, generator, denom=None) -> (loss, accuracy)`` for
+    ``make_train_step``; under a data-parallel mesh ``denom`` is the
+    global count of kept labels and every average is this shard's share
+    of the global one (JAX takes both over the global batch)."""
     from ..train.objective import smooth_cross_entropy, token_accuracy
 
-    def loss_fn(model, x, y, generator):
+    def loss_fn(model, x, y, generator, denom=None):
         s_logits = model(x, deterministic=False, generator=generator)
         with torch.no_grad():
             t_logits = teacher(x, deterministic=True)
         ce = smooth_cross_entropy(s_logits, y, tcfg.vocab_size,
-                                  tcfg.label_smoothing, tcfg.pad_id)
+                                  tcfg.label_smoothing, tcfg.pad_id, denom)
         t_lp = torch.log_softmax(t_logits.float() / temp, dim=-1)
         s_lp = torch.log_softmax(s_logits.float() / temp, dim=-1)
         kl = (t_lp.exp() * (t_lp - s_lp)).sum(-1)
         mask = ((y != tcfg.pad_id) if tcfg.pad_id is not None
                 else torch.ones_like(y, dtype=torch.bool)).float()
-        kl = (kl * mask).sum() / mask.sum().clamp_min(1.0) * (temp ** 2)
+        n = mask.sum().clamp_min(1.0) if denom is None else denom
+        kl = (kl * mask).sum() / n * (temp ** 2)
         return ((1.0 - alpha) * ce + alpha * kl,
-                token_accuracy(s_logits, y, tcfg.pad_id))
+                token_accuracy(s_logits, y, tcfg.pad_id, denom))
 
     return loss_fn
 
@@ -692,8 +714,10 @@ def build_model(cfg: TrainCLIConfig, scheme: str,
             f"train_mode={cfg.train_mode} is wired for the plain RNN "
             "families (model=event_rnn|performance_rnn on an unconditioned "
             "scheme)")
-    if mesh is not None and (cfg.model != "music_transformer"
-                             or cfg.train_mode != "crop"):
+    if mesh is not None and cfg.model != "music_transformer":
+        raise SystemExit("mesh training (dp/tp/sp/pp/fsdp) is wired for "
+                         "model=music_transformer")
+    if mesh is not None and mesh.size > 1 and cfg.train_mode != "crop":
         raise SystemExit("sp > 1 is wired for model=music_transformer in "
                          "train_mode=crop only")
     cls, defaults = get_model(cfg.model)
@@ -750,7 +774,8 @@ def build_model(cfg: TrainCLIConfig, scheme: str,
             peak_lr=cfg.peak_lr or 1e-3)
         return model, tcfg, gru_loss_fn(cfg, model.init_dim)
     vocab = kw.pop("vocab_size", lm_vocab(scheme))
-    if mesh is not None:  # not recorded in the checkpoint's model_kwargs
+    if mesh is not None and mesh.size > 1:
+        # not recorded in the checkpoint's model_kwargs
         kw.update(attention_impl="ring", mesh=mesh)
     # crops are dense windows: the training model skips pad masking
     model = cls(**{**defaults(vocab_size=vocab, max_seq=cfg.seq_len),
@@ -796,24 +821,53 @@ def _parse(argv):
 
 
 def init_mesh(cfg: TrainCLIConfig, device_arg: str):
-    """The sequence-parallel mesh ``cfg`` asks for, over a process group
-    made from the ``torchrun`` environment, or None for one process."""
+    """The (data, seq) mesh ``cfg`` asks for, over a process group made
+    from the ``torchrun`` environment, or None for one process started
+    without it (``fsdp=true`` or ``dp=1`` there shard nothing, as JAX's
+    mesh of one device). Refuses what the JAX CLI refuses (:774-791),
+    before any group forms."""
     from .. import resolve_device
     from ..parallel.mesh import make_mesh
 
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if cfg.sp == 1 and world == 1:
+    if not (world > 1 or cfg.sp > 1 or cfg.tp > 1 or cfg.pp > 1
+            or cfg.fsdp or cfg.dp is not None):
         return None
-    if cfg.sp != world:
+    if cfg.model != "music_transformer":
+        raise SystemExit("mesh training (dp/tp/sp/pp/fsdp) is wired for "
+                         "model=music_transformer")
+    if cfg.pp > 1 and (cfg.tp > 1 or cfg.sp > 1 or cfg.fsdp):
+        raise SystemExit("pp composes with dp only (not tp/sp/fsdp)")
+    if cfg.distill_from and cfg.sp > 1:
+        raise SystemExit("distill_from composes with dp/fsdp meshes only "
+                         "(the teacher forward is an unsharded plain apply)")
+    for name in ("tp", "pp"):
+        if getattr(cfg, name) > 1:
+            raise SystemExit(f"{name}={getattr(cfg, name)} is not ported yet "
+                             "(ROADMAP.md Queue A, multi-device paths: tensor "
+                             "and pipeline parallelism are the next slice)")
+    dp = cfg.dp if cfg.dp is not None else world // cfg.sp
+    if dp < 1 or dp * cfg.sp != world:
         raise SystemExit(
-            f"sp={cfg.sp} runs one process per sequence shard, but "
+            f"dp={dp} x sp={cfg.sp} runs one process per shard, but "
             f"WORLD_SIZE is {world}: start it with torchrun --nproc-per-node "
-            f"{cfg.sp} (data parallelism is not ported yet: ROADMAP.md "
-            f"Queue A, multi-device paths)")
+            f"{max(dp, 1) * cfg.sp}")
+    if (cfg.batch_size * cfg.accum_steps) % dp:
+        raise SystemExit("batch_size*accum_steps must divide dp")
+    if cfg.accum_steps > 1 and cfg.batch_size % dp:
+        raise SystemExit(f"batch_size={cfg.batch_size} must divide dp={dp} "
+                         "with accum_steps > 1 (each rank takes its rows of "
+                         "every micro-batch)")
     if cfg.seq_len % cfg.sp:
         raise SystemExit(f"seq_len={cfg.seq_len} is not divisible by "
                          f"sp={cfg.sp}")
-    rank = int(os.environ["RANK"])
+    port = os.environ.get("MASTER_PORT")
+    if port is None:
+        if world > 1:
+            raise SystemExit("WORLD_SIZE > 1 needs MASTER_ADDR and "
+                             "MASTER_PORT (torchrun sets them)")
+        return None
+    rank = int(os.environ.get("RANK", "0"))
     local = int(os.environ.get("LOCAL_RANK", rank))
     device = resolve_device(device_arg)
     if device.type == "cuda":
@@ -823,26 +877,32 @@ def init_mesh(cfg: TrainCLIConfig, device_arg: str):
     dist.init_process_group(
         "nccl" if device.type == "cuda" else "gloo",
         init_method=(f"tcp://{os.environ.get('MASTER_ADDR', 'localhost')}:"
-                     f"{os.environ['MASTER_PORT']}"),
+                     f"{port}"),
         world_size=world, rank=rank)
-    return make_mesh(sp=cfg.sp, device=device)
+    return make_mesh(dp=dp, sp=cfg.sp, fsdp=cfg.fsdp, device=device)
 
 
-def _seq_shard(batch_at, mesh, seq_len: int):
-    """batch_at with each array cut to this rank's sequence columns."""
+def _mesh_shard(batch_at, mesh, cfg: TrainCLIConfig):
+    """batch_at with each array cut to this rank's part of the global
+    batch: its data shard's rows of every micro-batch, its ring index's
+    sequence columns."""
     if mesh is None:
         return batch_at
-    lo = mesh.rank * seq_len // mesh.size
-    hi = lo + seq_len // mesh.size
-    return lambda idx: tuple(a[:, lo:hi] for a in batch_at(idx))
+    a, dp = cfg.accum_steps, mesh.data
+    lo = mesh.rank * cfg.seq_len // mesh.size
+    hi = lo + cfg.seq_len // mesh.size
+
+    def rows(x):
+        x = x.reshape(a, x.shape[0] // a, *x.shape[1:])
+        per = x.shape[1] // dp
+        x = x[:, mesh.data_rank * per:(mesh.data_rank + 1) * per]
+        return x.reshape(a * per, *x.shape[2:])
+
+    return lambda idx: tuple(rows(x)[:, lo:hi] for x in batch_at(idx))
 
 
 def main(argv=None) -> int:
     args, cfg, model_kwargs = _parse(argv)
-    if cfg.distill_from and cfg.sp > 1:
-        # before any process group forms (the JAX CLI's :498-502)
-        raise SystemExit("distill_from composes with dp/fsdp meshes only "
-                         "(the teacher forward is an unsharded plain apply)")
     mesh = init_mesh(cfg, args.device)
     try:
         return _train(args, cfg, model_kwargs, mesh)
@@ -906,7 +966,7 @@ def _train(args, cfg: TrainCLIConfig, model_kwargs, mesh) -> int:
     from ..utils.checkpoint import Checkpointer, list_checkpoints
 
     device = mesh.device if mesh is not None else resolve_device(args.device)
-    rank = mesh.rank if mesh is not None else 0
+    rank = mesh.global_rank if mesh is not None else 0
     with open(os.path.join(args.data_dir, "manifest.json")) as f:
         scheme = json.load(f)["scheme"]
     model, tcfg, loss_fn = build_model(cfg, scheme, model_kwargs, device,
@@ -916,7 +976,7 @@ def _train(args, cfg: TrainCLIConfig, model_kwargs, mesh) -> int:
     print(f"corpus: {len(corpus)} sequences (scheme={scheme})")
     batch_at = _batch_fn(corpus, cfg, scheme)
     if cfg.model == "music_transformer":
-        batch_at = _seq_shard(batch_at, mesh, cfg.seq_len)
+        batch_at = _mesh_shard(batch_at, mesh, cfg)
 
     # step s consumes batch s, so starting the stream at the checkpoint's
     # next step replays exactly the uninterrupted batch sequence
@@ -933,7 +993,7 @@ def _train(args, cfg: TrainCLIConfig, model_kwargs, mesh) -> int:
                       "will NOT continue the original sequence")
 
     tx = make_optimizer(tcfg)
-    state = create_train_state(model, tx, dropout_seed=cfg.seed)
+    state = create_train_state(model, tx, dropout_seed=cfg.seed, mesh=mesh)
     train_step = make_train_step(tx, tcfg, loss_fn=loss_fn, mesh=mesh)
 
     eval_step = eval_batches = None
@@ -948,8 +1008,9 @@ def _train(args, cfg: TrainCLIConfig, model_kwargs, mesh) -> int:
             for _ in range(4):
                 batch = slide_seq2seq_batch(eval_seqs, cfg.batch_size,
                                             cfg.seq_len, r)
-                yield to_device(_seq_shard(lambda _: batch, mesh,
-                                           cfg.seq_len)(0), device)
+                yield to_device(_mesh_shard(
+                    lambda _: batch, mesh,
+                    dataclasses.replace(cfg, accum_steps=1))(0), device)
 
         eval_step = make_eval_step(tcfg, mesh=mesh)
 

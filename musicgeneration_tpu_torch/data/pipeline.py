@@ -19,14 +19,17 @@ other's corpora: shard ``midilike-00000.npz`` holds, for the stream key
 
 plus ``names``, the source file basenames. Files that fail to tokenize
 land in ``quarantine.jsonl`` with the exception text; shards are written
-atomically (tmp + rename).
+atomically (tmp + rename). ``split_ratio`` and ``split_maestro`` split a
+MIDI collection into train/valid(ation)/test directories (``cli.split``).
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import json
 import os
+import shutil
 from concurrent.futures import ProcessPoolExecutor
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -277,3 +280,62 @@ class TokenCorpus:
     def sequences(self) -> Iterator[np.ndarray]:
         for i in range(len(self)):
             yield self[i]
+
+
+# ---------------------------------------------------------------------------
+# dataset splitters
+# ---------------------------------------------------------------------------
+
+def _link_or_copy(src: str, dst: str) -> None:
+    try:
+        os.link(src, dst)
+    except OSError:
+        shutil.copy2(src, dst)
+
+
+def split_ratio(paths: Sequence[str], out_root: str,
+                ratios=(0.8, 0.1, 0.1)) -> Dict[str, List[str]]:
+    """GiantMIDI-style 80/10/10 split by listing order
+    (Giant-MIDI_generate.py:24-35): files are hard-linked (or copied where
+    a link fails) into out_root/{train,valid,test}; a file already there
+    is kept."""
+    n = len(paths)
+    n_train = int(n * ratios[0])
+    n_valid = int(n * ratios[1])
+    splits = {
+        "train": list(paths[:n_train]),
+        "valid": list(paths[n_train:n_train + n_valid]),
+        "test": list(paths[n_train + n_valid:]),
+    }
+    for split, files in splits.items():
+        d = os.path.join(out_root, split)
+        os.makedirs(d, exist_ok=True)
+        for src in files:
+            dst = os.path.join(d, os.path.basename(src))
+            if not os.path.exists(dst):
+                _link_or_copy(src, dst)
+    return splits
+
+
+def split_maestro(csv_path: str, midi_root: str,
+                  out_root: str) -> Dict[str, List[str]]:
+    """MAESTRO's official split by the CSV's ``split`` column
+    (maestro_generate.py:21-44), read with the stdlib ``csv``. Returns
+    the destination paths of each split; a listed file missing under
+    ``midi_root`` is listed but not linked."""
+    splits: Dict[str, List[str]] = {"train": [], "validation": [], "test": []}
+    with open(csv_path, newline="") as f:
+        for row in csv.DictReader(f):
+            splits.setdefault(row["split"], []).append(row["midi_filename"])
+    out: Dict[str, List[str]] = {}
+    for split, rels in splits.items():
+        d = os.path.join(out_root, split)
+        os.makedirs(d, exist_ok=True)
+        out[split] = []
+        for rel in rels:
+            src = os.path.join(midi_root, rel)
+            dst = os.path.join(d, os.path.basename(rel))
+            out[split].append(dst)
+            if not os.path.exists(dst) and os.path.exists(src):
+                _link_or_copy(src, dst)
+    return out

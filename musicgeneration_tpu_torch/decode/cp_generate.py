@@ -7,7 +7,9 @@ row never carries pitch/duration/velocity and a note row never carries
 position/tempo/chord, whatever the heads said. The prompt goes through
 one ``CPTransformer.prefill`` (kernel A on the card), each row through
 ``decode_step`` (kernel B); the loop keeps rows on the device and never
-reads them back. The JAX ``mesh=`` data-parallel branch is not ported.
+reads them back. With ``mesh=`` the batch's rows are split over the
+data shards of a virtual mesh (``engine.run_data_parallel``), each shard
+drawing from its own stream.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from ..tokenizers import cp
-from .engine import align_cache_len
+from .engine import align_cache_len, run_data_parallel
 from .sampling import SamplingParams, sample_logits
 
 # fields each family owns: the metric fields are ignored on note rows,
@@ -64,8 +66,8 @@ def sample_row(logits: List[torch.Tensor], temperature: float, greedy: bool,
 def generate_cp(model, prompt_rows, steps: int,
                 max_len: Optional[int] = None, temperature: float = 1.0,
                 greedy: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                mesh=None, seed: int = 0) -> torch.Tensor:
     """prompt_rows: [B, P, 8] ints (an array, or a tensor on any device)
     -> generated rows [B, steps, 8] int64 on the model's device.
 
@@ -73,9 +75,23 @@ def generate_cp(model, prompt_rows, steps: int,
     ``align_cache_len`` as the JAX engine does. Each step samples the
     row from the previous logits (``sample_row``) and feeds it through
     ``decode_step``. ``generator``: a ``torch.Generator`` on the model's
-    device for sampled rows (greedy ignores it)."""
+    device for sampled rows (greedy ignores it).
+
+    mesh: optional virtual mesh; the batch's rows are split over its data
+    shards (B must divide by the data axis), each shard drawing from
+    ``engine.shard_generator(seed, i)`` in place of ``generator``: greedy
+    rows equal those of ``mesh=None``."""
     if not torch.is_tensor(prompt_rows):
         prompt_rows = np.asarray(prompt_rows, np.int64)
+    if mesh is not None:
+        if generator is not None:
+            raise ValueError("with mesh= each data shard draws from its own "
+                             "generator: pass seed=, not generator=")
+        rows = torch.as_tensor(prompt_rows, dtype=torch.long)
+        return run_data_parallel(
+            model, mesh, seed, rows.shape[0],
+            lambda m, r, gen: generate_cp(m, rows[r], steps, max_len,
+                                          temperature, greedy, gen))
     prompt = torch.as_tensor(prompt_rows, dtype=torch.long,
                              device=model.device)
     if prompt.dim() != 3 or prompt.shape[2] != cp.WIDTH:

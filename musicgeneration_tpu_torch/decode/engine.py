@@ -12,13 +12,18 @@ torch), optionally from a latent-seeded state ``cache0`` and with
 PerformanceRNN ``controls``. JAX ran the loops as compiled
 ``lax.scan``s; here they are Python loops that keep tokens on the
 device and never sync the host. ``generate_sliding`` continues past
-max_seq by re-priming a window.
+max_seq by re-priming a window. ``generate_dp`` splits the batch's rows
+over the data shards of a virtual mesh (``parallel.make_mesh(dp=N,
+devices=...)``), each shard running ``generate`` on its rows with its
+own generator (and its own copy of the model on another device).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -205,3 +210,88 @@ def generate_sliding(model, prompt, generator: Optional[torch.Generator],
         remaining -= chunk
         ctx = np.concatenate([ctx, out], axis=1)[:, -window:]
     return np.concatenate(produced, axis=1)[:, :steps]
+
+
+def shard_generator(seed: int, shard: int, device) -> torch.Generator:
+    """Data shard ``shard``'s sampling stream, a pure function of (seed,
+    shard), as JAX folds the shard index into its key: the shards draw
+    independent streams of the single-device sampler's distribution."""
+    w = np.random.SeedSequence([int(seed), int(shard)]).generate_state(
+        2, np.uint32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(((int(w[0]) << 32) | int(w[1])) & ((1 << 63) - 1))
+    return gen
+
+
+def run_data_parallel(model, mesh, seed: int, batch: int, fn: Callable):
+    """``fn(model_i, rows_i, generator_i)`` for each data shard i of the
+    virtual ``mesh``, one after another on this host thread, with the
+    shard's CUDA device current (the kernel wrappers launch into the
+    current device's stream): the model on the shard's device (``model``
+    itself where it sits there, else a copy made for this call), the
+    shard's rows of the batch (a slice: rows [i * B / dp, (i + 1) * B /
+    dp)) and ``shard_generator(seed, i)``. Returns the shards' outputs
+    (tensors, or tuples of them, batch on axis 0) concatenated on
+    ``model``'s device. No collective runs: the shards share nothing."""
+    if not mesh.virtual:
+        raise ValueError("data-parallel decode holds every data shard in "
+                         "this process: give it a virtual mesh "
+                         "(make_mesh(dp=N, devices=[...]))")
+    if mesh.size != 1:
+        raise ValueError(f"data-parallel decode takes a mesh with sp=1; got "
+                         f"sp={mesh.size}")
+    if batch % mesh.data:
+        raise ValueError(f"batch {batch} not divisible by the data axis "
+                         f"({mesh.data})")
+    per = batch // mesh.data
+    replicas = {model.device: model}
+    outs = []
+    for i, dev in enumerate(mesh.devices):
+        guard = torch.cuda.device(dev) if dev.type == "cuda" \
+            else contextlib.nullcontext()
+        with guard:
+            if dev not in replicas:
+                replicas[dev] = copy.deepcopy(model).to(dev)
+            outs.append(fn(replicas[dev], slice(i * per, (i + 1) * per),
+                           shard_generator(seed, i, dev)))
+    home = model.device
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat([o[k].to(home) for o in outs])
+                     for k in range(len(outs[0])))
+    return torch.cat([o.to(home) for o in outs])
+
+
+def _cache_rows(cache0: Optional[dict], rows: slice, device):
+    """A shard's part of a GRU start state: [L, B, ...] leaves cut on
+    axis 1; leaves of fewer dims carry no batch axis and are kept whole
+    (JAX's ``generate_dp`` cache specs)."""
+    if cache0 is None:
+        return None
+    return {k: (v[:, rows] if v.dim() >= 2 else v).to(device)
+            for k, v in cache0.items()}
+
+
+@torch.no_grad()
+def generate_dp(model, prompt, seed: int, decode_params: DecodeParams,
+                mesh, prompt_len: Optional[int] = None,
+                controls: Optional[torch.Tensor] = None,
+                cache0: Optional[dict] = None) -> torch.Tensor:
+    """Data-parallel batched decode over the data shards of a virtual
+    ``mesh`` (JAX ``decode/engine.py::generate_dp``): prompt [B, P] ->
+    tokens [B, steps] on the model's device. Each shard runs ``generate``
+    on its rows (its prefill and decode steps launch kernels A and B, or
+    D, at B / dp rows), with ``shard_generator(seed, i)``; controls [1 or
+    S, B, C] and cache0 ([L, B, ...] leaves) are cut on their batch axis.
+    Greedy decoding gives ``generate``'s tokens; sampled rows come from
+    the shards' own streams. B must divide by the data axis."""
+    prompt = torch.as_tensor(prompt, dtype=torch.long)
+    if controls is not None:
+        controls = torch.as_tensor(controls, dtype=torch.float32)
+
+    def shard(m, rows, gen):
+        ctrl = None if controls is None else controls[:, rows].to(m.device)
+        return generate(m, prompt[rows].to(m.device), gen, decode_params,
+                        prompt_len, ctrl, _cache_rows(cache0, rows,
+                                                      m.device))
+
+    return run_data_parallel(model, mesh, seed, prompt.shape[0], shard)

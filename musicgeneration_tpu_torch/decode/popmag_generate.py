@@ -27,7 +27,8 @@ CUDA, one launch a GRU layer, so a bar is exactly ``max_steps`` x L
 launches whatever the done mask says. Draws come from one
 ``torch.Generator`` in the order type, pitch, duration each step (JAX
 splits its key per bar and per step: the streams differ, the sets and
-distributions do not). ``generate_arrangement_dp`` is not ported.
+distributions do not). ``generate_arrangement_dp`` splits the batch's
+rows over the data shards of a virtual mesh.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ import torch
 
 from .. import vocab
 from ..data import mumidi_packing as mp
+from .engine import run_data_parallel
 from .sampling import SamplingParams, sample_logits
 
 _R = mp.SPEC.feat_ranges()
@@ -165,3 +167,22 @@ def flatten_arrangement(tokens, valid) -> List[np.ndarray]:
             seq.extend(int(x) for x in tokens[bi, k][valid[bi, k]])
         out.append(np.asarray(seq, np.int64))
     return out
+
+
+def generate_arrangement_dp(model, init, src, src_len, n_target_bar: int,
+                            mesh, max_steps: int = 200, greedy: bool = True,
+                            temperature: float = 1.0, seed: int = 0):
+    """Data-parallel arrangement (JAX ``generate_arrangement_dp``): the
+    batch's rows (independent latents and melodies) split over the data
+    shards of a virtual ``mesh``, each shard running
+    ``generate_arrangement`` on its rows (kernel D at B / dp rows) with
+    ``engine.shard_generator(seed, i)``. Greedy rows equal the unsharded
+    call's. B must divide by the data axis."""
+    init = torch.as_tensor(init, dtype=torch.float32)
+    src, src_len = torch.as_tensor(src), torch.as_tensor(src_len)
+    return run_data_parallel(
+        model, mesh, seed, init.shape[0],
+        lambda m, r, gen: generate_arrangement(
+            m, init[r], src[r], src_len[r], n_target_bar,
+            max_steps=max_steps, greedy=greedy, temperature=temperature,
+            generator=gen))

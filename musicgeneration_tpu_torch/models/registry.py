@@ -35,3 +35,9 @@ def get_model(name: str) -> Tuple[type, Callable[..., dict]]:
         raise KeyError(
             f"unknown model {name!r}; registered: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def registered_models() -> list:
+    """The registered family names, sorted."""
+    _import_families()
+    return sorted(_REGISTRY)

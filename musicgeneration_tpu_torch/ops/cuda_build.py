@@ -88,6 +88,27 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     return seconds
 
 
+def refuse_dtensors(name: str, *tensors) -> None:
+    """Kernel wrappers take plain tensors. A DTensor (a shard of a tensor
+    over a device mesh, as FSDP holds parameters between its gathers;
+    nested in lists, tuples or dicts too) raises TypeError rather than
+    reach a kernel, or the plain path, as if it were the whole tensor."""
+    from torch.distributed.tensor import DTensor
+
+    stack = list(tensors)
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, (list, tuple)):
+            stack.extend(t)
+        elif isinstance(t, DTensor):
+            raise TypeError(f"{name} takes plain tensors; got a DTensor "
+                            f"{tuple(t.shape)} with placements "
+                            f"{t.placements}: gather it (full_tensor) or "
+                            "call inside the sharded module's forward")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     with _LOCK:

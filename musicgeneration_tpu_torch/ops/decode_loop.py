@@ -372,6 +372,8 @@ def loop_kernel_limits(d: int, dh: int, f: int, vocab: int, cache_len: int,
 
 def _check_loop(logits, t0, seed, embed, pos, e_all, weights, fc_w, fc_b,
                 k_cache, v_cache, num_heads, chunk, tokens):
+    cuda_build.refuse_dtensors("the decode loop", logits, embed, pos, fc_w,
+                               fc_b, tokens)
     if logits.dim() != 2 or logits.dtype != torch.float32:
         raise ValueError(f"logits must be [B, V] float32; got "
                          f"{tuple(logits.shape)} {logits.dtype}")

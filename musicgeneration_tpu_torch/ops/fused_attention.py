@@ -97,6 +97,7 @@ def fused_relative_attention_bwd_plain(q, k, v, e, key_pad, causal: bool,
 
 
 def _check(q, k, v, e, key_pad):
+    cuda_build.refuse_dtensors("relative attention", q, k, v, e, key_pad)
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one [B, H, L, dh] shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "

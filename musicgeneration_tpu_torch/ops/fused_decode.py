@@ -223,6 +223,8 @@ def _start_min(start, start_min, t: int) -> int:
 
 def _check(x, t, e_all, weights, k_cache, v_cache, num_heads, start,
            scales):
+    cuda_build.refuse_dtensors("the fused decode", x, e_all, weights,
+                               k_cache, v_cache, start, scales)
     if x.dim() != 2:
         raise ValueError(f"x must be [B, d]; got {tuple(x.shape)}")
     b, d = x.shape

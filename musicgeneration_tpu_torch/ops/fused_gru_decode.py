@@ -105,6 +105,7 @@ def fused_gru_step_plain(x: torch.Tensor, h: torch.Tensor,
 
 
 def _check(x, h, weights):
+    cuda_build.refuse_dtensors("the GRU step", x, h, weights)
     if x.dim() != 2 or h.dim() != 3 or h.shape[1] != x.shape[0]:
         raise ValueError(f"x must be [B, in] and h [L, B, H]; got "
                          f"{tuple(x.shape)} and {tuple(h.shape)}")

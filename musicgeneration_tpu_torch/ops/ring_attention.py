@@ -137,6 +137,8 @@ def ring_tile_plain(q, k, v, pad, e, m, l, acc, *, rank0: int, r: int,
 
 
 def _check(q, k, v, pad, e, m, l, acc, out, rank0: int, r: int, n: int):
+    cuda_build.refuse_dtensors("the ring tile", q, k, v, pad, e, m, l, acc,
+                               out)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q must be [S, B, Lloc, d] and k, v one "
                          f"[nkv, B, Lloc, d] shape; got {tuple(q.shape)}, "

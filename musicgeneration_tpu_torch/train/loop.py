@@ -12,10 +12,11 @@ and the reference's failure handling:
   arrives during a step is held until the step has finished;
 - periodic eval on a held-out batch stream.
 
-In a sequence-parallel run (``rank`` set) every rank resumes from the
-checkpoint directory and prints its step lines, which carry its rank;
-rank 0 alone writes checkpoints, ``meta.json``, the metrics file and the
-profile.
+In a run over a process group (``rank`` set: data or sequence parallel)
+every rank resumes from the checkpoint directory and prints its step
+lines, which carry its rank; rank 0 alone writes checkpoints,
+``meta.json``, the metrics file and the profile. Under fsdp every rank
+joins the gathers of each checkpoint that rank 0 writes.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import signal
 import threading
 from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 
-from ..utils.checkpoint import Checkpointer
+from ..utils.checkpoint import Checkpointer, is_sharded
 from ..utils.metrics_log import MetricsLogger
 from .trainer import TrainState
 
@@ -42,7 +43,7 @@ class LoopConfig:
     metrics_path: Optional[str] = None
     profile_dir: Optional[str] = None
     profile_steps: int = 0  # trace steps [10, 10+profile_steps)
-    rank: int = 0  # sequence-parallel rank; only rank 0 writes files
+    rank: int = 0  # process-group rank; only rank 0 writes files
     # written to meta.json alongside every checkpoint, with the data
     # cursor (= next step; the cli streams are counter-indexed so the
     # cursor IS the step number) — lets a resume detect a seed change
@@ -90,12 +91,12 @@ def run_loop(
     ``eval_step(model, x, y)`` returns a dict of scalars."""
     step_fn = _guarded(train_step)
     ckpt = (Checkpointer(cfg.ckpt_dir, every=cfg.ckpt_every,
-                         config=config_dict)
+                         config=config_dict, write=not cfg.rank)
             if cfg.ckpt_dir else None)
     start = 0
     if ckpt is not None:
         state, start = ckpt.restore_or(state)
-        if cfg.rank:
+        if cfg.rank and not is_sharded(state.model):
             ckpt = None  # restored; rank 0 writes
     path = cfg.metrics_path if not cfg.rank else None
     extra = {"rank": cfg.rank} if cfg.rank else {}

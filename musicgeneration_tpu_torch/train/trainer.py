@@ -22,13 +22,22 @@ PyTorch runs eagerly: the step updates the model's parameters and the
 Adam moments in place, and reads the loss and the gradient norm to the
 host once per step (the non-finite guard and the clip decide there).
 
-Over a process-group mesh (``parallel.make_mesh``; each rank holds one
-sequence shard of every row) each rank's loss is its local sum over the
-GLOBAL count of kept targets, the gradients are all-reduced (summed)
-before the global-norm clip and the metrics are summed, so every rank
-takes the step one device would take on the global batch. Each rank folds
-its rank into its dropout stream. On a virtual mesh one process holds the
-global batch and the step is the single-device step.
+Over a mesh (``parallel.make_mesh``) the step is the one one device
+takes on the GLOBAL batch, as JAX's SPMD step is: each data shard's loss
+is its local sum over the global count of kept targets of the
+micro-batch (JAX takes one mean over the global batch,
+``train/objective.py:51-54``; DDP's average of per-rank means would
+differ wherever shards hold different numbers of pad targets), so the
+shards' gradients and metrics sum to the global ones, and the
+global-norm clip reads the global norm. On a process group (each rank
+one shard: its data shard's rows, its ring index's sequence columns)
+gradients and metrics are all-reduced over every rank; with ``fsdp``
+the parameters and Adam moments are DTensor shards over the data group
+(FSDP2's ``fully_shard``, its reduce-scatter summing instead of
+averaging), the optimizer runs on the shards and the norm sums the
+shards' squares over the data group. Each rank folds its rank into its
+dropout stream. On a virtual mesh one process holds the global batch and
+the step is the single-device step.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from .objective import smooth_cross_entropy, token_accuracy
 from .schedule import noam_schedule
@@ -78,7 +88,15 @@ class TrainState:
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
+    """sqrt of the sum of squares of every element (optax.global_norm).
+    DTensor shards (fsdp) give the norm of the whole tensors: the shards'
+    sums of squares are summed over their mesh's group."""
+    if tensors and isinstance(tensors[0], DTensor):
+        local = torch.stack(torch._foreach_norm(
+            [t.to_local() for t in tensors])).float()
+        sq = (local * local).sum()
+        dist.all_reduce(sq, group=tensors[0].device_mesh.get_group())
+        return sq.sqrt()
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
@@ -135,9 +153,33 @@ def make_optimizer(cfg: TrainerConfig) -> Optimizer:
     return Optimizer(cfg)
 
 
+def shard_model(model: torch.nn.Module, mesh) -> torch.nn.Module:
+    """``fully_shard`` (FSDP2) each encoder layer and then the whole model
+    over the mesh's data group, in place: parameters become DTensor
+    shards, gathered whole for each forward and backward. The gradient
+    reduce-scatter sums (divide factor 1): each rank's loss is already
+    its share of the global mean."""
+    from torch.distributed.fsdp import fully_shard
+
+    dm = mesh.device_mesh["data"]
+    units = list(model.Decoder.enc_layers) + [model]
+    for unit in units:
+        fully_shard(unit, mesh=dm)
+    for unit in units:  # each FSDP module reduces its own parameters
+        unit.set_gradient_divide_factor(1.0)
+        # gloo has no PREMUL_SUM: reduce with a plain sum (the same values)
+        if hasattr(unit, "set_force_sum_reduction_for_comms"):
+            unit.set_force_sum_reduction_for_comms(True)
+    return model
+
+
 def create_train_state(model: torch.nn.Module, tx: Optimizer,
-                       dropout_seed: int) -> TrainState:
-    """Step 0, fresh Adam moments for ``model``'s parameters."""
+                       dropout_seed: int, mesh=None) -> TrainState:
+    """Step 0, fresh Adam moments for ``model``'s parameters; with an
+    ``fsdp`` process-group ``mesh`` the model is sharded first
+    (``shard_model``) and the moments are shards of the same layout."""
+    if mesh is not None and mesh.fsdp:
+        shard_model(model, mesh)
     return TrainState(step=0, model=model,
                       opt_state=tx.init(list(model.parameters())),
                       dropout_seed=int(dropout_seed))
@@ -158,20 +200,26 @@ def dropout_generator(seed: int, step: int, micro: int,
     return gen
 
 
-def _group(mesh) -> Optional[dist.ProcessGroup]:
-    return mesh.group if mesh is not None and not mesh.virtual else None
+def _world(mesh) -> Optional[dist.ProcessGroup]:
+    return mesh.world if mesh is not None and not mesh.virtual else None
 
 
-def _objective(logits, y, cfg: TrainerConfig, group):
-    """(loss, accuracy) of one (shard of a) batch: over a process group,
-    the local sums over the global count of kept targets."""
-    denom = None
+def kept_count(y: torch.Tensor, cfg: TrainerConfig, group=None
+               ) -> torch.Tensor:
+    """The number of targets the objective keeps (those not ``pad_id``)
+    in ``y``, summed over ``group`` when given, at least 1, as f32."""
+    keep = (y != cfg.pad_id) if cfg.pad_id is not None \
+        else torch.ones_like(y, dtype=torch.bool)
+    n = keep.sum().float()
     if group is not None:
-        keep = (y != cfg.pad_id) if cfg.pad_id is not None \
-            else torch.ones_like(y, dtype=torch.bool)
-        denom = keep.sum().float()
-        dist.all_reduce(denom, group=group)
-        denom = denom.clamp_min(1.0)
+        dist.all_reduce(n, group=group)
+    return n.clamp_min(1.0)
+
+
+def _objective(logits, y, cfg: TrainerConfig, denom=None):
+    """(loss, accuracy) of one (shard of a) batch: with ``denom`` the
+    local sums over that count of kept targets (the global one), else the
+    means."""
     loss = smooth_cross_entropy(logits, y, cfg.vocab_size,
                                 cfg.label_smoothing, cfg.pad_id, denom)
     return loss, token_accuracy(logits, y, cfg.pad_id, denom)
@@ -195,18 +243,21 @@ def make_train_step(tx: Optimizer, cfg: TrainerConfig,
     x, y: [accum * B, ...] tensors on the model's device (x may be a dict
     of them, as PoPMAG's packed batch), split into ``accum_steps``
     micro-batches along axis 0, key by key (on a process-group ``mesh``,
-    this rank's sequence shard of them). ``loss_fn(model, x, y, generator) ->
-    (loss, accuracy)`` replaces the default objective (over a process
-    group it must return this rank's share of the global mean). With
-    ``guard`` a non-finite loss leaves parameters and optimizer state
-    untouched (``train.loop._guarded``); the step counter moves on either
-    way. Metrics are host floats."""
-    group = _group(mesh)
-    rank = mesh.rank if group is not None else 0
+    this rank's rows and sequence columns of each). ``loss_fn(model, x,
+    y, generator) -> (loss, accuracy)`` replaces the default objective;
+    over a process group it is called with ``denom=``, the micro-batch's
+    global count of kept targets, and must return this rank's share of
+    the global mean (local sums over ``denom``). With ``guard`` a
+    non-finite loss leaves parameters and optimizer state untouched
+    (``train.loop._guarded``); the step counter moves on either way.
+    Metrics are host floats."""
+    world = _world(mesh)
+    rank = mesh.global_rank if world is not None else 0
+    ring = mesh.group if world is not None and mesh.size > 1 else None
 
-    def default_loss(model, x, y, generator):
+    def default_loss(model, x, y, generator, denom=None):
         logits = model(x, deterministic=False, generator=generator)
-        return _objective(logits, y, cfg, group)
+        return _objective(logits, y, cfg, denom)
 
     loss_of = loss_fn or default_loss
 
@@ -223,20 +274,30 @@ def make_train_step(tx: Optimizer, cfg: TrainerConfig,
         for i in range(a):
             gen = dropout_generator(state.dropout_seed, state.step, i,
                                     device, rank)
-            l_i, acc_i = loss_of(model, xs[i], ys[i], gen)
+            kw = {} if world is None else {
+                "denom": kept_count(ys[i], cfg, world)}
+            l_i, acc_i = loss_of(model, xs[i], ys[i], gen, **kw)
             l_i.backward()  # sums into .grad across micro-batches
             loss = loss + l_i.detach()
             acc = acc + acc_i.detach()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
-        if group is not None:
+        stats = torch.stack([loss, acc]).float()
+        if world is not None and isinstance(grads[0], DTensor):
+            # fsdp: the reduce-scatter summed each shard over the data
+            # group; the ring's ranks hold the same shards
+            if ring is not None:
+                for g in grads:
+                    dist.all_reduce(g.to_local(), group=ring)
+            dist.all_reduce(stats, group=world)
+        elif world is not None:
             # one all-reduce of every gradient and of the two metrics
-            flat = torch.cat([g.reshape(-1) for g in grads]
-                             + [torch.stack([loss, acc]).float()])
-            dist.all_reduce(flat, group=group)
+            flat = torch.cat([g.reshape(-1) for g in grads] + [stats])
+            dist.all_reduce(flat, group=world)
             grads = [f.view_as(g) for f, g in zip(
                 torch.split(flat[:-2], [g.numel() for g in grads]), grads)]
-            loss, acc = flat[-2], flat[-1]
+            stats = flat[-2:]
+        loss, acc = stats[0], stats[1]
         if a > 1:
             torch._foreach_div_(grads, a)
             loss, acc = loss / a, acc / a
@@ -261,15 +322,17 @@ def make_train_step(tx: Optimizer, cfg: TrainerConfig,
 def make_eval_step(cfg: TrainerConfig, mesh=None) -> Callable:
     """Returns ``eval_step(model, x, y) -> {"loss", "accuracy"}``
     (deterministic forward, no autograd; over a process-group ``mesh``
-    the metrics of the global batch on every rank)."""
-    group = _group(mesh)
+    x, y are this rank's shard and every rank gets the metrics of the
+    global batch)."""
+    world = _world(mesh)
 
     @torch.no_grad()
     def eval_step(model, x, y) -> Dict[str, torch.Tensor]:
         logits = model(x, deterministic=True)
-        stats = torch.stack(_objective(logits, y, cfg, group))
-        if group is not None:
-            dist.all_reduce(stats, group=group)
+        denom = kept_count(y, cfg, world) if world is not None else None
+        stats = torch.stack(_objective(logits, y, cfg, denom))
+        if world is not None:
+            dist.all_reduce(stats, group=world)
         return {"loss": stats[0], "accuracy": stats[1]}
 
     return eval_step

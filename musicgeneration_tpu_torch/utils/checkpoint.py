@@ -17,6 +17,14 @@ Writes go to ``<name>.tmp``, are fsynced and ``os.replace``d, so a crash
 mid-save never corrupts the newest good checkpoint; ``keep`` bounds how
 many stay on disk. ``meta.json`` beside them carries the data cursor.
 ``convert.load_checkpoint`` reads the model out of these files.
+``cli.import_checkpoint`` writes files with the model and config only
+(no ``opt``): generation and eval read them, ``load_state`` refuses them.
+
+A state sharded over a data group (``fsdp``: parameters and Adam moments
+are ``DTensor`` shards) is written whole, in the single-device layout:
+every rank gathers each tensor (``full_tensor``, a collective), rank 0
+writes. ``load_state`` scatters a whole payload back into the shards, so
+a run resumes across layouts both ways.
 """
 
 from __future__ import annotations
@@ -27,8 +35,22 @@ import re
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 _CKPT_RE = re.compile(r"^step-(\d+)\.pt$")
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's whole value on the CPU; a DTensor is gathered (every
+    rank of its mesh must call this)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    return t.detach().cpu()
+
+
+def is_sharded(model: torch.nn.Module) -> bool:
+    """Whether ``model``'s parameters are DTensor shards (fsdp)."""
+    return any(isinstance(p, DTensor) for p in model.parameters())
 
 
 def _payload(step: int, state: Any, config: Optional[Dict[str, Any]]):
@@ -36,31 +58,43 @@ def _payload(step: int, state: Any, config: Optional[Dict[str, Any]]):
     opt = state.opt_state
     return {
         "step": int(step),
-        "model": {k: v.detach().cpu()
+        "model": {k: _whole(v)
                   for k, v in state.model.state_dict().items()},
         "opt": {"count": int(opt.count),
-                "mu": {n: t.detach().cpu() for n, t in zip(names, opt.mu)},
-                "nu": {n: t.detach().cpu() for n, t in zip(names, opt.nu)}},
+                "mu": {n: _whole(t) for n, t in zip(names, opt.mu)},
+                "nu": {n: _whole(t) for n, t in zip(names, opt.nu)}},
         "dropout_seed": int(state.dropout_seed),
         "config": config or {},
     }
 
 
-def save_checkpoint(directory: str, step: int, state: Any,
-                    config: Optional[Dict[str, Any]] = None,
-                    keep: int = 3) -> str:
-    """Write ``state`` (a ``train.trainer.TrainState``) atomically to
-    directory/step-N.pt and drop all but the newest ``keep``."""
+def write_payload(directory: str, step: int, payload: Dict[str, Any],
+                  keep: int = 3) -> str:
+    """Write ``payload`` atomically to directory/step-N.pt and drop all
+    but the newest ``keep``."""
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"step-{int(step)}.pt")
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        torch.save(_payload(step, state, config), f)
+        torch.save(payload, f)
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
     _gc(directory, keep)
     return path
+
+
+def save_checkpoint(directory: str, step: int, state: Any,
+                    config: Optional[Dict[str, Any]] = None,
+                    keep: int = 3, write: bool = True) -> Optional[str]:
+    """Write ``state`` (a ``train.trainer.TrainState``) atomically to
+    directory/step-N.pt and drop all but the newest ``keep``. With
+    ``write=False`` (a sharded state's ranks > 0) only join the gathers
+    of ``_payload``."""
+    payload = _payload(step, state, config)
+    if not write:
+        return None
+    return write_payload(directory, step, payload, keep)
 
 
 def list_checkpoints(directory: str) -> List[Tuple[int, str]]:
@@ -90,16 +124,43 @@ def restore_checkpoint(path_or_dir: str) -> Dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def _assign(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst <- src (a whole tensor); a DTensor ``dst`` takes its shard."""
+    src = src.to(dst.device)
+    if isinstance(dst, DTensor):
+        src = distribute_tensor(src, dst.device_mesh, dst.placements)
+    dst.copy_(src)
+
+
 def load_state(state: Any, payload: Dict[str, Any]) -> Any:
     """Copy a payload into ``state`` in place (parameters, Adam moments
-    and count, dropout seed, step) and return it."""
-    state.model.load_state_dict(payload["model"], strict=True)
-    names = [n for n, _ in state.model.named_parameters()]
+    and count, dropout seed, step) and return it. A payload without
+    optimizer state (``cli.import_checkpoint``'s) raises ValueError, as
+    the JAX CLI's restore does: it is for generation and eval."""
+    if "opt" not in payload:
+        raise ValueError(
+            "checkpoint holds model parameters only (no optimizer state, "
+            f"imported from {payload.get('config', {}).get('imported_from')})"
+            ": use it for generation or eval, not to resume cli.train")
+    model = state.model
+    with torch.no_grad():
+        if is_sharded(model):
+            sd = model.state_dict()
+            if set(sd) != set(payload["model"]):
+                raise RuntimeError(
+                    "state dict keys differ: missing "
+                    f"{sorted(set(sd) - set(payload['model']))}, unexpected "
+                    f"{sorted(set(payload['model']) - set(sd))}")
+            for k, t in sd.items():
+                _assign(t, payload["model"][k])
+        else:
+            model.load_state_dict(payload["model"], strict=True)
+    names = [n for n, _ in model.named_parameters()]
     opt = payload["opt"]
     with torch.no_grad():
         for n, mu, nu in zip(names, state.opt_state.mu, state.opt_state.nu):
-            mu.copy_(opt["mu"][n])
-            nu.copy_(opt["nu"][n])
+            _assign(mu, opt["mu"][n])
+            _assign(nu, opt["nu"][n])
     state.opt_state.count = int(opt["count"])
     state.dropout_seed = int(payload["dropout_seed"])
     state.step = int(payload["step"]) + 1
@@ -126,11 +187,12 @@ class Checkpointer:
     """
 
     def __init__(self, directory: str, every: int = 1000, keep: int = 3,
-                 config: Optional[Dict[str, Any]] = None):
+                 config: Optional[Dict[str, Any]] = None, write: bool = True):
         self.directory = directory
         self.every = every
         self.keep = keep
         self.config = config or {}
+        self.write = write  # False: a rank > 0 that only joins the gathers
 
     def restore_or(self, init_state: Any) -> Tuple[Any, int]:
         latest = latest_checkpoint(self.directory)
@@ -142,12 +204,15 @@ class Checkpointer:
     def maybe_save(self, step: int, state: Any, force: bool = False) -> bool:
         if force or (self.every and (step + 1) % self.every == 0):
             save_checkpoint(self.directory, step, state,
-                            config=self.config, keep=self.keep)
-            return True
+                            config=self.config, keep=self.keep,
+                            write=self.write)
+            return self.write
         return False
 
     def write_meta(self, **meta: Any) -> None:
         """Side-channel JSON (dataset cursor, data seed, ...)."""
+        if not self.write:
+            return
         os.makedirs(self.directory, exist_ok=True)
         path = os.path.join(self.directory, "meta.json")
         tmp = path + ".tmp"

@@ -180,10 +180,15 @@ def test_ring_refusals(fn):
 
 
 def test_mesh_refusals():
-    for kw in (dict(dp=2, sp=2), dict(tp=2, sp=2), dict(pp=2),
-               dict(fsdp=True)):
+    for kw in (dict(tp=2, sp=2), dict(pp=2)):
         with pytest.raises(NotImplementedError, match="Queue A, multi-device paths"):
             make_mesh(devices=["cpu"] * 4, **kw)
+    # the data axis is taken since the data-parallel slice; fsdp needs a
+    # process group
+    mesh = make_mesh(dp=2, sp=2, devices=["cpu"] * 4)
+    assert (mesh.data, mesh.size) == (2, 2)
+    with pytest.raises(ValueError, match="fsdp"):
+        make_mesh(fsdp=True, devices=["cpu"] * 4)
     with pytest.raises(ValueError, match="one device"):
         make_mesh(sp=2, devices=["cpu", "meta"])
     with pytest.raises(ValueError, match="process group"):
