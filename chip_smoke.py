@@ -245,7 +245,22 @@ Phases (the first failure raises and the exit code is non-zero):
    ``cli.export_checkpoint`` and imported by ``cli.import_checkpoint``;
    ``cli.generate`` from the imported run writes the original run's MIDI
    bytes (exactly 6 A and 18 B a step); ``cli.check_install`` exits 0;
-19. one JSON line of kernels, the card's line, and the final JSON line.
+19. tensor and pipeline parallelism on virtual meshes of the card
+   (``tp_paths``, ``pp_paths``, ``dryrun``): kernels A and C on a head
+   shard's heads, H 2 (tp 2) and H 1 (tp 4), B 8, L 512, f32 and bf16,
+   against their plain versions (A also key-padded at max_seq 2048, as
+   ``generate_tp``'s prefill takes it) and timed in bf16 beside their
+   bounds; f32 dropout-0 train steps of the flagship (B 8, seq 512) at
+   tp 2 and tp 4 (exactly 6 tp A and 6 tp C a step), tp 2 x sp 2
+   through kernel G (exactly 24 G, 0 A, 0 C), pp 2 with 2 and 4
+   micro-batches and pp 3 with 4 (exactly 6 n_micro A and C), each
+   against the unsharded step; greedy f32 ``generate_tp`` == ``generate``
+   at tp 2 and 4 (64 tokens after the 500-token prime, exactly 6 tp A a
+   prefill and no kernel B) and sampled bf16 ``generate_tp`` at tp 2 equal
+   to itself twice; bf16 step ms and busy share of tp 2 and pp 2 against
+   the unsharded step, ``generate_tp`` tokens/s against ``generate``'s
+   (one card: no scaling claim); ``graft_entry.dryrun_multichip(4)``;
+20. one JSON line of kernels, the card's line, and the final JSON line.
 
 Imports nothing of JAX or of ``musicgeneration_tpu``. Needs one CUDA card.
 """
@@ -336,9 +351,13 @@ from musicgeneration_tpu_torch.ops.relative_attention import (  # noqa: E402
     NEG_INF)
 from musicgeneration_tpu_torch.ops.ring_attention import (  # noqa: E402
     ring_tile, ring_tile_plain)
+from musicgeneration_tpu_torch.decode.engine import (  # noqa: E402
+    generate_tp)
+from musicgeneration_tpu_torch.graft_entry import (  # noqa: E402
+    dryrun_multichip)
 from musicgeneration_tpu_torch.parallel import (  # noqa: E402
-    make_mesh, ring_relative_attention, ring_relative_attention_pallas,
-    shard_batch)
+    make_mesh, make_pipeline_apply, ring_relative_attention,
+    ring_relative_attention_pallas, shard_batch)
 from musicgeneration_tpu_torch.parallel.ring_attention import (  # noqa: E402
     to_shards)
 from musicgeneration_tpu_torch.tokenizers import (  # noqa: E402
@@ -6645,6 +6664,336 @@ def checkpoint_cli(tmp: str, run: str) -> dict:
     return {"A": a, "B": b}
 
 
+
+# -- tensor and pipeline parallelism on virtual meshes of the card -------
+
+TP_SHARDS = (2, 4)                        # model axis sizes: H 2 and H 1
+PP_CASES = ((2, 2), (2, 4), (3, 4))       # (pp, n_micro)
+TP_GREEDY, TP_RATE_STEPS = 64, 6          # greedy tokens; rate batches
+
+
+def tp_mesh(tp: int = 1, sp: int = 1, pp: int = 1):
+    """A virtual (data 1, seq, model, pipe) mesh, every shard on the
+    card."""
+    return make_mesh(dp=1, tp=tp, sp=sp, pp=pp,
+                     devices=[DEV] * (tp * sp * pp))
+
+
+def shard_attn_bound(h: int, backward: bool) -> tuple:
+    """Kernel A's (or C's) bound at B 8, ``h`` heads, L 512, bf16, no
+    key_pad, max_seq 512: time_kernel_a's and time_kernel_c's counts."""
+    bh, l = B * h, L_TRAIN
+    if backward:
+        nbytes = 8 * bh * l * DH * 2 + bh * l * 4 + 2 * l * DH * 4
+        flops = 8 * 2 * DH * bh * l * (l + 1) / 2
+    else:
+        nbytes = 4 * bh * l * DH * 2 + l * DH * 4 + bh * l * 4
+        flops = 3 * 2 * DH * bh * l * (l + 1) / 2
+    return bound(nbytes, flops, torch.bfloat16)
+
+
+def check_head_shards() -> dict:
+    """Kernels A and C on one head shard's heads, H 2 (tp 2) and H 1 (tp
+    4), B 8, L 512, f32 and bf16, against their plain versions: A at the
+    training shape (causal, no key_pad, max_seq 512) and at
+    ``generate_tp``'s prefill (the bucket's key-padded tail, max_seq
+    2048), C at the training shape (a second call bit-equal); then both
+    timed in bf16 at the training shape (``device_ms``) beside their
+    bounds. Returns the bf16 errors and the times by H."""
+    gen = torch.Generator().manual_seed(41)
+    out = {"err_a": 0.0, "err_c": 0.0}
+    for h in (2, 1):
+        for dtype in (torch.float32, torch.bfloat16):
+            for pad, ms in ((False, L_TRAIN), (True, MAX_SEQ)):
+                q, k, v = (torch.randn(B, h, L_TRAIN, DH, generator=gen)
+                           .to(DEV, dtype) for _ in range(3))
+                e = torch.randn(ms, DH, generator=gen).to(DEV)
+                kp = None
+                if pad:
+                    kp = torch.zeros(B, L_TRAIN, device=DEV)
+                    kp[:, L_TRAIN - (L_PREFILL - PROMPT):] = 1.0
+                o, lse = fused_relative_attention(q, k, v, e, kp, True,
+                                                  return_lse=True)
+                ref, ref_lse = fused_relative_attention_plain(
+                    q, k, v, e, kp, True, return_lse=True)
+                errs = [(o.float() - ref.float()).abs().max().item(),
+                        (lse - ref_lse).abs().max().item()]
+                line = (f"kernel A {str(dtype):15s} H{h} L{L_TRAIN} "
+                        f"max_seq={ms} key_pad={pad!s:5s}: max_abs_err "
+                        f"{errs[0]:.3e} lse_err {errs[1]:.3e} (tol "
+                        f"{TOL_A[dtype]:.1e})")
+                ok = errs[0] <= TOL_A[dtype] and errs[1] <= 1e-3
+                if not pad:
+                    dout = torch.randn(q.shape, generator=gen).to(DEV, dtype)
+                    got = fused_relative_attention_bwd(q, k, v, e, None,
+                                                       True, o, lse, dout)
+                    again = fused_relative_attention_bwd(q, k, v, e, None,
+                                                         True, o, lse, dout)
+                    cref = fused_relative_attention_bwd_plain(
+                        q, k, v, e, None, True, o, lse, dout)
+                    cerr = [rel_err(a, r) for a, r in zip(got, cref)]
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    ok = ok and max(cerr) <= TOL_C[dtype] and same
+                    line += (f"; kernel C rel_err dq/dk/dv/dE "
+                             + "/".join(f"{x:.2e}" for x in cerr)
+                             + f" (tol {TOL_C[dtype]:.0e}) bit_equal_rerun="
+                             f"{same}")
+                    if dtype == torch.bfloat16:
+                        out["err_c"] = max(out["err_c"], max(
+                            (a.float() - r.float()).abs().max().item()
+                            for a, r in zip(got, cref)))
+                print(line, "ok" if ok else "FAIL")
+                if not ok:
+                    raise AssertionError(f"kernel A or C disagrees with its "
+                                         f"plain version at H {h}")
+                if dtype == torch.bfloat16:
+                    out["err_a"] = max(out["err_a"], errs[0])
+        # bf16 times at the training shape: q, k, v, e of the last case
+        q, k, v = (torch.randn(B, h, L_TRAIN, DH, generator=gen)
+                   .to(DEV, torch.bfloat16) for _ in range(3))
+        e = torch.randn(L_TRAIN, DH, generator=gen).to(DEV)
+        dout = torch.randn(q.shape, generator=gen).to(DEV, torch.bfloat16)
+        o, lse = fused_relative_attention(q, k, v, e, None, True,
+                                          return_lse=True)
+        a_ms = device_ms(lambda: fused_relative_attention(q, k, v, e, None,
+                                                          True))
+        c_ms = device_ms(lambda: fused_relative_attention_bwd(
+            q, k, v, e, None, True, o, lse, dout))
+        (a_b, a_by), (c_b, c_by) = (shard_attn_bound(h, bw)
+                                    for bw in (False, True))
+        print(f"head shard H{h} bf16 B{B} L{L_TRAIN} causal, max_seq "
+              f"{L_TRAIN}: kernel A {a_ms:.4f} ms (bound {a_b:.4f}, {a_by}),"
+              f" kernel C {c_ms:.4f} ms (bound {c_b:.4f}, {c_by})",
+              f"on {gpu_line()}")
+        out[h] = {"a_ms": a_ms, "a_bound_ms": a_b, "c_ms": c_ms,
+                  "c_bound_ms": c_b}
+    return out
+
+
+def tp_counts() -> tuple:
+    """(kernel A, kernel C, kernel G, kernel B) launches so far."""
+    torch.cuda.synchronize()
+    return (fused_relative_attention.launches,
+            fused_relative_attention_bwd.launches, ring_tile.launches,
+            fused_decode_step.launches)
+
+
+def zero_tp_counts() -> None:
+    zero_ring_counts()
+    fused_decode_step.launches = 0
+
+
+def tp_model(mesh=None, dtype=torch.float32, impl: str = "auto",
+             dropout: float = 0.0) -> mt.MusicTransformer:
+    """The flagship's training model (max_seq = seq_len 512, dense crops)
+    with seed-0 weights, on ``mesh``'s head shards where it has them."""
+    return mt.MusicTransformer(
+        vocab_size=VOCAB, num_layers=N_LAYERS, d_model=D_MODEL,
+        max_seq=L_TRAIN, dtype=dtype, device=DEV, dropout_rate=dropout,
+        pad_in_input=False, generator=torch.Generator().manual_seed(0),
+        attention_impl=impl, mesh=mesh)
+
+
+def counted_step(model, x, y, mesh=None, apply=None) -> tuple:
+    """One f32 train step of ``model`` (through ``apply``, a pipelined
+    forward, where given): ((state, metrics), (A, C, G, B) launches,
+    lr)."""
+    tcfg = TrainerConfig(vocab_size=VOCAB, pad_id=VOCAB - 1,
+                         d_model=D_MODEL)
+    tx = make_optimizer(tcfg)
+    state = create_train_state(model, tx, dropout_seed=0, mesh=mesh)
+    loss_fn = apply and train_cli.pipeline_loss_fn(tcfg, apply)
+    step = make_train_step(tx, tcfg, loss_fn=loss_fn, mesh=mesh)
+    zero_tp_counts()
+    out = step(state, x, y)
+    return out, tp_counts(), tx.lr(0)
+
+
+def tp_paths(shards: str) -> dict:
+    """The tensor-parallel train step (f32, dropout 0, the flagship at B
+    8, seq 512 from the corpus) on virtual tp 2 and tp 4 meshes of the
+    card, and on tp 2 x sp 2 with ``attention_impl="ring_pallas"``, each
+    against the unsharded step (PERF.md section 2's tolerances), with
+    exact launches. Returns the launches by path."""
+    _, batches = train_batches(1, shards)
+    x, y = batches[0]
+    ref, counts, lr = counted_step(tp_model(), x, y)
+    expect("unsharded train step f32 (A, C, G, B)", counts,
+           (N_LAYERS, N_LAYERS, 0, 0))
+    out = {"A": {}, "C": {}, "G": {}}
+    for tpn in TP_SHARDS:
+        mesh = tp_mesh(tp=tpn)
+        got, counts, _ = counted_step(tp_model(mesh), x, y, mesh)
+        expect(f"tp {tpn} train step f32 (A, C, G, B)", counts,
+               (N_LAYERS * tpn, N_LAYERS * tpn, 0, 0))
+        step_parity(f"tp {tpn} train step f32 (B{B} L{L_TRAIN}, H "
+                    f"{H // tpn} a shard) vs unsharded", got, ref, lr)
+        out["A"][f"tp{tpn}_train"] = counts[0]
+        out["C"][f"tp{tpn}_train"] = counts[1]
+    mesh = tp_mesh(tp=2, sp=2)
+    got, counts, _ = counted_step(tp_model(mesh, impl="ring_pallas"), x, y,
+                                  mesh)
+    expect("tp 2 x sp 2 train step f32 (A, C, G, B)", counts,
+           (0, 0, N_LAYERS * 2 * 2, 0))
+    step_parity(f"tp 2 x sp 2 train step f32 (kernel G on each head "
+                "shard's ring, plain-ring backward) vs unsharded", got, ref,
+                lr)
+    out["G"]["tp2xsp2_train"] = counts[2]
+    return out
+
+
+def pp_paths(shards: str) -> dict:
+    """The pipelined train step (f32, dropout 0, B 8, seq 512): pp 2 with
+    2 and 4 micro-batches and pp 3 with 4 on virtual meshes of the card,
+    each against the unsharded step, exactly 6 n_micro A and C (each
+    micro-batch through the 6 layers once); the pipelined logits equal
+    the unsharded model's. Returns the launches by path."""
+    _, batches = train_batches(1, shards)
+    x, y = batches[0]
+    ref, _, lr = counted_step(tp_model(), x, y)
+    out = {"A": {}, "C": {}}
+    for pp, nm in PP_CASES:
+        mesh = tp_mesh(pp=pp)
+        model = tp_model()
+        apply = make_pipeline_apply(model, mesh, nm)
+        with torch.no_grad():
+            err = (apply(x) - model(x)).abs().max().item()
+        got, counts, _ = counted_step(model, x, y, mesh, apply)
+        expect(f"pp {pp} n_micro {nm} train step f32 (A, C, G, B)", counts,
+               (N_LAYERS * nm, N_LAYERS * nm, 0, 0))
+        print(f"pp {pp} n_micro {nm}: pipelined logits vs unsharded max_abs "
+              f"{err:.3e} (tol 1e-4)")
+        if err > 1e-4:
+            raise AssertionError("the pipelined forward disagrees")
+        step_parity(f"pp {pp} n_micro {nm} train step f32 (B{B} "
+                    f"L{L_TRAIN}) vs unsharded", got, ref, lr)
+        out["A"][f"pp{pp}_m{nm}_train"] = counts[0]
+        out["C"][f"pp{pp}_m{nm}_train"] = counts[1]
+    return out
+
+
+def tp_generate(prime: np.ndarray) -> dict:
+    """``generate_tp`` of the flagship (the 500-token prime bucketed to
+    512, B 8): greedy f32, 64 tokens, == ``generate`` at tp 2 and 4 with
+    exactly 6 tp A a prefill and no kernel B; sampled bf16, 512 tokens,
+    at tp 2 twice, equal, tokens/s beside ``generate``'s (host clock,
+    prefill included; one card: no scaling claim)."""
+    prompt_np, prompt_len = bucket_prompt(np.tile(prime, (B, 1)), STEPS,
+                                          MAX_SEQ, VOCAB - 1)
+    prompt = torch.from_numpy(prompt_np).to(DEV)
+    model32 = flagship(torch.float32)
+    greedy = DecodeParams(max_len=L_PREFILL + TP_GREEDY, steps=TP_GREEDY,
+                          sampling=SamplingParams(greedy=True))
+    ref = generate(model32, prompt, None, greedy, prompt_len)
+    a = 0
+    for tpn in TP_SHARDS:
+        zero_tp_counts()
+        toks = generate_tp(model32, prompt, 0, greedy, tp_mesh(tp=tpn),
+                           prompt_len)
+        counts = tp_counts()
+        expect(f"generate_tp greedy f32 tp {tpn} (A, C, G, B)", counts,
+               (N_LAYERS * tpn, 0, 0, 0))
+        same = torch.equal(toks, ref)
+        print(f"greedy f32 generate_tp tp {tpn} == generate, {TP_GREEDY} "
+              f"tokens x {B}: {same}")
+        if not same:
+            raise AssertionError(f"generate_tp tp {tpn} differs first at "
+                                 f"{(toks != ref).nonzero()[0].tolist()}")
+        a += counts[0]
+    model = flagship(torch.bfloat16)
+    dp = DecodeParams(max_len=L_PREFILL + STEPS, steps=STEPS,
+                      sampling=SamplingParams())
+    warm = DecodeParams(max_len=L_PREFILL + 8, steps=8,
+                        sampling=SamplingParams())
+    generate_tp(model, prompt, 0, warm, tp_mesh(tp=2), prompt_len)
+    generate(model, prompt, torch.Generator(device=DEV).manual_seed(0),
+             warm, prompt_len)
+    zero_tp_counts()
+    t0 = time.perf_counter()
+    first = generate_tp(model, prompt, 0, dp, tp_mesh(tp=2), prompt_len)
+    torch.cuda.synchronize()
+    tp_secs = time.perf_counter() - t0
+    counts = tp_counts()
+    expect("generate_tp sampled bf16 tp 2 (A, C, G, B)", counts,
+           (N_LAYERS * 2, 0, 0, 0))
+    a += counts[0]
+    again = generate_tp(model, prompt, 0, dp, tp_mesh(tp=2), prompt_len)
+    t = first.cpu().numpy()
+    if t.shape != (B, STEPS) or t.min() < 0 or t.max() >= VOCAB:
+        raise AssertionError(f"bad tokens {t.shape}")
+    if not torch.equal(first, again):
+        raise AssertionError("sampled generate_tp differs from itself")
+    t0 = time.perf_counter()
+    generate(model, prompt, torch.Generator(device=DEV).manual_seed(0), dp,
+             prompt_len)
+    torch.cuda.synchronize()
+    one_secs = time.perf_counter() - t0
+    rates = {"generate": B * STEPS / one_secs,
+             "generate_tp tp 2": B * STEPS / tp_secs}
+    print("sampled bf16 generate_tp tp 2 twice: equal; bf16 B=8 tokens/s "
+          "(host clock, prefill included, one card: no scaling): "
+          + ", ".join(f"{k} {r:.1f}" for k, r in rates.items()),
+          f"on {gpu_line()}")
+    return {"A": a, "tok_s": rates}
+
+
+def parallel_rates(shards: str) -> dict:
+    """bf16 train step ms and the device's busy share (dropout 0.1, B 8,
+    seq 512): unsharded, tp 2 and pp 2 (2 micro-batches) on virtual
+    meshes of the card (``train_step_rate``; one card: no scaling
+    claim)."""
+    _, batches = train_batches(TP_RATE_STEPS, shards)
+    tcfg = TrainerConfig(vocab_size=VOCAB, pad_id=VOCAB - 1,
+                         d_model=D_MODEL)
+    out = {}
+    for label, mesh in (("unsharded", None), ("tp 2", tp_mesh(tp=2)),
+                        ("pp 2", tp_mesh(pp=2))):
+        tp_on = mesh is not None and mesh.model > 1
+        model = tp_model(mesh if tp_on else None, torch.bfloat16,
+                         dropout=0.1)
+        apply = (make_pipeline_apply(model, mesh, 2)
+                 if mesh is not None and mesh.pipe > 1 else None)
+        tx = make_optimizer(tcfg)
+        state = create_train_state(model, tx, dropout_seed=0, mesh=mesh)
+        step = make_train_step(
+            tx, tcfg, loss_fn=apply and train_cli.pipeline_loss_fn(
+                tcfg, apply), mesh=mesh)
+        out[label] = train_step_rate(f"{label} train step bf16 B{B} "
+                                     f"L{L_TRAIN}", step, state, batches)
+    return out
+
+
+def dryrun() -> tuple:
+    """``graft_entry.dryrun_multichip(4)`` on the card: launches of A, C
+    and G during it."""
+    zero_tp_counts()
+    line = dryrun_multichip(4)
+    counts = tp_counts()
+    print(f"dryrun_multichip(4) launches (A, C, G, B): {counts}")
+    if "decode tp=2 token-equal ok" not in line or not all(counts[:3]):
+        raise AssertionError("the dry run skipped a path")
+    return counts
+
+
+def parallel_slice(shards: str, prime: np.ndarray) -> dict:
+    """Every tensor- and pipeline-parallel phase; launches by path for the
+    kernels line."""
+    t0 = time.perf_counter()
+    heads = check_head_shards()
+    tpr = tp_paths(shards)
+    ppr = pp_paths(shards)
+    gen = tp_generate(prime)
+    rates = parallel_rates(shards)
+    dry = dryrun()
+    print(f"tensor and pipeline parallel phases: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"A": {**tpr["A"], **ppr["A"], "generate_tp": gen["A"],
+                  "dryrun": dry[0]},
+            "C": {**tpr["C"], **ppr["C"], "dryrun": dry[1]},
+            "G": {**tpr["G"], "dryrun": dry[2]},
+            "heads": heads, "tok_s": gen["tok_s"], "rates": rates}
+
+
 TC_ENTRIES = {"relative_attention": ("rel_attn_fwd_tc_kernel",),
               "ring_attention": ("ring_tile_tc_kernel",),
               "relative_attention_bwd": ("rel_attn_bwd_tc_kernel",),
@@ -6779,12 +7128,16 @@ def main(argv: list) -> int:
         step_t = time_train_step(shards)
         dpr = dp_paths(tmp, shards, e2e["prime"])
         ck = checkpoint_cli(tmp, dpr["fsdp_run"])
+        par = parallel_slice(shards, e2e["prime"])
     ring_launches = ring_paths()
+    ring_launches.update(par["G"])
     cp_times = time_cp_kernels()
     by_a = {"generate": e2e["A"], "train": tr["A"], "serve": served["A"],
             "speculative": spec["A"], **cp_run["A"], **sch["A"],
-            **dist["A"], **dpr["A"], "checkpoint_cli": ck["A"]}
-    row_a = time_kernel_a(sum(by_a.values()), max(err_a, err_cp["A"]))
+            **dist["A"], **dpr["A"], "checkpoint_cli": ck["A"], **par["A"]}
+    heads = par["heads"]
+    row_a = time_kernel_a(sum(by_a.values()),
+                          max(err_a, err_cp["A"], heads["err_a"]))
     row_a["launches_by_path"] = by_a
     by_b = {"generate": e2e["B"], "serve": served["B"],
             "speculative": spec["B"], **cp_run["B"], **sch["B"],
@@ -6794,9 +7147,15 @@ def main(argv: list) -> int:
                               err_cp["B_ragged"]))
     row_b["launches_by_path"] = by_b
     by_c = {"train": tr["C"], **cp_run["C"], **sch["C"], **dist["C"],
-            **dpr["C"]}
-    row_c = time_kernel_c(sum(by_c.values()), max(err_c, err_cp["C"]))
+            **dpr["C"], **par["C"]}
+    row_c = time_kernel_c(sum(by_c.values()),
+                          max(err_c, err_cp["C"], heads["err_c"]))
     row_c["launches_by_path"] = by_c
+    for h in (2, 1):  # a head shard's heads (tp 2, tp 4), training shape
+        row_a[f"ms_h{h}"] = heads[h]["a_ms"]
+        row_a[f"bound_ms_h{h}"] = heads[h]["a_bound_ms"]
+        row_c[f"ms_h{h}"] = heads[h]["c_ms"]
+        row_c[f"bound_ms_h{h}"] = heads[h]["c_bound_ms"]
     by_br = {"serve": served["B"], "cp_serve": cp_run["B"]["cp_serve"],
              "cp_window_serve": cp_run["B"]["cp_window_serve"],
              "pedal_serve": sch["B"]["pedal_serve"]}
@@ -6912,6 +7271,13 @@ def main(argv: list) -> int:
           + f"; train step bf16 under FSDP2 (one rank) "
           f"{dpr['fsdp_ms']['fsdp']:.3f} ms ({100 * dpr['fsdp_ms']['busy']:.1f}"
           f"% busy), unsharded {dpr['fsdp_ms']['plain']:.3f} ms",
+          f"on {gpu_line()}")
+    print("tensor and pipeline parallel on one card (virtual meshes, no "
+          "scaling claim): train step bf16 B=8 L=512 " + ", ".join(
+              f"{k} {ms:.3f} ms ({100 * busy:.1f}% busy)"
+              for k, (ms, busy) in par["rates"].items())
+          + "; decode bf16 B=8 tokens/s " + ", ".join(
+              f"{k} {r:.1f}" for k, r in par["tok_s"].items()),
           f"on {gpu_line()}")
     print(f"ring train step bf16 B={B} L={L_RING} (host clock, median): "
           f"virtual ring sp {SP_RING} {ring_step['ring_pallas']:.2f} ms "

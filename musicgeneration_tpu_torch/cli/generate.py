@@ -71,8 +71,15 @@ CPU. It exits, as the JAX CLI's ``_dp_mesh`` does, when fewer devices
 are visible or the batch does not divide; ``--spec``, ``--beam`` and a
 continuation past max_seq do not take it. Greedy output equals ``--dp
 1``'s; sampled shards draw from their own streams, seeded from
-``--seed`` and the shard index. Runs on ``--device cuda`` by default; a
-missing GPU is an error, not a fallback.
+``--seed`` and the shard index. ``--tp M`` (the MusicTransformer) runs
+each data shard on M head shards (``decode.generate_tp``), on the first
+dp x M visible devices (data shard i's head shards on devices i * M ..
+i * M + M - 1); its output, greedy or sampled, is ``--tp 1``'s, byte for
+byte (one sampler over the summed logits, ``--seed``'s generator). It
+takes no ``--quant``, ``--spec``, ``--beam`` or continuation past
+max_seq, and pins the unquantized step as the JAX CLI pins its XLA
+decode path. Runs on ``--device cuda`` by default; a missing GPU is an
+error, not a fallback.
 """
 
 from __future__ import annotations
@@ -88,23 +95,25 @@ import torch
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def dp_mesh(dp: int, batch: int, device):
-    """--dp: a virtual mesh of ``dp`` data shards, the first ``dp``
-    visible CUDA devices (on the CPU, ``dp`` shards of it); exits as the
-    JAX CLI's ``_dp_mesh`` does on a batch that does not divide or too
-    few devices."""
+def dp_mesh(dp: int, batch: int, device, tp: int = 1):
+    """--dp/--tp: a virtual mesh of ``dp`` data shards of ``tp`` model
+    shards each, the first dp * tp visible CUDA devices (on the CPU,
+    dp * tp shards of it); exits as the JAX CLI's ``_dp_mesh`` does on a
+    batch that does not divide or too few devices."""
     from ..parallel.mesh import make_mesh
 
     if batch % dp:
         raise SystemExit(f"--batch {batch} not divisible by --dp {dp}")
+    need = dp * tp
     dev = torch.device(device)
     if dev.type != "cuda":
-        return make_mesh(dp=dp, devices=[dev] * dp)
+        return make_mesh(dp=dp, tp=tp, devices=[dev] * need)
     have = torch.cuda.device_count()
-    if have < dp:
-        raise SystemExit(f"--dp {dp} needs {dp} devices, have {have}")
-    return make_mesh(dp=dp, devices=[torch.device("cuda", i)
-                                     for i in range(dp)])
+    if have < need:
+        raise SystemExit(f"--dp {dp}{f' x --tp {tp}' if tp > 1 else ''} "
+                         f"needs {need} devices, have {have}")
+    return make_mesh(dp=dp, tp=tp, devices=[torch.device("cuda", i)
+                                            for i in range(need)])
 
 
 def _dtype(args):
@@ -418,6 +427,12 @@ def main(argv=None) -> int:
                         "--batch must divide by N; greedy output equals "
                         "--dp 1's, sampled shards draw from their own "
                         "streams)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel decode (music_transformer): each "
+                        "data shard's heads and FFN over N devices "
+                        "(decode.generate_tp; composes with --dp as a dp x "
+                        "tp mesh of the first dp*tp GPUs). Byte-identical "
+                        "to --tp 1")
     p.add_argument("--include-prime", action="store_true",
                    help="write prompt + continuation")
     p.add_argument("--beam", type=int, default=0,
@@ -466,6 +481,15 @@ def main(argv=None) -> int:
             decode_quant=None if args.quant == "none" else args.quant)
     except ValueError as e:  # e.g. --quant int8 on a GRU checkpoint
         raise SystemExit(f"{args.checkpoint}: {e}") from None
+    if args.tp > 1:
+        if model.family != "music_transformer":
+            raise SystemExit("--tp applies to model=music_transformer")
+        if args.quant != "none":
+            raise SystemExit("--quant rides the fused kernels; --tp pins "
+                             "the unquantized decode step (pick one)")
+        # the JAX CLI pins its XLA decode path, which has no int8: a
+        # recorded model.decode_quant=int8 does not apply
+        model.decode_quant = "none"
     if model.family == "cp_transformer":
         return _generate_cp(model, args)
     if model.family == "popmag":
@@ -474,6 +498,8 @@ def main(argv=None) -> int:
         if model.family != "music_transformer":
             raise SystemExit("--spec needs a music_transformer target "
                              "(chunked verify forward)")
+        if args.tp > 1:
+            raise SystemExit("--spec with --tp is not supported")
         if args.dp > 1 or args.beam > 1:
             raise SystemExit("--spec is mutually exclusive with --dp "
                              "and --beam")
@@ -662,18 +688,19 @@ def _generate_popmag(model, args, config) -> int:
 
 
 def _generate_transformer(model, args, scheme: str = "midilike") -> int:
-    from ..decode import DecodeParams, generate, generate_dp, generate_sliding
+    from ..decode import (DecodeParams, generate, generate_dp,
+                          generate_sliding, generate_tp)
 
     prime = prime_tokens(args.prime, args.prime_len, scheme)
     nb = max(args.batch, 1)
     prompt = np.tile(np.asarray(prime, np.int64)[None], (nb, 1))
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     if len(prime) + args.steps > model.max_seq:
-        if nb > 1 or args.dp > 1 or args.spec is not None:
+        if nb > 1 or args.dp > 1 or args.tp > 1 or args.spec is not None:
             raise SystemExit(
                 f"prime ({len(prime)}) + steps ({args.steps}) exceeds "
-                f"max_seq ({model.max_seq}): --batch/--dp/--spec with a "
-                "continuation beyond max_seq (sliding window) is not "
+                f"max_seq ({model.max_seq}): --batch/--dp/--tp/--spec with "
+                "a continuation beyond max_seq (sliding window) is not "
                 "supported")
         # the cache spans 2 * window rows, inside the relative table
         outs = generate_sliding(model, prompt, gen, args.steps,
@@ -686,7 +713,11 @@ def _generate_transformer(model, args, scheme: str = "midilike") -> int:
                                            model.pad_id)
         dp = DecodeParams(max_len=prompt.shape[1] + args.steps,
                           steps=args.steps, sampling=_sampling(args))
-        if args.dp > 1:
+        if args.tp > 1:  # --tp 1's generator: the same draws
+            outs = generate_tp(model, prompt, gen, dp,
+                               dp_mesh(args.dp, nb, args.device, args.tp),
+                               prompt_len)
+        elif args.dp > 1:
             outs = generate_dp(model, prompt, args.seed, dp,
                                dp_mesh(args.dp, nb, args.device), prompt_len)
         else:

@@ -71,34 +71,42 @@ model under the reference names (MelodyRNN: ``models/melody_rnn.py``)
 and the run's config, its ``scheme`` and ``model_kwargs`` among it;
 ``cli.generate`` and ``cli.serve`` read the directory.
 
-Data and sequence parallelism (the MusicTransformer; the JAX CLI's
-mesh training, :774-795): ``dp=N`` splits every batch's rows over N data
-shards, ``sp=M`` cuts every crop into M sequence shards and runs
-attention as the ring (``attention_impl="ring"``, ``parallel/``; crop
-mode only), ``fsdp=true`` shards parameter and Adam-state storage over
-the data shards (FSDP2; ``train/trainer.py``). One process per shard,
-dp x sp of them, started with ``torchrun``:
+Mesh training (the MusicTransformer; the JAX CLI's, :774-795):
+``dp=N`` splits every batch's rows over N data shards, ``sp=M`` cuts
+every crop into M sequence shards and runs attention as the ring
+(``attention_impl="ring"``, ``parallel/``; crop mode only), ``tp=K``
+runs every layer, the embedding and the head on K head shards
+(``parallel/tensor_parallel.py``: each rank holds num_heads / K heads,
+ffn_dim / K hidden units, d_model / K embedding columns), ``pp=P`` cuts
+the layers into P pipeline stages run as GPipe over
+``pp_microbatches`` micro-batches (0: P; ``parallel/pipeline.py``), and
+``fsdp=true`` shards parameter and Adam-state storage over the data
+shards (FSDP2; ``train/trainer.py``). One process per shard, dp x sp x
+tp x pp of them, started with ``torchrun``:
 
     torchrun --nproc-per-node 4 -m musicgeneration_tpu_torch.cli.train \\
-        <shard_dir> dp=2 sp=2 ...
+        <shard_dir> dp=2 tp=2 ...
 
 which sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
 ``MASTER_PORT`` (a single process with ``fsdp=true`` or ``dp=1`` and
 none of them set trains unsharded, as JAX does on one device). dp
-defaults to WORLD_SIZE / sp, and dp x sp must equal WORLD_SIZE; each
-rank runs on ``cuda:LOCAL_RANK`` over NCCL (``--device cpu``: gloo).
-Rank r is data shard d = r // sp and ring index s = r % sp, as JAX lays
-out its mesh: every rank reads the same global batch stream and takes
-rows ``[d, d + 1) * B / dp`` of each of the ``accum_steps``
-micro-batches and columns ``[s, s + 1) * seq_len / sp``, so the global
-batch is the one-process run's, bit for bit; batch_size * accum_steps
-must divide by dp (and batch_size by dp when accum_steps > 1), seq_len
-by sp. Losses are global means, as the one-process step's. Rank 0 alone
-writes checkpoints (in the one-device layout, so a run resumes with
-another mesh), ``meta.json``, the metrics file and the profile, every
-rank prints its step lines, and every rank resumes from ``ckpt_dir``.
-``distill_from`` composes with dp and fsdp, not with sp. ``tp`` and
-``pp`` are the next slice and are refused.
+defaults to WORLD_SIZE / (sp * tp * pp), and the product must equal
+WORLD_SIZE; each rank runs on ``cuda:LOCAL_RANK`` over NCCL (``--device
+cpu``: gloo). Rank r is shard (d, s, m, p) with r = ((d * sp + s) * tp +
+m) * pp + p, as JAX lays out its mesh: every rank reads the same global
+batch stream and takes rows ``[d, d + 1) * B / dp`` of each of the
+``accum_steps`` micro-batches (where dp does not divide batch_size, its
+even share of the accumulated rows) and columns ``[s, s + 1) * seq_len /
+sp``, so the global batch is the one-process run's, bit for bit;
+batch_size * accum_steps must divide by dp, seq_len by sp; with pp,
+batch_size by pp_microbatches and the micro-batch by dp, num_layers by
+pp; with tp, num_heads and ffn_dim by tp. pp composes with dp only.
+Losses are global means, as the one-process step's. Rank 0 alone writes
+checkpoints (in the one-device layout, gathered over every axis, so a
+run resumes with another mesh and ``cli.generate`` reads it as it is),
+``meta.json``, the metrics file and the profile, every rank prints its
+step lines, and every rank resumes from ``ckpt_dir``. ``distill_from``
+composes with dp, tp and fsdp, not with sp or pp.
 """
 
 from __future__ import annotations
@@ -176,14 +184,17 @@ class TrainCLIConfig(Config):
     profile_dir: Optional[str] = None
     profile_steps: int = 5        # traced steps [10, 10 + profile_steps)
     # -- mesh training (music_transformer; parallel/mesh.py): one process
-    # per shard. dp = data parallel (defaults to WORLD_SIZE / sp), sp =
-    # sequence parallel (switches attention to the ring), fsdp = storage
-    # sharded over the data shards; tp and pp are not ported yet
+    # per shard. dp = data parallel (defaults to WORLD_SIZE / (sp*tp*pp)),
+    # tp = tensor parallel (head shards), sp = sequence parallel (switches
+    # attention to the ring), fsdp = storage sharded over the data shards,
+    # pp = pipeline stages (GPipe over pp_microbatches micro-batches per
+    # train(-accum) batch, 0 -> pp); pp composes with dp only
     dp: Optional[int] = None
     tp: int = 1
     sp: int = 1
     fsdp: bool = False
     pp: int = 1
+    pp_microbatches: int = 0
     # CP per-head loss weights, in tokenizers/cp field order (family,
     # position, tempo_class, tempo_value, chord, pitch, duration,
     # velocity), normalised to mean 1; None = equal
@@ -774,9 +785,11 @@ def build_model(cfg: TrainCLIConfig, scheme: str,
             peak_lr=cfg.peak_lr or 1e-3)
         return model, tcfg, gru_loss_fn(cfg, model.init_dim)
     vocab = kw.pop("vocab_size", lm_vocab(scheme))
+    # not recorded in the checkpoint's model_kwargs
     if mesh is not None and mesh.size > 1:
-        # not recorded in the checkpoint's model_kwargs
         kw.update(attention_impl="ring", mesh=mesh)
+    elif mesh is not None and mesh.model > 1:
+        kw.update(mesh=mesh)
     # crops are dense windows: the training model skips pad masking
     model = cls(**{**defaults(vocab_size=vocab, max_seq=cfg.seq_len),
                    "pad_in_input": False, **kw},
@@ -792,7 +805,29 @@ def build_model(cfg: TrainCLIConfig, scheme: str,
         teacher = load_teacher(cfg, model, device)
         return model, tcfg, distill_loss_fn(tcfg, teacher, cfg.distill_alpha,
                                             cfg.distill_temp)
+    if mesh is not None and mesh.pipe > 1:
+        from ..parallel.pipeline import make_pipeline_apply
+        return model, tcfg, pipeline_loss_fn(
+            tcfg, make_pipeline_apply(model, mesh,
+                                      cfg.pp_microbatches or mesh.pipe))
     return model, tcfg, None
+
+
+def pipeline_loss_fn(tcfg, apply):
+    """The LM objective on the pipelined forward ``apply``
+    (``make_pipeline_apply``); ``apply`` rides along as ``.apply`` for
+    the eval step."""
+    from ..train.objective import smooth_cross_entropy, token_accuracy
+
+    def loss_fn(model, x, y, generator, denom=None):
+        logits = apply(x, deterministic=False, generator=generator)
+        return (smooth_cross_entropy(logits, y, tcfg.vocab_size,
+                                     tcfg.label_smoothing, tcfg.pad_id,
+                                     denom),
+                token_accuracy(logits, y, tcfg.pad_id, denom))
+
+    loss_fn.apply = apply
+    return loss_fn
 
 
 def _parse(argv):
@@ -821,11 +856,12 @@ def _parse(argv):
 
 
 def init_mesh(cfg: TrainCLIConfig, device_arg: str):
-    """The (data, seq) mesh ``cfg`` asks for, over a process group made
-    from the ``torchrun`` environment, or None for one process started
-    without it (``fsdp=true`` or ``dp=1`` there shard nothing, as JAX's
-    mesh of one device). Refuses what the JAX CLI refuses (:774-791),
-    before any group forms."""
+    """The (data, seq, model[, pipe]) mesh ``cfg`` asks for, over a
+    process group made from the ``torchrun`` environment, or None for one
+    process started without it (``fsdp=true`` or ``dp=1`` there shard
+    nothing, as JAX's mesh of one device). Refuses what the JAX CLI
+    refuses (:774-791, and its pipeline's :97-100, :197-210), before any
+    group forms."""
     from .. import resolve_device
     from ..parallel.mesh import make_mesh
 
@@ -838,29 +874,35 @@ def init_mesh(cfg: TrainCLIConfig, device_arg: str):
                          "model=music_transformer")
     if cfg.pp > 1 and (cfg.tp > 1 or cfg.sp > 1 or cfg.fsdp):
         raise SystemExit("pp composes with dp only (not tp/sp/fsdp)")
-    if cfg.distill_from and cfg.sp > 1:
+    if cfg.distill_from and (cfg.sp > 1 or cfg.pp > 1):
         raise SystemExit("distill_from composes with dp/fsdp meshes only "
                          "(the teacher forward is an unsharded plain apply)")
-    for name in ("tp", "pp"):
-        if getattr(cfg, name) > 1:
-            raise SystemExit(f"{name}={getattr(cfg, name)} is not ported yet "
-                             "(ROADMAP.md Queue A, multi-device paths: tensor "
-                             "and pipeline parallelism are the next slice)")
-    dp = cfg.dp if cfg.dp is not None else world // cfg.sp
-    if dp < 1 or dp * cfg.sp != world:
+    rest = cfg.sp * cfg.tp * cfg.pp
+    dp = cfg.dp if cfg.dp is not None else world // rest
+    if dp < 1 or dp * rest != world:
+        axes = "".join(f" x {k}={v}" for k, v in (
+            ("sp", cfg.sp), ("tp", cfg.tp), ("pp", cfg.pp))
+            if v > 1 or k == "sp")
         raise SystemExit(
-            f"dp={dp} x sp={cfg.sp} runs one process per shard, but "
-            f"WORLD_SIZE is {world}: start it with torchrun --nproc-per-node "
-            f"{max(dp, 1) * cfg.sp}")
+            f"dp={dp}{axes} runs one process per shard, but WORLD_SIZE is "
+            f"{world}: start it with torchrun --nproc-per-node "
+            f"{max(dp, 1) * rest}")
     if (cfg.batch_size * cfg.accum_steps) % dp:
         raise SystemExit("batch_size*accum_steps must divide dp")
-    if cfg.accum_steps > 1 and cfg.batch_size % dp:
-        raise SystemExit(f"batch_size={cfg.batch_size} must divide dp={dp} "
-                         "with accum_steps > 1 (each rank takes its rows of "
-                         "every micro-batch)")
     if cfg.seq_len % cfg.sp:
         raise SystemExit(f"seq_len={cfg.seq_len} is not divisible by "
                          f"sp={cfg.sp}")
+    if cfg.pp > 1:
+        n_micro = cfg.pp_microbatches or cfg.pp
+        if cfg.batch_size % n_micro:
+            raise SystemExit(f"batch_size={cfg.batch_size} must divide by "
+                             f"pp_microbatches={n_micro}")
+        if (cfg.batch_size // n_micro) % dp:
+            raise SystemExit(f"microbatch {cfg.batch_size // n_micro} not "
+                             f"divisible by data={dp}")
+    if cfg.eval_dir and cfg.eval_every and cfg.batch_size % dp:
+        raise SystemExit(f"eval batches of batch_size={cfg.batch_size} rows "
+                         f"must divide by dp={dp}")
     port = os.environ.get("MASTER_PORT")
     if port is None:
         if world > 1:
@@ -879,13 +921,16 @@ def init_mesh(cfg: TrainCLIConfig, device_arg: str):
         init_method=(f"tcp://{os.environ.get('MASTER_ADDR', 'localhost')}:"
                      f"{port}"),
         world_size=world, rank=rank)
-    return make_mesh(dp=dp, sp=cfg.sp, fsdp=cfg.fsdp, device=device)
+    return make_mesh(dp=dp, sp=cfg.sp, tp=cfg.tp, pp=cfg.pp, fsdp=cfg.fsdp,
+                     device=device)
 
 
 def _mesh_shard(batch_at, mesh, cfg: TrainCLIConfig):
     """batch_at with each array cut to this rank's part of the global
-    batch: its data shard's rows of every micro-batch, its ring index's
-    sequence columns."""
+    batch: its data shard's rows of every micro-batch (where dp does not
+    divide batch_size, its even share of the accumulated rows:
+    ``train.trainer.micro_runs``), its ring index's sequence columns.
+    The model shards and stages of a data shard take the same part."""
     if mesh is None:
         return batch_at
     a, dp = cfg.accum_steps, mesh.data
@@ -893,6 +938,9 @@ def _mesh_shard(batch_at, mesh, cfg: TrainCLIConfig):
     hi = lo + cfg.seq_len // mesh.size
 
     def rows(x):
+        if cfg.batch_size % dp:
+            per = x.shape[0] // dp
+            return x[mesh.data_rank * per:(mesh.data_rank + 1) * per]
         x = x.reshape(a, x.shape[0] // a, *x.shape[1:])
         per = x.shape[1] // dp
         x = x[:, mesh.data_rank * per:(mesh.data_rank + 1) * per]
@@ -1012,7 +1060,8 @@ def _train(args, cfg: TrainCLIConfig, model_kwargs, mesh) -> int:
                     lambda _: batch, mesh,
                     dataclasses.replace(cfg, accum_steps=1))(0), device)
 
-        eval_step = make_eval_step(tcfg, mesh=mesh)
+        eval_step = make_eval_step(tcfg, mesh=mesh,
+                                   apply=getattr(loss_fn, "apply", None))
 
     loop_cfg = LoopConfig(
         total_steps=cfg.steps, ckpt_dir=cfg.ckpt_dir,

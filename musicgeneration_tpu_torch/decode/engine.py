@@ -16,6 +16,13 @@ max_seq by re-priming a window. ``generate_dp`` splits the batch's rows
 over the data shards of a virtual mesh (``parallel.make_mesh(dp=N,
 devices=...)``), each shard running ``generate`` on its rows with its
 own generator (and its own copy of the model on another device).
+``generate_tp`` runs a MusicTransformer on head shards over the model axis
+of a virtual mesh (``make_mesh(dp=N, tp=M, devices=...)``): each model
+shard holds its heads' weights and KV cache on its device, the prefill is
+the tensor-parallel forward through kernel A, and each step is the
+sharded layer step written here (products, attention over the local
+heads' cache, partial sums), with the logits summed to one tensor that
+``generate``'s sampler draws from with ``generate``'s generator.
 """
 
 from __future__ import annotations
@@ -23,10 +30,12 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
-from typing import Callable, Optional
+import math
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .sampling import SamplingParams, sample_logits
 
@@ -295,3 +304,196 @@ def generate_dp(model, prompt, seed: int, decode_params: DecodeParams,
                                                       m.device))
 
     return run_data_parallel(model, mesh, seed, prompt.shape[0], shard)
+
+
+class _TPDecoder:
+    """One data shard of ``generate_tp``: the model's replicated tensors
+    on the shard's first device (``home``), each model shard's weights,
+    head columns and KV cache on its own device."""
+
+    def __init__(self, model, mesh, devices):
+        from ..parallel import tensor_parallel as tp
+
+        self.tp, self.mesh, self.devices = tp, mesh, devices
+        self.home = devices[0]
+        self.model = model if model.device == self.home \
+            else copy.deepcopy(model).to(self.home)
+        self.layers = [
+            [dict({k: v.detach().to(dev).contiguous() for k, v in
+                   layer.tp_weights(m, mesh).items()}, device=dev)
+             for m, dev in enumerate(devices)]
+            for layer in self.model.Decoder.enc_layers]
+        fc = self.model.fc.weight.detach()
+        self.head_w = [tp.part(fc, 1, mesh, m).to(dev, model.dtype)
+                       .contiguous() for m, dev in enumerate(devices)]
+        self.cache = None
+
+    def logits(self, h: torch.Tensor) -> torch.Tensor:
+        """[B, d] -> f32 logits [B, vocab]: the head's partial products
+        over its input columns, summed."""
+        m, tp = self.model, self.tp
+        parts = []
+        for i, (w, dev) in enumerate(zip(self.head_w, self.devices)):
+            with tp.on(dev):
+                parts.append(F.linear(
+                    tp.part(h, -1, self.mesh, i).to(dev, m.dtype), w))
+        return tp.reduce_from_model(parts, self.mesh, m.fc.bias,
+                                    m.dtype).float()
+
+    def prefill(self, x: torch.Tensor, cache_len: int, last: int):
+        """The tensor-parallel forward of prompt x [B, P] (kernel A on
+        each shard's heads), filling each shard's cache [L, B, cache_len,
+        d / tp]; returns the logits of position ``last``."""
+        m = self.model
+        b, p = x.shape
+        key_pad = (x == m.pad_id).float()
+        h = m.embed_positions(x)
+        dloc = m.d_model // self.mesh.model
+        self.cache = [{k: torch.zeros(m.num_layers, b, cache_len, dloc,
+                                      dtype=m.dtype, device=dev)
+                       for k in "kv"} for dev in self.devices]
+        for li, layer in enumerate(m.Decoder.enc_layers):
+            h, ks, vs = layer.forward_tp(h, key_pad, None, True,
+                                         self.layers[li], self.mesh)
+            for c, k, v in zip(self.cache, ks, vs):
+                c["k"][li, :, :p] = k.transpose(1, 2).reshape(b, p, -1)
+                c["v"][li, :, :p] = v.transpose(1, 2).reshape(b, p, -1)
+        return self.logits(h[:, last])
+
+    def step(self, token: torch.Tensor, t: int) -> torch.Tensor:
+        """token [B] at position t -> f32 logits [B, vocab], each shard's
+        cache row t written: every layer as Wq/Wk/Wv rows, attention over
+        the shard's heads' cache rows [0, t] with the relative bias,
+        partial fc and FFN products summed."""
+        m, tp, dt = self.model, self.tp, self.model.dtype
+        h = m._embed(token) + m.pos_table[t].to(dt)
+        max_seq = m.max_seq
+        for li, layer in enumerate(m.Decoder.enc_layers):
+            parts = []
+            for w, c in zip(self.layers[li], self.cache):
+                dev = w["device"]
+                with tp.on(dev):
+                    xs = h.to(dev, dt)
+                    q, k, v = (F.linear(xs, w["w" + n].to(dt),
+                                        w["b" + n].to(dt)) for n in "qkv")
+                    c["k"][li, :, t] = k
+                    c["v"][li, :, t] = v
+                    b, dh = q.shape[0], w["e"].shape[-1]
+                    keys = c["k"][li, :, :t + 1].float().view(b, t + 1, -1,
+                                                              dh)
+                    vals = c["v"][li, :, :t + 1].float().view(b, t + 1, -1,
+                                                              dh)
+                    qh = q.float().view(b, -1, dh)
+                    e_rows = w["e"][max_seq - 1 - t:max_seq]  # s = 0..t
+                    logits = (torch.einsum("bhd,bshd->bhs", qh, keys)
+                              + torch.einsum("bhd,sd->bhs", qh, e_rows)
+                              ) / math.sqrt(dh)
+                    attn = torch.einsum("bhs,bshd->bhd",
+                                        torch.softmax(logits, -1), vals)
+                    parts.append(F.linear(attn.reshape(b, -1).to(dt),
+                                          w["wfc"].to(dt)))
+            attn = tp.reduce_from_model(parts, self.mesh, layer.rga.fc.bias,
+                                        dt)
+            out1 = _layer_norm(layer.layernorm1, attn + h)
+            parts = []
+            for w in self.layers[li]:
+                with tp.on(w["device"]):
+                    hid = torch.relu(F.linear(out1.to(w["device"]),
+                                              w["w1"].to(dt),
+                                              w["b1"].to(dt)))
+                    parts.append(F.linear(hid, w["w2"].to(dt)))
+            ffn = tp.reduce_from_model(parts, self.mesh, layer.FFN_suf.bias,
+                                       dt)
+            h = _layer_norm(layer.layernorm2, out1 + ffn)
+        return self.logits(h)
+
+
+def _layer_norm(ln, x):
+    from ..models.music_transformer import _layer_norm as norm
+    return norm(ln, x)
+
+
+@torch.no_grad()
+def generate_tp(model, prompt, seed: Union[int, torch.Generator],
+                decode_params: DecodeParams, mesh,
+                prompt_len: Optional[int] = None) -> torch.Tensor:
+    """Tensor-parallel decode of a MusicTransformer over the model axis of a
+    virtual ``mesh``, optionally with data shards (a dp x tp mesh; JAX
+    ``decode/engine.py::generate_tp``): prompt [B, P] -> tokens [B,
+    steps] on the model's device.
+
+    Data shard i takes rows [i * B / dp, (i + 1) * B / dp); model shard m
+    of it holds heads [m * H / tp, (m + 1) * H / tp) of every layer, the
+    matching FFN hidden units and head columns, and their KV cache, on
+    ``mesh.model_devices[i][m]``, current while it runs. The prefill runs
+    kernel A on each shard's heads; the steps are the sharded layer step
+    (no kernel B: JAX's tensor-parallel step is XLA's partition of its
+    XLA decode step). Every step the data shards' logits, each summed
+    over the model shards, form one [B, vocab] tensor that
+    ``sample_logits`` draws from with one generator: ``seed`` (an int:
+    ``torch.Generator(device).manual_seed(seed)`` on the first shard's
+    device, as ``cli.generate`` makes for ``generate``; or a generator),
+    so greedy and sampled tokens are ``generate``'s. Refuses what JAX
+    refuses: heads or the FFN not divisible by the model axis, a batch
+    not divisible by the data axis, int8 weights and the decode loop
+    (both ride the fused kernels)."""
+    if not mesh.virtual:
+        raise ValueError("generate_tp holds every shard in this process: "
+                         "give it a virtual mesh (make_mesh(dp=N, tp=M, "
+                         "devices=[...]))")
+    if mesh.size != 1 or mesh.pipe != 1:
+        raise ValueError(f"generate_tp takes a (data, model) mesh; got "
+                         f"sp={mesh.size}, pp={mesh.pipe}")
+    n_model, n_data = mesh.model, mesh.data
+    for what, n in (("num_heads", model.num_heads),
+                    ("ffn_dim", model.ffn_dim)):
+        if n % n_model:
+            raise ValueError(f"{what}={n} not divisible by the model axis "
+                             f"({n_model})")
+    if model.decode_quant != "none" or decode_params.use_loop_kernel:
+        raise ValueError(
+            "generate_tp shards the unquantized decode step; int8 weights "
+            "and the decode loop ride the fused kernels (B, E, F) on one "
+            "device")
+    prompt = torch.as_tensor(prompt, dtype=torch.long)
+    b, p = prompt.shape
+    if b % n_data:
+        raise ValueError(f"batch {b} not divisible by the data axis "
+                         f"({n_data})")
+    dp = decode_params
+    if p + dp.steps > dp.max_len:
+        raise ValueError(
+            f"prompt ({p}) + steps ({dp.steps}) exceeds cache max_len "
+            f"({dp.max_len}); the KV cache would overflow")
+    if p + dp.steps > model.max_seq:
+        raise ValueError(
+            f"prompt ({p}) + steps ({dp.steps}) exceeds the model's "
+            f"max_seq ({model.max_seq}): the positional and relative "
+            "tables end there")
+    if prompt_len is not None and not 0 < prompt_len <= p:
+        raise ValueError(f"prompt_len {prompt_len} outside (0, {p}]")
+    cache_len = align_cache_len(model, dp.max_len)
+    t = p if prompt_len is None else int(prompt_len)
+    per = b // n_data
+    shards = [_TPDecoder(model, mesh, devs) for devs in mesh.model_devices]
+    home = shards[0].home
+    gen = seed if isinstance(seed, torch.Generator) or seed is None \
+        else torch.Generator(device=home).manual_seed(int(seed))
+
+    def gathered(fn):
+        outs = []
+        for i, sh in enumerate(shards):
+            with sh.tp.on(sh.home):
+                outs.append(fn(i, sh).to(home))
+        return torch.cat(outs)
+
+    logits = gathered(lambda i, sh: sh.prefill(
+        prompt[i * per:(i + 1) * per].to(sh.home), cache_len, t - 1))
+    out = torch.empty(b, dp.steps, dtype=torch.long, device=home)
+    for i in range(dp.steps):
+        token = sample_logits(logits, dp.sampling, gen)
+        out[:, i] = token
+        logits = gathered(lambda j, sh: sh.step(
+            token[j * per:(j + 1) * per].to(sh.home), t))
+        t += 1
+    return out.to(model.device)

@@ -17,6 +17,14 @@ through ``ops.fused_decode`` (ragged ``start``/``start_min`` for
 serving; int8 with ``decode_quant="int8"``). On CPU tensors the plain
 versions run.
 
+With a ``mesh`` whose model axis is > 1 the trunk runs on head shards
+(``EncoderLayer`` on its ``mesh``), each field embedding is split by
+d_model columns and gathered, and each head follows JAX's default rule:
+split by its output columns where the model axis divides the field's
+size, else replicated (``parallel.mesh.param_placements``). Mesh training
+of the CP transformer is refused by ``cli.train`` as in JAX; the dry run
+(``graft_entry.dryrun_multichip``) takes one step of it.
+
 State-dict names (the port's own: the JAX package exports no CP
 ``.pth``): ``embed_<field>.weight`` [field_dim, d] for each field of
 ``cp.field_names()``; ``layers.<i>.`` + the port's ``EncoderLayer`` names
@@ -38,8 +46,10 @@ from torch import nn
 from .. import resolve_device
 from ..ops.fused_decode import fused_decode_step
 from ..ops.relative_attention import sinusoid_position_encoding
+from ..parallel import tensor_parallel as tp
+from ..parallel.mesh import model_dim
 from ..tokenizers import cp
-from .music_transformer import (EncoderLayer, _linear, dropout,
+from .music_transformer import (EncoderLayer, _linear, _tp, dropout,
                                 stack_decode_weights)
 from .registry import register_model
 
@@ -67,7 +77,8 @@ class CPTransformer(nn.Module):
     def __init__(self, num_layers: int = 4, d_model: int = 256,
                  max_seq: int = 1024, dtype=torch.float32, device="cuda",
                  generator: Optional[torch.Generator] = None,
-                 dropout_rate: float = 0.1, decode_quant: str = "none"):
+                 dropout_rate: float = 0.1, decode_quant: str = "none",
+                 mesh=None):
         super().__init__()
         if decode_quant not in ("none", "int8"):
             raise ValueError(f"unknown decode_quant {decode_quant!r}")
@@ -75,6 +86,10 @@ class CPTransformer(nn.Module):
             raise ValueError(f"d_model {d_model} is not a multiple of the "
                              "64-wide heads")
         device = resolve_device(device)
+        if _tp(mesh) and (d_model // 64) % mesh.model:
+            raise ValueError(f"num_heads={d_model // 64} not divisible by "
+                             f"the model axis ({mesh.model})")
+        self.mesh = mesh if _tp(mesh) else None
         self.field_dims = tuple(cp.field_dims())
         self.num_layers = num_layers
         self.d_model = d_model
@@ -89,7 +104,7 @@ class CPTransformer(nn.Module):
                             nn.Embedding(fd, d_model, device=device))
         self.layers = nn.ModuleList(
             EncoderLayer(d_model, self.num_heads, max_seq, self.ffn_dim,
-                         dtype=dtype, device=device)
+                         dtype=dtype, device=device, mesh=self.mesh)
             for _ in range(num_layers))
         for fd, name in zip(self.field_dims, cp.field_names()):
             self.add_module(f"head_{name}",
@@ -135,14 +150,41 @@ class CPTransformer(nn.Module):
         # indices and reduces each run, where index_put's is serial over
         # duplicates (tables of 4-128 rows, B*T indices each)
         embeds = self._fields("embed")
-        h = F.embedding(x[..., 0], embeds[0].weight.to(self.dtype))
-        for i in range(1, len(embeds)):
-            h = h + F.embedding(x[..., i], embeds[i].weight.to(self.dtype))
-        return h * float(torch.tensor(math.sqrt(self.d_model)).to(self.dtype))
+        scale = float(torch.tensor(math.sqrt(self.d_model)).to(self.dtype))
+        mesh = self.mesh
+
+        def summed(weight):
+            h = F.embedding(x[..., 0], weight(embeds[0]).to(self.dtype))
+            for i in range(1, len(embeds)):
+                h = h + F.embedding(x[..., i],
+                                    weight(embeds[i]).to(self.dtype))
+            return h
+
+        if mesh is None:
+            return summed(lambda e: e.weight) * scale
+        return tp.gather_from_model(
+            [summed(lambda e, m=m: tp.local(e.weight, 1, mesh, m))
+             for m in tp.shards(mesh)], mesh) * scale
 
     def _heads(self, h: torch.Tensor) -> List[torch.Tensor]:
-        return [_linear(head, h, self.dtype).float()
-                for head in self._fields("head")]
+        if self.mesh is None:
+            return [_linear(head, h, self.dtype).float()
+                    for head in self._fields("head")]
+        mesh, dt, out = self.mesh, self.dtype, []
+        hc = tp.copy_to_model(h, mesh)
+        for head in self._fields("head"):
+            w = head.weight
+            if model_dim("head.weight", w.shape) == 0 and \
+                    head.bias.shape[0] % mesh.model == 0:
+                # split by output columns: each shard's logits, gathered
+                b = tp.copy_to_model(head.bias, mesh)
+                out.append(tp.gather_from_model(
+                    [F.linear(hc.to(dt), tp.local(w, 0, mesh, m).to(dt),
+                              tp.part(b, 0, mesh, m).to(dt))
+                     for m in tp.shards(mesh)], mesh).float())
+            else:
+                out.append(_linear(head, h, dt).float())
+        return out
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None

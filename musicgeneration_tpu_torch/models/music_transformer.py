@@ -31,6 +31,18 @@ takes the global ``[B, L]``; on a process group each rank gives its own
 ``[B, L / n]`` shard and the positional rows are taken at its global
 offset.
 
+With a ``mesh`` whose ``model`` axis is > 1 (``parallel.make_mesh(tp=N)``)
+the layers, the embedding and the head run on head shards
+(``parallel/tensor_parallel.py``): each model shard's Wq/Wk/Wv rows give
+its num_heads / tp heads, kernel A (and kernel C in the backward, or the
+ring on each head shard with ``attention_impl="ring"``/``"ring_pallas"``)
+runs on [B, H / tp, L, 64] with the whole E, and the row-split fc,
+FFN_suf and head sum their partial products in f32. On a virtual mesh
+the parameters stay whole and the shards run one after another on views
+of them; on a process group each rank holds its shard
+(``tensor_parallel.shard_params``). Such a model decodes through
+``decode.generate_tp``.
+
 ``forward`` is the training forward: it runs under autograd, with
 dropout at the JAX module's three sites (after embedding + position,
 after attention, after the FFN) drawn from an explicit
@@ -56,6 +68,7 @@ from ..ops.fused_attention import fused_relative_attention
 from ..ops.fused_decode import (WEIGHT_KEYS, fused_decode_chunk,
                                 fused_decode_step, quantize_stream_weights)
 from ..ops.relative_attention import sinusoid_position_encoding
+from ..parallel import tensor_parallel as tp
 from ..parallel.ring_attention import ring_relative_attention
 from ..parallel.ring_attention_pallas import ring_relative_attention_pallas
 from .registry import register_model
@@ -79,6 +92,10 @@ def dropout(x: torch.Tensor, rate: float,
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
+def _tp(mesh) -> bool:
+    return mesh is not None and mesh.model > 1
+
+
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """LayerNorm with f32 statistics, result in x's dtype (flax
     LayerNorm(dtype=...))."""
@@ -95,6 +112,7 @@ class RelativeGlobalAttentionBlock(nn.Module):
                  attention_impl: str = "auto", mesh=None):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = d_model // num_heads
         self.dtype = dtype
         self.attention_impl = attention_impl
         self.mesh = mesh
@@ -107,7 +125,18 @@ class RelativeGlobalAttentionBlock(nn.Module):
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         b, l, _ = x.shape
-        return x.reshape(b, l, self.num_heads, -1).transpose(1, 2).contiguous()
+        return x.reshape(b, l, -1, self.head_dim).transpose(1, 2).contiguous()
+
+    def attend(self, q, k, v, e, key_pad=None) -> torch.Tensor:
+        """Causal relative attention of [B, H', L, dh] heads with the E
+        table ``e`` (f32): kernel A, or the ring over the mesh's seq
+        axis."""
+        if self.attention_impl == "auto":
+            return fused_relative_attention(q, k, v, e, key_pad, causal=True)
+        ring = (ring_relative_attention_pallas
+                if self.attention_impl == "ring_pallas"
+                else ring_relative_attention)
+        return ring(q, k, v, e, self.mesh, causal=True, key_pad=key_pad)
 
     def forward(self, x: torch.Tensor,
                 key_pad: Optional[torch.Tensor] = None,
@@ -116,15 +145,7 @@ class RelativeGlobalAttentionBlock(nn.Module):
         q = self._heads(_linear(self.Wq, x, self.dtype))
         k = self._heads(_linear(self.Wk, x, self.dtype))
         v = self._heads(_linear(self.Wv, x, self.dtype))
-        if self.attention_impl == "auto":
-            out = fused_relative_attention(q, k, v, self.E.float(), key_pad,
-                                           causal=True)
-        else:
-            ring = (ring_relative_attention_pallas
-                    if self.attention_impl == "ring_pallas"
-                    else ring_relative_attention)
-            out = ring(q, k, v, self.E.float(), self.mesh, causal=True,
-                       key_pad=key_pad)
+        out = self.attend(q, k, v, self.E.float(), key_pad)
         b, h, l, dh = out.shape
         out = _linear(self.fc, out.transpose(1, 2).reshape(b, l, h * dh),
                       self.dtype)
@@ -139,6 +160,7 @@ class EncoderLayer(nn.Module):
                  attention_impl: str = "auto", mesh=None):
         super().__init__()
         self.dtype = dtype
+        self.mesh = mesh
         self.rga = RelativeGlobalAttentionBlock(
             d_model, num_heads, max_seq, dtype=dtype, device=device,
             attention_impl=attention_impl, mesh=mesh)
@@ -150,6 +172,9 @@ class EncoderLayer(nn.Module):
     def forward_kv(self, x: torch.Tensor,
                    key_pad: Optional[torch.Tensor] = None):
         """Full-sequence forward that also returns this layer's K/V."""
+        if _tp(self.mesh):
+            raise ValueError("a model on a tensor-parallel mesh decodes "
+                             "through decode.generate_tp")
         attn, k, v = self.rga(x, key_pad, return_kv=True)
         out1 = _layer_norm(self.layernorm1, attn + x)
         ffn = _linear(self.FFN_suf,
@@ -163,6 +188,8 @@ class EncoderLayer(nn.Module):
         """Training forward (layers.py:136-161): ``drop`` is the dropout
         applied after attention (drop1) and after the FFN (drop2), or
         None."""
+        if _tp(self.mesh):
+            return self.forward_tp(x, key_pad, drop)
         attn = self.rga(x, key_pad)
         if drop is not None:
             attn = drop(attn)
@@ -173,6 +200,74 @@ class EncoderLayer(nn.Module):
         if drop is not None:
             ffn = drop(ffn)
         return _layer_norm(self.layernorm2, out1 + ffn)
+
+    def tp_weights(self, m: int, mesh=None) -> Dict[str, torch.Tensor]:
+        """Model shard ``m``'s matrices (nn.Linear layout), its slices of
+        the split layers' biases and E (f32; E and the biases have their
+        gradients summed over the model axis, each shard's being
+        partial), on ``mesh`` (default: the layer's)."""
+        r, mesh = self.rga, mesh or self.mesh
+
+        def bias(p):
+            return tp.part(tp.copy_to_model(p, mesh), 0, mesh, m)
+
+        return {"wq": tp.local(r.Wq.weight, 0, mesh, m), "bq": bias(r.Wq.bias),
+                "wk": tp.local(r.Wk.weight, 0, mesh, m), "bk": bias(r.Wk.bias),
+                "wv": tp.local(r.Wv.weight, 0, mesh, m), "bv": bias(r.Wv.bias),
+                "wfc": tp.local(r.fc.weight, 1, mesh, m),
+                "w1": tp.local(self.FFN_pre.weight, 0, mesh, m),
+                "b1": bias(self.FFN_pre.bias),
+                "w2": tp.local(self.FFN_suf.weight, 1, mesh, m),
+                "e": tp.copy_to_model(r.E, mesh).float()}
+
+    def forward_tp(self, x: torch.Tensor,
+                   key_pad: Optional[torch.Tensor] = None,
+                   drop: Optional[Callable] = None, return_kv: bool = False,
+                   weights: Optional[list] = None, mesh=None):
+        """The layer on head shards of ``mesh`` (default: the layer's):
+        ``weights`` holds one ``tp_weights`` dict a model shard this
+        process runs (default: this layer's own), each with the
+        ``"device"`` its shard runs on, current while it runs (default:
+        x's). Returns [B, L, d] on x's device, and with ``return_kv`` the
+        shards' K and V lists ([B, H / tp, L, dh] each)."""
+        mesh, dt = mesh or self.mesh, self.dtype
+        if weights is None:
+            weights = [self.tp_weights(m) for m in tp.shards(mesh)]
+
+        def lin(y, w, b=None):
+            return F.linear(y.to(dt), w.to(dt), None if b is None
+                            else b.to(dt))
+
+        xc = tp.copy_to_model(x, mesh)
+        parts, ks, vs = [], [], []
+        for w in weights:
+            dev = w.get("device", x.device)
+            with tp.on(dev):
+                xs = xc.to(dev)
+                q, k, v = (self.rga._heads(lin(xs, w["w" + c], w["b" + c]))
+                           for c in "qkv")
+                kp = None if key_pad is None else key_pad.to(dev)
+                out = self.rga.attend(q, k, v, w["e"].to(dev), kp)
+                b, h, l, dh = out.shape
+                parts.append(lin(out.transpose(1, 2).reshape(b, l, h * dh),
+                                 w["wfc"]))
+            ks.append(k)
+            vs.append(v)
+        attn = tp.reduce_from_model(parts, mesh, self.rga.fc.bias, dt)
+        if drop is not None:
+            attn = drop(attn)
+        out1 = _layer_norm(self.layernorm1, attn + x)
+        oc = tp.copy_to_model(out1, mesh)
+        parts = []
+        for w in weights:
+            hid = torch.relu(lin(oc.to(w.get("device", x.device)), w["w1"],
+                                 w["b1"]))
+            parts.append(lin(hid, w["w2"]))
+        ffn = tp.reduce_from_model(parts, mesh, self.FFN_suf.bias, dt)
+        if drop is not None:
+            ffn = drop(ffn)
+        out = _layer_norm(self.layernorm2, out1 + ffn)
+        return (out, ks, vs) if return_kv else out
 
 
 def stack_decode_weights(layers, dtype, quant: str = "none"
@@ -263,6 +358,12 @@ class MusicTransformer(nn.Module):
         if d_model % head_dim:
             raise ValueError(f"d_model {d_model} not divisible by head_dim "
                              f"{head_dim}")
+        if _tp(mesh):
+            for what, n in (("num_heads", d_model // head_dim),
+                            ("ffn_dim", ffn_dim or d_model // 2)):
+                if n % mesh.model:
+                    raise ValueError(f"{what}={n} not divisible by the model "
+                                     f"axis ({mesh.model})")
         self.vocab_size = vocab_size
         self.num_layers = num_layers
         self.d_model = d_model
@@ -276,7 +377,7 @@ class MusicTransformer(nn.Module):
         self.remat = remat
         self.decode_quant = decode_quant
         self.attention_impl = attention_impl
-        self.mesh = mesh if attention_impl != "auto" else None
+        self.mesh = mesh if attention_impl != "auto" or _tp(mesh) else None
         self.Decoder = _Decoder(vocab_size, num_layers, d_model,
                                 self.num_heads, max_seq, self.ffn_dim,
                                 dtype, device, attention_impl, self.mesh)
@@ -321,7 +422,37 @@ class MusicTransformer(nn.Module):
         # sqrt(d_model) rounded to the compute dtype, as a Python float: a
         # scalar tensor copied to the device would sync the host per call
         scale = float(torch.tensor(math.sqrt(self.d_model)).to(self.dtype))
-        return self.Decoder.embedding.weight.to(self.dtype)[tokens] * scale
+        w = self.Decoder.embedding.weight
+        if _tp(self.mesh):  # d_model-split: gather before the scale
+            return tp.gather_from_model(
+                [tp.local(w, 1, self.mesh, m).to(self.dtype)[tokens]
+                 for m in tp.shards(self.mesh)], self.mesh) * scale
+        return w.to(self.dtype)[tokens] * scale
+
+    def embed_positions(self, x: torch.Tensor,
+                        drop: Optional[Callable] = None) -> torch.Tensor:
+        """The trunk's input: embedding * sqrt(d_model) + the positional
+        rows (at a process-group ring rank's global offset), then the
+        embedding dropout ``drop`` if given."""
+        off = (self.mesh.rank * x.shape[1]
+               if self.mesh is not None and not self.mesh.virtual else 0)
+        h = self._embed(x) + self.pos_table[off:off + x.shape[1]].to(
+            self.dtype)[None]
+        return h if drop is None else drop(h)
+
+    def head(self, h: torch.Tensor) -> torch.Tensor:
+        """The output Linear in the compute dtype, cast to
+        ``logits_dtype``; on head shards its input columns are split and
+        the partial logits summed."""
+        if not _tp(self.mesh):
+            return _linear(self.fc, h, self.dtype).to(self.logits_dtype)
+        hc = tp.copy_to_model(h, self.mesh)
+        parts = [F.linear(tp.part(hc, -1, self.mesh, m).to(self.dtype),
+                          tp.local(self.fc.weight, 1, self.mesh, m).to(
+                              self.dtype))
+                 for m in tp.shards(self.mesh)]
+        return tp.reduce_from_model(parts, self.mesh, self.fc.bias,
+                                    self.dtype).to(self.logits_dtype)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -333,21 +464,17 @@ class MusicTransformer(nn.Module):
         forward a generator of its own. On a process-group mesh x is
         this rank's sequence shard, at global offset ``rank * L``."""
         key_pad = (x == self.pad_id).float() if self.pad_in_input else None
-        off = (self.mesh.rank * x.shape[1]
-               if self.mesh is not None and not self.mesh.virtual else 0)
-        h = self._embed(x) + self.pos_table[off:off + x.shape[1]].to(
-            self.dtype)[None]
         drop = None
         if not deterministic and self.dropout_rate > 0.0:
             def drop(y):
                 return dropout(y, self.dropout_rate, generator)
-            h = drop(h)
+        h = self.embed_positions(x, drop)
         for layer in self.Decoder.enc_layers:
             if self.remat and torch.is_grad_enabled():
                 h = _remat(layer, h, key_pad, drop, generator)
             else:
                 h = layer(h, key_pad, drop)
-        return _linear(self.fc, h, self.dtype).to(self.logits_dtype)
+        return self.head(h)
 
     # -- incremental decoding -------------------------------------------------
 

@@ -35,16 +35,37 @@ gradients and metrics are all-reduced over every rank; with ``fsdp``
 the parameters and Adam moments are DTensor shards over the data group
 (FSDP2's ``fully_shard``, its reduce-scatter summing instead of
 averaging), the optimizer runs on the shards and the norm sums the
-shards' squares over the data group. Each rank folds its rank into its
-dropout stream. On a virtual mesh one process holds the global batch and
-the step is the single-device step.
+shards' squares over the data group. Each rank folds its (data, seq)
+index into its dropout stream.
+
+With tensor parallelism (``model`` > 1) or pipeline stages (``pipe`` >
+1) on a process group, each rank holds its part of the parameters
+(``parallel.tensor_parallel.shard_params``, called by
+``create_train_state``), and Adam's moments follow that layout. The
+ranks of one model shard or stage sum their gradients and metrics over
+``batch_group`` (the data and seq ranks), the model shards of a data
+shard draw the same dropout masks, and the global norm sums the squares
+of split parameters over the model (or pipe) group and counts replicated
+ones once. Gradients of replicated tensors that each shard uses in part
+(E, the split layers' biases; the pipeline's embedding) are summed in
+the backward (``copy_to_model``).
+
+When the data axis does not divide the micro-batch (batch_size % dp !=
+0, batch_size * accum_steps % dp == 0), each rank holds an even share of
+the accumulated batch's rows, and each row's loss is divided by the
+global count of kept targets of its own micro-batch (then by
+accum_steps, as always): JAX's objective, with no rank left without
+rows.
+
+On a virtual mesh one process holds the global batch and the whole
+parameters, and the step is the single-device step.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -87,17 +108,34 @@ class TrainState:
     dropout_seed: int
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: List[torch.Tensor],
+                split: Optional[Sequence[bool]] = None,
+                group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm).
     DTensor shards (fsdp) give the norm of the whole tensors: the shards'
-    sums of squares are summed over their mesh's group."""
-    if tensors and isinstance(tensors[0], DTensor):
-        local = torch.stack(torch._foreach_norm(
-            [t.to_local() for t in tensors])).float()
-        sq = (local * local).sum()
-        dist.all_reduce(sq, group=tensors[0].device_mesh.get_group())
-        return sq.sqrt()
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+    sums of squares are summed over their mesh's group. With ``group``
+    (a process group's model or pipe group) the tensors flagged in
+    ``split`` are this rank's parts of tensors split over it: their
+    squares are summed over it, the others' counted once."""
+    dtensor = bool(tensors) and isinstance(tensors[0], DTensor)
+    if not dtensor and group is None:
+        return torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(tensors)))
+    local = torch.stack(torch._foreach_norm(
+        [t.to_local() if isinstance(t, DTensor) else t
+         for t in tensors])).float()
+    sq = local * local
+    if group is None:
+        total = sq.sum()
+        dist.all_reduce(total, group=tensors[0].device_mesh.get_group())
+        return total.sqrt()
+    flags = torch.tensor(list(split), dtype=torch.bool, device=sq.device)
+    parts = torch.stack([sq[flags].sum(), sq[~flags].sum()])
+    if dtensor:
+        dist.all_reduce(parts, group=tensors[0].device_mesh.get_group())
+    spread = parts[0].clone()
+    dist.all_reduce(spread, group=group)
+    return (spread + parts[1]).sqrt()
 
 
 class Optimizer:
@@ -175,9 +213,14 @@ def shard_model(model: torch.nn.Module, mesh) -> torch.nn.Module:
 
 def create_train_state(model: torch.nn.Module, tx: Optimizer,
                        dropout_seed: int, mesh=None) -> TrainState:
-    """Step 0, fresh Adam moments for ``model``'s parameters; with an
-    ``fsdp`` process-group ``mesh`` the model is sharded first
-    (``shard_model``) and the moments are shards of the same layout."""
+    """Step 0, fresh Adam moments for ``model``'s parameters. On a
+    process-group ``mesh`` with a model or pipe axis the parameters are
+    cut to this rank's part first (``tensor_parallel.shard_params``);
+    with ``fsdp`` the model is sharded (``shard_model``); the moments
+    take the parameters' layout."""
+    if mesh is not None and not mesh.virtual:
+        from ..parallel.tensor_parallel import shard_params
+        shard_params(model, mesh)
     if mesh is not None and mesh.fsdp:
         shard_model(model, mesh)
     return TrainState(step=0, model=model,
@@ -201,7 +244,10 @@ def dropout_generator(seed: int, step: int, micro: int,
 
 
 def _world(mesh) -> Optional[dist.ProcessGroup]:
-    return mesh.world if mesh is not None and not mesh.virtual else None
+    """The group gradients and metrics are summed over: the ranks holding
+    the same model shard and stage (the whole world without tp or pp)."""
+    return mesh.batch_group if mesh is not None and not mesh.virtual \
+        else None
 
 
 def kept_count(y: torch.Tensor, cfg: TrainerConfig, group=None
@@ -225,13 +271,36 @@ def _objective(logits, y, cfg: TrainerConfig, denom=None):
     return loss, token_accuracy(logits, y, cfg.pad_id, denom)
 
 
-def _micro_batches(x, a: int) -> list:
-    """x ([a * B, ...], or a dict of such tensors) as ``a`` micro-batches
-    along axis 0."""
-    if isinstance(x, dict):
-        parts = {k: _micro_batches(v, a) for k, v in x.items()}
-        return [{k: v[i] for k, v in parts.items()} for i in range(a)]
-    return list(x.reshape(a, x.shape[0] // a, *x.shape[1:]))
+def _rows(x, sl: slice):
+    """Rows ``sl`` of x (or of each tensor of a dict)."""
+    return {k: v[sl] for k, v in x.items()} if isinstance(x, dict) \
+        else x[sl]
+
+
+def micro_runs(n: int, a: int, mesh=None) -> List[Tuple[int, slice]]:
+    """(global micro-batch index, rows) of this rank's ``n`` rows of an
+    accumulated batch of ``a`` micro-batches: n / a rows of each where a
+    divides n (every rank holds rows of every micro-batch); otherwise
+    (the data axis does not divide the micro-batch) the rank's
+    contiguous share ``[data_rank * n, (data_rank + 1) * n)`` of the
+    global rows, cut where a micro-batch ends."""
+    if n % a == 0:
+        per = n // a
+        return [(i, slice(i * per, (i + 1) * per)) for i in range(a)]
+    b = n * mesh.data // a
+    lo = mesh.data_rank * n
+    return [(i, slice(max(i * b, lo) - lo, min((i + 1) * b, lo + n) - lo))
+            for i in range(lo // b, (lo + n - 1) // b + 1)]
+
+
+def _kept_counts(y, runs, a: int, cfg: TrainerConfig, group) -> torch.Tensor:
+    """Each micro-batch's count of kept targets summed over ``group``, at
+    least 1, as f32 [a]."""
+    counts = torch.zeros(a, device=y.device)
+    for i, sl in runs:
+        counts[i] += kept_count(y[sl], cfg)
+    dist.all_reduce(counts, group=group)
+    return counts.clamp_min(1.0)
 
 
 def make_train_step(tx: Optimizer, cfg: TrainerConfig,
@@ -252,7 +321,7 @@ def make_train_step(tx: Optimizer, cfg: TrainerConfig,
     (``train.loop._guarded``); the step counter moves on either way.
     Metrics are host floats."""
     world = _world(mesh)
-    rank = mesh.global_rank if world is not None else 0
+    rank = mesh.batch_rank if world is not None else 0
     ring = mesh.group if world is not None and mesh.size > 1 else None
 
     def default_loss(model, x, y, generator, denom=None):
@@ -268,15 +337,16 @@ def make_train_step(tx: Optimizer, cfg: TrainerConfig,
         for p in params:
             p.grad = None
         a = cfg.accum_steps
-        xs, ys = _micro_batches(x, a), _micro_batches(y, a)
         device = y.device
+        runs = micro_runs(y.shape[0], a, mesh)
+        denoms = None if world is None else _kept_counts(y, runs, a, cfg,
+                                                         world)
         loss = acc = 0.0
-        for i in range(a):
+        for i, sl in runs:
             gen = dropout_generator(state.dropout_seed, state.step, i,
                                     device, rank)
-            kw = {} if world is None else {
-                "denom": kept_count(ys[i], cfg, world)}
-            l_i, acc_i = loss_of(model, xs[i], ys[i], gen, **kw)
+            kw = {} if world is None else {"denom": denoms[i]}
+            l_i, acc_i = loss_of(model, _rows(x, sl), y[sl], gen, **kw)
             l_i.backward()  # sums into .grad across micro-batches
             loss = loss + l_i.detach()
             acc = acc + acc_i.detach()
@@ -301,7 +371,13 @@ def make_train_step(tx: Optimizer, cfg: TrainerConfig,
         if a > 1:
             torch._foreach_div_(grads, a)
             loss, acc = loss / a, acc / a
-        gnorm = global_norm(grads)
+        layout = getattr(model, "tp_layout", None)
+        if layout is None:
+            gnorm = global_norm(grads)
+        else:
+            gnorm = global_norm(grads, [layout.split(n) for n, _ in
+                                        model.named_parameters()],
+                                layout.axis_group)
         loss_h, acc_h, gnorm_h = torch.stack(
             [loss.float(), acc.float(), gnorm.float()]).tolist()
         metrics: Dict[str, float] = {"loss": loss_h, "accuracy": acc_h,
@@ -319,16 +395,19 @@ def make_train_step(tx: Optimizer, cfg: TrainerConfig,
     return train_step
 
 
-def make_eval_step(cfg: TrainerConfig, mesh=None) -> Callable:
+def make_eval_step(cfg: TrainerConfig, mesh=None,
+                   apply: Optional[Callable] = None) -> Callable:
     """Returns ``eval_step(model, x, y) -> {"loss", "accuracy"}``
     (deterministic forward, no autograd; over a process-group ``mesh``
     x, y are this rank's shard and every rank gets the metrics of the
-    global batch)."""
+    global batch). ``apply(x)`` replaces ``model(x)`` (the pipeline's
+    forward)."""
     world = _world(mesh)
 
     @torch.no_grad()
     def eval_step(model, x, y) -> Dict[str, torch.Tensor]:
-        logits = model(x, deterministic=True)
+        logits = (model(x, deterministic=True) if apply is None
+                  else apply(x))
         denom = kept_count(y, cfg, world) if world is not None else None
         stats = torch.stack(_objective(logits, y, cfg, denom))
         if world is not None:

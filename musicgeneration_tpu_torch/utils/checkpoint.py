@@ -23,8 +23,12 @@ many stay on disk. ``meta.json`` beside them carries the data cursor.
 A state sharded over a data group (``fsdp``: parameters and Adam moments
 are ``DTensor`` shards) is written whole, in the single-device layout:
 every rank gathers each tensor (``full_tensor``, a collective), rank 0
-writes. ``load_state`` scatters a whole payload back into the shards, so
-a run resumes across layouts both ways.
+writes. So is a state cut over a model or pipe axis
+(``parallel.tensor_parallel.shard_params``): each tensor is gathered over
+that axis too (after FSDP's ``full_tensor`` where both apply). ``load_state``
+scatters a whole payload back into the shards, so a run resumes across
+layouts both ways (tp 2 -> tp 1 -> tp 2), and ``cli.generate`` reads any
+run's files as they are.
 """
 
 from __future__ import annotations
@@ -40,29 +44,37 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 _CKPT_RE = re.compile(r"^step-(\d+)\.pt$")
 
 
-def _whole(t: torch.Tensor) -> torch.Tensor:
-    """A tensor's whole value on the CPU; a DTensor is gathered (every
-    rank of its mesh must call this)."""
+def _whole(t: torch.Tensor, layout=None, name: str = "") -> torch.Tensor:
+    """A tensor's whole value on the CPU; a DTensor is gathered, and a
+    part of a tensor cut by ``layout`` (a model's ``tp_layout``) gathered
+    over its axis (every rank of those groups must call this)."""
+    t = t.detach()
     if isinstance(t, DTensor):
         t = t.full_tensor()
-    return t.detach().cpu()
+    if layout is not None:
+        from ..parallel.tensor_parallel import gather_whole
+        t = gather_whole(layout, name, t)
+    return t.cpu()
 
 
 def is_sharded(model: torch.nn.Module) -> bool:
-    """Whether ``model``'s parameters are DTensor shards (fsdp)."""
-    return any(isinstance(p, DTensor) for p in model.parameters())
+    """Whether ``model``'s parameters are shards (DTensors under fsdp, or
+    parts cut over a model or pipe axis)."""
+    return getattr(model, "tp_layout", None) is not None or any(
+        isinstance(p, DTensor) for p in model.parameters())
 
 
 def _payload(step: int, state: Any, config: Optional[Dict[str, Any]]):
     names = [n for n, _ in state.model.named_parameters()]
     opt = state.opt_state
+    lay = getattr(state.model, "tp_layout", None)
     return {
         "step": int(step),
-        "model": {k: _whole(v)
+        "model": {k: _whole(v, lay, k)
                   for k, v in state.model.state_dict().items()},
         "opt": {"count": int(opt.count),
-                "mu": {n: _whole(t) for n, t in zip(names, opt.mu)},
-                "nu": {n: _whole(t) for n, t in zip(names, opt.nu)}},
+                "mu": {n: _whole(t, lay, n) for n, t in zip(names, opt.mu)},
+                "nu": {n: _whole(t, lay, n) for n, t in zip(names, opt.nu)}},
         "dropout_seed": int(state.dropout_seed),
         "config": config or {},
     }
@@ -124,8 +136,13 @@ def restore_checkpoint(path_or_dir: str) -> Dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def _assign(dst: torch.Tensor, src: torch.Tensor) -> None:
-    """dst <- src (a whole tensor); a DTensor ``dst`` takes its shard."""
+def _assign(dst: torch.Tensor, src: torch.Tensor, layout=None,
+            name: str = "") -> None:
+    """dst <- src (a whole tensor); a part cut by ``layout`` takes its
+    part, a DTensor ``dst`` its shard."""
+    if layout is not None:
+        from ..parallel.tensor_parallel import local_part
+        src = local_part(layout, name, src)
     src = src.to(dst.device)
     if isinstance(dst, DTensor):
         src = distribute_tensor(src, dst.device_mesh, dst.placements)
@@ -143,6 +160,7 @@ def load_state(state: Any, payload: Dict[str, Any]) -> Any:
             f"imported from {payload.get('config', {}).get('imported_from')})"
             ": use it for generation or eval, not to resume cli.train")
     model = state.model
+    lay = getattr(model, "tp_layout", None)
     with torch.no_grad():
         if is_sharded(model):
             sd = model.state_dict()
@@ -152,15 +170,15 @@ def load_state(state: Any, payload: Dict[str, Any]) -> Any:
                     f"{sorted(set(sd) - set(payload['model']))}, unexpected "
                     f"{sorted(set(payload['model']) - set(sd))}")
             for k, t in sd.items():
-                _assign(t, payload["model"][k])
+                _assign(t, payload["model"][k], lay, k)
         else:
             model.load_state_dict(payload["model"], strict=True)
     names = [n for n, _ in model.named_parameters()]
     opt = payload["opt"]
     with torch.no_grad():
         for n, mu, nu in zip(names, state.opt_state.mu, state.opt_state.nu):
-            _assign(mu, opt["mu"][n])
-            _assign(nu, opt["nu"][n])
+            _assign(mu, opt["mu"][n], lay, n)
+            _assign(nu, opt["nu"][n], lay, n)
     state.opt_state.count = int(opt["count"])
     state.dropout_seed = int(payload["dropout_seed"])
     state.step = int(payload["step"]) + 1

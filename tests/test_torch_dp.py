@@ -37,6 +37,7 @@ from musicgeneration_tpu.models.event_rnn import EventMelodyRNN as JEventRNN
 from musicgeneration_tpu.models.performance_rnn import (
     PerformanceRNN as JPerformanceRNN)
 from musicgeneration_tpu.parallel.mesh import make_mesh as jmake_mesh
+from musicgeneration_tpu.parallel.mesh import param_shardings
 from musicgeneration_tpu.train import trainer as jtr
 from musicgeneration_tpu_torch import convert
 from musicgeneration_tpu_torch.cli import generate as tgen
@@ -319,7 +320,7 @@ def test_cli_generate_dp_equals_dp1(exported):
 @pytest.mark.parametrize("extra,match", [
     (["--batch", "3", "--dp", "2"], "--batch 3 not divisible by --dp 2"),
     (["--dp", "2", "--spec", "lookup"], "mutually exclusive with --dp"),
-    (["--dp", "2", "--steps", "200"], "--batch/--dp/--spec with a "
+    (["--dp", "2", "--steps", "200"], "--batch/--dp/--tp/--spec with a "
                                       "continuation beyond max_seq"),
 ])
 def test_cli_generate_dp_refusals(exported, extra, match):
@@ -347,11 +348,11 @@ def test_make_mesh_axes_and_refusals():
     mesh = cpu_mesh(2, 2)
     assert (mesh.data, mesh.size, mesh.shards, mesh.virtual) == (2, 2, 2, True)
     assert mesh.devices == (torch.device("cpu"),) * 2
-    for kw, name in ((dict(tp=2), "tp=2"), (dict(pp=2), "pp=2")):
-        with pytest.raises(NotImplementedError, match=f"{name} is not ported "
-                           "yet.*next slice"):
-            make_mesh(devices=["cpu"] * 4, **kw)
-    with pytest.raises(ValueError, match="dp\\*sp = 3\\*1 != 4"):
+    # the model and pipe axes, laid out as JAX's reshape(dp, sp, tp[, pp])
+    for kw, axes in ((dict(tp=2), (2, 1, 2, 1)), (dict(pp=2), (2, 1, 1, 2))):
+        m = make_mesh(devices=["cpu"] * 4, **kw)
+        assert (m.data, m.size, m.model, m.pipe) == axes
+    with pytest.raises(ValueError, match="dp\\*sp\\*tp\\*pp = 3\\*1\\*1\\*1 != 4"):
         make_mesh(dp=3, devices=["cpu"] * 4)
     with pytest.raises(ValueError, match="one device"):
         make_mesh(dp=1, sp=2, devices=["cpu", "meta"])
@@ -380,9 +381,9 @@ def test_shard_batch_rows():
 SEQ, ACCUM, B = 32, 2, 4
 
 
-def train_inputs(seed=0):
+def train_inputs(seed=0, b=B):
     """Perturbed JAX weights and a global batch of ACCUM micro-batches of
-    B rows whose data shards hold different numbers of pad targets."""
+    b rows whose data shards hold different numbers of pad targets."""
     jm = JMusicTransformer(vocab_size=V, num_layers=2, d_model=D,
                            max_seq=SEQ, dropout_rate=0.0, pad_in_input=False)
     params = jm.init(jax.random.PRNGKey(seed),
@@ -391,27 +392,32 @@ def train_inputs(seed=0):
     params = jax.tree.map(
         lambda a: (np.asarray(a) + 0.05 * rng.standard_normal(a.shape)
                    ).astype(np.float32), params)
-    x = rng.integers(0, V - 1, (ACCUM * B, SEQ)).astype(np.int32)
-    y = rng.integers(0, V - 1, (ACCUM * B, SEQ)).astype(np.int32)
+    x = rng.integers(0, V - 1, (ACCUM * b, SEQ)).astype(np.int32)
+    y = rng.integers(0, V - 1, (ACCUM * b, SEQ)).astype(np.int32)
     y[0, :20] = V - 1   # micro-batch 0, data shard 0
     y[1, 3:9] = V - 1
-    y[6, :5] = V - 1    # micro-batch 1, data shard 1
+    y[ACCUM * b - 2, :5] = V - 1    # micro-batch 1, data shard 1
     return jm, params, x, y
 
 
-def jax_step(dp, sp, seed=0):
-    """The JAX step on the global batch under a (data, seq) mesh of dp x
-    sp virtual devices (the ring when sp > 1)."""
-    jm0, params, x, y = train_inputs(seed)
-    jmesh = jmake_mesh(dp=dp, sp=sp, devices=jax.devices()[:dp * sp])
+def jax_step(dp, sp, seed=0, tp=1, b=B):
+    """The JAX step on the global batch under a (data, seq, model) mesh of
+    dp x sp x tp virtual devices (the ring when sp > 1; the parameters
+    placed by ``param_shardings`` when tp > 1)."""
+    jm0, params, x, y = train_inputs(seed, b)
+    jmesh = jmake_mesh(dp=dp, sp=sp, tp=tp,
+                       devices=jax.devices()[:dp * sp * tp])
     jm = jm0 if sp == 1 else JMusicTransformer(
         vocab_size=V, num_layers=2, d_model=D, max_seq=SEQ, dropout_rate=0.0,
         pad_in_input=False, attention_impl="ring", mesh=jmesh)
     cfg = jtr.TrainerConfig(vocab_size=V, pad_id=V - 1, d_model=D,
                             warmup_steps=10, accum_steps=ACCUM)
     tx = jtr.make_optimizer(cfg)
-    state = jtr.TrainState(step=jnp.zeros((), jnp.int32), params=params,
-                           opt_state=tx.init(params),
+    placed = params if tp == 1 else jax.device_put(
+        params, param_shardings(jmesh, params))
+    state = jtr.TrainState(step=jnp.zeros((), jnp.int32), params=placed,
+                           opt_state=(tx.init(placed) if tp == 1
+                                      else jax.jit(tx.init)(placed)),
                            dropout_rng=jax.random.PRNGKey(1))
     sh = NamedSharding(jmesh, P("data", "seq" if sp > 1 else None))
     new, met = jax.jit(jtr.make_train_step(jm, tx, cfg))(

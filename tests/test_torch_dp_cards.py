@@ -1,25 +1,39 @@
-"""Data-parallel decode over several CUDA devices, one data shard a card:
+"""Data-, tensor- and pipeline-parallel paths over several CUDA devices:
 ``generate_dp``, CP ``generate_cp(mesh=)``, PoPMAG
 ``generate_arrangement_dp`` and ``cli.generate --dp`` on the first n
-visible cards (n 2 to 4), through kernels A and B (the transformers) and
-D (the GRU families), against the same call on one card. Greedy tokens
-must be equal; a sampled run on n cards must equal the same run on a
-virtual mesh of n shards of card 0 (each shard's stream is seeded by
-(seed, shard), whatever its device).
+visible cards (n 2 to 4), one data shard a card, through kernels A and B
+(the transformers) and D (the GRU families), against the same call on
+one card. Greedy tokens must be equal; a sampled run on n cards must
+equal the same run on a virtual mesh of n shards of card 0 (each shard's
+stream is seeded by (seed, shard), whatever its device).
+``generate_tp`` with each head shard on its own card (tp 2; with four
+cards tp 4 and dp 2 x tp 2): greedy tokens equal one card's
+``generate``, kernel A launched exactly 6 tp times a data shard's
+prefill and kernel B never. ``cli.train tp=2 dp=2`` and ``pp=2 dp=2``
+started by ``torch.distributed.run`` over NCCL on four cards: each step's
+loss equals the one-process run's within 1e-3 (relative).
 
-These tests need two or more cards and skip without them. They import
-neither JAX nor the JAX package; on a machine with the cards:
+These tests need two or more cards (the training runs four) and skip
+without them. They import neither JAX nor the JAX package; on a machine
+with the cards:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_dp_cards.py
 """
+
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
 from musicgeneration_tpu_torch.cli import generate as tgen
+from musicgeneration_tpu_torch.cli import tokenize as ttok
 from musicgeneration_tpu_torch.decode import (DecodeParams, SamplingParams,
-                                              generate, generate_dp)
+                                              generate, generate_dp,
+                                              generate_tp)
 from musicgeneration_tpu_torch.decode.cp_generate import generate_cp
 from musicgeneration_tpu_torch.decode.popmag_generate import (
     generate_arrangement, generate_arrangement_dp)
@@ -32,6 +46,7 @@ from musicgeneration_tpu_torch.ops.fused_attention import (
 from musicgeneration_tpu_torch.ops.fused_decode import fused_decode_step
 from musicgeneration_tpu_torch.ops.fused_gru_decode import fused_gru_step
 from musicgeneration_tpu_torch.parallel import make_mesh
+from musicgeneration_tpu_torch.tokenizers import midilike
 
 pytestmark = pytest.mark.cuda
 
@@ -167,3 +182,69 @@ def test_cp_and_gru_dp_over_cards(cards):
     assert _counts()[2] > 0
     assert torch.equal(t1, t2) and torch.equal(v1, v2)
     _used(cards)
+
+
+def test_generate_tp_over_cards(cards):
+    """Each head shard's weights and KV cache on its own card."""
+    n = len(cards)
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 308, (4, PROMPT)))
+    greedy = DecodeParams(max_len=PROMPT + STEPS, steps=STEPS,
+                          sampling=SamplingParams(greedy=True))
+    model = _mt()
+    ref = generate(model, prompt.to(cards[0]), None, greedy)
+    for dp, tp in [(1, 2)] + ([(1, 4), (2, 2)] if n >= 4 else []):
+        _reset()
+        got = generate_tp(model, prompt, 0, greedy,
+                          make_mesh(dp=dp, tp=tp, devices=cards[:dp * tp]))
+        a, b, _ = _counts()
+        assert (a, b) == (LAYERS * tp * dp, 0), (dp, tp)
+        assert torch.equal(got, ref), (dp, tp)
+    _used(cards[:4 if n >= 4 else 2])
+
+
+def _train(tmp, run, nproc=0, *extra):
+    """cli.train on the card(s): one process, or ``nproc`` started by
+    torch.distributed.run (NCCL, cuda:LOCAL_RANK). Returns the losses
+    rank 0 logged, by step."""
+    argv = [str(tmp / "tok"), "steps=3", "batch_size=4", "seq_len=64",
+            "model.num_layers=2", "model.d_model=128",
+            "model.dropout_rate=0.0", f"ckpt_dir={tmp / run}",
+            "ckpt_every=100", "log_every=1",
+            f"metrics_path={tmp / (run + '.jsonl')}", *extra,
+            "--device", "cuda"]
+    launch = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc-per-node={nproc}"] if nproc else [sys.executable])
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    subprocess.run(launch + ["-m", "musicgeneration_tpu_torch.cli.train",
+                             *argv], check=True, timeout=600, env=env,
+                   cwd=root)
+    with open(tmp / (run + ".jsonl")) as f:
+        return {r["step"]: r["loss"] for r in map(json.loads, f)
+                if r.get("kind") == "train"}
+
+
+def test_cli_train_tp_and_pp_over_cards(cards, tmp_path):
+    """tp=2 dp=2 and pp=2 dp=2 over NCCL on four cards against one
+    process on one card (f32, dropout 0)."""
+    if len(cards) < 4:
+        pytest.skip(f"the tp and pp runs take four cards; {len(cards)} "
+                    "visible")
+    os.makedirs(tmp_path / "midis")
+    for i in range(3):
+        toks = np.random.default_rng(i).integers(0, 308, 400)
+        midilike.write_midi(midilike.EventSeq.from_array(toks),
+                            str(tmp_path / "midis" / f"f{i}.mid"))
+    assert ttok.main([str(tmp_path / "midis"), str(tmp_path / "tok"),
+                      "--workers", "1"]) == 0
+    one = _train(tmp_path, "one")
+    assert sorted(one) == [0, 1, 2]
+    for run, extra in (("tp", ("tp=2", "dp=2")), ("pp", ("pp=2", "dp=2"))):
+        got = _train(tmp_path, run, 4, *extra)
+        assert sorted(got) == [0, 1, 2], run
+        for step, loss in got.items():
+            assert loss == pytest.approx(one[step], rel=1e-3), (run, step)

@@ -192,6 +192,31 @@ def test_cli_train_mesh_matches_one_process(corpus, run, world, extra):
             assert loss == pytest.approx(single[s], rel=1e-5), s
 
 
+def test_gloo_dp_uneven_accumulation_matches_jax(tmp_path):
+    """batch_size 3, accum_steps 2, dp 2 (JAX's rule: batch_size *
+    accum_steps divisible by dp): each rank takes an even share of the 6
+    accumulated rows, each row's loss over the global kept count of its
+    own micro-batch; the JAX step on the global batch, within PR 2's
+    tolerances (plain dp and FSDP2)."""
+    from tests.test_torch_tp import check_worker, run_worker
+    jnew, jmet, metrics = run_worker(tmp_path, 2, 1, 1, 1, b=3)
+    check_worker(tmp_path, jnew, jmet, metrics, ("dp", "fsdp"))
+
+
+def test_micro_runs_share_the_accumulated_rows():
+    """Where dp divides the micro-batch each rank holds rows of every
+    micro-batch; else its contiguous share, cut where a micro-batch ends
+    (batch 3, accum 4, dp 6: two rows a rank)."""
+    from musicgeneration_tpu_torch.parallel.mesh import Mesh
+    assert ttr.micro_runs(8, 2) == [(0, slice(0, 4)), (1, slice(4, 8))]
+    runs = [ttr.micro_runs(2, 4, Mesh(size=1, device=torch.device("cpu"),
+                                      data=6, data_rank=r))
+            for r in range(6)]
+    assert runs[0] == [(0, slice(0, 2))]
+    assert runs[1] == [(0, slice(0, 1)), (1, slice(1, 2))]
+    assert runs[5] == [(3, slice(0, 2))]
+
+
 def test_cli_train_one_process_fsdp_shards_nothing(monkeypatch):
     """Started without torchrun's variables, fsdp=true and dp=1 form no
     group: one process trains unsharded, as JAX does on one device."""
@@ -206,13 +231,11 @@ def test_cli_train_one_process_fsdp_shards_nothing(monkeypatch):
 @pytest.mark.parametrize("env,extra,match", [
     ({}, ("model=event_rnn", "dp=2"), "wired for model=music_transformer"),
     ({}, ("pp=2", "sp=2"), "pp composes with dp only"),
-    ({}, ("tp=2",), "tp=2 is not ported yet.*next slice"),
+    ({}, ("pp=2", "tp=2"), "pp composes with dp only"),
     ({"WORLD_SIZE": "2"}, ("dp=3",), "WORLD_SIZE is 2"),
     ({"WORLD_SIZE": "3"}, ("dp=3",), "batch_size\\*accum_steps must divide"),
-    ({"WORLD_SIZE": "2"}, ("batch_size=3", "accum_steps=2"),
-     "batch_size=3 must divide dp=2 with accum_steps > 1"),
     ({"WORLD_SIZE": "2"}, ("dp=2",), "needs MASTER_ADDR and MASTER_PORT"),
-], ids=["family", "pp_sp", "tp", "world", "batch", "micro", "port"])
+], ids=["family", "pp_sp", "tp", "world", "batch", "port"])
 def test_cli_train_mesh_refusals(corpus, monkeypatch, env, extra, match):
     tmp, _ = corpus
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",

@@ -180,9 +180,13 @@ def test_ring_refusals(fn):
 
 
 def test_mesh_refusals():
-    for kw in (dict(tp=2, sp=2), dict(pp=2)):
-        with pytest.raises(NotImplementedError, match="Queue A, multi-device paths"):
-            make_mesh(devices=["cpu"] * 4, **kw)
+    # tp x sp and pp are taken since the tensor- and pipeline-parallel
+    # slice; the ring is the seq axis of each head shard
+    mesh = make_mesh(tp=2, sp=2, devices=["cpu"] * 4)
+    assert (mesh.data, mesh.size, mesh.model, mesh.shards) == (1, 2, 2, 2)
+    assert make_mesh(pp=2, devices=["cpu"] * 4).pipe == 2
+    with pytest.raises(ValueError, match="one device"):
+        make_mesh(tp=2, sp=2, devices=["cpu", "meta", "cpu", "cpu"])
     # the data axis is taken since the data-parallel slice; fsdp needs a
     # process group
     mesh = make_mesh(dp=2, sp=2, devices=["cpu"] * 4)

@@ -229,8 +229,9 @@ def test_cli_train_sp_needs_matching_world_size(corpus, monkeypatch,
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(SystemExit, match="WORLD_SIZE is 2"):
         tcli.main(_args(tmp, "bad", 1, "sp=2", "dp=2"))  # 4 shards
-    with pytest.raises(SystemExit, match="Queue A, multi-device paths"):
-        tcli.main(_args(tmp, "bad", 1, "tp=2"))  # the next slice
+    with pytest.raises(SystemExit, match="dp=0 x sp=2 x tp=2 runs one "
+                                         "process per shard.*WORLD_SIZE is 2"):
+        tcli.main(_args(tmp, "bad", 1, "sp=2", "tp=2"))  # 4 shards
     monkeypatch.setenv("WORLD_SIZE", "3")
     with pytest.raises(SystemExit, match="not divisible by sp=3"):
         tcli.main(_args(tmp, "bad", 1, "sp=3"))
