@@ -251,16 +251,26 @@ Phases (the first failure raises and the exit code is non-zero):
    against their plain versions (A also key-padded at max_seq 2048, as
    ``generate_tp``'s prefill takes it) and timed in bf16 beside their
    bounds; f32 dropout-0 train steps of the flagship (B 8, seq 512) at
-   tp 2 and tp 4 (exactly 6 tp A and 6 tp C a step), tp 2 x sp 2
+   tp 2 and tp 4 (exactly 6 tp A and 6 tp C a step) and tp 8, which does
+   not divide the 4 heads (the attention block replicated: exactly 6 A
+   and 6 C on all heads), tp 2 x sp 2
    through kernel G (exactly 24 G, 0 A, 0 C), pp 2 with 2 and 4
    micro-batches and pp 3 with 4 (exactly 6 n_micro A and C), each
    against the unsharded step; greedy f32 ``generate_tp`` == ``generate``
-   at tp 2 and 4 (64 tokens after the 500-token prime, exactly 6 tp A a
-   prefill and no kernel B) and sampled bf16 ``generate_tp`` at tp 2 equal
+   at tp 2, 4 and 8 (64 tokens after the 500-token prime, exactly 6 tp A
+   a prefill, 6 at tp 8, and no kernel B) and sampled bf16 ``generate_tp`` at tp 2 equal
    to itself twice; bf16 step ms and busy share of tp 2 and pp 2 against
    the unsharded step, ``generate_tp`` tokens/s against ``generate``'s
    (one card: no scaling claim); ``graft_entry.dryrun_multichip(4)``;
-20. one JSON line of kernels, the card's line, and the final JSON line.
+20. the native MIDI scanner and codecs (``native_codecs``; host C++,
+   built by the host compiler beside the kernels in phase 2): 32
+   MAESTRO-sized piano performances (4,000-8,000 notes) and 8 six-role
+   pieces written with the port's MIDI writer; every native entry point
+   called directly on every file, none None, each byte-equal to the
+   port's Python path; ``cli.tokenize --workers 1`` files/s of each
+   scheme, native and under ``MG_NATIVE=0``, the shards equal (the
+   training phases' corpus, ``write_corpus``, is tokenized natively too);
+21. one JSON line of kernels, the card's line, and the final JSON line.
 
 Imports nothing of JAX or of ``musicgeneration_tpu``. Needs one CUDA card.
 """
@@ -275,6 +285,7 @@ import io
 import json
 import math
 import os
+import platform
 import re
 import socket
 import subprocess
@@ -332,7 +343,7 @@ from musicgeneration_tpu_torch.decode.serving_popmag import (  # noqa: E402
 from musicgeneration_tpu_torch.midi import (  # noqa: E402
     ControlChange, Instrument, MidiFile, Note, TempoChange)
 from musicgeneration_tpu_torch.tokenizers.mumidi import (  # noqa: E402
-    MuMIDI_EventSeq)
+    MuMIDI_EventSeq, native_split_arrays)
 from musicgeneration_tpu_torch.ops import gru as gru_mod  # noqa: E402
 from musicgeneration_tpu_torch.ops import cuda_build  # noqa: E402
 from musicgeneration_tpu_torch.ops.decode_loop import (  # noqa: E402
@@ -361,7 +372,8 @@ from musicgeneration_tpu_torch.parallel import (  # noqa: E402
 from musicgeneration_tpu_torch.parallel.ring_attention import (  # noqa: E402
     to_shards)
 from musicgeneration_tpu_torch.tokenizers import (  # noqa: E402
-    cp, melody, midilike)
+    cp, melody, midilike, pedal_midilike, remi)
+from musicgeneration_tpu_torch import native  # noqa: E402
 from musicgeneration_tpu_torch.train.objective import (  # noqa: E402
     smooth_cross_entropy, token_accuracy)
 from musicgeneration_tpu_torch.train.trainer import (  # noqa: E402
@@ -6667,7 +6679,9 @@ def checkpoint_cli(tmp: str, run: str) -> dict:
 
 # -- tensor and pipeline parallelism on virtual meshes of the card -------
 
-TP_SHARDS = (2, 4)                        # model axis sizes: H 2 and H 1
+# model axis sizes: H 2 and H 1 a shard; tp 8 does not divide the 4
+# heads, so the attention block is replicated (all heads on each shard)
+TP_SHARDS = (2, 4, 8)
 PP_CASES = ((2, 2), (2, 4), (3, 4))       # (pp, n_micro)
 TP_GREEDY, TP_RATE_STEPS = 64, 6          # greedy tokens; rate batches
 
@@ -6809,10 +6823,17 @@ def counted_step(model, x, y, mesh=None, apply=None) -> tuple:
     return out, tp_counts(), tx.lr(0)
 
 
+def tp_attn_launches(tpn: int) -> int:
+    """Kernel A (or C) launches of one forward on a tp ``tpn`` mesh: one a
+    layer and head shard, one a layer where tp does not divide the
+    heads."""
+    return N_LAYERS * (tpn if H % tpn == 0 else 1)
+
+
 def tp_paths(shards: str) -> dict:
     """The tensor-parallel train step (f32, dropout 0, the flagship at B
-    8, seq 512 from the corpus) on virtual tp 2 and tp 4 meshes of the
-    card, and on tp 2 x sp 2 with ``attention_impl="ring_pallas"``, each
+    8, seq 512 from the corpus) on virtual tp 2, tp 4 and tp 8 (the
+    attention replicated) meshes of the card, and on tp 2 x sp 2 with ``attention_impl="ring_pallas"``, each
     against the unsharded step (PERF.md section 2's tolerances), with
     exact launches. Returns the launches by path."""
     _, batches = train_batches(1, shards)
@@ -6825,9 +6846,11 @@ def tp_paths(shards: str) -> dict:
         mesh = tp_mesh(tp=tpn)
         got, counts, _ = counted_step(tp_model(mesh), x, y, mesh)
         expect(f"tp {tpn} train step f32 (A, C, G, B)", counts,
-               (N_LAYERS * tpn, N_LAYERS * tpn, 0, 0))
-        step_parity(f"tp {tpn} train step f32 (B{B} L{L_TRAIN}, H "
-                    f"{H // tpn} a shard) vs unsharded", got, ref, lr)
+               (tp_attn_launches(tpn), tp_attn_launches(tpn), 0, 0))
+        heads = (f"H {H // tpn} a shard" if H % tpn == 0
+                 else f"the {H} heads replicated")
+        step_parity(f"tp {tpn} train step f32 (B{B} L{L_TRAIN}, {heads}) "
+                    "vs unsharded", got, ref, lr)
         out["A"][f"tp{tpn}_train"] = counts[0]
         out["C"][f"tp{tpn}_train"] = counts[1]
     mesh = tp_mesh(tp=2, sp=2)
@@ -6874,8 +6897,9 @@ def pp_paths(shards: str) -> dict:
 
 def tp_generate(prime: np.ndarray) -> dict:
     """``generate_tp`` of the flagship (the 500-token prime bucketed to
-    512, B 8): greedy f32, 64 tokens, == ``generate`` at tp 2 and 4 with
-    exactly 6 tp A a prefill and no kernel B; sampled bf16, 512 tokens,
+    512, B 8): greedy f32, 64 tokens, == ``generate`` at tp 2, 4 and 8
+    with exactly 6 tp A a prefill (6 at tp 8, whose shards do not split
+    the 4 heads) and no kernel B; sampled bf16, 512 tokens,
     at tp 2 twice, equal, tokens/s beside ``generate``'s (host clock,
     prefill included; one card: no scaling claim)."""
     prompt_np, prompt_len = bucket_prompt(np.tile(prime, (B, 1)), STEPS,
@@ -6892,7 +6916,7 @@ def tp_generate(prime: np.ndarray) -> dict:
                            prompt_len)
         counts = tp_counts()
         expect(f"generate_tp greedy f32 tp {tpn} (A, C, G, B)", counts,
-               (N_LAYERS * tpn, 0, 0, 0))
+               (tp_attn_launches(tpn), 0, 0, 0))
         same = torch.equal(toks, ref)
         print(f"greedy f32 generate_tp tp {tpn} == generate, {TP_GREEDY} "
               f"tokens x {B}: {same}")
@@ -6994,6 +7018,215 @@ def parallel_slice(shards: str, prime: np.ndarray) -> dict:
             "heads": heads, "tok_s": gen["tok_s"], "rates": rates}
 
 
+# the native codecs' corpus: MAESTRO-sized piano performances and six-role
+# pieces of NC_BARS bars (popmag_midi)
+NC_PIANO, NC_MULTI, NC_NOTES, NC_BARS = 32, 8, (4000, 8000), 96
+NC_SCHEMES = ("midilike", "midilike_control", "remi", "pedal", "melody",
+              "cp", "mumidi")
+
+
+def maestro_midi(path: str, seed: int) -> int:
+    """A MAESTRO-sized piano performance of 4,000-8,000 notes (onsets 0-90
+    ticks apart, chords included, at 384 ticks a beat: ~6-12 minutes at
+    120 bpm, then two tempo changes) under a sustain pedal, written with
+    the port's MIDI writer. Returns its note count."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(NC_NOTES[0], NC_NOTES[1] + 1))
+    starts = 17 + np.cumsum(rng.integers(0, 90, n))
+    ends = starts + rng.integers(20, 900, n)
+    span = int(ends.max())
+    midi = MidiFile(ticks_per_beat=384)
+    midi.tempo_changes = [TempoChange(tempo=120.0, time=0)] + [
+        TempoChange(tempo=float(rng.uniform(60, 140)), time=span * k // 3)
+        for k in (1, 2)]
+    piano = Instrument(0, False, "Piano")
+    piano.notes = [Note(int(v), int(p), int(a), int(b)) for v, p, a, b in zip(
+        rng.integers(15, 115, n), rng.integers(21, 109, n), starts, ends)]
+    c = 100
+    while c < span:
+        piano.control_changes.append(ControlChange(64, 100, c))
+        c += int(rng.integers(300, 1500))
+        piano.control_changes.append(ControlChange(64, 0, c))
+        c += int(rng.integers(50, 400))
+    midi.instruments = [piano]
+    midi.dump(path)
+    return n
+
+
+def shard_files(out: str) -> dict:
+    """{file name: {stream key: array}} of a ``cli.tokenize`` directory."""
+    files = {}
+    for name in sorted(os.listdir(out)):
+        if not name.endswith(".npz"):
+            continue
+        with np.load(os.path.join(out, name)) as z:
+            keys = [k[:-5] for k in z.files if k.endswith("_data")]
+            for i, fname in enumerate(z["names"]):
+                files[str(fname)] = {
+                    k: z[f"{k}_data"][z[f"{k}_offsets"][i]:
+                                      z[f"{k}_offsets"][i + 1]]
+                    for k in keys}
+    return files
+
+
+def same_arrays(a, b) -> bool:
+    """Equal dtype, shape and bytes (None equal only to None)."""
+    if a is None or b is None:
+        return a is None and b is None
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and a.tobytes() == b.tobytes()
+
+
+def midi_content(m) -> tuple:
+    """A MidiFile's tempi, instruments, notes, controls, markers and time
+    signatures (its max_tick aside: the scanner counts a note-off that
+    closes no note, the Python parse does not)."""
+    return (m.ticks_per_beat, [(t.tempo, t.time) for t in m.tempo_changes],
+            [(i.program, i.is_drum, i.name,
+              [(n.pitch, n.velocity, n.start, n.end) for n in i.notes],
+              [(c.number, c.value, c.time) for c in i.control_changes])
+             for i in m.instruments],
+            [(k.text, k.time) for k in m.markers],
+            [(t.numerator, t.denominator, t.time)
+             for t in m.time_signature_changes])
+
+
+def tokenize_timed(midis: str, out: str, scheme: str, python: bool) -> float:
+    """``cli.tokenize --workers 1`` of ``midis`` (under MG_NATIVE=0 where
+    ``python``); its wall seconds."""
+    old = os.environ.pop("MG_NATIVE", None)
+    if python:
+        os.environ["MG_NATIVE"] = "0"
+    try:
+        t0 = time.perf_counter()
+        with quiet(out + ".log"):
+            rc = tokenize_main([midis, out, "--scheme", scheme, "--workers",
+                                "1"])
+        secs = time.perf_counter() - t0
+    finally:
+        os.environ.pop("MG_NATIVE", None)
+        if old is not None:
+            os.environ["MG_NATIVE"] = old
+    if rc != 0:
+        raise AssertionError(f"cli.tokenize --scheme {scheme} failed")
+    return secs
+
+
+def native_direct(path: str) -> dict:
+    """Every native entry point called directly on one file, by the
+    cli.tokenize scheme (or codec) whose output it is."""
+    data = open(path, "rb").read()
+    return {"parse": native.parse_midi_bytes(data),
+            "midilike": midilike.native_array(data),
+            "remi": remi.native_array(data),
+            "pedal": native.encode_pedal(data),
+            "pedal_faithful": native.encode_pedal(data, True),
+            "cp": cp.native_rows(data),
+            "mumidi": native_split_arrays(path),
+            "melody": melody.note_array_from_parse(path)}
+
+
+def native_codecs() -> dict:
+    """The native MIDI scanner and codecs (host C++ on the card's host, no
+    kernel): a corpus of ``NC_PIANO`` MAESTRO-sized piano performances and
+    ``NC_MULTI`` six-role pieces written with the port's MIDI writer;
+    ``cli.tokenize --workers 1`` of every scheme, native and under
+    MG_NATIVE=0 (files/s of each), the shards equal; every native entry
+    point called directly on every file, none None, each output byte-equal
+    to the port's Python path (the MG_NATIVE=0 shards, the Python parse,
+    the faithful pedal codec). Returns files/s by scheme and mode."""
+    t0 = time.perf_counter()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        midis = os.path.join(tmp, "midis")
+        os.makedirs(midis)
+        notes = [maestro_midi(os.path.join(midis, f"piano-{i:02d}.mid"), i)
+                 for i in range(NC_PIANO)]
+        for i in range(NC_MULTI):
+            popmag_midi(os.path.join(midis, f"multi-{i:02d}.mid"), 100 + i,
+                        NC_BARS)
+        paths = sorted(os.path.join(midis, f) for f in os.listdir(midis))
+        rates, python = {}, {}
+        for scheme in NC_SCHEMES:
+            out = {m: os.path.join(tmp, f"{scheme}-{m}")
+                   for m in ("native", "python")}
+            secs = {m: tokenize_timed(midis, out[m], scheme, m == "python")
+                    for m in out}
+            rates[scheme] = {m: len(paths) / s for m, s in secs.items()}
+            got, python[scheme] = (shard_files(out[m]) for m in out)
+            if got.keys() != python[scheme].keys() or not all(
+                    same_arrays(v, python[scheme][f][k])
+                    for f, d in got.items() for k, v in d.items()):
+                raise AssertionError(f"cli.tokenize --scheme {scheme}: the "
+                                     "native shards differ from MG_NATIVE=0")
+        checked = 0
+        for path in paths:
+            name = os.path.basename(path)
+            got = native_direct(path)
+            missing = [k for k, v in got.items() if v is None]
+            if missing:
+                raise AssertionError(f"{name}: the native {missing} "
+                                     "returned None")
+            os.environ["MG_NATIVE"] = "0"
+            try:
+                want = {
+                    "parse": midi_content(MidiFile(path)),
+                    "pedal_faithful": np.asarray(pedal_midilike.encode_midi(
+                        path, faithful=True), np.uint16)}
+            finally:
+                os.environ.pop("MG_NATIVE")
+            nat = MidiFile()
+            nat._build_from_native(got["parse"], open(path, "rb").read())
+            ok = {"parse": midi_content(nat) == want["parse"],
+                  "pedal_faithful": same_arrays(got["pedal_faithful"],
+                                                want["pedal_faithful"])}
+            for scheme in ("midilike", "remi", "pedal", "melody"):
+                ok[scheme] = same_arrays(got[scheme],
+                                         python[scheme][name]["tokens"])
+            ok["cp"] = same_arrays(got["cp"].reshape(-1),
+                                   python["cp"][name]["tokens"])
+            mel = python["mumidi"].get(name)
+            ok["mumidi"] = all(
+                same_arrays(a, None if mel is None else mel[k])
+                for a, k in zip(got["mumidi"], ("melody", "arrangement")))
+            bad = [k for k, v in ok.items() if not v]
+            if bad:
+                raise AssertionError(f"{name}: native {bad} differ from the "
+                                     "Python path")
+            checked += len(ok)
+        n_mumidi = len(python["mumidi"])
+    line = ", ".join(
+        f"{k} {r['native']:.1f} / {r['python']:.1f} "
+        f"({r['native'] / r['python']:.1f}x)" for k, r in rates.items())
+    print(f"native codecs: {NC_PIANO} piano files of {min(notes)}-"
+          f"{max(notes)} notes ({sum(notes)} in all) and {NC_MULTI} six-role "
+          f"files of {NC_BARS} bars ({n_mumidi} MuMIDI pairs); {checked} "
+          "direct native results, none None, each byte-equal to the Python "
+          f"path; {time.perf_counter() - t0:.1f} s")
+    print(f"cli.tokenize --workers 1 files/s, native / Python (MG_NATIVE=0): "
+          f"{line}; host {host_cpu()}", f"on {gpu_line()}")
+    return rates
+
+
+def timed(fn) -> float:
+    """Wall seconds of ``fn()``."""
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def host_cpu() -> str:
+    """The host CPU's model name (or its architecture where /proc/cpuinfo
+    names none) and the cores this process may use."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((ln.split(":", 1)[1].strip() for ln in f
+                          if ln.startswith("model name")), None)
+    except OSError:
+        model = None
+    return f"{model or platform.machine()} x{len(os.sched_getaffinity(0))}"
+
+
 TC_ENTRIES = {"relative_attention": ("rel_attn_fwd_tc_kernel",),
               "ring_attention": ("ring_tile_tc_kernel",),
               "relative_attention_bwd": ("rel_attn_bwd_tc_kernel",),
@@ -7087,10 +7320,24 @@ def main(argv: list) -> int:
 
     t0 = time.perf_counter()
     earlier = start_earlier_builds(loop_phases)
+    host = {}  # the native codecs' library, built beside the kernels
+
+    def build_host():
+        try:
+            host["secs"] = timed(native.build)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            host["error"] = e
+    host_build = threading.Thread(target=build_host)
+    host_build.start()
     secs = cuda_build.build()
     EARLIER_LIBS.update(finish_earlier_builds(earlier))
+    host_build.join()
+    if "error" in host:
+        raise host["error"]
     print(f"built kernels in {time.perf_counter() - t0:.1f} s: "
-          + ", ".join(f"{n} {s:.1f} s" for n, s in secs.items()))
+          + ", ".join(f"{n} {s:.1f} s" for n, s in secs.items())
+          + f"; native codecs ({' '.join(native.compiler())}) "
+          f"{host['secs']:.1f} s")
     tensor_core_sass()
 
     err_a = check_kernel_a()
@@ -7120,6 +7367,7 @@ def main(argv: list) -> int:
     rt = rnn_slice_paths()
     sl = scheme_slice_paths()
     sch, dist = sl["scheme"], sl["distill"]
+    native_codecs()
     os.makedirs(OUT_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
         shards = write_corpus(tmp)

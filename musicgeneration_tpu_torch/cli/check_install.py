@@ -6,7 +6,9 @@
 Reports numpy and torch with its CUDA build, the visible CUDA device and
 its compute capability (the kernels are built for sm_90a, so 9.0 is
 wanted), ``nvcc`` for ``ops/cuda_build.py``, whether ``triton`` is
-present (no kernel of the port needs it), the model registry, and one
+present (no kernel of the port needs it), the model registry, the
+native MIDI scanner and codecs (``native/``, built by the host C++
+compiler at first use; ``MG_NATIVE=0`` turns them off), and one
 kernel (A, ``csrc/relative_attention.cu``) built by ``nvcc`` and launched
 on the card against its plain version. Exit code 0 means a usable
 install; a missing CUDA device or ``nvcc`` is a problem, not a fallback.
@@ -93,6 +95,19 @@ def main(argv=None) -> int:
         print(f"[x] registered models: {', '.join(registered_models())}")
     except Exception as e:  # noqa: BLE001 — report, do not crash
         print(f"[ ] model registry import failed: {e}")
+        ok = False
+
+    from .. import native
+    try:
+        if native.available():
+            print(f"[x] native MIDI scanner and codecs "
+                  f"({native.lib_path().name}, built by "
+                  f"{' '.join(native.compiler())} at first use)")
+        else:
+            print("[-] native MIDI codecs off (MG_NATIVE=0): the codecs' "
+                  "Python paths tokenize")
+    except native.NativeLibraryError as e:
+        print(f"[ ] native MIDI codecs failed to build: {e}")
         ok = False
 
     if cuda and have_nvcc:

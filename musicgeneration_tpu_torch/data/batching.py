@@ -1,8 +1,7 @@
 """Window sampling and padded batching over token arrays.
 
-A copy of ``musicgeneration_tpu/data/batching.py`` (numpy only; its
-``add_noise`` is not needed here), so the port's batches are byte-equal
-to the JAX package's for the same RNG.
+A copy of ``musicgeneration_tpu/data/batching.py`` (numpy only), so the
+port's batches are byte-equal to the JAX package's for the same RNG.
 
 Parity targets:
 * Event_Dataset.batches — the full (file, window-start) index list with a
@@ -89,3 +88,19 @@ def pad_and_batch_sequences(seqs: Sequence[np.ndarray],
     labels = np.concatenate([s[1:] for s in ss]).astype(np.int32)
     return SeqBatch(tokens=tokens, lengths=lengths, labels=labels)
 
+
+def add_noise(inputs: np.ndarray, pad_id: int, rate: float = 0.01,
+              rng: np.random.RandomState | None = None) -> np.ndarray:
+    """Random token corruption (reference MusicTransformer/data.py:125-133):
+    replace `rate` of each row's positions with uniform tokens < pad_id.
+    Returns a corrupted copy (the reference mutates in place)."""
+    rng = rng or np.random.RandomState()
+    out = np.array(inputs, copy=True)
+    seq_len = out.shape[-1]
+    num_mask = int(rate * seq_len)
+    if num_mask == 0:
+        return out
+    for row in out.reshape(-1, seq_len):
+        idx = rng.choice(seq_len, size=num_mask, replace=False)
+        row[idx] = rng.randint(0, pad_id, size=num_mask)
+    return out

@@ -5,14 +5,16 @@ MIDI-like (with or without per-event controls), REMI, sustain-pedal
 MIDI-like, CP, MuMIDI and melody, through the port's own codecs
 (``tokenizers/midilike.py``, ``tokenizers/remi.py``, ``tokenizers/
 pedal_midilike.py``, ``tokenizers/cp.py``, ``tokenizers/mumidi.py``,
-``tokenizers/melody.py``; REMI and pedal files are uint16, a CP file's
+``tokenizers/melody.py``), each through its native-first entry point (the
+C++ scanner and emitters of ``native/``; their Python paths under
+``MG_NATIVE=0``). REMI and pedal files are uint16, a CP file's
 [T, 8] rows are stored flattened, a MuMIDI file is a uint16 ``melody``/
 ``arrangement`` pair, a ``midilike_control`` file adds its compressed
 [n, 13] uint8 controls flattened, a melody file is an int16 note
-array). The shard layout and
-``manifest.json`` are the JAX package's, so each package reads the
-other's corpora: shard ``midilike-00000.npz`` holds, for the stream key
-``tokens`` (``melody`` and ``arrangement`` for MuMIDI),
+array. The shard layout and ``manifest.json`` are the JAX package's, so
+each package reads the other's corpora: shard ``midilike-00000.npz``
+holds, for the stream key ``tokens`` (``melody`` and ``arrangement`` for
+MuMIDI),
 
     tokens_data    — 1-D uint16 concatenation of all sequences
     tokens_offsets — int64 [n+1]; file i is tokens_data[offsets[i]:offsets[i+1]]
@@ -35,6 +37,8 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import native
+
 MIDI_EXTENSIONS = (".mid", ".midi", ".MID", ".MIDI")
 
 
@@ -51,15 +55,14 @@ def find_midi_files(root: str) -> List[str]:
 def _tokenize_midilike(path: str) -> Dict[str, np.ndarray]:
     """Top level, so the worker pool can pickle it."""
     from ..tokenizers import midilike
-    return {"tokens": midilike.extract_events(path).to_array()
-            .astype(np.uint16)}
+    return {"tokens": midilike.encode_array(path).astype(np.uint16)}
 
 
 def _tokenize_remi(path: str) -> Dict[str, np.ndarray]:
-    """REMI tokens (uint16) through the vectorised Python path, which
-    gives the JAX package's native tokens."""
+    """REMI tokens (uint16): the native pipeline, or its vectorised Python
+    oracle."""
     from ..tokenizers import remi
-    return {"tokens": remi.encode_array_py(path).astype(np.uint16)}
+    return {"tokens": remi.encode_array(path).astype(np.uint16)}
 
 
 def _tokenize_pedal(path: str) -> Dict[str, np.ndarray]:
@@ -74,7 +77,7 @@ def _tokenize_midilike_control(path: str) -> Dict[str, np.ndarray]:
     [n_events, 13] uint8 array flattened (reshape(-1, 13) on load):
     PerformanceRNN's conditioned training data."""
     from ..tokenizers import midilike
-    tokens = midilike.extract_events(path).to_array()
+    tokens = midilike.encode_array(path)
     controls = midilike.ControlSeq.compressed_from_ids(tokens)
     return {"tokens": tokens.astype(np.uint16),
             "controls": controls.reshape(-1)}
@@ -144,6 +147,9 @@ def tokenize_corpus(
     if os.path.exists(quarantine_path):
         os.remove(quarantine_path)  # fresh run, fresh failure log
     stats = CorpusStats(n_files=len(paths))
+    # the native codecs build here, once, before any worker starts: a
+    # failed build raises rather than quarantine every file
+    native.available()
 
     results: List[Tuple[str, Dict[str, np.ndarray]]] = []
     shard_idx = 0

@@ -5,11 +5,13 @@ runs the host batch pipeline (crops in numpy) while the device computes,
 and stages each batch to the device ahead of use. For a CUDA device the
 arrays go through pinned host memory and ``non_blocking`` copies, so the
 transfers overlap the running step; on the CPU they are wrapped as they
-are.
+are. ``sliding_prefetch`` is the synchronous variant, without a thread.
 """
 
 from __future__ import annotations
 
+import collections
+import itertools
 import queue
 import threading
 from typing import Any, Iterable, Iterator
@@ -72,3 +74,19 @@ def prefetch_to_device(iterator: Iterable, size: int = 2,
     finally:
         stop.set()
         thread.join(timeout=5.0)
+
+
+def sliding_prefetch(iterator: Iterable, size: int = 2,
+                     device="cuda") -> Iterator:
+    """Synchronous variant (no thread): keep ``size`` batches staged on
+    ``device`` ahead of the one yielded, relying on the copies'
+    asynchrony only (``non_blocking`` from pinned memory on CUDA) —
+    deterministic, test-friendly."""
+    device = torch.device(device)
+    it = iter(iterator)
+    buf = collections.deque(to_device(b, device)
+                            for b in itertools.islice(it, size))
+    while buf:
+        out = buf.popleft()
+        buf.extend(to_device(b, device) for b in itertools.islice(it, 1))
+        yield out

@@ -330,8 +330,12 @@ class _TPDecoder:
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """[B, d] -> f32 logits [B, vocab]: the head's partial products
-        over its input columns, summed."""
+        over its input columns, summed (the whole head where tp does not
+        divide d_model)."""
         m, tp = self.model, self.tp
+        if not tp.divides(m.d_model, self.mesh):
+            return F.linear(h.to(m.dtype), m.fc.weight.to(m.dtype),
+                            m.fc.bias.to(m.dtype)).float()
         parts = []
         for i, (w, dev) in enumerate(zip(self.head_w, self.devices)):
             with tp.on(dev):
@@ -343,15 +347,19 @@ class _TPDecoder:
     def prefill(self, x: torch.Tensor, cache_len: int, last: int):
         """The tensor-parallel forward of prompt x [B, P] (kernel A on
         each shard's heads), filling each shard's cache [L, B, cache_len,
-        d / tp]; returns the logits of position ``last``."""
+        d / tp] (where tp does not divide the heads, the first shard's
+        cache [L, B, cache_len, d] alone); returns the logits of position
+        ``last``."""
         m = self.model
         b, p = x.shape
         key_pad = (x == m.pad_id).float()
         h = m.embed_positions(x)
-        dloc = m.d_model // self.mesh.model
-        self.cache = [{k: torch.zeros(m.num_layers, b, cache_len, dloc,
-                                      dtype=m.dtype, device=dev)
-                       for k in "kv"} for dev in self.devices]
+        heads, _ = m.Decoder.enc_layers[0].tp_split(self.mesh)
+        devs = self.devices if heads else self.devices[:1]
+        self.cache = [{k: torch.zeros(m.num_layers, b, cache_len,
+                                      m.d_model // len(devs), dtype=m.dtype,
+                                      device=dev)
+                       for k in "kv"} for dev in devs]
         for li, layer in enumerate(m.Decoder.enc_layers):
             h, ks, vs = layer.forward_tp(h, key_pad, None, True,
                                          self.layers[li], self.mesh)
@@ -364,11 +372,13 @@ class _TPDecoder:
         """token [B] at position t -> f32 logits [B, vocab], each shard's
         cache row t written: every layer as Wq/Wk/Wv rows, attention over
         the shard's heads' cache rows [0, t] with the relative bias,
-        partial fc and FFN products summed."""
+        partial fc and FFN products summed; a block tp does not divide
+        runs whole on the first shard."""
         m, tp, dt = self.model, self.tp, self.model.dtype
         h = m._embed(token) + m.pos_table[t].to(dt)
         max_seq = m.max_seq
         for li, layer in enumerate(m.Decoder.enc_layers):
+            heads, ffn = layer.tp_split(self.mesh)
             parts = []
             for w, c in zip(self.layers[li], self.cache):
                 dev = w["device"]
@@ -390,20 +400,23 @@ class _TPDecoder:
                               ) / math.sqrt(dh)
                     attn = torch.einsum("bhs,bshd->bhd",
                                         torch.softmax(logits, -1), vals)
-                    parts.append(F.linear(attn.reshape(b, -1).to(dt),
-                                          w["wfc"].to(dt)))
+                    parts.append(F.linear(
+                        attn.reshape(b, -1).to(dt), w["wfc"].to(dt),
+                        None if heads else layer.rga.fc.bias.to(dt)))
             attn = tp.reduce_from_model(parts, self.mesh, layer.rga.fc.bias,
-                                        dt)
+                                        dt) if heads else parts[0]
             out1 = _layer_norm(layer.layernorm1, attn + h)
             parts = []
-            for w in self.layers[li]:
+            for w in self.layers[li] if ffn else self.layers[li][:1]:
                 with tp.on(w["device"]):
                     hid = torch.relu(F.linear(out1.to(w["device"]),
                                               w["w1"].to(dt),
                                               w["b1"].to(dt)))
-                    parts.append(F.linear(hid, w["w2"].to(dt)))
+                    parts.append(F.linear(
+                        hid, w["w2"].to(dt),
+                        None if ffn else layer.FFN_suf.bias.to(dt)))
             ffn = tp.reduce_from_model(parts, self.mesh, layer.FFN_suf.bias,
-                                       dt)
+                                       dt) if ffn else parts[0]
             h = _layer_norm(layer.layernorm2, out1 + ffn)
         return self.logits(h)
 
@@ -433,10 +446,11 @@ def generate_tp(model, prompt, seed: Union[int, torch.Generator],
     ``sample_logits`` draws from with one generator: ``seed`` (an int:
     ``torch.Generator(device).manual_seed(seed)`` on the first shard's
     device, as ``cli.generate`` makes for ``generate``; or a generator),
-    so greedy and sampled tokens are ``generate``'s. Refuses what JAX
-    refuses: heads or the FFN not divisible by the model axis, a batch
-    not divisible by the data axis, int8 weights and the decode loop
-    (both ride the fused kernels)."""
+    so greedy and sampled tokens are ``generate``'s. A block the model
+    axis does not divide (the heads, the FFN, d_model) is replicated: it
+    runs whole on the first model shard. Refuses what JAX refuses: a
+    batch not divisible by the data axis, int8 weights and the decode
+    loop (both ride the fused kernels)."""
     if not mesh.virtual:
         raise ValueError("generate_tp holds every shard in this process: "
                          "give it a virtual mesh (make_mesh(dp=N, tp=M, "
@@ -444,12 +458,7 @@ def generate_tp(model, prompt, seed: Union[int, torch.Generator],
     if mesh.size != 1 or mesh.pipe != 1:
         raise ValueError(f"generate_tp takes a (data, model) mesh; got "
                          f"sp={mesh.size}, pp={mesh.pipe}")
-    n_model, n_data = mesh.model, mesh.data
-    for what, n in (("num_heads", model.num_heads),
-                    ("ffn_dim", model.ffn_dim)):
-        if n % n_model:
-            raise ValueError(f"{what}={n} not divisible by the model axis "
-                             f"({n_model})")
+    n_data = mesh.data
     if model.decode_quant != "none" or decode_params.use_loop_kernel:
         raise ValueError(
             "generate_tp shards the unquantized decode step; int8 weights "

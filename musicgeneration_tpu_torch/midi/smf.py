@@ -13,15 +13,19 @@ of SMF needed by the tokenizer layer (and a bit more):
 * instrument grouping per (track, channel, program) with drum channel 10,
 * writing format-1 files with a dedicated tempo track.
 
-A copy of ``musicgeneration_tpu/midi/smf.py``'s pure-Python parse and
-write, without its native scanner: the torch port imports nothing of the
-JAX package.
+A copy of ``musicgeneration_tpu/midi/smf.py``: the port's own C++
+scanner (``native/smf_scan.cc``) parses each file, and this pure-Python
+path is taken under ``MG_NATIVE=0`` or where the scanner reports an
+error for a file; it is the semantics oracle for tests.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 from .containers import (
     ControlChange,
@@ -31,6 +35,7 @@ from .containers import (
     TempoChange,
     TimeSignature,
 )
+from .. import native
 from .timing import DEFAULT_US_PER_QN, TempoMap
 
 DRUM_CHANNEL = 9
@@ -175,6 +180,11 @@ class MidiFile:
     # -- parsing -------------------------------------------------------------
 
     def _parse(self, data: bytes) -> None:
+        if os.environ.get("MG_NATIVE", "1") != "0":
+            parsed = native.parse_midi_bytes(data)
+            if parsed is not None:
+                self._build_from_native(parsed, data)
+                return
         if data[:4] != b"MThd":
             # Some files have junk before the header; search for it.
             idx = data.find(b"MThd")
@@ -280,6 +290,79 @@ class MidiFile:
                     self.instruments.append(inst)
         self.max_tick = max(
             [max_tick]
+            + [int(n.end) for i in self.instruments for n in i.notes[-64:]]
+        )
+
+    def _build_from_native(self, p, data: bytes) -> None:
+        """Reconstruct from the C++ scanner's flat arrays (native/smf_scan.cc).
+
+        Mirrors _build exactly: instrument keys are (track, channel,
+        program-at-first-event), created in first-occurrence order with
+        notes before controls within a track; notes sorted (start, pitch).
+        """
+        self.ticks_per_beat = p["ticks_per_beat"]
+        self._tempo_raw = [(int(t), int(us)) for t, us in p["tempos"]]
+        self.tempo_changes = [
+            TempoChange(tempo=60e6 / us, time=tick)
+            for tick, us in self._tempo_raw
+        ] or [TempoChange(tempo=60e6 / DEFAULT_US_PER_QN, time=0)]
+
+        names: Dict[int, str] = {}
+        for track, tick, typ, off, ln in p["metas"]:
+            payload = data[off:off + ln]
+            if typ == 0x03:
+                names.setdefault(int(track),
+                                 payload.decode("latin-1",
+                                                errors="replace"))
+            elif typ == 0x06:
+                self.markers.append(Marker(
+                    text=payload.decode("latin-1", errors="replace"),
+                    time=int(tick)))
+            elif typ == 0x58 and ln >= 2:
+                self.time_signature_changes.append(
+                    TimeSignature(int(payload[0]), 1 << payload[1],
+                                  int(tick)))
+
+        notes = p["notes"]       # [n,7] track,ch,prog,pitch,vel,start,end
+        controls = p["controls"]  # [n,6] track,ch,prog,number,value,tick
+        # first-occurrence instrument order: per track, notes then controls
+        nk = notes[:, 0] * (16 * 128) + notes[:, 1] * 128 + notes[:, 2]
+        ck = (controls[:, 0] * (16 * 128) + controls[:, 1] * 128
+              + controls[:, 2])
+        allk = np.concatenate([nk, ck])
+        is_ctrl = np.concatenate([np.zeros(len(nk), np.int64),
+                                  np.ones(len(ck), np.int64)])
+        track_of = np.concatenate([notes[:, 0], controls[:, 0]])
+        seq = np.concatenate([np.arange(len(nk)), np.arange(len(ck))])
+        order = np.lexsort((seq, is_ctrl, track_of))
+        _, first_pos = np.unique(allk[order], return_index=True)
+        key_order = allk[order][np.sort(first_pos)]
+
+        insts: Dict[int, Instrument] = {}
+        for key in key_order:
+            track, rem = divmod(int(key), 16 * 128)
+            ch, prog = divmod(rem, 128)
+            insts[int(key)] = Instrument(
+                program=prog, is_drum=(ch == DRUM_CHANNEL),
+                name=names.get(track, ""))
+        for key, inst in insts.items():
+            rows = notes[nk == key]
+            if len(rows):
+                srt = np.lexsort((rows[:, 3], rows[:, 5]))  # (start, pitch)
+                inst.notes = [
+                    Note(velocity=int(v), pitch=int(pt), start=int(s),
+                         end=int(e))
+                    for pt, v, s, e in zip(rows[srt, 3], rows[srt, 4],
+                                           rows[srt, 5], rows[srt, 6])
+                ]
+            crows = controls[ck == key]
+            inst.control_changes = [
+                ControlChange(number=int(nu), value=int(va), time=int(t))
+                for nu, va, t in zip(crows[:, 3], crows[:, 4], crows[:, 5])
+            ]
+            self.instruments.append(inst)
+        self.max_tick = max(
+            [int(p["max_tick"])]
             + [int(n.end) for i in self.instruments for n in i.notes[-64:]]
         )
 

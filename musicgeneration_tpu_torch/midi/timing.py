@@ -7,7 +7,7 @@ pretty_midi is one of the host-side costs the rebuild removes).
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -45,3 +45,17 @@ class TempoMap:
         idx = np.clip(idx, 0, len(self._ticks) - 1)
         base_tick = self._ticks[idx]
         return self._cumsec[idx] + (t - base_tick) * self._sec_per_tick[idx]
+
+    def time_to_tick(self, times) -> np.ndarray:
+        s = np.asarray(times, dtype=np.float64)
+        idx = np.searchsorted(self._cumsec, s, side="right") - 1
+        idx = np.clip(idx, 0, len(self._ticks) - 1)
+        return np.round(
+            self._ticks[idx] + (s - self._cumsec[idx]) / self._sec_per_tick[idx]
+        ).astype(np.int64)
+
+    def tempi(self) -> List[Tuple[int, float]]:
+        """[(tick, bpm)] list."""
+        return [
+            (int(t), 60e6 / us) for t, us in zip(self._ticks, self._us)
+        ]

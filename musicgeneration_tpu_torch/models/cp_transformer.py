@@ -18,8 +18,9 @@ serving; int8 with ``decode_quant="int8"``). On CPU tensors the plain
 versions run.
 
 With a ``mesh`` whose model axis is > 1 the trunk runs on head shards
-(``EncoderLayer`` on its ``mesh``), each field embedding is split by
-d_model columns and gathered, and each head follows JAX's default rule:
+(``EncoderLayer`` on its ``mesh``; a block tp does not divide is
+replicated), each field embedding is split by d_model columns (where tp
+divides it) and gathered, and each head follows JAX's default rule:
 split by its output columns where the model axis divides the field's
 size, else replicated (``parallel.mesh.param_placements``). Mesh training
 of the CP transformer is refused by ``cli.train`` as in JAX; the dry run
@@ -86,9 +87,6 @@ class CPTransformer(nn.Module):
             raise ValueError(f"d_model {d_model} is not a multiple of the "
                              "64-wide heads")
         device = resolve_device(device)
-        if _tp(mesh) and (d_model // 64) % mesh.model:
-            raise ValueError(f"num_heads={d_model // 64} not divisible by "
-                             f"the model axis ({mesh.model})")
         self.mesh = mesh if _tp(mesh) else None
         self.field_dims = tuple(cp.field_dims())
         self.num_layers = num_layers
@@ -160,7 +158,7 @@ class CPTransformer(nn.Module):
                                     weight(embeds[i]).to(self.dtype))
             return h
 
-        if mesh is None:
+        if mesh is None or not tp.divides(self.d_model, mesh):
             return summed(lambda e: e.weight) * scale
         return tp.gather_from_model(
             [summed(lambda e, m=m: tp.local(e.weight, 1, mesh, m))

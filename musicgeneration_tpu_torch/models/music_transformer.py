@@ -37,7 +37,10 @@ the layers, the embedding and the head run on head shards
 its num_heads / tp heads, kernel A (and kernel C in the backward, or the
 ring on each head shard with ``attention_impl="ring"``/``"ring_pallas"``)
 runs on [B, H / tp, L, 64] with the whole E, and the row-split fc,
-FFN_suf and head sum their partial products in f32. On a virtual mesh
+FFN_suf and head sum their partial products in f32. Where tp does not
+divide num_heads (or ffn_dim, or d_model), the attention block (or the
+FFN, or the embedding and head) is replicated instead: every shard runs
+all of it, kernel A on all heads, with no reduce. On a virtual mesh
 the parameters stay whole and the shards run one after another on views
 of them; on a process group each rank holds its shard
 (``tensor_parallel.shard_params``). Such a model decodes through
@@ -201,24 +204,37 @@ class EncoderLayer(nn.Module):
             ffn = drop(ffn)
         return _layer_norm(self.layernorm2, out1 + ffn)
 
+    def tp_split(self, mesh) -> Tuple[bool, bool]:
+        """Whether ``mesh``'s model axis splits this layer's heads and its
+        FFN; a block it does not divide is replicated (every shard
+        computes all of it, with no reduce)."""
+        return (tp.divides(self.rga.num_heads, mesh),
+                tp.divides(self.FFN_pre.out_features, mesh))
+
     def tp_weights(self, m: int, mesh=None) -> Dict[str, torch.Tensor]:
         """Model shard ``m``'s matrices (nn.Linear layout), its slices of
         the split layers' biases and E (f32; E and the biases have their
         gradients summed over the model axis, each shard's being
-        partial), on ``mesh`` (default: the layer's)."""
+        partial), on ``mesh`` (default: the layer's). A replicated block
+        (``tp_split``) gives every shard its whole weights and biases."""
         r, mesh = self.rga, mesh or self.mesh
+        heads, ffn = self.tp_split(mesh)
 
-        def bias(p):
-            return tp.part(tp.copy_to_model(p, mesh), 0, mesh, m)
+        def mat(p, dim, split):
+            return tp.local(p, dim, mesh, m) if split else p
 
-        return {"wq": tp.local(r.Wq.weight, 0, mesh, m), "bq": bias(r.Wq.bias),
-                "wk": tp.local(r.Wk.weight, 0, mesh, m), "bk": bias(r.Wk.bias),
-                "wv": tp.local(r.Wv.weight, 0, mesh, m), "bv": bias(r.Wv.bias),
-                "wfc": tp.local(r.fc.weight, 1, mesh, m),
-                "w1": tp.local(self.FFN_pre.weight, 0, mesh, m),
-                "b1": bias(self.FFN_pre.bias),
-                "w2": tp.local(self.FFN_suf.weight, 1, mesh, m),
-                "e": tp.copy_to_model(r.E, mesh).float()}
+        def bias(p, split):
+            return tp.part(tp.copy_to_model(p, mesh), 0, mesh, m) \
+                if split else p
+
+        return {"wq": mat(r.Wq.weight, 0, heads), "bq": bias(r.Wq.bias, heads),
+                "wk": mat(r.Wk.weight, 0, heads), "bk": bias(r.Wk.bias, heads),
+                "wv": mat(r.Wv.weight, 0, heads), "bv": bias(r.Wv.bias, heads),
+                "wfc": mat(r.fc.weight, 1, heads),
+                "w1": mat(self.FFN_pre.weight, 0, ffn),
+                "b1": bias(self.FFN_pre.bias, ffn),
+                "w2": mat(self.FFN_suf.weight, 1, ffn),
+                "e": (tp.copy_to_model(r.E, mesh) if heads else r.E).float()}
 
     def forward_tp(self, x: torch.Tensor,
                    key_pad: Optional[torch.Tensor] = None,
@@ -228,45 +244,52 @@ class EncoderLayer(nn.Module):
         ``weights`` holds one ``tp_weights`` dict a model shard this
         process runs (default: this layer's own), each with the
         ``"device"`` its shard runs on, current while it runs (default:
-        x's). Returns [B, L, d] on x's device, and with ``return_kv`` the
-        shards' K and V lists ([B, H / tp, L, dh] each)."""
-        mesh, dt = mesh or self.mesh, self.dtype
+        x's). Returns [B, L, d] on the first shard's device, and with
+        ``return_kv`` the shards' K and V lists ([B, H / tp, L, dh]
+        each). A replicated block (``tp_split``) runs once, on the first
+        shard's weights (the same on every shard), and its K and V lists
+        hold one [B, H, L, dh] tensor."""
+        mesh, dt, r = mesh or self.mesh, self.dtype, self.rga
+        heads, ffn = self.tp_split(mesh)
         if weights is None:
-            weights = [self.tp_weights(m) for m in tp.shards(mesh)]
+            weights = [self.tp_weights(m, mesh) for m in tp.shards(mesh)]
 
         def lin(y, w, b=None):
             return F.linear(y.to(dt), w.to(dt), None if b is None
                             else b.to(dt))
 
-        xc = tp.copy_to_model(x, mesh)
+        xc = tp.copy_to_model(x, mesh) if heads else x
         parts, ks, vs = [], [], []
-        for w in weights:
+        for w in weights if heads else weights[:1]:
             dev = w.get("device", x.device)
             with tp.on(dev):
                 xs = xc.to(dev)
-                q, k, v = (self.rga._heads(lin(xs, w["w" + c], w["b" + c]))
+                q, k, v = (r._heads(lin(xs, w["w" + c], w["b" + c]))
                            for c in "qkv")
                 kp = None if key_pad is None else key_pad.to(dev)
-                out = self.rga.attend(q, k, v, w["e"].to(dev), kp)
+                out = r.attend(q, k, v, w["e"].to(dev), kp)
                 b, h, l, dh = out.shape
                 parts.append(lin(out.transpose(1, 2).reshape(b, l, h * dh),
-                                 w["wfc"]))
+                                 w["wfc"], None if heads else r.fc.bias))
             ks.append(k)
             vs.append(v)
-        attn = tp.reduce_from_model(parts, mesh, self.rga.fc.bias, dt)
+        attn = tp.reduce_from_model(parts, mesh, r.fc.bias, dt) if heads \
+            else parts[0]
         if drop is not None:
             attn = drop(attn)
         out1 = _layer_norm(self.layernorm1, attn + x)
-        oc = tp.copy_to_model(out1, mesh)
+        oc = tp.copy_to_model(out1, mesh) if ffn else out1
         parts = []
-        for w in weights:
+        for w in weights if ffn else weights[:1]:
             hid = torch.relu(lin(oc.to(w.get("device", x.device)), w["w1"],
                                  w["b1"]))
-            parts.append(lin(hid, w["w2"]))
-        ffn = tp.reduce_from_model(parts, mesh, self.FFN_suf.bias, dt)
+            parts.append(lin(hid, w["w2"], None if ffn else
+                             self.FFN_suf.bias))
+        ffn_out = tp.reduce_from_model(parts, mesh, self.FFN_suf.bias, dt) \
+            if ffn else parts[0]
         if drop is not None:
-            ffn = drop(ffn)
-        out = _layer_norm(self.layernorm2, out1 + ffn)
+            ffn_out = drop(ffn_out)
+        out = _layer_norm(self.layernorm2, out1 + ffn_out)
         return (out, ks, vs) if return_kv else out
 
 
@@ -358,12 +381,6 @@ class MusicTransformer(nn.Module):
         if d_model % head_dim:
             raise ValueError(f"d_model {d_model} not divisible by head_dim "
                              f"{head_dim}")
-        if _tp(mesh):
-            for what, n in (("num_heads", d_model // head_dim),
-                            ("ffn_dim", ffn_dim or d_model // 2)):
-                if n % mesh.model:
-                    raise ValueError(f"{what}={n} not divisible by the model "
-                                     f"axis ({mesh.model})")
         self.vocab_size = vocab_size
         self.num_layers = num_layers
         self.d_model = d_model
@@ -423,7 +440,8 @@ class MusicTransformer(nn.Module):
         # scalar tensor copied to the device would sync the host per call
         scale = float(torch.tensor(math.sqrt(self.d_model)).to(self.dtype))
         w = self.Decoder.embedding.weight
-        if _tp(self.mesh):  # d_model-split: gather before the scale
+        if _tp(self.mesh) and tp.divides(self.d_model, self.mesh):
+            # d_model-split: gather before the scale
             return tp.gather_from_model(
                 [tp.local(w, 1, self.mesh, m).to(self.dtype)[tokens]
                  for m in tp.shards(self.mesh)], self.mesh) * scale
@@ -444,7 +462,7 @@ class MusicTransformer(nn.Module):
         """The output Linear in the compute dtype, cast to
         ``logits_dtype``; on head shards its input columns are split and
         the partial logits summed."""
-        if not _tp(self.mesh):
+        if not (_tp(self.mesh) and tp.divides(self.d_model, self.mesh)):
             return _linear(self.fc, h, self.dtype).to(self.logits_dtype)
         hc = tp.copy_to_model(h, self.mesh)
         parts = [F.linear(tp.part(hc, -1, self.mesh, m).to(self.dtype),

@@ -244,15 +244,19 @@ def param_placements(mesh: Mesh, model: torch.nn.Module,
                      fsdp: bool = False) -> Dict[str, Placement]:
     """Each parameter's ``Placement`` on ``mesh`` (JAX ``param_shardings``)
     for the whole parameters of ``model``: a dimension the ``model`` axis
-    does not divide falls back to
-    replication (JAX's guard). With ``fsdp`` every tensor is also sharded
+    does not divide falls back to replication (JAX's guard), and so does
+    the attention block (Wq, Wk, Wv, fc) where the axis does not divide
+    ``model.num_heads``: a shard holds whole heads, where JAX's XLA would
+    split inside one. With ``fsdp`` every tensor is also sharded
     over ``data`` on dimension 0 of its model shard (FSDP2's layout,
     which pads; JAX picks the first unsplit dimension the data axis
     divides)."""
     out = {}
+    heads = getattr(model, "num_heads", 1)
     for name, p in model.named_parameters():
         dim = model_dim(name, p.shape)
-        if dim is not None and p.shape[dim] % mesh.model:
+        if dim is not None and (p.shape[dim] % mesh.model or (
+                ".rga." in name and heads % mesh.model)):
             dim = None
         out[name] = Placement(model=dim, data=0 if fsdp else None)
     return out

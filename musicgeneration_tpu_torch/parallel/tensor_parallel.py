@@ -5,7 +5,12 @@ parameter shardings (``mesh.param_placements``): Wq/Wk/Wv and FFN_pre are
 split by output rows (a model shard holds num_heads / tp heads and
 ffn_dim / tp hidden units), the attention's fc, FFN_suf and the head by
 input columns, the embedding by d_model columns; E, the LayerNorms and
-the biases are replicated (a split layer takes its bias's slice). A
+the biases are replicated (a split layer takes its bias's slice). Where
+the ``model`` axis does not divide a block's width (the attention's
+heads, the FFN's hidden units, d_model for the embedding and the head),
+that block is replicated instead, as JAX's guard replicates a dimension
+the axis does not divide, at whole-head granularity (``divides``): every
+shard computes the whole block on its input, with no collective. A
 shard's activations pass through three collectives:
 
 * ``copy_to_model``: the forward is the identity; the backward sums the
@@ -114,6 +119,12 @@ def shards(mesh: Mesh) -> Sequence[int]:
     """The model shards this process runs: all of them on a virtual mesh,
     its own on a process group."""
     return range(mesh.model) if mesh.virtual else (mesh.model_rank,)
+
+
+def divides(n: int, mesh: Mesh) -> bool:
+    """Whether the model axis splits a block of ``n`` heads or units
+    (else the block is replicated over it)."""
+    return n % mesh.model == 0
 
 
 def part(x: torch.Tensor, dim: int, mesh: Mesh, m: int) -> torch.Tensor:

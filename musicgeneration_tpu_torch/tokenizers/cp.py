@@ -1,8 +1,9 @@
 """CP (Compound Word) tokenizer — the reference README's declared but
 never-implemented fourth scheme ("CP(to do)").
 
-A copy of ``musicgeneration_tpu/tokenizers/cp.py`` without its native
-encoder: ``encode_rows`` is ``extract_events`` here.
+A copy of ``musicgeneration_tpu/tokenizers/cp.py``: ``encode_rows`` runs
+the port's C++ pipeline (``native/smf_scan.cc`` mg_encode_cp), and
+``extract_events`` is its Python oracle.
 
 Design follows the Compound Word Transformer (Hsiao et al., AAAI 2021):
 the token stream is a sequence of COMPOUND rows, each grouping the
@@ -34,11 +35,12 @@ store them flattened with width 8 (data/pipeline.py `cp` scheme).
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional
 
 import numpy as np
 
-from .. import vocab
+from .. import native, vocab
 from ..midi import Instrument, Marker, MidiFile, Note, TempoChange
 from . import remi
 
@@ -78,9 +80,33 @@ def _row(family: int, **kw) -> List[int]:
 
 
 def encode_rows(input_path: str) -> np.ndarray:
-    """MIDI -> CP rows [T, 8] (uint16), the corpus pipeline's entry:
-    ``extract_events`` (the JAX package's native branch is not ported)."""
+    """MIDI -> CP rows [T, 8] (uint16) — the corpus-pipeline hot path.
+
+    The full C++ pipeline (``native_rows``), and `extract_events` below,
+    the semantics oracle, under MG_NATIVE=0 or where the C++ reports an
+    error for the file."""
+    if os.environ.get("MG_NATIVE", "1") != "0":
+        try:
+            with open(input_path, "rb") as f:
+                data = f.read()
+        except OSError:
+            data = None
+        if data is not None:
+            rows = native_rows(data)
+            if rows is not None:
+                return rows
     return extract_events(input_path)
+
+
+def native_rows(data: bytes) -> Optional[np.ndarray]:
+    """The CP rows [T, 8] (uint16) of one SMF buffer through the C++
+    pipeline (native/smf_scan.cc mg_encode_cp), or None where it reports
+    an error."""
+    return native.encode_cp(
+        data, vocab.REMI_DURATION_BINS, vocab.REMI_VELOCITY_BINS,
+        vocab.REMI_RESOLUTION, vocab.REMI_FRACTION,
+        vocab.REMI_VELOCITY_STEPS, len(vocab.REMI_PITCH_RANGE) - 1,
+        remi.TEMPO_BOUNDS, remi.CHORD_IDS, np.array(ignore_ids(), np.int64))
 
 
 def extract_events(input_path: str) -> np.ndarray:

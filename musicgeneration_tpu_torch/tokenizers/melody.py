@@ -1,7 +1,7 @@
 """Monophonic melody note-array codec and melody extraction.
 
-A copy of ``musicgeneration_tpu/tokenizers/melody.py``'s Python path (its
-native parse branch is left out), on the port's own ``midi/``. The
+A copy of ``musicgeneration_tpu/tokenizers/melody.py`` on the port's own
+``midi/`` (a path's notes come straight off the native parse rows). The
 note-array codec (Magenta Melody-RNN format; reference
 mg/utils/midi2note.py:6-11) holds one int per sixteenth note:
 
@@ -27,10 +27,12 @@ Melody extraction (reference mg/utils/music_extraction.py):
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Union
 
 import numpy as np
 
+from .. import native
 from ..midi import Instrument, MidiFile, Note, TempoChange
 
 MELODY_NOTE_OFF = 128
@@ -43,7 +45,15 @@ def midi_to_note_array(midi: Union[str, MidiFile],
     """MIDI -> Melody-RNN int16 array, one slot per sixteenth note.
 
     ``instr_idx=None`` flattens every non-drum instrument (music21
-    ``stream.flat``); an int takes that instrument only."""
+    ``stream.flat``); an int takes that instrument only. A path with no
+    instrument restriction takes a fast path straight off the native
+    parse rows (the same flatten order: instruments by first occurrence,
+    notes (start, pitch)-sorted), unless MG_NATIVE=0."""
+    if (isinstance(midi, str) and instr_idx is None
+            and os.environ.get("MG_NATIVE", "1") != "0"):
+        arr = note_array_from_parse(midi)
+        if arr is not None:
+            return arr
     if isinstance(midi, str):
         midi = MidiFile(midi)
     sq = midi.ticks_per_beat / 4.0  # ticks per semiquaver
@@ -58,6 +68,41 @@ def midi_to_note_array(midi: Union[str, MidiFile],
     dur = np.array([int(round((n.end - n.start) / sq)) for n in notes])
     pitch = np.array([n.pitch for n in notes])
     total = int(round(max(n.end for n in notes) / sq))
+    return _note_array_from_columns(pos, dur, pitch, total)
+
+
+def note_array_from_parse(path: str) -> Optional[np.ndarray]:
+    """Fast path: native parse rows -> note array, no Note objects.
+    Replicates the Python path's flatten order (instrument key first-
+    occurrence, then (start, pitch), stable) so equal-(slot, pitch)
+    duration ties resolve identically. None: the Python path (an
+    unreadable file, or a parse error the scanner reports)."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError:
+        return None
+    parsed = native.parse_midi_bytes(data)
+    if parsed is None:
+        return None
+    rows = parsed["notes"]
+    rows = rows[rows[:, 1] != 9]  # drop drum channel 10
+    if not len(rows):
+        return np.full(2, MELODY_NO_EVENT, dtype=np.int16)
+    nk = rows[:, 0] * (16 * 128) + rows[:, 1] * 128 + rows[:, 2]
+    _, first_pos, inv = np.unique(nk, return_index=True,
+                                  return_inverse=True)
+    rank = np.argsort(np.argsort(first_pos))[inv]
+    order = np.lexsort((np.arange(len(rows)), rows[:, 3], rows[:, 5],
+                        rank))
+    rows = rows[order]
+    sq = parsed["ticks_per_beat"] / 4.0
+    start, end, pitch = rows[:, 5], rows[:, 6], rows[:, 3]
+    # Python path: int(round(x)) on python floats — round-half-even;
+    # np.round matches (banker's rounding)
+    pos = np.round(start / sq).astype(np.int64)
+    dur = np.round((end - start) / sq).astype(np.int64)
+    total = int(np.round(end.max() / sq))
     return _note_array_from_columns(pos, dur, pitch, total)
 
 

@@ -1,8 +1,10 @@
 """MIDI-like (Performance-RNN style) tokenizer — the port's codec.
 
 A copy of the parts of ``musicgeneration_tpu/tokenizers/midilike.py``
-that generation needs (``NoteSeq``, ``EventSeq``, ``extract_events``,
-``from_array``, ``write_midi``), with the same token semantics as the
+that generation and the corpus pipeline need (``NoteSeq``, ``EventSeq``,
+``extract_events``, ``encode_array`` through the native scanner and
+emitter, ``from_array``, ``write_midi``), with the same token semantics
+as the
 reference (mg/model/utils/sequence.py):
 
 * vocab: note_on(88) | note_off(88) | velocity(32) | time_shift(100x10ms),
@@ -24,8 +26,10 @@ from typing import List, Optional
 
 import numpy as np
 
-from .. import vocab
+from .. import native, vocab
 from ..midi import Instrument, MidiFile, Note, TempoChange
+from ..midi.smf import DRUM_CHANNEL
+from ..midi.timing import TempoMap
 
 SPEC = vocab.MIDILIKE
 CONTROL_SPEC = vocab.CONTROL
@@ -77,6 +81,28 @@ class NoteSeq:
         for n in self.notes:
             n.start += offset
             n.end += offset
+
+    def adjust_pitches(self, offset: int) -> None:
+        for n in self.notes:
+            n.pitch = min(127, max(0, n.pitch + offset))
+
+    def adjust_velocities(self, offset: int) -> None:
+        for n in self.notes:
+            n.velocity = min(127, max(0, n.velocity + offset))
+
+    def trim_overlapped_notes(self, min_interval: float = 0) -> None:
+        last_notes = {}
+        for i, note in enumerate(self.notes):
+            if note.pitch in last_notes:
+                last = last_notes[note.pitch]
+                if note.start - last.start <= min_interval:
+                    last.end = max(note.end, last.end)
+                    last.velocity = max(note.velocity, last.velocity)
+                    del self.notes[i]
+                elif note.start < last.end:
+                    last.end = note.start
+            else:
+                last_notes[note.pitch] = note
 
     def to_midi(self, program: int = DEFAULT_SAVING_PROGRAM,
                 resolution: int = DEFAULT_RESOLUTION,
@@ -364,6 +390,63 @@ def extract_events(path: str) -> EventSeq:
     if ns.notes:
         ns.adjust_time(-ns.notes[0].start)
     return EventSeq.from_note_seq(ns)
+
+
+def encode_array(path: str) -> np.ndarray:
+    """`extract_events(path).to_array()` with NO intermediate Note/Event
+    objects: native SMF parse -> numpy note arrays -> C++ event emission
+    (``native_array``, the corpus-pipeline hot path). Takes the Python
+    object path — the semantics oracle — under MG_NATIVE=0 or where the
+    scanner reports an error for the file.
+    """
+    if not native.available():
+        return extract_events(path).to_array()
+    with open(path, "rb") as f:
+        ids = native_array(f.read())
+    return extract_events(path).to_array() if ids is None else ids
+
+
+def native_array(data: bytes) -> Optional[np.ndarray]:
+    """The MIDI-like ids of one SMF buffer through the native scanner and
+    emitter (native/smf_scan.cc mg_parse, mg_encode_midilike), or None
+    where the scanner reports an error."""
+    p = native.parse_midi_bytes(data)
+    if p is None:
+        return None
+    notes = p["notes"]  # [n,7] track,ch,prog,pitch,vel,start,end
+    notes = notes[notes[:, 1] != DRUM_CHANNEL]  # NoteSeq skips drums
+    if not len(notes):
+        return np.zeros(0, SPEC.array_dtype())
+    # replicate the object path's note order exactly: instruments in
+    # first-occurrence order (smf.py _build_from_native), notes within an
+    # instrument sorted (start, pitch), the concatenation stable-sorted
+    # by start (NoteSeq.add_notes) => lexsort (pitch, inst_rank, start)
+    nk = notes[:, 0] * (16 * 128) + notes[:, 1] * 128 + notes[:, 2]
+    uniq, first, inv = np.unique(nk, return_index=True,
+                                 return_inverse=True)
+    rank = np.empty(len(uniq), np.int64)
+    rank[np.argsort(first)] = np.arange(len(uniq))
+    inst_rank = rank[inv]
+
+    tm = TempoMap([(int(t), int(us)) for t, us in p["tempos"]],
+                  p["ticks_per_beat"])
+    starts = tm.tick_to_time(notes[:, 5])
+    ends = tm.tick_to_time(notes[:, 6])
+    order = np.lexsort((notes[:, 3], inst_rank, starts))
+    starts, ends = starts[order], ends[order]
+    pitches, vels = notes[order, 3], notes[order, 4]
+    t0 = starts[0]  # == min: final order is start-major (adjust_time)
+    starts = starts - t0
+    ends = ends - t0
+
+    ranges = SPEC.feat_ranges()
+    ids = native.encode_midilike(
+        starts, ends, pitches, vels,
+        EventSeq.get_velocity_bins(), EventSeq.time_shift_bins,
+        EventSeq.pitch_range, EventSeq.velocity_range,
+        (ranges["note_on"].start, ranges["note_off"].start,
+         ranges["velocity"].start, ranges["time_shift"].start))
+    return None if ids is None else ids.astype(SPEC.array_dtype())
 
 
 def from_array(arr) -> EventSeq:

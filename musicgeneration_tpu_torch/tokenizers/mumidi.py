@@ -1,10 +1,11 @@
 """MuMIDI (PopMAG) multi-track tokenizer (reference: mg/model/utils/MuMIDI.py).
 
-A copy of the Python path of ``musicgeneration_tpu/tokenizers/mumidi.py``
-(the port has no native scanner: ``encode_split_arrays`` is
-``to_array(extract_split_events(path))`` here). It builds on the port's
-REMI item stages (``Event``, ``Item``, ``_tempo_events``) and chord
-inference.
+A copy of ``musicgeneration_tpu/tokenizers/mumidi.py``:
+``encode_split_arrays`` runs the port's C++ pipeline
+(``native/smf_scan.cc`` mg_encode_mumidi, one call per role subset), and
+``to_array(extract_split_events(path))`` is its Python oracle. It builds
+on the port's REMI item stages (``Event``, ``Item``, ``_tempo_events``),
+tables and chord inference.
 
 Six track roles (melody/piano/bass/guitar/string/drum — MuMIDI.py:32),
 position granularity 32 (+1, 1-based), track token per note, tempo/chord as
@@ -28,14 +29,15 @@ Parity quirks preserved:
 from __future__ import annotations
 
 import collections
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .. import vocab
+from .. import native, vocab
 from ..midi import Instrument, Marker, MidiFile, Note, TempoChange
 from .chords import MIDIChord
-from .remi import Event, Item, _tempo_events
+from .remi import CHORD_IDS, TEMPO_BOUNDS, Event, Item, _tempo_events
 
 SPEC = vocab.MUMIDI
 
@@ -166,6 +168,45 @@ def item2event(groups: List[list], strict: bool = False) -> List[Event]:
     return events
 
 
+def native_split_arrays(input_path: str):
+    """C++ fast path for encode_split_arrays. Returns (melody, arrange)
+    arrays, (None, None) when a split side has no notes, or None to make
+    the caller take the Python oracle path for this file."""
+    try:
+        with open(input_path, "rb") as f:
+            data = f.read()
+    except OSError:
+        return None
+    ranges = SPEC.feat_ranges()
+    offsets = (ranges["note_on"].start, ranges["note_duration"].start,
+               ranges["note_velocity"].start, ranges["bar"].start,
+               ranges["position"].start, ranges["track"].start,
+               ranges["tempo_class"].start, ranges["tempo_value"].start,
+               ranges["chord"].start)
+    common = dict(
+        role_names=DEFAULT_TRACKS, drum_role=TRACKS_IDX["drum"],
+        dur_bins=DEFAULT_DURATION_BINS, vel_bins=DEFAULT_VELOCITY_BINS,
+        resolution=DEFAULT_RESOLUTION, fraction=DEFAULT_FRACTION,
+        pitch_lo=DEFAULT_PITCH_RANGE.start, drum_lo=DEFAULT_DRUM_TYPE.start,
+        n_pitch=len(DEFAULT_PITCH_RANGE),
+        tempo_bounds=TEMPO_BOUNDS, chord_ids=CHORD_IDS, offsets=offsets)
+    melody_mask = 1 << TRACKS_IDX["melody"]
+    arrange_mask = sum(1 << i for i in range(len(DEFAULT_TRACKS))) \
+        & ~melody_mask
+    melody = native.encode_mumidi(data, role_mask=melody_mask, **common)
+    if melody is None:
+        return None  # a parse error: the Python path
+    if len(melody) == 0:
+        return None, None
+    arrange = native.encode_mumidi(data, role_mask=arrange_mask, **common)
+    if arrange is None:
+        return None
+    if len(arrange) == 0:
+        return None, None
+    dtype = SPEC.array_dtype()
+    return melody.astype(dtype), arrange.astype(dtype)
+
+
 # ---------------------------------------------------------------------------
 # MuMIDI_EventSeq
 # ---------------------------------------------------------------------------
@@ -253,7 +294,14 @@ class MuMIDI_EventSeq:
     def encode_split_arrays(input_path: str):
         """(melody_tokens, arrangement_tokens) as arrays, or (None, None)
         — ``to_array(extract_split_events(path))``, the corpus
-        pipeline's per-file work."""
+        pipeline's per-file work. The C++ pipeline (one
+        mg_encode_mumidi call per con_instr subset), and the Event-object
+        path, the semantics oracle, under MG_NATIVE=0 or where the C++
+        reports an error for the file."""
+        if os.environ.get("MG_NATIVE", "1") != "0":
+            arrs = native_split_arrays(input_path)
+            if arrs is not None:
+                return arrs
         melody, arrange = MuMIDI_EventSeq.extract_split_events(input_path)
         if melody is None:
             return None, None

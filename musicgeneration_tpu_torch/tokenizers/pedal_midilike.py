@@ -1,8 +1,9 @@
 """Sustain-pedal-aware MIDI-like codec (vocab 388) — the port's copy.
 
-A copy of ``musicgeneration_tpu/tokenizers/pedal_midilike.py``'s Python
-path on the port's own ``midi/`` (the native branch of
-``encode_array`` is not ported).
+A copy of ``musicgeneration_tpu/tokenizers/pedal_midilike.py`` on the
+port's own ``midi/``: ``encode_array`` runs the port's C++ codec
+(``native/smf_scan.cc`` mg_encode_pedal), ``encode_midi`` is its Python
+oracle.
 
 The reference carries a second, independent MIDI-like encoder used only by
 the MusicTransformer lineage: `mg/model/MusicTransformer/processor.py`.
@@ -39,10 +40,12 @@ Faithfulness notes (reference quirks, SURVEY.md §7 hard-part #1):
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence
 
 import numpy as np
 
+from .. import native
 from ..midi import ControlChange, Instrument, MidiFile, Note, TempoChange
 
 RANGE_NOTE_ON = 128
@@ -153,9 +156,23 @@ def _time_shift_tokens(prev: float, post: float) -> List[int]:
 
 
 def encode_array(path: str, faithful: bool = False) -> np.ndarray:
-    """`np.asarray(encode_midi(path))` as uint16: the corpus pipeline's
-    entry. The Python path only (the JAX package's native C++ branch is
-    not ported; its tokens equal this path's)."""
+    """`np.asarray(encode_midi(path))` — the corpus-pipeline hot path.
+
+    The full C++ pipeline (native/smf_scan.cc mg_encode_pedal: parse ->
+    tempo-map seconds -> sustain pairing -> emission, token-exact incl.
+    the faithful mode), and the Python `encode_midi` below, the
+    semantics oracle, under MG_NATIVE=0 or where the C++ reports an
+    error for the file."""
+    if os.environ.get("MG_NATIVE", "1") != "0":
+        try:
+            with open(path, "rb") as f:
+                data = f.read()
+        except OSError:
+            data = None
+        if data is not None:
+            toks = native.encode_pedal(data, faithful)
+            if toks is not None:
+                return toks
     return np.asarray(encode_midi(path, faithful=faithful), np.uint16)
 
 

@@ -1,9 +1,10 @@
 """REMI tokenizer (reference: mg/model/utils/REMI.py).
 
-A copy of the Python path of ``musicgeneration_tpu/tokenizers/remi.py``
-(the port has no native scanner): the item stages, ``item2event``,
-``encode_array_py`` and ``REMI_EventSeq``. The CP codec builds on the
-item stages.
+A copy of ``musicgeneration_tpu/tokenizers/remi.py``: the item stages,
+``item2event``, ``encode_array`` (the port's C++ pipeline,
+``native/smf_scan.cc`` mg_encode_remi), ``encode_array_py`` (its
+vectorised Python oracle) and ``REMI_EventSeq``. The CP and MuMIDI
+codecs build on the item stages and the native tables.
 
 Pipeline parity: read_items -> quantize_items (120-tick grid snap) ->
 extract_chords -> group_items (bar windows with the reference's inclusive
@@ -27,11 +28,12 @@ of crashing):
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .. import vocab
+from .. import native, vocab
 from ..midi import Instrument, Marker, MidiFile, Note, TempoChange
 from .chords import MIDIChord
 
@@ -217,15 +219,58 @@ def item2event(groups: List[list], strict: bool = False) -> List[Event]:
     return events
 
 
+# the native emitters' tables: the tempo interval edges (30, 90, 150,
+# 210) and the chord ids, chord_ids[quality * 12 + root] then N:N
+TEMPO_BOUNDS = (DEFAULT_TEMPO_INTERVALS[0].start,
+                DEFAULT_TEMPO_INTERVALS[1].start,
+                DEFAULT_TEMPO_INTERVALS[2].start,
+                DEFAULT_TEMPO_INTERVALS[2].stop)
+CHORD_IDS = np.array([vocab.CHORD_MAP[f"{r}:{q}"]
+                      for q in vocab.CHORD_QUALITY
+                      for r in vocab.CHORD_ROOT]
+                     + [vocab.CHORD_MAP["N:N"]], np.int64)
+
+
 def encode_array(path: str) -> np.ndarray:
-    """`to_array(extract_events(path))`: ``encode_array_py``, the JAX
-    package's fallback path (its native branch is not ported)."""
+    """`to_array(extract_events(path))` — the corpus-pipeline hot path.
+
+    The full C++ pipeline (``native_array``), and the vectorized Python
+    path below, the semantics oracle, under MG_NATIVE=0 or where the C++
+    reports an error for the file."""
+    if os.environ.get("MG_NATIVE", "1") != "0":
+        try:
+            with open(path, "rb") as f:
+                data = f.read()
+        except OSError:
+            data = None
+        if data is not None:
+            toks = native_array(data)
+            if toks is not None:
+                return toks
     return encode_array_py(path)
+
+
+def native_array(data: bytes) -> Optional[np.ndarray]:
+    """The REMI ids of one SMF buffer through the C++ pipeline
+    (native/smf_scan.cc mg_encode_remi: parse -> quantize -> chord
+    inference -> bar grouping -> tokens), or None where it reports a
+    parse or tempo error."""
+    ranges = SPEC.feat_ranges()
+    toks = native.encode_remi(
+        data, DEFAULT_DURATION_BINS, DEFAULT_VELOCITY_BINS,
+        DEFAULT_RESOLUTION, vocab.REMI_FRACTION,
+        vocab.REMI_VELOCITY_STEPS, len(vocab.REMI_PITCH_RANGE) - 1,
+        TEMPO_BOUNDS, CHORD_IDS,
+        (ranges["note_on"].start, ranges["note_duration"].start,
+         ranges["note_velocity"].start, ranges["bar"].start,
+         ranges["position"].start, ranges["tempo_class"].start,
+         ranges["tempo_value"].start, ranges["chord"].start))
+    return None if toks is None else toks.astype(SPEC.array_dtype())
 
 
 def encode_array_py(path: str) -> np.ndarray:
     """`to_array(extract_events(path))` without Event objects — fully
-    vectorized after chord inference.
+    vectorized after chord inference; the native path's oracle.
 
     Replicates group_items + item2event + to_array semantics exactly
     (downbeat double-count, argmin position ties snapping down, the

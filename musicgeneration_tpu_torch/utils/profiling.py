@@ -8,6 +8,11 @@ The port of ``musicgeneration_tpu/utils/profiling.py``:
 - ``timed_block(name)``: wall clock of a block that ends in a device
   synchronise when there is a card, so it covers the device's work and
   not only its dispatch.
+- ``debug_nans(enable)``: ``jax_debug_nans``'s counterpart, torch's
+  anomaly mode (a backward that produces NaN raises, naming the forward
+  operation).
+- ``annotate(name)``: a named region in the profiler's trace
+  (``torch.profiler.record_function``).
 """
 
 from __future__ import annotations
@@ -47,3 +52,14 @@ def timed_block(name: str, sink: Optional[Dict[str, float]] = None
     out[name] = time.perf_counter() - t0
     if sink is not None:
         sink[name] = out[name]
+
+
+def debug_nans(enable: bool = True) -> None:
+    """Turn torch's anomaly mode on or off for the process: a backward
+    that produces NaN raises, with the forward operation's trace."""
+    torch.autograd.set_detect_anomaly(enable)
+
+
+def annotate(name: str) -> "torch.profiler.record_function":
+    """Named region visible in profiler traces (a context manager)."""
+    return torch.profiler.record_function(name)

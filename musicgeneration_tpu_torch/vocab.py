@@ -12,7 +12,9 @@ codecs read; and the MuMIDI constants and layout (``vocab.py:57-70``,
 ``_mumidi_spec`` :195; reference MuMIDI.py:9-55, 352-384): empty 1 |
 note_on 256 (128 pitch + 128 drum) | note_duration 32 | note_velocity 32
 | bar 1 | position 33 | track 6 | tempo_class 3 | tempo_value 60 | chord
-61 = 485, which the MuMIDI codec and PoPMAG read.
+61 = 485, which the MuMIDI codec and PoPMAG read; and the sustain-pedal
+codec's layout (``PERFORMANCE``, reference MusicTransformer/processor.py:
+4-14): note_on 128 | note_off 128 | time_shift 100 | velocity 32 = 388.
 """
 
 from __future__ import annotations
@@ -60,6 +62,12 @@ MUMIDI_INSTRUMENT_NUMBERS = {
     "drum": [114, 115, 116, 117, 118, 119],
     "string": [66],
 }
+
+# Sustain-pedal codec (reference: MusicTransformer/processor.py:4-14)
+PERF_RANGE_NOTE_ON = 128
+PERF_RANGE_NOTE_OFF = 128
+PERF_RANGE_VEL = 32
+PERF_RANGE_TIME_SHIFT = 100
 
 # Chord vocabulary of REMI, CP and MuMIDI (reference: REMI.py:27-37)
 CHORD_QUALITY = ["maj", "min", "dim", "aug", "dom"]
@@ -117,10 +125,24 @@ class VocabSpec:
     def names(self) -> List[str]:
         return self._names
 
+    def start(self, feat: str) -> int:
+        return self._feat_ranges[feat].start
+
+    def encode(self, feat: str, value) -> int:
+        return self._feat_ranges[feat].start + int(value)
+
+    def feature_index(self, feat: str) -> int:
+        return self._names.index(feat)
+
     def decode_ids(self, ids) -> Tuple[np.ndarray, np.ndarray]:
         """Vectorised: token ids -> (feature index array, value array)."""
         ids = np.asarray(ids, dtype=np.int64)
         return self._id_to_feat[ids], self._id_to_value[ids]
+
+    def is_feat(self, feat: str, ids) -> np.ndarray:
+        rng = self._feat_ranges[feat]
+        ids = np.asarray(ids)
+        return (ids >= rng.start) & (ids < rng.stop)
 
     def array_dtype(self):
         """Reference packs to uint8 when dim<=256 else uint16
@@ -172,7 +194,17 @@ def _control_spec() -> VocabSpec:
     return VocabSpec(d)
 
 
+def _performance_spec() -> VocabSpec:
+    d = collections.OrderedDict()
+    d["note_on"] = PERF_RANGE_NOTE_ON
+    d["note_off"] = PERF_RANGE_NOTE_OFF
+    d["time_shift"] = PERF_RANGE_TIME_SHIFT
+    d["velocity"] = PERF_RANGE_VEL
+    return VocabSpec(d)
+
+
 MIDILIKE = _midilike_spec()
 REMI = _remi_spec()
 MUMIDI = _mumidi_spec()
 CONTROL = _control_spec()
+PERFORMANCE = _performance_spec()

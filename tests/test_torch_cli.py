@@ -203,18 +203,24 @@ def test_sources_import_no_jax(path):
 
 def test_isolation_covers_the_copied_codecs_and_clis():
     """The port's own copies of pure-Python modules of the JAX package
-    (the pedal codec, track extraction) and the CLIs beside them are
-    among the sources checked above, and import nothing of JAX or of the
-    JAX package."""
+    (the pedal codec, track extraction, the native bindings) and the CLIs
+    beside them are among the sources checked above, and import nothing
+    of JAX or of the JAX package; the native bindings compile and load
+    the port's own copy of the C++ source, into the port's build
+    directory, never the JAX package's library."""
+    from musicgeneration_tpu_torch import native
     copies = {"tokenizers/pedal_midilike.py", "data/track_extraction.py",
               "cli/eval.py", "cli/extract_tracks.py",
               "cli/export_checkpoint.py", "cli/import_checkpoint.py",
               "cli/check_install.py", "cli/split.py", "cli/corpus_stats.py",
-              "data/pipeline.py"}
+              "data/pipeline.py", "native/__init__.py"}
     assert copies <= {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     for rel in sorted(copies):
         assert not {n for n in _imports(PORT / rel)
                     if n.split(".")[0] in FORBIDDEN}, rel
+    assert native.SOURCE == PORT / "native" / "smf_scan.cc"
+    assert native.SOURCE.exists()
+    assert native.lib_path().parent == PORT / "_build"
 
 
 def test_importing_the_port_loads_no_jax():

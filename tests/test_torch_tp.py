@@ -14,6 +14,10 @@
   + 1e-6 (tests/test_torch_train.py gives the reasons; a bias of K has a
   zero gradient in exact arithmetic, so Adam's first step moves it by
   +-lr on rounding noise).
+* A model axis that does not divide the heads, the FFN or d_model: that
+  block replicated (tp 4 on 2 heads against the JAX step, which splits
+  inside a head; logits, gradients and greedy ``generate_tp`` against
+  the unsharded model).
 * ``generate_tp``: greedy tokens against the JAX ``generate_tp`` (tp 2,
   dp 4 x tp 2), sampled tokens against the port's ``generate`` with the
   same generator, its refusals; ``cli.generate --tp 2`` writes the bytes
@@ -127,6 +131,10 @@ def test_param_placements_match_jax_param_shardings(tp, fsdp):
 
 
 def test_make_mesh_model_and_pipe_axes():
+    """The mesh's axes, and a model axis that does not divide the heads:
+    tp 4 on 2 heads replicates the attention block (every shard runs both
+    heads, no reduce) where JAX splits inside a head; one train step
+    equals the JAX step on the same tp 4 mesh."""
     mesh = make_mesh(dp=2, tp=2, devices=["cpu"] * 4)
     assert (mesh.data, mesh.model, mesh.size, mesh.pipe) == (2, 2, 1, 1)
     assert mesh.model_devices == ((torch.device("cpu"),) * 2,) * 2
@@ -139,9 +147,7 @@ def test_make_mesh_model_and_pipe_axes():
     with pytest.raises(ValueError, match="dp\\*sp\\*tp\\*pp = 1\\*1\\*3\\*1"
                                          " != 4"):
         make_mesh(dp=1, tp=3, devices=["cpu"] * 4)
-    with pytest.raises(ValueError, match="num_heads=2 not divisible by the "
-                                         "model axis \\(4\\)"):
-        MusicTransformer(d_model=128, device="cpu", mesh=cpu_mesh(tp=4))
+    test_virtual_tp_train_step_matches_jax(1, 4, 1)
 
 
 # --------------------------------------------------------------------------
@@ -272,13 +278,17 @@ def test_generate_tp_sampled_equals_generate(mt):
 
 
 def test_generate_tp_refusals(mt):
+    """What generate_tp refuses; tp 4 on the 2-head model is not refused:
+    its attention block runs whole on the first shard, and greedy tokens
+    are ``generate``'s."""
     _, _, tm = mt
     dpar = DecodeParams(max_len=32, steps=4,
                         sampling=SamplingParams(greedy=True))
     x = np.zeros((2, 8), np.int32)
-    with pytest.raises(ValueError, match="num_heads=2 not divisible by the "
-                                         "model axis \\(4\\)"):
-        generate_tp(tm, x, 0, dpar, cpu_mesh(1, 4))
+    prompt = _prompt(2, 8, 11)
+    want = generate(tm, torch.from_numpy(prompt).long(), None, dpar)
+    assert torch.equal(generate_tp(tm, prompt, 0, dpar, cpu_mesh(1, 4)),
+                       want)
     with pytest.raises(ValueError, match="batch 2 not divisible by the data "
                                          "axis \\(4\\)"):
         generate_tp(tm, x, 0, dpar, cpu_mesh(4, 2))
@@ -298,14 +308,49 @@ def test_generate_tp_refusals(mt):
         generate(sharded, torch.zeros(2, 8, dtype=torch.long), None, dpar)
 
 
-def test_cp_transformer_on_head_shards_matches_unsharded():
+@pytest.mark.parametrize("tp_n,ffn", [(4, 0), (2, 63), (3, 0)],
+                         ids=["heads-tp4", "ffn63-tp2", "d128-tp3"])
+def test_tp_blocks_the_axis_does_not_divide_match_unsharded(tp_n, ffn):
+    """A model axis that does not divide the heads (2 on tp 4), the FFN
+    (63 units on tp 2) or d_model (tp 3) replicates that block: the
+    logits and gradients of a dp 2 x tp mesh are the unsharded ones,
+    ``param_placements`` calls the block replicated, and greedy
+    ``generate_tp`` gives ``generate``'s tokens."""
+    kw = dict(vocab_size=V, num_layers=2, d_model=D, max_seq=64,
+              ffn_dim=ffn, dropout_rate=0.0, device="cpu")
+    ref = MusicTransformer(generator=torch.Generator().manual_seed(0), **kw)
+    mesh = cpu_mesh(2, tp_n)
+    got = MusicTransformer(mesh=mesh, **kw)
+    got.load_state_dict(ref.state_dict())
+    x = torch.from_numpy(_prompt(4, 16, 2)).long()
+    a, b = ref(x), got(x)
+    torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
+    a.sum().backward()
+    b.sum().backward()
+    for (n, p), q in zip(ref.named_parameters(), got.parameters()):
+        torch.testing.assert_close(q.grad, p.grad, rtol=1e-4, atol=1e-4,
+                                   msg=n)
+    place = param_placements(mesh, got)
+    layer = "Decoder.enc_layers.0."
+    assert place[layer + "rga.Wq.weight"].model == (0 if tp_n == 2 else None)
+    assert place[layer + "rga.fc.weight"].model == (1 if tp_n == 2 else None)
+    assert place[layer + "FFN_pre.weight"].model == (0 if tp_n == 4
+                                                     else None)
+    assert place["fc.weight"].model == (None if tp_n == 3 else 1)
+    dpar = DecodeParams(max_len=32, steps=8,
+                        sampling=SamplingParams(greedy=True))
+    assert torch.equal(generate_tp(ref, x[:, :8].numpy(), 0, dpar, mesh),
+                       generate(ref, x[:, :8], None, dpar))
+
+
+def test_cp_transformer_on_head_shards_matches_unsharded(tp_n=2):
     """The CP trunk, summed field embeddings (d-split) and 8 heads (split
     where the field's size divides) under a virtual dp 2 x tp 2 mesh:
     the unsharded logits and gradients."""
     kw = dict(num_layers=1, d_model=D, max_seq=16, dropout_rate=0.0,
               device="cpu")
     ref = CPTransformer(generator=torch.Generator().manual_seed(0), **kw)
-    got = CPTransformer(mesh=cpu_mesh(2, 2), **kw)
+    got = CPTransformer(mesh=cpu_mesh(2, tp_n), **kw)
     got.load_state_dict(ref.state_dict())
     rng = np.random.default_rng(1)
     x = torch.from_numpy(np.stack([rng.integers(0, fd, (2, 16))
@@ -318,6 +363,12 @@ def test_cp_transformer_on_head_shards_matches_unsharded():
     for (n, p), q in zip(ref.named_parameters(), got.parameters()):
         torch.testing.assert_close(q.grad, p.grad, rtol=1e-4, atol=1e-4,
                                    msg=n)
+
+
+def test_cp_transformer_tp4_on_two_heads_matches_unsharded():
+    """The CP trunk's two heads on tp 4: its attention block replicated,
+    the unsharded logits and gradients."""
+    test_cp_transformer_on_head_shards_matches_unsharded(tp_n=4)
 
 
 # --------------------------------------------------------------------------
@@ -356,11 +407,22 @@ def test_cli_generate_tp_equals_tp1(exported, extra):
     (["--tp", "2", "--spec", "lookup"], "--spec with --tp is not supported"),
     (["--tp", "2", "--steps", "200"], "--batch/--dp/--tp/--spec with a "
                                       "continuation beyond max_seq"),
-    (["--tp", "4"], "num_heads=2 not divisible by the model axis \\(4\\)"),
+    (["--tp", "4"], None),
 ], ids=["quant", "spec", "sliding", "heads"])
 def test_cli_generate_tp_refusals(exported, extra, match):
+    """The refusals of --tp; ``heads``: --tp 4 on two heads is taken (the
+    attention block replicated) and writes the bytes of --tp 1."""
     tmp, pth = exported
     argv = [pth, str(tmp / "r.mid"), "--steps", "8", "--device", "cpu"]
+    if match is None:
+        greedy = ["--temperature", "0", "--batch", "2"]
+        assert tgen.main([pth, str(tmp / "h1.mid"), *argv[2:], *greedy]) == 0
+        assert tgen.main([pth, str(tmp / "h4.mid"), *argv[2:], *greedy,
+                          *extra]) == 0
+        for i in range(2):
+            assert (tmp / f"h1-{i:03d}.mid").read_bytes() == (
+                tmp / f"h4-{i:03d}.mid").read_bytes(), i
+        return
     with pytest.raises((SystemExit, ValueError), match=match):
         tgen.main(argv + extra)
 
