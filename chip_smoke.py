@@ -30,7 +30,8 @@ Phases (the first failure raises and the exit code is non-zero):
    backward) against its plain backward at B8 H4 L512 dh64, max_seq 512
    (training) and 2048, f32 (TF32 off) and bf16, causal and not, with
    and without key padding, and at L 100, 17 and 1, and at L 512 with
-   the first 3 keys padded, causal (the extended walk), every call
+   the first 3 keys padded, causal (the extended walk), and with every
+   key padded, not causal (rows at the -1e9 floor: p scaled), every call
    repeated and held bit-equal to the first; kernel E (the chunk-verify
    forward) against its plain version at the flagship width, f32 and
    bf16, B 1, 4 and 8, C 2, 5, 8 and 64, t 1, across the 128-row split,
@@ -943,38 +944,41 @@ def check_kernel_c() -> float:
 
 
 def check_kernel_c_left_pad() -> None:
-    """Kernel C on the rows kernel A's extended walk serves: keys 0 ..
-    LEFT_PAD - 1 padded, causal (L 512, max_seq 2048), f32 and bf16,
-    against its plain backward from the same forward: dq, dk, dv and dE
-    within TOL_C (the extended walk: flagged query tiles' dq blocks past
-    the diagonal, dkv blocks before it), a second call bit-equal to the
+    """Kernel C on rows that reach no unmasked key, against its plain
+    backward from the same forward: keys 0 .. LEFT_PAD - 1 padded, causal
+    (the extended walk: flagged query tiles' dq blocks past the diagonal,
+    dkv blocks before it), and every key padded, not causal (each row at
+    the -1e9 floor over all L keys); L 512, max_seq 2048, f32 and bf16.
+    On such a row the prep launch scales p to sum to 1 (the csrc note):
+    dq, dk, dv and dE within TOL_C, a second call bit-equal to the
     first."""
     gen = torch.Generator().manual_seed(27)
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, e, pad = attn_inputs(dtype, gen, "left")
-        dout = torch.randn(q.shape, generator=gen).to(DEV, dtype)
-        o, lse = fused_relative_attention(q, k, v, e, pad, True,
-                                          return_lse=True)
-        got = fused_relative_attention_bwd(q, k, v, e, pad, True, o, lse,
-                                           dout)
-        again = fused_relative_attention_bwd(q, k, v, e, pad, True, o, lse,
-                                             dout)
-        ref = fused_relative_attention_bwd_plain(q, k, v, e, pad, True, o,
+    for with_pad, causal in (("left", True), ("all", False)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, e, pad = attn_inputs(dtype, gen, with_pad)
+            dout = torch.randn(q.shape, generator=gen).to(DEV, dtype)
+            o, lse = fused_relative_attention(q, k, v, e, pad, causal,
+                                              return_lse=True)
+            got = fused_relative_attention_bwd(q, k, v, e, pad, causal, o,
+                                               lse, dout)
+            again = fused_relative_attention_bwd(q, k, v, e, pad, causal, o,
                                                  lse, dout)
-        torch.cuda.synchronize()
-        errs = [rel_err(a, r) for a, r in zip(got, ref)]
-        rows = rel_err(got[0][:, :, :LEFT_PAD], ref[0][:, :, :LEFT_PAD])
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        ok = max(errs) <= TOL_C[dtype] and same and all(
-            bool(torch.isfinite(a).all()) for a in got)
-        print(f"kernel C {str(dtype):15s} key_pad=left causal: rel_err "
-              f"dq={errs[0]:.2e} dk={errs[1]:.2e} dv={errs[2]:.2e} "
-              f"de={errs[3]:.2e} (dq rows 0-{LEFT_PAD - 1} {rows:.2e}) "
-              f"bit_equal_rerun={same} tol={TOL_C[dtype]:.0e} "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError("kernel C disagrees with its plain version "
-                                 "on left-padded rows")
+            ref = fused_relative_attention_bwd_plain(q, k, v, e, pad, causal,
+                                                     o, lse, dout)
+            torch.cuda.synchronize()
+            errs = [rel_err(a, r) for a, r in zip(got, ref)]
+            rows = rel_err(got[0][:, :, :LEFT_PAD], ref[0][:, :, :LEFT_PAD])
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            ok = max(errs) <= TOL_C[dtype] and same and all(
+                bool(torch.isfinite(a).all()) for a in got)
+            print(f"kernel C {str(dtype):15s} key_pad={with_pad} "
+                  f"causal={causal!s:5s}: rel_err dq={errs[0]:.2e} "
+                  f"dk={errs[1]:.2e} dv={errs[2]:.2e} de={errs[3]:.2e} (dq "
+                  f"rows 0-{LEFT_PAD - 1} {rows:.2e}) bit_equal_rerun={same} "
+                  f"tol={TOL_C[dtype]:.0e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("kernel C disagrees with its plain "
+                                     "version on rows at the -1e9 floor")
 
 
 def flagship(dtype, seed: int = 0, quant: str = "none",

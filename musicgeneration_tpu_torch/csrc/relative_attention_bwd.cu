@@ -5,14 +5,15 @@
 // _bwd_dq_de_kernel / _bwd_dkv_kernel). Given the forward's inputs, its
 // output O and LSE, and dO, computes per (batch, head)
 //
-//   p[t, s]  = exp(logits[t, s] - lse[t])     (logits exactly as kernel A)
+//   p[t, s]  = exp(logits[t, s] - lse[t]) u[t]  (logits exactly as kernel A)
 //   g[t, s]  = p[t, s] (dO_t . v_s - delta_t), delta_t = dO_t . O_t
 //   dQ_t     = scale * sum_s g[t, s] (k_s + E[max_seq - 1 - t + s])
 //   dK_s     = scale * sum_t g[t, s] q_t
 //   dV_s     = sum_t p[t, s] dO_t
 //   dE[r]    = scale * sum_{b, h, t - s = max_seq - 1 - r} g[t, s] q_t
 //
-// with the TPU kernel's rounding points: E rounded to the q dtype, g
+// where u[t] = 1 but on a row whose every key is masked (below), with the
+// TPU kernel's rounding points: E rounded to the q dtype, g
 // rounded to the compute dtype before the dQ, dK and dE products, p
 // rounded to the dO dtype before dV, f32 accumulation, dQ/dK/dV stored in
 // the q dtype and dE in f32. scale = 1/8 (dh 64) is a power of two, so it
@@ -23,7 +24,8 @@
 // steps; GPU blocks run in no order, so a call makes these launches:
 //
 //  * prep: delta_t = dO_t . O_t in f32 and, in bf16, E in the q dtype
-//    (the JAX wrapper makes both outside its kernels; here one launch);
+//    (the JAX wrapper makes both outside its kernels; here one launch),
+//    and u[t] with the extended walk's flags;
 //  * dkv: one block per (64-key tile, b*h) walks the query tiles that see
 //    it (from the diagonal on, when causal) and keeps dK and dV in
 //    registers;
@@ -57,6 +59,19 @@
 // dV, and to no dE window. For every other row they add p = e^(-1e9 + x
 // - lse) = 0 exactly, so its bits do not change; a block without flagged
 // tiles pays one flag load, issued before its walk.
+//
+// The row scale u. On such a row (and, without causal, on a row whose
+// keys are all padded) kernel A's LSE is m + log(l) rounded to m = -1e9:
+// log(l) lies below the f32 spacing there (64), so e^(x - lse) is 1 on
+// each of the l keys at the floor where the forward weighed each 1/l. The
+// JAX _bwd recomputes p from that LSE alone and so gives the row l times
+// the gradient of its forward. Here the prep launch sums e^(x_s - lse)
+// over every key of a row with lse < -5e8 (one warp a row, CUDA-core f32
+// products of the same rounded operands: only their order differs from
+// the tile's, which moves x only where |logit| before the mask is >= 32)
+// and stores u = 1 / sum; every other row gets u = 1, so its p keeps its
+// bits. dQ, dK, dV and dE are then those of the forward (the plain
+// version's `unmet_row_scale`).
 //
 // What bounds it: at the training shape (B8 H4 L512 dh64, bf16, causal)
 // the least traffic is q, k, v, O, dO, dQ, dK, dV, the E table, dE and
@@ -92,7 +107,7 @@
 //     computes dE_band rows 16w .. 16w + 15 (low) and 64 + 16w .. (high)
 //     as slab^T . Q over the k16 steps of the warps whose windows reach
 //     them (5 in all), retires the low rows to the window and moves the
-//     high ones down: no exchange between warps. 238 registers, 0 spilled
+//     high ones down: no exchange between warps. 250 registers, 0 spilled
 //     (ptxas, sm_90a): the dQ, dE-low and dE-high accumulators (96) stay
 //     in registers and the Q and dO fragments are reloaded each tile.
 //   - dkv, per query tile: S, dP and g in query-row orientation; bf16 P
@@ -131,9 +146,9 @@ constexpr int BAND = BQ + BK;    // E rows one (query tile, key tile) reads
 constexpr float NEG_INF = -1e9f;
 
 constexpr int DKV_SMEM_FLOATS = 2 * BK * LD + 2 * BQ * LD + BAND * LD
-                                + 2 * BQ * LDT + 2 * BQ;
+                                + 2 * BQ * LDT + 3 * BQ;
 constexpr int DQ_SMEM_FLOATS = 2 * BQ * LD + 2 * BK * LD + BAND * LD
-                               + BQ * LDG + 2 * BQ;
+                               + BQ * LDG + 3 * BQ;
 
 // Rows [r0, r0 + n) of a [L, 64] tile into shared memory as f32, rows past
 // L as zero.
@@ -198,12 +213,12 @@ __device__ __forceinline__ void tile_products(
 }
 
 // p and g of element (t, s) from the micro-tile sums. Rows and keys past
-// L get p = 0 (their lse / delta slots are staged as 0).
+// L get p = 0 (their lse / delta / u slots are staged as 0).
 __device__ __forceinline__ void p_and_g(float sqk, float sqe, float dp,
                                         int t, int s, int L, int causal,
                                         const float* pad, float scale,
                                         float lse_t, float delta_t,
-                                        float& p, float& g) {
+                                        float u_t, float& p, float& g) {
   float x = (sqk + sqe) * scale;
   if (causal && s > t) x += NEG_INF;
   if (s < L && t < L) {
@@ -211,7 +226,7 @@ __device__ __forceinline__ void p_and_g(float sqk, float sqe, float dp,
   } else {
     x = -INFINITY;
   }
-  p = expf(x - lse_t);
+  p = expf(x - lse_t) * u_t;
   g = p * (dp - delta_t);
 }
 
@@ -222,7 +237,8 @@ rel_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const float* __restrict__ key_pad,
                         const T* __restrict__ dout,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dk,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ u, T* __restrict__ dk,
                         T* __restrict__ dv, const int* __restrict__ flags,
                         int H, int L, int max_seq, int causal, float scale) {
   extern __shared__ float smem[];
@@ -235,6 +251,7 @@ rel_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Gs = Ps + BQ * LDT;          // [BQ][LDT], g in the q dtype
   float* lse_s = Gs + BQ * LDT;       // [BQ]
   float* delta_s = lse_s + BQ;        // [BQ]
+  float* u_s = delta_s + BQ;          // [BQ]
 
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
@@ -271,6 +288,7 @@ rel_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int t = t0 + tid;
       lse_s[tid] = t < L ? lse[(size_t)bh * L + t] : 0.f;
       delta_s[tid] = t < L ? delta[(size_t)bh * L + t] : 0.f;
+      u_s[tid] = t < L ? u[(size_t)bh * L + t] : 0.f;
     }
     __syncthreads();
 
@@ -284,7 +302,7 @@ rel_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int sl = tx * 4 + j;
         float p, g;
         p_and_g(sqk[i][j], sqe[i][j], dp[i][j], t0 + tl, s0 + sl, L, causal,
-                pad, scale, lse_s[tl], delta_s[tl], p, g);
+                pad, scale, lse_s[tl], delta_s[tl], u_s[tl], p, g);
         Ps[tl * LDT + sl] = mg::round_to<T>(p);
         Gs[tl * LDT + sl] = mg::round_to<T>(g);
       }
@@ -334,7 +352,8 @@ rel_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const float* __restrict__ key_pad,
                        const T* __restrict__ dout,
                        const float* __restrict__ lse,
-                       const float* __restrict__ delta, T* __restrict__ dq,
+                       const float* __restrict__ delta,
+                       const float* __restrict__ u, T* __restrict__ dq,
                        float* __restrict__ de_part,
                        const int* __restrict__ flags, int H, int L,
                        int max_seq, int causal, float scale) {
@@ -347,6 +366,7 @@ rel_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Gp = Es + BAND * LD;         // [BQ][LDG]: g at columns [BK, 2 BK)
   float* lse_s = Gp + BQ * LDG;       // [BQ]
   float* delta_s = lse_s + BQ;        // [BQ]
+  float* u_s = delta_s + BQ;          // [BQ]
 
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
@@ -368,6 +388,7 @@ rel_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int t = t0 + tid;
     lse_s[tid] = t < L ? lse[(size_t)bh * L + t] : 0.f;
     delta_s[tid] = t < L ? delta[(size_t)bh * L + t] : 0.f;
+    u_s[tid] = t < L ? u[(size_t)bh * L + t] : 0.f;
   }
   for (int i = tid; i < BQ * LDG; i += NT) Gp[i] = 0.f;  // zero margins
 
@@ -407,7 +428,7 @@ rel_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int sl = tx * 4 + j;
         float p, g;
         p_and_g(sqk[i][j], sqe[i][j], dp[i][j], t0 + tl, s0 + sl, L, causal,
-                pad, scale, lse_s[tl], delta_s[tl], p, g);
+                pad, scale, lse_s[tl], delta_s[tl], u_s[tl], p, g);
         Gp[tl * LDG + BK + sl] = mg::round_to<T>(g);
       }
     }
@@ -554,13 +575,14 @@ __device__ __forceinline__ void mma_kn(float (&acc)[8][4],
   }
 }
 
-// p = e^(x - lse) and g = p (dP - delta) in place of the logits, for the
-// thread's rows g and g + 8; p and g rounded to bf16 as pairs of columns
-// (pb may be null).
+// p = e^(x - lse) u and g = p (dP - delta) in place of the logits, for
+// the thread's rows g and g + 8; p and g rounded to bf16 as pairs of
+// columns (pb may be null).
 __device__ __forceinline__ void grad_logits(float (&s)[8][4],
                                             const float (&dp)[8][4],
                                             const float (&lse)[2],
                                             const float (&dl)[2],
+                                            const float (&u)[2],
                                             uint32_t (*pb)[2],
                                             uint32_t (&gb)[8][2]) {
 #pragma unroll
@@ -570,7 +592,8 @@ __device__ __forceinline__ void grad_logits(float (&s)[8][4],
       float p[2];
 #pragma unroll
       for (int b = 0; b < 2; ++b) {
-        p[b] = tc::exp2_approx((s[j][2 * h + b] - lse[h]) * tc::LOG2E);
+        p[b] = tc::exp2_approx((s[j][2 * h + b] - lse[h]) * tc::LOG2E)
+               * u[h];
         s[j][2 * h + b] = p[b] * (dp[j][2 * h + b] - dl[h]);
       }
       if (pb) pb[j][h] = tc::pack_bf16(p[0], p[1]);
@@ -596,6 +619,7 @@ struct BwdArgs {
   const bf16* dout;
   const float* lse;
   const float* delta;
+  const float* u;        // [B*H, L]: the prep launch's row scale
   bf16* dq;
   bf16* dk;
   bf16* dv;
@@ -605,16 +629,19 @@ struct BwdArgs {
   float scale;
 };
 
-// lse and delta of the thread's rows g and g + 8 of the warp's 16 in the
-// query tile at t0; rows past L get lse = +inf, so p = e^(x - inf) = 0.
+// lse, delta and u of the thread's rows g and g + 8 of the warp's 16 in
+// the query tile at t0; rows past L get lse = +inf, so p = e^(x - inf) =
+// 0.
 __device__ __forceinline__ void row_stats(const BwdArgs& p, int bh, int t0,
-                                          float (&lse)[2], float (&dl)[2]) {
+                                          float (&lse)[2], float (&dl)[2],
+                                          float (&u)[2]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int t = t0 + 16 * warp + (lane >> 2) + 8 * h;
     lse[h] = t < p.L ? p.lse[(size_t)bh * p.L + t] : INFINITY;
     dl[h] = t < p.L ? p.delta[(size_t)bh * p.L + t] : 0.f;
+    u[h] = t < p.L ? p.u[(size_t)bh * p.L + t] : 0.f;
   }
 }
 
@@ -661,8 +688,8 @@ __device__ __forceinline__ void dq_block(const BwdArgs& p, int qt, int bh,
   // the g slabs' columns outside 15 - r .. 78 - r stay zero
   for (int i = threadIdx.x; i < 4 * GS_BYTES / 16; i += tc::NT)
     reinterpret_cast<uint4*>(smem + S::GS)[i] = make_uint4(0, 0, 0, 0);
-  float lse_r[2], dl_r[2];
-  row_stats(p, bh, t0, lse_r, dl_r);
+  float lse_r[2], dl_r[2], u_r[2];
+  row_stats(p, bh, t0, lse_r, dl_r, u_r);
   float dqa[8][4], de_lo[8][4], de_hi[8][4];
 #pragma unroll
   for (int j = 0; j < 8; ++j)
@@ -705,7 +732,7 @@ __device__ __forceinline__ void dq_block(const BwdArgs& p, int qt, int bh,
       tc::mma_nt(dp, of, vbuf);
     }
     uint32_t gb[8][2];
-    grad_logits(s, dp, lse_r, dl_r, nullptr, gb);
+    grad_logits(s, dp, lse_r, dl_r, u_r, nullptr, gb);
 
     // g skewed into the slab: slab[r, 15 - r + sl] = g[r, sl]
 #pragma unroll
@@ -885,8 +912,8 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& p, int kt, int bh,
     a.t0 = t0;
     const char* qbuf = smem + S::Q + buf * tc::TILE_BYTES;
     const char* obuf = smem + S::DO + buf * tc::TILE_BYTES;
-    float lse_r[2], dl_r[2];
-    row_stats(p, bh, t0, lse_r, dl_r);
+    float lse_r[2], dl_r[2], u_r[2];
+    row_stats(p, bh, t0, lse_r, dl_r, u_r);
 
     float s[8][4], dp[8][4];
     {
@@ -903,7 +930,7 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& p, int kt, int bh,
       tc::mma_nt(dp, of, smem + S::V);
     }
     uint32_t pb[8][2], gb[8][2];
-    grad_logits(s, dp, lse_r, dl_r, pb, gb);
+    grad_logits(s, dp, lse_r, dl_r, u_r, pb, gb);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -971,20 +998,55 @@ rel_attn_bwd_tc_kernel(const BwdArgs p) {
     dq_block(p, (p.L + BQ - 1) / BQ - 1 - j, blockIdx.x, tc_smem);
 }
 
+// The sum over every key s of e^(x_s - lse_t) for query row t of one
+// (b, h), x_s the logit as the bodies form it ((q.k + q.E) * scale, then
+// the masks) from the same rounded operands, one warp: lanes take keys.
+template <typename T>
+__device__ float floor_row_sum(const T* __restrict__ qrow,
+                               const T* __restrict__ kb,
+                               const float* __restrict__ e,
+                               const float* __restrict__ pad, int t, int L,
+                               int max_seq, int causal, float scale,
+                               float lse_t) {
+  float sum = 0.f;
+  for (int s = threadIdx.x & 31; s < L; s += 32) {
+    const T* kr = kb + (size_t)s * DH;
+    const int ei = max_seq - 1 - t + s;  // >= 0; past the table: zero
+    float qk = 0.f, qe = 0.f;
+    for (int c = 0; c < DH; ++c) {
+      const float qc = mg::to_f(qrow[c]);
+      qk = fmaf(qc, mg::to_f(kr[c]), qk);
+      if (ei < max_seq)
+        qe = fmaf(qc, mg::round_to<T>(e[(size_t)ei * DH + c]), qe);
+    }
+    float x = (qk + qe) * scale;
+    if (causal && s > t) x += NEG_INF;
+    if (pad) x += pad[s] * NEG_INF;
+    sum += expf(x - lse_t);
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  return sum;
+}
+
 // delta[row] = dO[row] . O[row] in f32 (8 threads a row, 16-byte loads)
 // and, with e_lp, E in bf16: the two inputs the JAX wrapper prepares
-// outside its kernels, in one launch. Under causal the launch also writes
-// the extended walk's flags: flags[bh * n_tiles + qt] = 1 when a real row
-// of query tile qt has its LSE at the -1e9 floor (every key it reaches is
-// padded; kernel A's `unmet_rows` test, on the LSE), else 0; one warp a
-// query tile.
+// outside its kernels, in one launch. The launch also writes, one warp a
+// (b*h, query tile), the row scale u (1 / floor_row_sum on a real row
+// whose LSE is at the -1e9 floor, below -5e8: kernel A's `unmet_rows`
+// test, on the LSE; else 1) and the extended walk's flags:
+// flags[bh * n_tiles + qt] = 1 when a row of query tile qt is at the
+// floor, else 0 (read only under causal).
 template <typename T>
 __global__ void __launch_bounds__(256)
 rel_attn_bwd_prep(const T* __restrict__ dout, const T* __restrict__ out,
                   float* __restrict__ delta, int rows,
                   const float* __restrict__ e, bf16* __restrict__ e_lp,
                   int e_elems, const float* __restrict__ lse,
-                  int* __restrict__ flags, int L, int n_flags) {
+                  int* __restrict__ flags, float* __restrict__ u,
+                  const T* __restrict__ q, const T* __restrict__ k,
+                  const float* __restrict__ key_pad, int H, int L,
+                  int max_seq, int causal, float scale, int n_flags) {
   const int row_blocks = (rows + 31) / 32;
   const int e_blocks = (e_elems + 2047) / 2048;
   if ((int)blockIdx.x < row_blocks) {
@@ -1017,14 +1079,32 @@ rel_attn_bwd_prep(const T* __restrict__ dout, const T* __restrict__ out,
     if (f < n_flags) {
       const int n_tiles = (L + BQ - 1) / BQ;
       const int bh = f / n_tiles, t0 = (f % n_tiles) * BQ;
-      bool unmet = false;
+      const float* lrow = lse + (size_t)bh * L;
+      unsigned floor_rows[2];
+      float mine[2] = {1.f, 1.f};  // u of rows t0 + lane + 32 h
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int t = t0 + lane + 32 * h;
-        unmet |= t < L && lse[(size_t)bh * L + t] < 0.5f * NEG_INF;
+        floor_rows[h] = __ballot_sync(0xffffffffu,
+                                      t < L && lrow[t] < 0.5f * NEG_INF);
       }
-      const unsigned any = __ballot_sync(0xffffffffu, unmet);
-      if (lane == 0) flags[f] = any != 0u;
+      if (lane == 0) flags[f] = (floor_rows[0] | floor_rows[1]) != 0u;
+      const size_t off = (size_t)bh * L * DH;
+      const float* pad = key_pad ? key_pad + (size_t)(bh / H) * L : nullptr;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        for (unsigned m = floor_rows[h]; m; m &= m - 1) {
+          const int r = __ffs(m) - 1, t = t0 + r + 32 * h;
+          const float sum = floor_row_sum(q + off + (size_t)t * DH, k + off,
+                                          e, pad, t, L, max_seq, causal,
+                                          scale, lrow[t]);
+          if (lane == r) mine[h] = 1.f / sum;
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = t0 + lane + 32 * h;
+        if (t < L) u[(size_t)bh * L + t] = mine[h];
+      }
     }
   }
 }
@@ -1090,9 +1170,9 @@ long long windows(int B, int H, int L) {
 // TC picks the body: the tensor-core kernel (bf16 only) or the CUDA-core
 // ones. By default the dtype picks it; both take the same arguments (`e`
 // in f32 for the CUDA-core body, `e_lp`, filled by the prep kernel, for
-// the other). Launches the prep kernel (delta, and E in bf16), the dK/dV
-// and dQ work (one launch on the tensor cores, two on the CUDA cores) and
-// the dE reduction.
+// the other). Launches the prep kernel (delta, E in bf16, flags, u), the
+// dK/dV and dQ work (one launch on the tensor cores, two on the CUDA
+// cores) and the dE reduction.
 template <typename T, bool TC = std::is_same<T, __nv_bfloat16>::value>
 int launch(const void* q, const void* k, const void* v, const void* e,
            void* e_lp, const void* key_pad, const void* out,
@@ -1105,17 +1185,21 @@ int launch(const void* q, const void* k, const void* v, const void* e,
   const int n_tiles = (L + BQ - 1) / BQ;
   const int rows = B * H * L;
   const int e_elems = TC ? max_seq * DH : 0;
-  // the extended walk's flags: past the dE windows in the same scratch
+  // the extended walk's flags, then the row scale u: past the dE windows
+  // in the same scratch
   int* flags = reinterpret_cast<int*>(static_cast<float*>(de_part)
                                       + windows<TC>(B, H, L));
-  const int n_flags = causal ? B * H * n_tiles : 0;
+  const int n_flags = B * H * n_tiles;
+  float* u = reinterpret_cast<float*>(flags + n_flags);
   rel_attn_bwd_prep<T><<<(rows + 31) / 32 + (e_elems + 2047) / 2048
                              + (n_flags + 7) / 8,
                          256, 0, stream>>>(
       static_cast<const T*>(dout), static_cast<const T*>(out),
       static_cast<float*>(delta), rows, static_cast<const float*>(e),
       static_cast<bf16*>(e_lp), e_elems, static_cast<const float*>(lse),
-      flags, L, n_flags);
+      flags, u, static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const float*>(key_pad), H, L, max_seq, causal, scale,
+      n_flags);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if constexpr (TC) {
@@ -1134,6 +1218,7 @@ int launch(const void* q, const void* k, const void* v, const void* e,
     a.dout = static_cast<const bf16*>(dout);
     a.lse = static_cast<const float*>(lse);
     a.delta = static_cast<const float*>(delta);
+    a.u = u;
     a.dq = static_cast<bf16*>(dq);
     a.dk = static_cast<bf16*>(dk);
     a.dv = static_cast<bf16*>(dv);
@@ -1168,7 +1253,7 @@ int launch(const void* q, const void* k, const void* v, const void* e,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const float*>(e),
         static_cast<const float*>(key_pad), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<const float*>(lse), static_cast<const float*>(delta), u,
         static_cast<T*>(dk), static_cast<T*>(dv), flags, H, L, max_seq,
         causal, scale);
     err = cudaGetLastError();
@@ -1177,7 +1262,7 @@ int launch(const void* q, const void* k, const void* v, const void* e,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const float*>(e),
         static_cast<const float*>(key_pad), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<const float*>(lse), static_cast<const float*>(delta), u,
         static_cast<T*>(dq), static_cast<float*>(de_part), flags, H, L,
         max_seq, causal, scale);
     err = cudaGetLastError();
@@ -1189,11 +1274,12 @@ int launch(const void* q, const void* k, const void* v, const void* e,
   }
 }
 
-// Floats of the scratch a call needs: the dE partial windows, then one
-// int flag per (b*h, query tile) for the extended walk.
+// Floats of the scratch a call needs: the dE partial windows, one int
+// flag per (b*h, query tile) for the extended walk, and u per row.
 template <bool TC>
 long long scratch(int B, int H, int L) {
-  return windows<TC>(B, H, L) + (long long)B * H * ((L + BQ - 1) / BQ);
+  return windows<TC>(B, H, L) + (long long)B * H * ((L + BQ - 1) / BQ)
+         + (long long)B * H * L;
 }
 
 }  // namespace

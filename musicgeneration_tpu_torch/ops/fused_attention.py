@@ -16,6 +16,15 @@ TPU kernel's slack), products accumulated in f32, the softmax in f32 with
 a -1e9 floor on the row max, and P rounded to the V dtype before PV. The
 backward saves ``(q, k, v, e, key_pad, out, lse)`` as the JAX ``_fwd``
 does (pallas_attention.py:685-689) and recomputes p from the LSE.
+
+A row whose every key carries a -1e9 mask (under causal: every key it
+reaches is padded) gets from the forward the average of V over the keys
+whose logit sits at the -1e9 floor, and an LSE of m + log(l) rounded to
+m: log(l) is lost below the f32 spacing of 1e9 (64). There e^(x - lse) is
+1 on each of those l keys, so the backward scales such a row's p by 1/l,
+the row sum of e^(x - lse), and its gradients are those of the forward.
+The JAX ``_bwd`` recomputes p from the LSE alone and gives such a row l
+times its gradient.
 """
 
 from __future__ import annotations
@@ -68,18 +77,27 @@ def _forward_plain(q, k, v, e, key_pad, causal: bool):
     return out, (m + torch.log(lsum)).squeeze(-1)
 
 
+def unmet_row_scale(p: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """[..., L] f32: 1 / sum_s p[t, s] for rows whose LSE sits at the
+    -1e9 floor (below -5e8: every key masked), 1 elsewhere."""
+    return torch.where(lse < 0.5 * NEG_INF, 1.0 / p.sum(-1),
+                       torch.ones_like(lse))
+
+
 def fused_relative_attention_bwd_plain(q, k, v, e, key_pad, causal: bool,
                                        out, lse, dout):
     """Plain version of kernel C (any dh; any device): the explicit
     gradient formula, not autograd, with the TPU kernel's rounding points
-    (pallas_attention.py:699-785). Returns (dq, dk, dv, de): dq/dk/dv in
-    the q dtype, de [max_seq, dh] f32."""
+    (pallas_attention.py:699-785), and p of a row at the -1e9 floor
+    scaled to sum to 1 (module docstring). Returns (dq, dk, dv, de):
+    dq/dk/dv in the q dtype, de [max_seq, dh] f32."""
     b, h, l, dh = q.shape
     max_seq = e.shape[0]
     cdt = q.dtype
     scale = 1.0 / math.sqrt(dh)
     logits, idx, band = _logits(q, k, e, key_pad, causal)
     p = torch.exp(logits - lse[..., None])
+    p = p * unmet_row_scale(p, lse)[..., None]
     do = dout.float()
     delta = (do * out.float()).sum(-1, keepdim=True)         # f32 [.., L, 1]
     dp = do @ v.float().transpose(-1, -2)

@@ -285,9 +285,11 @@ def shard_batch(mesh: Mesh, batch, index: Optional[int] = None):
 def multihost_shard_batch(mesh: Mesh, local_batch):
     """The GLOBAL batch assembled from every rank's local rows (JAX's
     ``make_array_from_process_local_data``): each process reads its own
-    shard of the corpus and contributes its slice; tensors (or a tuple or
-    dict of them) are gathered along axis 0 over the data group, in data
-    order. On a virtual mesh the local batch is the global one."""
+    shard of the corpus and contributes its slice; arrays or tensors (or
+    a tuple or dict of them) are gathered along axis 0 over the data
+    group, in data order, onto the rank's device (NCCL gathers CUDA
+    tensors only, and JAX returns a device array). On a virtual mesh the
+    local batch is the global one."""
     if mesh.virtual or mesh.data == 1:
         return local_batch
     if isinstance(local_batch, dict):
@@ -296,7 +298,7 @@ def multihost_shard_batch(mesh: Mesh, local_batch):
     if isinstance(local_batch, (tuple, list)):
         return type(local_batch)(multihost_shard_batch(mesh, v)
                                  for v in local_batch)
-    x = torch.as_tensor(local_batch).contiguous()
+    x = torch.as_tensor(local_batch, device=mesh.device).contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.data)]
     dist.all_gather(parts, x, group=mesh.device_mesh.get_group("data"))
     return torch.cat(parts)

@@ -200,11 +200,13 @@ def _tile_logits(qt, kt, e0, e1, t0, s0, nkeys, pad, causal, scale):
                          -math.inf)
 
 
-def _row_stats(lse, delta, t0):
-    """lse (+inf past L: p = 0) and delta of a query tile's rows."""
+def _row_stats(lse, delta, inv, t0):
+    """lse (+inf past L: p = 0), delta and the prep launch's p scale of
+    a query tile's rows."""
     lse_t = _rows(lse[..., None], t0)[..., 0]
     lse_t[..., max(0, lse.shape[-1] - t0):] = math.inf
-    return lse_t[..., None], _rows(delta[..., None], t0)
+    return (lse_t[..., None], _rows(delta[..., None], t0),
+            _rows(inv[..., None], t0))
 
 
 def _flags(lse, n):
@@ -214,7 +216,7 @@ def _flags(lse, n):
                         .any(-1) for qt in range(n)], -1)
 
 
-def _dq_block(qt, grads, q, k, v, e, pad, causal, lse, delta, dout,
+def _dq_block(qt, grads, q, k, v, e, pad, causal, lse, delta, inv, dout,
               scale, flags):
     """The dq block of query tile qt: dQ rows and the tile's dE partial
     window, chunks 0 .. qt of 64 x 64 rows at chunk qt (qt + 1) / 2 of
@@ -227,7 +229,7 @@ def _dq_block(qt, grads, q, k, v, e, pad, causal, lse, delta, dout,
     n = -(-l // _BK)
     t0 = qt * _BQ
     qs, dos = _rows(q, t0), _rows(dout, t0)
-    lse_t, dl_t = _row_stats(lse, delta, t0)
+    lse_t, dl_t, inv_t = _row_stats(lse, delta, inv, t0)
     walks = flags[..., qt, None, None].float()
     n_kv = n if not causal or bool(flags[..., qt].any()) else min(n, qt + 1)
     ebase = max_seq - _BQ - t0
@@ -240,7 +242,8 @@ def _dq_block(qt, grads, q, k, v, e, pad, causal, lse, delta, dout,
         ks, vs = _rows(k, s0), _rows(v, s0)
         e0, e1 = ring[kt % 3], ring[(kt + 1) % 3]
         x = _tile_logits(qs, ks, e0, e1, t0, s0, l - s0, pad, causal, scale)
-        g = torch.exp(x - lse_t) * (dos @ vs.transpose(-1, -2) - dl_t)
+        g = torch.exp(x - lse_t) * inv_t * (dos @ vs.transpose(-1, -2)
+                                            - dl_t)
         if causal and kt > qt:            # the extended walk
             g = g * walks
         dqa += g @ ks
@@ -272,7 +275,7 @@ def _dq_block(qt, grads, q, k, v, e, pad, causal, lse, delta, dout,
     dq[:, :, t0:t0 + m] = (dqa * scale)[:, :, :m]
 
 
-def _dkv_block(kt, grads, q, k, v, e, pad, causal, lse, delta, dout,
+def _dkv_block(kt, grads, q, k, v, e, pad, causal, lse, delta, inv, dout,
                scale, flags):
     """The dkv block of key tile kt: the query tiles from the diagonal on
     (causal), the band sliding down by 64 rows a query tile, then the
@@ -298,10 +301,10 @@ def _dkv_block(kt, grads, q, k, v, e, pad, causal, lse, delta, dout,
     for i, qt in enumerate(walk):
         t0 = qt * _BQ
         qs, dos = _rows(q, t0), _rows(dout, t0)
-        lse_t, dl_t = _row_stats(lse, delta, t0)
+        lse_t, dl_t, inv_t = _row_stats(lse, delta, inv, t0)
         x = _tile_logits(qs, ks, ring[(2 * i) % 3], ring[(1 + 2 * i) % 3],
                          t0, s0, l - s0, pad, causal, scale)
-        p = torch.exp(x - lse_t)
+        p = torch.exp(x - lse_t) * inv_t
         if qt < qt0:
             p = p * flags[..., qt, None, None].float()
         g = p * (dos @ vs.transpose(-1, -2) - dl_t)
@@ -340,7 +343,8 @@ def _de_reduce(part, max_seq, n, scale):
 
 def _tc_backward(q, k, v, e, pad, causal, out, lse, dout):
     """(dq, dk, dv, de) of kernel C's bf16 body, walked as its launches
-    walk it, in f32: delta and the flags, then one grid of dq and dkv
+    walk it, in f32: delta, the flags and the p scale of the rows at the
+    -1e9 floor, then one grid of dq and dkv
     blocks (blockIdx.y = 2 j + role: the dq block of query tile n - 1 - j,
     the dkv block of key tile j), then the dE reduction."""
     return _tc_backward_flags(q, k, v, e, pad, out, lse, dout,
@@ -352,12 +356,15 @@ def _tc_backward_flags(q, k, v, e, pad, out, lse, dout, flags, causal=True):
     b, h, l, dh = q.shape
     scale = 1.0 / math.sqrt(dh)
     delta = (dout * out).sum(-1)
+    logits = tfa._logits(q, k, e, pad, causal)[0]
+    inv = tfa.unmet_row_scale(torch.exp(logits - lse[..., None]), lse)
     n = -(-l // _BK)
     grads = {"dq": torch.full_like(q, math.nan),
              "dk": torch.full_like(k, math.nan),
              "dv": torch.full_like(v, math.nan),
              "part": torch.full((b, h, n * (n + 1) // 2, _BK, dh), math.nan)}
-    args = (grads, q, k, v, e, pad, causal, lse, delta, dout, scale, flags)
+    args = (grads, q, k, v, e, pad, causal, lse, delta, inv, dout, scale,
+            flags)
     for y in range(2 * n):
         if y & 1:
             _dkv_block(y >> 1, *args)
@@ -424,7 +431,9 @@ def test_extended_walk_gives_left_padded_rows_the_plain_gradient(l, left,
     for "bf16" (the tile's operands). Against ``jax.vjp`` of the JAX
     package's plain attention (``ops/relative_attention.py``), which
     differentiates the softmax where the plain formula recomputes p from
-    the LSE, dQ agrees on the rows that meet an unmasked key."""
+    the LSE, every gradient agrees on every row, the left-padded ones too:
+    there p is scaled to sum to 1, where the JAX ``_bwd`` leaves it at 1 a
+    key (ROADMAP Queue C)."""
     rng = np.random.default_rng(l + left)
     b, h, dh, max_seq = 2, 2, 64, 256
     q, k, v, dout = (rng.standard_normal((b, h, l, dh)).astype(np.float32)
@@ -453,15 +462,12 @@ def test_extended_walk_gives_left_padded_rows_the_plain_gradient(l, left,
     mask = np.triu(np.ones((l, l), np.float32), 1)[None, None] \
         + pad[:, None, None, :]
 
-    def f(q_):
-        return jrel.relative_global_attention(q_, *map(jnp.asarray,
-                                                       (k, v, e)),
+    def f(q_, k_, v_, e_):
+        return jrel.relative_global_attention(q_, k_, v_, e_,
                                               jnp.asarray(mask))
 
-    _, vjp = jax.vjp(f, jnp.asarray(q))
-    (jdq,) = vjp(jnp.asarray(dout))
-    np.testing.assert_allclose(got[0].numpy()[0, :, left:],
-                               np.asarray(jdq)[0, :, left:], rtol=TOL,
-                               atol=TOL)
-    np.testing.assert_allclose(got[0].numpy()[1], np.asarray(jdq)[1],
-                               rtol=TOL, atol=TOL)
+    _, vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v, e)))
+    for what, g, j in zip(("dq", "dk", "dv", "de"), got,
+                          vjp(jnp.asarray(dout))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), rtol=TOL,
+                                   atol=TOL, err_msg=what)
