@@ -429,6 +429,14 @@ T_RAGGED, LIVE = 1023, 256  # ragged timing: t, live window of the rows
 # 512/3, PerformanceRNN with 24 controls (event_rnn.py:44-49,
 # performance_rnn.py:45-49)
 EVENT_DIM, INIT_DIM, RNN_HIDDEN, RNN_LAYERS, CONTROL_DIM = 308, 32, 512, 3, 24
+# their event_dim on the REMI and pedal corpora (the scheme's vocabulary
+# less the pad id, as cli.train sets it); the scheme phase trains
+# EventMelodyRNN on remi and PerformanceRNN on pedal, GS_STEPS crop steps
+# of GS_SEQ each, decodes GS_GREEDY greedy f32 tokens after the
+# 500-token prime and serves cli.serve's N_SERVE requests
+GS_WIDTHS = {"remi": 336, "pedal": 389}
+GS_RUNS = (("event_rnn", "remi"), ("performance_rnn", "pedal"))
+GS_STEPS, GS_SEQ, GS_GREEDY = 2, 200, 64
 # kernel D vs plain, max abs: f32 differs in summation order only; bf16
 # rounds gi and gh to bf16, where sums that differ in the last f32 bit
 # can flip a rounding, and the layer outputs are bf16 (one ulp of a
@@ -711,6 +719,21 @@ def spin_cycles_per_ms() -> float:
         torch.cuda.synchronize()
         _SPIN_CYCLES_PER_MS.append(10_000_000 / start.elapsed_time(end))
     return _SPIN_CYCLES_PER_MS[0]
+
+
+def host_ms(fn, iters: int) -> float:
+    """Wall time of one ``fn()`` call on the host clock, averaged over
+    ``iters`` calls after a warm one, the device idle before and after:
+    for a plain version that reads a result back (kernel F's, ragged
+    B's), which ends any spin queued before it, so ``device_ms`` could not
+    hold it. Its time includes the host's gaps."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def device_ms(fn, iters: int = 100, flush=None) -> float:
@@ -1207,14 +1230,19 @@ def gru_inputs(b: int, in_dim: int, hidden: int, layers: int, dtype, gen):
 def check_kernel_d() -> float:
     """Kernel D against its plain version at both GRU language models'
     full width (in 308 and 512, H 512, 3 layers) for B 1, 4, 8 and 64, at
-    PoPMAG's decoder width (in 256, H 256, 2 layers: 64 CTAs in bf16) for
-    B 1, 8 and 32, f32 and bf16, and at a small shape (in 32, H 32, 2
-    layers); its inputs unchanged."""
+    their REMI and pedal widths (in 336, rows 16-byte aligned, and 389,
+    neither padded nor aligned: the staging branch for unaligned rows)
+    for B 1, 8 and 64, at PoPMAG's decoder width (in 256, H 256, 2
+    layers: 64 CTAs in bf16) for B 1, 8 and 32, f32 and bf16, and at a
+    small shape (in 32, H 32, 2 layers); its inputs unchanged."""
     gen = torch.Generator().manual_seed(21)
     worst = 0.0
     cases = [(b, in_dim, RNN_HIDDEN, RNN_LAYERS, dtype)
              for in_dim in (EVENT_DIM, RNN_HIDDEN) for b in (1, 4, 8, 64)
              for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(b, GS_WIDTHS[scheme], RNN_HIDDEN, RNN_LAYERS, dtype)
+              for scheme in GS_WIDTHS for b in (1, 8, 64)
+              for dtype in (torch.float32, torch.bfloat16)]
     cases += [(b, PM_HIDDEN, PM_HIDDEN, PM_LAYERS, dtype)
               for b in PM_D_BATCHES
               for dtype in (torch.float32, torch.bfloat16)]
@@ -2266,37 +2294,39 @@ def time_kernel_d(launches: int, err: float) -> dict:
             "ms_performance_rnn_b1_warm": res[("performance_rnn", 1)][0]}
 
 
-def time_kernel_d_popmag() -> dict:
-    """Kernel D at PoPMAG's decoder step (in 256, H 256, 2 layers, B 8),
-    f32 (the family's default) and bf16: device time warm and with L2
-    flushed, beside its bytes bound, its plain version and torch.nn.GRU
-    (cuDNN) over one step of the same shape, warm and flushed."""
-    gen = torch.Generator().manual_seed(37)
+def time_kernel_d_shape(tag: str, in_dim: int, hidden: int, layers: int,
+                        seed: int) -> dict:
+    """Kernel D at one step shape (in ``in_dim``, H ``hidden``, ``layers``
+    layers, B 8), bf16 and f32: device time warm and with L2 flushed,
+    beside its bytes bound, its plain version and torch.nn.GRU (cuDNN)
+    over one step of the same shape, warm and flushed. Keys ``ms_<tag>``,
+    ``ms_<tag>_warm``, ``bound_ms_<tag>``, ... (``<tag>_f32`` for f32)."""
+    gen = torch.Generator().manual_seed(seed)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEV)
     out = {}
     for name, dtype in (("", torch.bfloat16), ("_f32", torch.float32)):
-        x, h, w = gru_inputs(B, PM_HIDDEN, PM_HIDDEN, PM_LAYERS, dtype, gen)
+        x, h, w = gru_inputs(B, in_dim, hidden, layers, dtype, gen)
         warm = device_ms(lambda: fused_gru_step(x, h, w))
         cold = device_ms(lambda: fused_gru_step(x, h, w), flush=flush)
         plain = device_ms(lambda: fused_gru_step_plain(x, h, w), iters=20)
-        bnd, by = gru_bound(B, PM_HIDDEN, dtype, PM_HIDDEN, PM_LAYERS)
-        gru = torch.nn.GRU(PM_HIDDEN, PM_HIDDEN, PM_LAYERS).to(DEV, dtype)
+        bnd, by = gru_bound(B, in_dim, dtype, hidden, layers)
+        gru = torch.nn.GRU(in_dim, hidden, layers).to(DEV, dtype)
         gru.flatten_parameters()
         xs = x[None]
         with torch.no_grad():
             lib_warm = device_ms(lambda: gru(xs, h))
             lib_cold = device_ms(lambda: gru(xs, h), flush=flush)
-        print(f"kernel D {str(dtype)[6:]} PoPMAG in={PM_HIDDEN} H="
-              f"{PM_HIDDEN} L={PM_LAYERS} B={B}: warm {warm:.5f} ms, L2 "
-              f"flushed {cold:.5f} ms; bound {bnd:.5f} ms ({by}); plain "
+        print(f"kernel D {str(dtype)[6:]} {tag} in={in_dim} H={hidden} "
+              f"L={layers} B={B}: warm {warm:.5f} ms, L2 flushed "
+              f"{cold:.5f} ms; bound {bnd:.5f} ms ({by}); plain "
               f"{plain:.4f} ms; torch.nn.GRU (cuDNN) one step warm "
               f"{lib_warm:.5f} ms, L2 flushed {lib_cold:.5f} ms",
               f"on {gpu_line()}")
-        out.update({f"ms_popmag{name}": cold, f"ms_popmag{name}_warm": warm,
-                    f"bound_ms_popmag{name}": bnd,
-                    f"plain_ms_popmag{name}": plain,
-                    f"library_ms_popmag{name}": lib_cold,
-                    f"library_ms_popmag{name}_warm": lib_warm})
+        k = tag + name
+        out.update({f"ms_{k}": cold, f"ms_{k}_warm": warm,
+                    f"bound_ms_{k}": bnd, f"plain_ms_{k}": plain,
+                    f"library_ms_{k}": lib_cold,
+                    f"library_ms_{k}_warm": lib_warm})
     return out
 
 
@@ -2823,7 +2853,7 @@ def time_kernel_b_ragged(launches: int, err: float) -> dict:
 
     ms0 = device_ms(lambda: step(0), iters=50)
     ms, earlier_ms = with_earlier(lambda: step(smin))
-    plain_ms = device_ms(lambda: fused_decode_step_plain(
+    plain_ms = host_ms(lambda: fused_decode_step_plain(
         x, t, e_all, w_all, kc, vc, H, start=start, start_min=smin), iters=10)
     bound_ms, by = decode_bound(start.cpu().numpy(), t)
     full_ms, _ = decode_bound(np.zeros(B, np.int64), t)
@@ -3317,7 +3347,7 @@ def time_int8(err: dict, launches: dict) -> list:
     _, earlier_int8 = with_earlier(
         lambda: fused_decode_step(x, t, e_all, qw, kc, vc, H, scales=sc,
                                   **kw))
-    plain_ms = device_ms(lambda: fused_decode_step_plain(
+    plain_ms = host_ms(lambda: fused_decode_step_plain(
         x, t, e_all, qw, kc, vc, H, scales=sc, **kw), iters=10)
     bnd, by = decode_bound(start.cpu().numpy(), t, int8=True)
     print(f"ragged kernel B bf16 B={B} t={t}, live window {LIVE}: int8 "
@@ -3813,7 +3843,7 @@ def time_kernel_f(launches: int, by_path: dict, err: float) -> dict:
         args = loop_args(inp, t0, c)
         ms, earlier_ms = with_earlier(
             lambda: fused_decode_loop(*args, packed=inp["packed"]), iters=10)
-        plain_ms = device_ms(lambda: fused_decode_loop_plain(*args), iters=2)
+        plain_ms = host_ms(lambda: fused_decode_loop_plain(*args), iters=2)
         bnd, by = loop_bound(b, c, t0)
         res[b] = (ms, plain_ms, bnd, by, earlier_ms)
         print(f"kernel F bf16 B={b} C={c} t0={t0}: {ms:.4f} ms per launch "
@@ -5968,7 +5998,7 @@ def time_kernel_f_vocab(vocab: int) -> dict:
     args = loop_args(inp, T_TIMED, LOOP_CHUNK)
     ms = device_ms(lambda: fused_decode_loop(*args, packed=inp["packed"]),
                    iters=10)
-    plain_ms = device_ms(lambda: fused_decode_loop_plain(*args), iters=2)
+    plain_ms = host_ms(lambda: fused_decode_loop_plain(*args), iters=2)
     bnd, by = loop_bound(B, LOOP_CHUNK, T_TIMED, vocab)
     print(f"kernel F bf16 V={vocab} B={B} C={LOOP_CHUNK} t0={T_TIMED}: "
           f"{ms:.4f} ms per launch ({1e3 * ms / LOOP_CHUNK:.1f} us per step); "
@@ -6051,6 +6081,92 @@ def scheme_rate(scheme: str, shards: str) -> tuple:
                            make_train_step(tx, tcfg),
                            create_train_state(model, tx, dropout_seed=0),
                            batches)
+
+
+def gru_scheme_cli(family: str, scheme: str, run: str, prime_mid: str,
+                   tmp: str) -> int:
+    """Greedy f32 cli.generate from a GRU step file of ``scheme`` (B 8,
+    the prime's first 500 tokens through the scheme's codec, GS_GREEDY
+    tokens; PerformanceRNN from its primary event and zero latents):
+    exactly RNN_LAYERS kernel-D launches a decode step. Then the same
+    decode through ``decode.generate``: the kernel path's tokens equal
+    the plain path's, and row 0 written through the scheme's codec is
+    the CLI's first file, byte for byte. Returns the CLI's launches."""
+    prime = prime_tokens(prime_mid, RNN_PROMPT, scheme)
+    perf = family == "performance_rnn"
+    p = RNN_PROMPT + perf
+    out = os.path.join(tmp, f"gru_{scheme}.mid")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, n, secs = count_d(lambda: cli_main(
+            [run, out, "--prime", prime_mid, "--prime-len", str(RNN_PROMPT),
+             "--steps", str(GS_GREEDY), "--batch", str(B), "--temperature",
+             "0", "--dtype", "float32"] + (["--init-zero"] if perf else [])))
+    model = load_checkpoint(run, device=DEV, dtype=torch.float32)
+    toks = ([model.primary_event] if perf else []) + list(prime)
+    prompt = torch.tensor([toks] * B, dtype=torch.long, device=DEV)
+    kw = ({"cache0": model.init_cache(B, init=torch.zeros(
+        B, model.init_dim, device=DEV))} if perf else {})
+    dp = DecodeParams(max_len=p + GS_GREEDY, steps=GS_GREEDY,
+                      sampling=SamplingParams(greedy=True))
+    kern = generate(model, prompt, None, dp, **kw)
+    with plain_path():
+        plain = generate(model, prompt, None, dp, **kw)
+    ref = os.path.join(tmp, f"gru_{scheme}_ref.mid")
+    write_midi(kern[0].cpu().numpy(), ref, scheme)
+    with open(ref, "rb") as f, open(os.path.join(
+            tmp, f"gru_{scheme}-000.mid"), "rb") as g:
+        same_file = f.read() == g.read()
+    same = torch.equal(kern, plain)
+    t = kern.cpu().numpy()
+    ok = (rc == 0 and len(prime) == RNN_PROMPT
+          and n == RNN_LAYERS * (p + GS_GREEDY) and same and same_file
+          and 0 <= t.min() and t.max() < GS_WIDTHS[scheme])
+    print(f"cli.generate {family} on {scheme} (event_dim {model.event_dim}) "
+          f"greedy f32 B={B}, prime {p}, {GS_GREEDY} steps: {secs:.3f} s; "
+          f"kernel D launches {n} (expected {RNN_LAYERS} x "
+          f"{p + GS_GREEDY}); kernel path == plain path: {same}; written "
+          f"through the {scheme} codec == the CLI's file: {same_file} "
+          f"{'ok' if ok else 'FAIL'}", f"on {gpu_line()}")
+    if not ok:
+        raise AssertionError(f"cli.generate {family} on {scheme} failed")
+    return n
+
+
+def gru_scheme_paths(tmp: str, shards: dict, prime_mid: str) -> dict:
+    """The GRU families on the scheme corpora: cli.train EventMelodyRNN on
+    remi and PerformanceRNN on pedal at full width (hidden 512, 3 layers,
+    init_dim 32: event_dim 336 and 389), GS_STEPS f32 crop steps of GS_SEQ
+    at B 8 with finite losses and no kernel-D launch; from each step file
+    greedy cli.generate (``gru_scheme_cli``) and cli.serve in file mode
+    (N_SERVE requests, bf16, launches counted). Returns kernel D's
+    launches by path and the phase's seconds."""
+    t0 = time.perf_counter()
+    launches = {}
+    for family, scheme in GS_RUNS:
+        run = os.path.join(tmp, f"gru_{family}_{scheme}")
+        fused_gru_step.launches = 0
+        with quiet(os.path.join(tmp, "gru_train.log")):
+            rc = train_cli.main(rnn_train_args(
+                shards[scheme], run, GS_STEPS,
+                [f"model={family}", f"seq_len={GS_SEQ}"]))
+        ref = losses(run + ".jsonl")
+        ok = (rc == 0 and fused_gru_step.launches == 0
+              and sorted(ref) == list(range(GS_STEPS))
+              and all(math.isfinite(v) for v in ref.values()))
+        print(f"cli.train {family} on {scheme} f32 B{B} seq {GS_SEQ}: "
+              f"losses {[round(ref[k], 4) for k in sorted(ref)]} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"cli.train {family} on {scheme} failed")
+        launches[f"{scheme}_{family}_generate"] = gru_scheme_cli(
+            family, scheme, run, prime_mid, tmp)
+        launches[f"{scheme}_{family}_serve"], _ = rnn_serve_file_mode(
+            family, tmp, run, prime_mid)
+    secs = time.perf_counter() - t0
+    print(f"GRU families on remi and pedal: {secs:.1f} s",
+          f"on {gpu_line()}")
+    return {"launches": launches, "secs": secs}
 
 
 def scheme_paths(tmp: str) -> dict:
@@ -6219,18 +6335,21 @@ def distill_paths(tmp: str, shards: str, teacher: str,
 
 
 def scheme_slice_paths() -> dict:
-    """``scheme_paths`` then ``distill_paths`` (its teacher the pedal run)
-    in one scratch directory; prints each phase's seconds."""
+    """``scheme_paths``, ``gru_scheme_paths`` on its corpora, then
+    ``distill_paths`` (its teacher the pedal run) in one scratch
+    directory; prints each phase's seconds."""
     t0 = time.perf_counter()
     os.makedirs(OUT_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
         sch = scheme_paths(tmp)
+        gru = gru_scheme_paths(tmp, sch["shards"], sch["prime_mid"])
         t1 = time.perf_counter()
         dist = distill_paths(tmp, sch["shards"]["pedal"],
                              sch["runs"]["pedal"], sch["prime_mid"])
-    print(f"scheme phases: {t1 - t0:.1f} s; distill phases: "
+    print(f"scheme phases: {t1 - t0:.1f} s (the GRU families' "
+          f"{gru['secs']:.1f} s); distill phases: "
           f"{time.perf_counter() - t1:.1f} s", f"on {gpu_line()}")
-    return {"scheme": sch, "distill": dist}
+    return {"scheme": sch, "distill": dist, "gru": gru}
 
 
 def cp_window_serving(rows: np.ndarray) -> dict:
@@ -7417,10 +7536,15 @@ def main(argv: list) -> int:
     for row, key in ((row_a, "A"), (row_b, "B"), (row_c, "C")):
         row.update(cp_times[key])
     by_d = {**rnn["launches"], **pm["launches"], **rt["train"]["launches"],
-            **dpr["D"]}
+            **dpr["D"], **sl["gru"]["launches"]}
     row_d = time_kernel_d(sum(by_d.values()), err_d)
     row_d["launches_by_path"] = by_d
-    row_d.update(time_kernel_d_popmag())
+    # PoPMAG's decoder step, and the GRU families' REMI and pedal widths
+    row_d.update(time_kernel_d_shape("popmag", PM_HIDDEN, PM_HIDDEN,
+                                     PM_LAYERS, 37))
+    for in_dim in GS_WIDTHS.values():
+        row_d.update(time_kernel_d_shape(f"in{in_dim}", in_dim, RNN_HIDDEN,
+                                         RNN_LAYERS, 41))
     row_e = time_kernel_e(spec["E"] + dist["E"], max(err_e, err_w["E"]))
     row_e["launches_by_path"] = {f"speculative_{k}": r["E"]
                                  for k, r in spec["runs"].items()}

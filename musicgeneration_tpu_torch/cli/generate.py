@@ -50,9 +50,11 @@ written through the MuMIDI codec.
 
 The RNN families (EventMelodyRNN, PerformanceRNN, MelodyRNN) take the
 prime one token at a time, unpadded, and write through the codec of the
-scheme their ``cli.train`` run recorded (the MIDI-like codec for an
-exported ``.pth``; MelodyRNN's note arrays for a MelodyRNN: the prime
-through ``midi_to_note_array``, ids >= 130 dropped before
+scheme their ``cli.train`` run recorded (the GRU families: ``midilike``,
+``midilike_control``, ``remi``, ``pedal`` or ``melody``, ids past the
+codec's vocabulary dropped as for the MusicTransformer; the MIDI-like
+codec for an exported ``.pth``; MelodyRNN's note arrays for a MelodyRNN:
+the prime through ``midi_to_note_array``, ids >= 130 dropped before
 ``note_array_to_midi``). The GRU families add ``--beam N`` (beam search;
 ``--stochastic-beam`` for Gumbel-perturbed selection), and
 PerformanceRNN ``--control`` (``'PITCH_HISTOGRAM;NOTE_DENSITY'``, e.g.
@@ -122,8 +124,9 @@ def _dtype(args):
     return None if args.dtype is None else _DTYPES[args.dtype]
 
 
-# the token schemes the RNN families decode through (the port's codecs)
-RNN_SCHEMES = ("midilike", "midilike_control", "melody")
+# the token schemes the RNN families decode through (the port's codecs):
+# every flat scheme, as the JAX CLI's
+RNN_SCHEMES = ("midilike", "midilike_control", "remi", "pedal", "melody")
 
 
 def prime_tokens(prime: Optional[str], prime_len: int,

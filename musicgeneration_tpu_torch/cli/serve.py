@@ -9,8 +9,9 @@
      "temperature": 0.8, "top_k": 20, "top_p": 0.95, "greedy": false}
 (`prime` tokenizes a MIDI, up to `prime_len` tokens (500), with the
 codec of the scheme the checkpoint's `cli.train` run recorded
-(`midilike`, `remi`, `pedal` or `melody` for a MusicTransformer; the
-MIDI-like codec for an exported `.pth`), and results are written back
+(`midilike`, `midilike_control`, `remi`, `pedal` or `melody` for a
+MusicTransformer and the GRU families; the MIDI-like codec for an
+exported `.pth`), and results are written back
 through it; `tokens` supplies raw ids. `id` defaults to the line
 number. Any sampling field on any line switches the engine to per-row
 sampling: each request decodes under its own params, defaulting to the

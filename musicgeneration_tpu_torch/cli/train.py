@@ -29,16 +29,18 @@ corpus ``cli.tokenize`` wrote for it:
   at ``max_bars`` and at the first bar longer than ``max_bar_len`` (the
   arrangement's ``max_bar_len - 1``), packed to [B, max_bars,
   max_bar_len, 7], the masked 3-head CE (``popmag_masked_loss``);
-* ``model=event_rnn`` and ``model=performance_rnn`` (event_dim = the
-  codec's vocabulary) on a ``midilike`` (or ``melody``) corpus, the
-  target the whole input: row t predicts token t from the primary event
-  and tokens [:t] (reference Event_MelodyRNN/train.py:340); and
-  ``model=performance_rnn`` on a ``midilike_control`` corpus, random
-  crops of aligned tokens and per-event controls (24 wide, recovered
-  from the stored 13 bytes);
+* ``model=event_rnn`` and ``model=performance_rnn`` on any flat token
+  corpus, ``midilike``, ``remi``, ``pedal`` or ``melody`` (event_dim =
+  the scheme's vocabulary less the pad id, as the JAX CLI sets it: 308,
+  336, 389 and 129), the target the whole input: row t predicts token t
+  from the primary event and tokens [:t] (reference
+  Event_MelodyRNN/train.py:340); and ``model=performance_rnn`` on a
+  ``midilike_control`` corpus, random crops of aligned tokens and
+  per-event controls (24 wide, recovered from the stored 13 bytes);
 * ``model=melody_rnn`` on a ``melody`` corpus (note arrays, vocabulary
   130; ``model.attn_length=40`` for the attention variant): crops, CE on
-  the shifted tokens.
+  the shifted tokens. Another scheme exits: its ids would index past the
+  130-row embedding, which the JAX CLI builds whatever the scheme.
 
 The RNN families train with plain CE and Adam at a fixed 1e-3 unless
 ``peak_lr`` says otherwise, f32 unless ``model.dtype=bfloat16``, the GRU
@@ -73,8 +75,8 @@ and the run's config, its ``scheme`` and ``model_kwargs`` among it;
 
 Mesh training (the MusicTransformer; the JAX CLI's, :774-795):
 ``dp=N`` splits every batch's rows over N data shards, ``sp=M`` cuts
-every crop into M sequence shards and runs attention as the ring
-(``attention_impl="ring"``, ``parallel/``; crop mode only), ``tp=K``
+every crop (or segment window) into M sequence shards and runs
+attention as the ring (``attention_impl="ring"``, ``parallel/``), ``tp=K``
 runs every layer, the embedding and the head on K head shards
 (``parallel/tensor_parallel.py``: each rank holds num_heads / K heads,
 ffn_dim / K hidden units, d_model / K embedding columns), ``pp=P`` cuts
@@ -96,9 +98,13 @@ cpu``: gloo). Rank r is shard (d, s, m, p) with r = ((d * sp + s) * tp +
 m) * pp + p, as JAX lays out its mesh: every rank reads the same global
 batch stream and takes rows ``[d, d + 1) * B / dp`` of each of the
 ``accum_steps`` micro-batches (where dp does not divide batch_size, its
-even share of the accumulated rows) and columns ``[s, s + 1) * seq_len /
-sp``, so the global batch is the one-process run's, bit for bit;
-batch_size * accum_steps must divide by dp, seq_len by sp; with pp,
+even share of the accumulated rows) and columns ``[s, s + 1) * W / sp``
+of the batch's width W (seq_len for a crop, ``window - 1`` for a
+segment window), so the global batch is the one-process run's, bit for
+bit; batch_size * accum_steps must divide by dp, seq_len by sp, and in
+segment mode the window's inputs by sp (a window cut short by the
+shortest file may not: that run exits before any process group forms,
+naming the window and the file's length); with pp,
 batch_size by pp_microbatches and the micro-batch by dp, num_layers by
 pp; with tp, num_heads and ffn_dim by tp. pp composes with dp only.
 Losses are global means, as the one-process step's. Rank 0 alone writes
@@ -213,14 +219,8 @@ def _default_vocab(scheme: str, model: str) -> int:
     ``_default_vocab``; reference MusicTransformer/config.py:11-16): the
     codec's dim + 1 pad for the MIDI-like schemes and REMI (309, 337),
     the pedal codec's 388 + pad + eos (390), the 130 note-array ids for
-    ``melody``. The GRU families train on the MIDI-like schemes and
-    ``melody`` in the port (the schemes ``cli.generate`` decodes them
-    through)."""
-    if model != "music_transformer" and scheme not in (
-            "midilike", "midilike_control", "melody"):
-        raise SystemExit(f"model={model} trains on a 'midilike', "
-                         f"'midilike_control' or 'melody' corpus in the port; "
-                         f"this one is {scheme!r}")
+    ``melody``; a scheme without a flat token stream exits, naming
+    ``model``."""
     if scheme in ("midilike", "midilike_control"):
         from ..tokenizers.midilike import EventSeq
         return EventSeq.dim() + 1
@@ -274,6 +274,12 @@ def _lm_batch_fn(corpus, cfg: TrainCLIConfig):
     return batch_at
 
 
+def segment_window(lens, seq_len: int) -> int:
+    """Segment mode's window: the shortest sequence's length, capped at
+    seq_len + 1 (its inputs are the first window - 1 tokens)."""
+    return min(min(lens), seq_len + 1)
+
+
 def _segment_batch_fn(corpus, cfg: TrainCLIConfig):
     """Segment mode (reference Event_MelodyRNN train.py:311-325): window
     = the shortest sequence's length, capped at seq_len + 1, stride
@@ -286,7 +292,7 @@ def _segment_batch_fn(corpus, cfg: TrainCLIConfig):
 
     seqs = [np.asarray(corpus[i]) for i in range(len(corpus))]
     lens = [len(s) for s in seqs]
-    window = min(min(lens), cfg.seq_len + 1)
+    window = segment_window(lens, cfg.seq_len)
     stride = max(window // 3, 1)
     indices = window_indices(lens, window, stride)
     b = cfg.batch_size * cfg.accum_steps
@@ -728,9 +734,6 @@ def build_model(cfg: TrainCLIConfig, scheme: str,
     if mesh is not None and cfg.model != "music_transformer":
         raise SystemExit("mesh training (dp/tp/sp/pp/fsdp) is wired for "
                          "model=music_transformer")
-    if mesh is not None and mesh.size > 1 and cfg.train_mode != "crop":
-        raise SystemExit("sp > 1 is wired for model=music_transformer in "
-                         "train_mode=crop only")
     cls, defaults = get_model(cfg.model)
     kw = dict(model_kwargs)  # never mutate the caller's dict
     unknown = sorted(set(kw) - set(_MODEL_KEYS[cfg.model]))
@@ -934,8 +937,12 @@ def _mesh_shard(batch_at, mesh, cfg: TrainCLIConfig):
     if mesh is None:
         return batch_at
     a, dp = cfg.accum_steps, mesh.data
-    lo = mesh.rank * cfg.seq_len // mesh.size
-    hi = lo + cfg.seq_len // mesh.size
+
+    def cols(x):
+        # the batch's own width: seq_len for a crop, a segment window's
+        # inputs (which the shortest file may cut below seq_len)
+        per = x.shape[1] // mesh.size
+        return x[:, mesh.rank * per:(mesh.rank + 1) * per]
 
     def rows(x):
         if cfg.batch_size % dp:
@@ -946,11 +953,37 @@ def _mesh_shard(batch_at, mesh, cfg: TrainCLIConfig):
         x = x[:, mesh.data_rank * per:(mesh.data_rank + 1) * per]
         return x.reshape(a * per, *x.shape[2:])
 
-    return lambda idx: tuple(rows(x)[:, lo:hi] for x in batch_at(idx))
+    return lambda idx: tuple(cols(rows(x)) for x in batch_at(idx))
+
+
+def check_segment_sp(data_dir: str, cfg: TrainCLIConfig) -> None:
+    """Segment mode under sp > 1: every rank takes (window - 1) / sp of
+    the window's input columns, and the window follows the corpus's
+    shortest file, so the corpus is read here, before any process group
+    forms; a window whose inputs sp does not divide exits, naming the
+    window, sp and the file's length (the JAX CLI fails there too, in
+    its ring's sharding)."""
+    if (cfg.sp <= 1 or cfg.train_mode != "segment"
+            or cfg.model != "music_transformer"):
+        return
+    from ..data.pipeline import TokenCorpus
+
+    lens = TokenCorpus(data_dir, limlen=_limlen(cfg)).lengths()
+    if not lens.size:
+        return  # the batch stream names the empty corpus
+    window = segment_window(lens, cfg.seq_len)
+    if (window - 1) % cfg.sp:
+        raise SystemExit(
+            f"train_mode=segment sp={cfg.sp}: the window is {window} tokens "
+            f"(the shortest file's {int(lens.min())}, capped at seq_len + 1 "
+            f"= {cfg.seq_len + 1}), and its {window - 1} input columns do "
+            f"not divide by sp={cfg.sp}; drop the shortest files or pick a "
+            "seq_len that caps the window")
 
 
 def main(argv=None) -> int:
     args, cfg, model_kwargs = _parse(argv)
+    check_segment_sp(args.data_dir, cfg)
     mesh = init_mesh(cfg, args.device)
     try:
         return _train(args, cfg, model_kwargs, mesh)

@@ -235,3 +235,191 @@ def test_cli_train_sp_needs_matching_world_size(corpus, monkeypatch,
     monkeypatch.setenv("WORLD_SIZE", "3")
     with pytest.raises(SystemExit, match="not divisible by sp=3"):
         tcli.main(_args(tmp, "bad", 1, "sp=3"))
+
+
+# --------------------------------------------------------------------------
+# cli.train sp=2 train_mode=segment: windows the shortest file cuts short
+# --------------------------------------------------------------------------
+
+SEG_SEQ = 400   # seq_len; the shortest file (< 400 tokens) sets the window
+
+
+def _short_midi(path: str, odd: bool) -> int:
+    """The first MIDI-like piece (random events, 240 and up) whose
+    extracted length is odd (or even); written to ``path``. Returns the
+    length."""
+    for n in range(240, 300):
+        toks = np.random.default_rng(n).integers(0, 308, n)
+        midilike.write_midi(midilike.EventSeq.from_array(toks), path)
+        length = len(midilike.extract_events(path).to_array())
+        if length % 2 == odd:
+            return length
+    raise AssertionError("no piece of the wanted parity")
+
+
+@pytest.fixture(scope="module")
+def segment_corpora(tmp_path_factory):
+    """Two corpora of two long pieces and a short one: in ``odd`` the
+    short piece's length W is odd, so a segment window (W tokens, below
+    seq_len + 1) has W - 1 inputs that sp 2 divides; in ``even`` they do
+    not. Returns (directory, {name: shortest length})."""
+    tmp = tmp_path_factory.mktemp("segment_corpus")
+    shortest = {}
+    for name in ("odd", "even"):
+        midis = tmp / f"midis_{name}"
+        os.makedirs(midis)
+        for i in range(2):
+            toks = np.random.default_rng(10 + i).integers(0, 308, 600)
+            midilike.write_midi(midilike.EventSeq.from_array(toks),
+                                str(midis / f"long{i}.mid"))
+        shortest[name] = _short_midi(str(midis / "short.mid"),
+                                     name == "odd")
+        assert ttok.main([str(midis), str(tmp / name), "--workers",
+                          "1"]) == 0
+    return tmp, shortest
+
+
+def _seg_args(tmp, corpus, run, steps, *extra):
+    return [str(tmp / corpus), f"steps={steps}", "batch_size=2",
+            f"seq_len={SEG_SEQ}", "train_mode=segment", "model.num_layers=1",
+            "model.d_model=64", "model.dropout_rate=0.0",
+            f"ckpt_dir={tmp / run}", "ckpt_every=2", "log_every=1",
+            f"metrics_path={tmp / (run + '.jsonl')}", *extra,
+            "--device", "cpu"]
+
+
+def test_segment_window_columns_equal_jax(segment_corpora):
+    """Each rank's rows and columns of the segment stream (sp 2, and dp 2
+    x sp 2) are its block of the JAX CLI's ``_segment_batch_fn`` window,
+    which the shortest file cuts below seq_len + 1."""
+    from musicgeneration_tpu.cli import train as jcli
+    from musicgeneration_tpu_torch.data.pipeline import TokenCorpus
+    from musicgeneration_tpu_torch.parallel.mesh import Mesh
+
+    tmp, shortest = segment_corpora
+    corpus = TokenCorpus(str(tmp / "odd"), limlen=2)
+    kw = dict(train_mode="segment", seq_len=SEG_SEQ, batch_size=4, seed=5)
+    cfg = tcli.TrainCLIConfig(**kw)
+    theirs = jcli._segment_batch_fn(corpus, jcli.TrainCLIConfig(**kw))
+    width = shortest["odd"] - 1
+    for dp, sp in ((1, 2), (2, 2)):
+        mine = {(d, s): tcli._mesh_shard(
+            tcli._segment_batch_fn(corpus, cfg),
+            Mesh(size=sp, device=torch.device("cpu"), rank=s, data=dp,
+                 data_rank=d), cfg)
+            for d in range(dp) for s in range(sp)}
+        for idx in range(4):
+            ref = theirs(idx)
+            assert ref[0].shape == (4, width)
+            rows, cols = 4 // dp, width // sp
+            for (d, s), at in mine.items():
+                for got, want in zip(at(idx), ref):
+                    np.testing.assert_array_equal(
+                        got, want[d * rows:(d + 1) * rows,
+                                  s * cols:(s + 1) * cols])
+
+
+def test_cli_train_segment_sp2_gloo(segment_corpora):
+    """sp=2 train_mode=segment on two gloo ranks: every rank logs the
+    one-process segment run's losses (rel 1e-5), and both resume from
+    the directory."""
+    tmp, shortest = segment_corpora
+    assert shortest["odd"] < SEG_SEQ + 1
+    assert tcli.main(_seg_args(tmp, "odd", "seg_single", 4)) == 0
+    with open(tmp / "seg_single.jsonl") as f:
+        single = _losses(map(json.loads, f))
+
+    def sp2(steps):
+        port = _free_port()
+        return _run_ranks(
+            2, lambda r: [sys.executable, "-c", _CLI,
+                          *_seg_args(tmp, "odd", "seg_sp", steps, "sp=2")],
+            lambda r: dict(RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                           MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                           SAVE_LOG=str(tmp / "seg_sp.saves")))
+
+    for steps, want in ((2, [0, 1]), (4, [2, 3])):
+        for out in sp2(steps):
+            got = _losses(_json_lines(out))
+            assert sorted(got) == want, out[-4000:]
+            for s, loss in got.items():
+                assert loss == pytest.approx(single[s], rel=1e-5), s
+    with open(tmp / "seg_sp.saves") as f:
+        assert set(f.read().split()) == {"0"}
+
+
+def test_cli_train_segment_sp2_gloo_matches_jax(segment_corpora):
+    """The JAX CLI's sp=2 train_mode=segment run on two XLA CPU devices,
+    3 steps; its step-0 checkpoint (parameters and Adam moments through
+    ``convert``) resumed by the port's sp=2 run on two gloo ranks: steps
+    1 and 2 log JAX's losses (rel 1e-5) and grad norms (rel 1e-4)."""
+    from musicgeneration_tpu.utils import checkpoint as jck
+    from musicgeneration_tpu_torch.utils.checkpoint import write_payload
+
+    tmp, _ = segment_corpora
+    args = ["ckpt_every=1" if a == "ckpt_every=2" else a
+            for a in _seg_args(tmp, "odd", "seg_jax", 3, "sp=2")]
+    assert args[-2:] == ["--device", "cpu"]
+    # its mesh takes every XLA device: a process of its own with two
+    _run_ranks(1, lambda r: [sys.executable, "-m",
+                             "musicgeneration_tpu.cli.train", *args[:-2]],
+               lambda r: dict(JAX_PLATFORMS="cpu", XLA_FLAGS=(
+                   "--xla_force_host_platform_device_count=2")))
+    with open(tmp / "seg_jax.jsonl") as f:
+        jax_lines = [r for r in map(json.loads, f) if r.get("kind") == "train"]
+    assert [r["step"] for r in jax_lines] == [0, 1, 2]
+    state = jck.restore_checkpoint(
+        str(tmp / "seg_jax" / "step-0.ckpt"))["state"]
+    adam = state["opt_state"]["1"]["0"]
+    cfg = tcli.TrainCLIConfig(train_mode="segment", seq_len=SEG_SEQ,
+                              batch_size=2)
+    write_payload(str(tmp / "seg_port"), 0, {
+        "step": 0,
+        "model": convert.state_dict_from_jax(state["params"]),
+        "opt": {"count": int(adam["count"]),
+                "mu": convert.state_dict_from_jax(adam["mu"]),
+                "nu": convert.state_dict_from_jax(adam["nu"])},
+        "dropout_seed": cfg.seed,
+        "config": {"cli": cfg.to_dict(), "scheme": "midilike",
+                   "model_kwargs": {"num_layers": 1, "d_model": 64,
+                                    "dropout_rate": 0.0}}})
+    port = _free_port()
+    outs = _run_ranks(
+        2, lambda r: [sys.executable, "-c", _CLI,
+                      *_seg_args(tmp, "odd", "seg_port", 3, "sp=2")],
+        lambda r: dict(RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                       MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                       SAVE_LOG=str(tmp / "seg_port.saves")))
+    for out in outs:
+        got = {r["step"]: r for r in _json_lines(out)
+               if r.get("kind") == "train"}
+        assert sorted(got) == [1, 2], out[-4000:]
+        for want in jax_lines[1:]:
+            mine = got[want["step"]]
+            assert mine["loss"] == pytest.approx(want["loss"], rel=1e-5)
+            assert mine["grad_norm"] == pytest.approx(want["grad_norm"],
+                                                      rel=1e-4)
+
+
+def test_cli_train_segment_sp_odd_window_refused(segment_corpora,
+                                                 monkeypatch):
+    """A window whose inputs sp does not divide exits, naming the window,
+    sp and the shortest file, before any process group forms."""
+    import torch.distributed as dist
+
+    tmp, shortest = segment_corpora
+    w = shortest["even"]
+
+    def formed(*a, **k):
+        raise AssertionError("a process group formed")
+    monkeypatch.setattr(dist, "init_process_group", formed)
+    for k, v in dict(RANK="0", WORLD_SIZE="2", LOCAL_RANK="0",
+                     MASTER_ADDR="localhost",
+                     MASTER_PORT=str(_free_port())).items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(SystemExit, match=(
+            rf"sp=2: the window is {w} tokens \(the shortest file's {w}, "
+            rf"capped at seq_len \+ 1 = {SEG_SEQ + 1}\), and its {w - 1} "
+            r"input columns do not divide by sp=2")):
+        tcli.main(_seg_args(tmp, "even", "seg_odd", 1, "sp=2"))
+    assert not dist.is_initialized()

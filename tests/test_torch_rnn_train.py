@@ -2,7 +2,8 @@
 train/) against the JAX package on the CPU.
 
 * The batch streams (segment, window, sequence, control, and melody's
-  crops) equal the JAX CLI's ``_*_batch_fn`` bit for bit, at batch
+  crops; crop, segment, window and sequence on the ``remi`` and ``pedal``
+  corpora) equal the JAX CLI's ``_*_batch_fn`` bit for bit, at batch
   indices 0-5 and past epoch boundaries.
 * Loss and every gradient against ``jax.value_and_grad`` of the JAX
   CLI's objective (its ``build_session`` at dropout 0; the latent the JAX
@@ -50,7 +51,8 @@ TO_SD = {"event_rnn": convert.event_rnn_state_dict_from_jax,
 @pytest.fixture(scope="module")
 def corpora(tmp_path_factory):
     """Eight synthetic MIDI files of 160-440 MIDI-like events, tokenized
-    as ``midilike``, ``midilike_control`` and ``melody``."""
+    as ``midilike``, ``midilike_control``, ``melody``, ``remi`` and
+    ``pedal``."""
     tmp = tmp_path_factory.mktemp("rnn_train")
     os.makedirs(tmp / "midis")
     rng = np.random.default_rng(0)
@@ -59,7 +61,8 @@ def corpora(tmp_path_factory):
             rng.integers(0, 308, 160 + 40 * i)), str(tmp / "midis" /
                                                      f"f{i}.mid"))
     out = {}
-    for scheme in ("midilike", "midilike_control", "melody"):
+    for scheme in ("midilike", "midilike_control", "melody", "remi",
+                   "pedal"):
         assert ttok.main([str(tmp / "midis"), str(tmp / scheme), "--scheme",
                           scheme, "--workers", "1"]) == 0
         out[scheme] = TokenCorpus(str(tmp / scheme))
@@ -94,6 +97,18 @@ STREAMS = {
                 dict(model="performance_rnn", seq_len=48, batch_size=2)),
     "melody_crop": ("_lm_batch_fn", "melody",
                     dict(model="melody_rnn", seq_len=16, batch_size=4)),
+    # the GRU families on the REMI and pedal corpora (event_dim 336, 389)
+    "remi_crop": ("_lm_batch_fn", "remi",
+                  dict(model="performance_rnn", seq_len=48, batch_size=3)),
+    "remi_segment": ("_segment_batch_fn", "remi",
+                     dict(model="event_rnn", train_mode="segment",
+                          seq_len=64, batch_size=3)),
+    "pedal_window": ("_window_batch_fn", "pedal",
+                     dict(model="performance_rnn", train_mode="window",
+                          window_size=40, stride_size=20, batch_size=3)),
+    "pedal_sequence": ("_sequence_batch_fn", "pedal",
+                       dict(model="event_rnn", train_mode="sequence",
+                            batch_size=3, seq_pad_to=1200)),
 }
 
 

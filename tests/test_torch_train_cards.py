@@ -23,8 +23,11 @@ flagship MusicTransformer at full width (vocab 309, 6 layers, d_model
   process; ``dp=2 sp=2``, ``dp=4`` and ``tp=2 fsdp=true`` (dp 2) for 5
   steps at seq 512; ``fsdp=true`` (dp 4, FSDP2) for 5 steps, its
   checkpoint resumed in one process for a step and that one's back on
-  four cards for another. Every step's loss and grad norm within 1e-3
-  (relative) of the one-process run's.
+  four cards for another; ``train_mode=segment`` under ``sp=4`` and
+  ``dp=2 sp=2`` for 5 steps at seq 2048 on a corpus whose shortest
+  file cuts the window below seq_len + 1 (its inputs divide by 4).
+  Every step's loss and grad norm within 1e-3 (relative) of the
+  one-process run's.
 
 The tests need four cards and skip without them; they import neither
 JAX nor the JAX package. On a machine with the cards:
@@ -104,13 +107,14 @@ def corpus(cards, tmp_path_factory):
 
 
 def _train(tmp, run: str, nproc: int, steps: int, seq: int, *extra,
-           log: str = None) -> dict:
-    """cli.train into ``tmp/run`` (resuming what is there): one process,
-    or ``nproc`` over NCCL. Returns {step: (loss, grad_norm)} that rank 0
-    logged into its own metrics file ``log`` (default: ``run``)."""
+           log: str = None, data: str = "tok") -> dict:
+    """cli.train on the corpus ``tmp/data`` into ``tmp/run`` (resuming
+    what is there): one process, or ``nproc`` over NCCL. Returns {step:
+    (loss, grad_norm)} that rank 0 logged into its own metrics file
+    ``log`` (default: ``run``)."""
     metrics = tmp / f"{log or run}.jsonl"
     _launch(nproc, ["-m", "musicgeneration_tpu_torch.cli.train",
-                    str(tmp / "tok"), f"steps={steps}",
+                    str(tmp / data), f"steps={steps}",
                     f"batch_size={BATCH}", f"seq_len={seq}",
                     f"model.num_layers={LAYERS}", f"model.d_model={D_MODEL}",
                     "model.dropout_rate=0.0", f"ckpt_dir={tmp / run}",
@@ -223,3 +227,42 @@ def test_cli_train_fsdp_over_cards_and_back(corpus, one_512):
     _close(_train(tmp, "fsdp", CARDS, STEPS + 2, SEQ, "fsdp=true",
                   log="fsdp-back"), one_512, [STEPS + 1],
            "resumed back on four cards")
+
+
+@pytest.fixture(scope="module")
+def segment_corpus(corpus):
+    """``tok_seg``: the corpus's pieces and a shorter one, whose length W
+    (below seq 2048 + 1) sets the segment window; W - 1 divides by 4.
+    Returns (directory, W)."""
+    tmp = corpus
+    midis = tmp / "midis_seg"
+    shutil.copytree(tmp / "midis", midis)
+    path = str(midis / "short.mid")
+    for n in range(1700, 1800):
+        toks = np.random.default_rng(n).integers(0, 308, n)
+        midilike.write_midi(midilike.EventSeq.from_array(toks), path)
+        w = len(midilike.extract_events(path).to_array())
+        if w <= SEQ_SP and (w - 1) % CARDS == 0:
+            break
+    else:
+        raise AssertionError("no piece of the wanted length")
+    assert ttok.main([str(midis), str(tmp / "tok_seg"), "--workers",
+                      "1"]) == 0
+    return tmp, w
+
+
+@pytest.fixture(scope="module")
+def one_segment(segment_corpus):
+    """One process on card 0, segment mode at seq 2048, STEPS steps."""
+    return _train(segment_corpus[0], "seg-one", 0, STEPS, SEQ_SP,
+                  "train_mode=segment", data="tok_seg")
+
+
+@pytest.mark.parametrize("extra", [("sp=4",), ("dp=2", "sp=2")],
+                         ids=["sp4", "dp2-sp2"])
+def test_cli_train_segment_over_cards(segment_corpus, one_segment, extra):
+    tmp, w = segment_corpus
+    run = "seg-" + "-".join(extra).replace("=", "")
+    print(f"segment window {w} tokens ({w - 1} inputs) at seq_len {SEQ_SP}")
+    _close(_train(tmp, run, CARDS, STEPS, SEQ_SP, "train_mode=segment",
+                  *extra, data="tok_seg"), one_segment, range(STEPS), run)
