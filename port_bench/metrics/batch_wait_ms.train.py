@@ -1,0 +1,9 @@
+"""Mean milliseconds the train loop waited in ``next()`` on
+``cli.train``'s prefetched LM batch stream, over the window's steps (the
+benchmark's ``data.next_batch`` spans)."""
+
+
+def read(run):
+    total, n = run.spans.total_s("data.next_batch", run.window_lo_ns,
+                                 run.window_hi_ns)
+    return 1e3 * total / n if n else None
