@@ -6,6 +6,11 @@ and stages each batch to the device ahead of use. For a CUDA device the
 arrays go through pinned host memory and ``non_blocking`` copies, so the
 transfers overlap the running step; on the CPU they are wrapped as they
 are. ``sliding_prefetch`` is the synchronous variant, without a thread.
+
+Under a profiler session the thread's work on each batch is the span
+``prefetch.produce`` (the crops and the start of the copy) and the
+consumer's wait for it ``prefetch.wait``, both keyed by the batch's
+position in the stream (``utils.profiling.span``).
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ from typing import Any, Iterable, Iterator
 
 import numpy as np
 import torch
+
+from ..utils.profiling import span
 
 
 def to_device(batch: Any, device: torch.device) -> Any:
@@ -54,8 +61,15 @@ def prefetch_to_device(iterator: Iterable, size: int = 2,
 
     def producer():
         try:
-            for batch in iterator:
-                if not offer(to_device(batch, device)):
+            it = iter(iterator)
+            for key in itertools.count():
+                with span("prefetch.produce", key):
+                    batch = next(it, done)
+                    if batch is not done:
+                        batch = to_device(batch, device)
+                if batch is done:
+                    break
+                if not offer(batch):
                     return
             offer(done)
         except BaseException as e:  # noqa: BLE001 — re-raised in consumer
@@ -64,8 +78,9 @@ def prefetch_to_device(iterator: Iterable, size: int = 2,
     thread = threading.Thread(target=producer, daemon=True)
     thread.start()
     try:
-        while True:
-            item = q.get()
+        for key in itertools.count():
+            with span("prefetch.wait", key):
+                item = q.get()
             if item is done:
                 return
             if isinstance(item, BaseException):

@@ -72,6 +72,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
+from ..utils.profiling import span
 from .objective import smooth_cross_entropy, token_accuracy
 from .schedule import noam_schedule
 
@@ -332,6 +333,10 @@ def make_train_step(tx: Optimizer, cfg: TrainerConfig,
 
     def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
                    guard: bool = False):
+        with span("trainer.step"):
+            return _train_step(state, x, y, guard)
+
+    def _train_step(state, x, y, guard):
         model = state.model
         params = list(model.parameters())
         for p in params:
@@ -339,56 +344,67 @@ def make_train_step(tx: Optimizer, cfg: TrainerConfig,
         a = cfg.accum_steps
         device = y.device
         runs = micro_runs(y.shape[0], a, mesh)
-        denoms = None if world is None else _kept_counts(y, runs, a, cfg,
-                                                         world)
+        denoms = None
+        if world is not None:
+            with span("trainer.exchange"):
+                denoms = _kept_counts(y, runs, a, cfg, world)
         loss = acc = 0.0
         for i, sl in runs:
-            gen = dropout_generator(state.dropout_seed, state.step, i,
-                                    device, rank)
-            kw = {} if world is None else {"denom": denoms[i]}
-            l_i, acc_i = loss_of(model, _rows(x, sl), y[sl], gen, **kw)
-            l_i.backward()  # sums into .grad across micro-batches
+            with span("trainer.forward"):
+                gen = dropout_generator(state.dropout_seed, state.step, i,
+                                        device, rank)
+                kw = {} if world is None else {"denom": denoms[i]}
+                l_i, acc_i = loss_of(model, _rows(x, sl), y[sl], gen, **kw)
+            with span("trainer.backward"):
+                l_i.backward()  # sums into .grad across micro-batches
             loss = loss + l_i.detach()
             acc = acc + acc_i.detach()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
         stats = torch.stack([loss, acc]).float()
-        if world is not None and isinstance(grads[0], DTensor):
-            # fsdp: the reduce-scatter summed each shard over the data
-            # group; the ring's ranks hold the same shards
-            if ring is not None:
-                for g in grads:
-                    dist.all_reduce(g.to_local(), group=ring)
-            dist.all_reduce(stats, group=world)
-        elif world is not None:
-            # one all-reduce of every gradient and of the two metrics
-            flat = torch.cat([g.reshape(-1) for g in grads] + [stats])
-            dist.all_reduce(flat, group=world)
-            grads = [f.view_as(g) for f, g in zip(
-                torch.split(flat[:-2], [g.numel() for g in grads]), grads)]
-            stats = flat[-2:]
+        if world is not None:
+            with span("trainer.exchange"):
+                if isinstance(grads[0], DTensor):
+                    # fsdp: the reduce-scatter summed each shard over the
+                    # data group; the ring's ranks hold the same shards
+                    if ring is not None:
+                        for g in grads:
+                            dist.all_reduce(g.to_local(), group=ring)
+                    dist.all_reduce(stats, group=world)
+                else:
+                    # one all-reduce of every gradient and of the two
+                    # metrics
+                    flat = torch.cat([g.reshape(-1) for g in grads]
+                                     + [stats])
+                    dist.all_reduce(flat, group=world)
+                    grads = [f.view_as(g) for f, g in zip(
+                        torch.split(flat[:-2], [g.numel() for g in grads]),
+                        grads)]
+                    stats = flat[-2:]
         loss, acc = stats[0], stats[1]
         if a > 1:
             torch._foreach_div_(grads, a)
             loss, acc = loss / a, acc / a
-        layout = getattr(model, "tp_layout", None)
-        if layout is None:
-            gnorm = global_norm(grads)
-        else:
-            gnorm = global_norm(grads, [layout.split(n) for n, _ in
-                                        model.named_parameters()],
-                                layout.axis_group)
-        loss_h, acc_h, gnorm_h = torch.stack(
-            [loss.float(), acc.float(), gnorm.float()]).tolist()
+        with span("trainer.sync"):
+            layout = getattr(model, "tp_layout", None)
+            if layout is None:
+                gnorm = global_norm(grads)
+            else:
+                gnorm = global_norm(grads, [layout.split(n) for n, _ in
+                                            model.named_parameters()],
+                                    layout.axis_group)
+            loss_h, acc_h, gnorm_h = torch.stack(
+                [loss.float(), acc.float(), gnorm.float()]).tolist()
         metrics: Dict[str, float] = {"loss": loss_h, "accuracy": acc_h,
                                      "grad_norm": gnorm_h}
         finite = math.isfinite(loss_h)
-        if finite or not guard:
-            tx.update(params, grads, state.opt_state, gnorm_h)
+        with span("trainer.optimizer"):
+            if finite or not guard:
+                tx.update(params, grads, state.opt_state, gnorm_h)
+            for p in params:
+                p.grad = None
         if guard:
             metrics["skipped"] = int(not finite)
-        for p in params:
-            p.grad = None
         state.step += 1
         return state, metrics
 
